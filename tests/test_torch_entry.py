@@ -1,0 +1,139 @@
+"""The port's serving entry points, and its separation from the JAX package.
+
+- ``batched_apply``/``run_batched`` on a uint8 batch equal the JAX package's
+  ``_batched_apply``/``_run_batched`` with the same weights (f32, CPU);
+- the ``infer`` subcommand writes one PNG a input image;
+- without CUDA and without ``device="cpu"`` the entry points raise;
+- every module of the port imports with ``jax`` and the JAX package blocked,
+  and no file of the port names either.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from underwater_image_restoration_tpu.eval import evaluate as jax_eval
+from underwater_image_restoration_tpu.models.spectral_transformer import (
+    SpectralTransformer as JaxSpectralTransformer,
+)
+from underwater_image_restoration_tpu.tools.convert_checkpoint import (
+    convert_spectral_transformer,
+    unflatten,
+)
+from underwater_image_restoration_torch import _device
+from underwater_image_restoration_torch.data import synthetic_pair_batch
+from underwater_image_restoration_torch.eval import evaluate
+from underwater_image_restoration_torch.models import init_model
+
+CFG = dict(channels=(8, 16, 32, 64), num_blocks=(1, 1, 1, 1),
+           num_refinement=1)
+SIZE = 16
+PORT = pathlib.Path(__file__).resolve().parent.parent / \
+    "underwater_image_restoration_torch"
+
+
+@pytest.fixture(scope="module")
+def models():
+    port = init_model("SpectralTransformer", device="cpu", seed=3, **CFG)
+    flat = convert_spectral_transformer(
+        {k: v.numpy() for k, v in port.state_dict().items()})
+    return port, flat
+
+
+def test_batched_apply_matches_jax(models):
+    port, flat = models
+    u8, _ = synthetic_pair_batch(3, SIZE, seed=1)
+    jax_model = JaxSpectralTransformer(**CFG)
+    params = {"params": jax.tree.map(jnp.asarray, unflatten(flat))}
+    apply_j, bs = jax_eval._batched_apply(jax_model, params, 2)
+    apply_t, _ = evaluate.batched_apply(port, 2)
+    want = dict(jax_eval._run_batched(iter(u8), 3, apply_j, bs))
+    got = dict(evaluate.run_batched(iter(u8), 3, apply_t, bs))
+    assert sorted(got) == [0, 1, 2]
+    for i in range(3):
+        assert got[i].shape == (SIZE, SIZE, 3) and got[i].dtype == np.float32
+        np.testing.assert_allclose(
+            got[i], want[i],
+            atol=1e-4 * max(1.0, float(np.abs(want[i]).max())))
+
+
+def test_infer_subcommand_writes_images(tmp_path):
+    """The subcommand builds the full-width model, as the JAX one does."""
+    from PIL import Image
+
+    port = init_model("SpectralTransformer", device="cpu", seed=4)
+    flat = convert_spectral_transformer(
+        {k: v.numpy() for k, v in port.state_dict().items()})
+    weights = tmp_path / "params.npz"
+    np.savez(weights, **flat)
+    src = tmp_path / "in"
+    src.mkdir()
+    for i, img in enumerate(synthetic_pair_batch(3, 24, seed=2)[0]):
+        Image.fromarray(img).save(src / f"{i}.png")
+    out = tmp_path / "out"
+    n = evaluate.main(["infer", "--weights", str(weights), "--input",
+                       str(src), "--out", str(out), "--size", str(SIZE),
+                       "--batch", "2", "--device", "cpu",
+                       "--compute-dtype", "fp32"])
+    assert n == 3
+    assert sorted(os.listdir(out)) == ["0.png", "1.png", "2.png"]
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(_device.CudaUnavailableError, match="device='cpu'"):
+        init_model("SpectralTransformer", **CFG)
+    with pytest.raises(_device.CudaUnavailableError):
+        evaluate.load_model("unused.npz", "SpectralTransformer")
+    assert _device.resolve_device("cpu").type == "cpu"
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['underwater_image_restoration_tpu'] = None\n"
+        "import underwater_image_restoration_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.') if not m.name.endswith('__main__')]\n"
+        "[importlib.import_module(n) for n in names]\n"
+        "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
+        "if sys.modules[m] is not None]\n"
+        "print(len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=str(PORT.parent))
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 15
+
+
+def test_port_files_name_no_jax():
+    files = [p for p in PORT.rglob("*") if p.is_file()
+             and p.suffix in (".py", ".cu", ".cuh")]
+    assert len(files) >= 15
+    for p in files:
+        text = p.read_text()
+        assert "underwater_image_restoration_tpu" not in text, p
+        assert "import jax" not in text, p
+
+
+def test_kernel_cache_key_covers_shared_headers(tmp_path, monkeypatch):
+    """An edit to any source in csrc/, a shared header included, names
+    another cached library, so a stale build is never loaded."""
+    from underwater_image_restoration_torch.ops import _kernels
+
+    for src in _kernels.CSRC.glob("*.cu*"):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    before = {n: _kernels._target(n) for n in _kernels.kernel_names()}
+    header = tmp_path / "common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name, path in before.items():
+        assert _kernels._target(name) != path
+        assert _kernels._target(name).name.startswith(name + "-")

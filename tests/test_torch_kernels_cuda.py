@@ -1,0 +1,78 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
+
+These need the card (a CUDA kernel has no CPU mode) and skip without one.
+The file imports no JAX, so it also runs where only the port is installed:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+
+Shapes leave ragged tiles at the bottom and right edges (20 x 36) and use
+two heads.  As in ``chip_smoke.py``, the plain version runs on the same
+input and dtype, the weights keep every 1x1 and 3x3 at unit variance (with
+a peaked softmax and a scaled project_outf) so the branch y - x is O(1), and
+the error is scaled by max|branch|: f32 5e-5, bf16 2e-2.  A kernel that
+dropped the branch would score 1.  TF32 is off, or the plain version's f32
+convolutions would round their inputs to 10 mantissa bits.
+"""
+import numpy as np
+import pytest
+import torch
+
+from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
+
+
+@pytest.fixture
+def cuda(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    return torch.device("cuda")
+
+
+def _weights(kind, c, nh, rng):
+    def n(fan_in, *shape):
+        return (rng.standard_normal(shape) / fan_in ** 0.5).astype(np.float32)
+
+    ln = (1 + 0.1 * n(1, c), 0.1 * n(1, c))
+    if kind == "gdfn":
+        hid = int(c * 2.66)
+        return ln + (n(c, c, 2 * hid), n(9, 3, 3, 2 * hid), n(hid, hid, c))
+    return ln + (n(c, c, 3 * c), n(9, 3, 3, 3 * c),
+                 16 * (1 + 0.2 * n(1, 1, nh, 1, 1)), n(c, c, c),
+                 n(c, c, 2 * c), n(9, 3, 3, 2 * c), 4 * n(c, c, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gdfn", "mdta"])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 5e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_kernel_matches_plain(cuda, kind, dtype, tol):
+    rng = np.random.default_rng(7)
+    c, nh = 32, 2
+    x = torch.from_numpy(
+        rng.standard_normal((2, c, 20, 36)).astype(np.float32)).to(cuda)
+    x = x.to(dtype)
+    w = [torch.from_numpy(a).to(cuda) for a in _weights(kind, c, nh, rng)]
+    if kind == "gdfn":
+        got = fused_gdfn.ln_gdfn(x, *w)
+        want = fused_gdfn.ln_gdfn_plain(x, *w)
+    else:
+        got = fused_mdta.ln_mdta(x, *w, nh)
+        want = fused_mdta.ln_mdta_plain(x, *w, nh)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * (want.float() - x.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_gdfn_refuses_another_gate_chunk(cuda, monkeypatch):
+    """The weight layout's chunk size travels with the launch; a kernel
+    built for another one refuses it (hidden width 42 pads to 48 either
+    way, so only that check can catch it)."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(
+        rng.standard_normal((1, 16, 8, 8)).astype(np.float32)).to(cuda)
+    w = [torch.from_numpy(a).to(cuda) for a in _weights("gdfn", 16, 1, rng)]
+    monkeypatch.setattr(fused_gdfn, "GATE_CHUNK", 8)
+    with pytest.raises(RuntimeError, match="ln_gdfn"):
+        fused_gdfn.ln_gdfn(x, *w)

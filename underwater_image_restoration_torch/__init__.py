@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of the underwater image restoration system.
+
+The serving path of SpectralTransformer runs here: uint8 NHWC images are
+normalized on the device, go through the model in NCHW, and come back as
+float NHWC in [-1, 1].  Every SpectralBlock sends its two halves to
+hand-written CUDA kernels (``ops.fused_mdta``, ``ops.fused_gdfn``) when its
+tensors lie on the GPU, and to their plain PyTorch versions on the CPU.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""

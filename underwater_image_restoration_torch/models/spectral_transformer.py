@@ -1,0 +1,255 @@
+"""SpectralTransformer (NCHW), counterpart of
+the JAX package's ``models/spectral_transformer.py:601-905``.
+
+A Restormer-style U-Net of SpectralBlocks (``x + MDTA(LN(x))``, then
+``x + GDFN(LN(x))``) with FFT-based upsampling.  Parameter names and OIHW
+layouts are the reference's, so a reference ``state_dict`` loads as it is
+(``tools.convert``).  Parameters are f32; ``compute_dtype`` is the type of
+the activations, as the JAX package's ``dtype``: convs run in it, LayerNorm
+statistics and the UpS spectral path in f32.
+
+Every block at every level sends both halves to ``ops.ln_mdta`` and
+``ops.ln_gdfn``: the CUDA kernels for CUDA tensors, the plain versions for
+CPU ones.  ``forward(x, use_kernels=False)`` takes the plain versions on any
+device; tests and ``chip_smoke.py`` use it as the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import (
+    LayerNorm,
+    fft2,
+    ln_gdfn,
+    ln_gdfn_plain,
+    ln_mdta,
+    ln_mdta_plain,
+    pixel_shuffle,
+    pixel_unshuffle,
+    safe_abs,
+    safe_angle,
+    spectral_tile_upsample,
+)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose f32 parameters are cast to the input's dtype."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+def _conv(cin, cout, k=1, groups=1, bias=False, device=None):
+    return Conv2d(cin, cout, k, padding=k // 2, groups=groups, bias=bias,
+                  device=device)
+
+
+def _matrix(conv):
+    """(Cin, Cout) matrix of a bias-free 1x1 conv."""
+    return conv.weight[:, :, 0, 0].t()
+
+
+def _taps(conv):
+    """(3, 3, C) taps of a depthwise 3x3 conv."""
+    return conv.weight[:, 0].permute(1, 2, 0)
+
+
+class MDTA(nn.Module):
+    """Parameter holder of the MDTA half (reference names).  ``q1X1_1``
+    belongs to the dead frequency-q chain: it is created so reference
+    checkpoints load strict, and never used."""
+
+    def __init__(self, c: int, num_heads: int, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.temperature = nn.Parameter(torch.ones(1, num_heads, 1, 1,
+                                                   device=device))
+        self.qkv = _conv(c, 3 * c, device=device)
+        self.qkv_conv = _conv(3 * c, 3 * c, 3, groups=3 * c, device=device)
+        self.project_out = _conv(c, c, device=device)
+        self.q1X1_1 = _conv(c, c, device=device)
+        self.kv = _conv(c, 2 * c, device=device)
+        self.kv_conv = _conv(2 * c, 2 * c, 3, groups=2 * c, device=device)
+        self.project_outf = _conv(c, c, device=device)
+
+    def operands(self):
+        return (_matrix(self.qkv), _taps(self.qkv_conv), self.temperature,
+                _matrix(self.project_out), _matrix(self.kv),
+                _taps(self.kv_conv), _matrix(self.project_outf))
+
+
+class GDFN(nn.Module):
+    """Parameter holder of the GDFN half (reference names)."""
+
+    def __init__(self, c: int, expansion_factor: float, device=None):
+        super().__init__()
+        hid = int(c * expansion_factor)
+        self.project_in = _conv(c, 2 * hid, device=device)
+        self.conv = _conv(2 * hid, 2 * hid, 3, groups=2 * hid, device=device)
+        self.project_out = _conv(hid, c, device=device)
+
+    def operands(self):
+        return (_matrix(self.project_in), _taps(self.conv),
+                _matrix(self.project_out))
+
+
+class SpectralBlock(nn.Module):
+    """LN + MDTA residual, then LN + GDFN residual."""
+
+    def __init__(self, c: int, num_heads: int, expansion_factor: float,
+                 device=None):
+        super().__init__()
+        self.norm1 = LayerNorm(c, device=device)
+        self.attn = MDTA(c, num_heads, device=device)
+        self.norm2 = LayerNorm(c, device=device)
+        self.ffn = GDFN(c, expansion_factor, device=device)
+
+    def forward(self, x, use_kernels: bool = True):
+        mdta = ln_mdta if use_kernels else ln_mdta_plain
+        gdfn = ln_gdfn if use_kernels else ln_gdfn_plain
+        x = mdta(x, self.norm1.weight, self.norm1.bias,
+                 *self.attn.operands(), self.attn.num_heads)
+        return gdfn(x, self.norm2.weight, self.norm2.bias,
+                    *self.ffn.operands())
+
+
+class Stage(nn.Sequential):
+    """A run of SpectralBlocks (reference ``nn.Sequential`` of blocks)."""
+
+    def forward(self, x, use_kernels: bool = True):
+        for block in self:
+            x = block(x, use_kernels)
+        return x
+
+
+class DownSample(nn.Module):
+    """conv3x3 C -> C/2, pixel_unshuffle(2): 2C at H/2."""
+
+    def __init__(self, c: int, device=None):
+        super().__init__()
+        self.body = nn.Sequential(_conv(c, c // 2, 3, device=device))
+
+    def forward(self, x):
+        return pixel_unshuffle(self.body(x), 2)
+
+
+class SpectralUpSample(nn.Module):
+    """FFT-domain 2x upsample: amplitude/phase 1x1 MLPs in f32, 2x2 tile,
+    polar recombine, inverse FFT, then a 1x1 in the compute dtype."""
+
+    def __init__(self, c: int, channel_red: bool, device=None):
+        super().__init__()
+
+        def fuse():
+            return nn.Sequential(_conv(c, c, bias=True, device=device),
+                                 nn.LeakyReLU(0.1),
+                                 _conv(c, c, bias=True, device=device))
+
+        self.amp_fuse = fuse()
+        self.pha_fuse = fuse()
+        self.post = _conv(c, c // 2 if channel_red else c, bias=True,
+                          device=device)
+
+    def forward(self, x):
+        f = fft2(x.float())
+        mag = self.amp_fuse(safe_abs(f))
+        pha = self.pha_fuse(safe_angle(f))
+        return self.post(spectral_tile_upsample(mag, pha).to(x.dtype))
+
+
+class ShuffleUpSample(nn.Module):
+    """conv3x3 C -> 2C, pixel_shuffle(2): C/2 at 2H."""
+
+    def __init__(self, c: int, device=None):
+        super().__init__()
+        self.body = nn.Sequential(_conv(c, 2 * c, 3, device=device))
+
+    def forward(self, x):
+        return pixel_shuffle(self.body(x), 2)
+
+
+class UpS(nn.Module):
+    """concat(FFT-up, shuffle-up), then a 1x1 C -> C/2."""
+
+    def __init__(self, c: int, device=None):
+        super().__init__()
+        self.Fups = SpectralUpSample(c, True, device=device)
+        self.Sups = ShuffleUpSample(c, device=device)
+        self.reduce = _conv(c, c // 2, device=device)
+
+    def forward(self, x):
+        return self.reduce(torch.cat([self.Fups(x), self.Sups(x)], dim=1))
+
+
+class SpectralTransformer(nn.Module):
+    """NCHW in [-1, 1], (B, 3, H, W) -> (B, 3, H, W).  H and W must be
+    multiples of 8 (three DownSamples)."""
+
+    def __init__(self, num_blocks: Sequence[int] = (2, 3, 3, 4),
+                 num_heads: Sequence[int] = (1, 2, 4, 8),
+                 channels: Sequence[int] = (16, 32, 64, 128),
+                 num_refinement: int = 4, expansion_factor: float = 2.66,
+                 compute_dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        nb, nh, ch, ef = num_blocks, num_heads, channels, expansion_factor
+        self.compute_dtype = compute_dtype
+
+        def stage(n, c, heads):
+            return Stage(*[SpectralBlock(c, heads, ef, device=device)
+                           for _ in range(n)])
+
+        self.embed_conv_rgb = _conv(3, ch[0], 3, device=device)
+        self.encoders = nn.ModuleList(
+            [stage(nb[i], ch[i], nh[i]) for i in range(4)])
+        self.down1 = DownSample(ch[0], device=device)
+        self.down2 = DownSample(ch[1], device=device)
+        self.down3 = DownSample(ch[2], device=device)
+        self.ups_1 = UpS(ch[3], device=device)
+        self.ups_2 = UpS(ch[2], device=device)
+        self.ups_3 = UpS(ch[1], device=device)
+        self.reduces1 = _conv(ch[3], ch[2], device=device)
+        self.reduces2 = _conv(ch[2], ch[1], device=device)
+        self.decoders = nn.ModuleList([stage(nb[2], ch[2], nh[2]),
+                                       stage(nb[1], ch[1], nh[1]),
+                                       stage(nb[0], ch[1], nh[0])])
+        self.refinement = stage(num_refinement, ch[1], nh[0])
+        self.outputl = _conv(ch[1], 8, 3, device=device)
+        self.output = _conv(8, 3, 3, device=device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        """torch's default init from an explicit generator: every conv
+        weight and bias U(+-1/sqrt(fan_in)); LayerNorm ones/zeros and
+        temperatures ones stay as constructed."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                bound = 1.0 / math.sqrt(fan_in)
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        r = torch.rand(p.shape, generator=generator,
+                                       device=generator.device)
+                        p.copy_((r * 2 - 1) * bound)
+
+    def forward(self, x, use_kernels: bool = True):
+        k = use_kernels
+        enc = self.encoders
+        fo = self.embed_conv_rgb(x.to(self.compute_dtype))
+        enc1 = enc[0](fo, k)
+        enc2 = enc[1](self.down1(enc1), k)
+        enc3 = enc[2](self.down2(enc2), k)
+        enc4 = enc[3](self.down3(enc3), k)
+        d3 = self.reduces1(torch.cat([self.ups_1(enc4), enc3], dim=1))
+        dec3 = self.decoders[0](d3, k)
+        d2 = self.reduces2(torch.cat([self.ups_2(dec3), enc2], dim=1))
+        dec2 = self.decoders[1](d2, k)
+        fd = self.decoders[2](torch.cat([self.ups_3(dec2), enc1], dim=1), k)
+        fr = self.refinement(fd, k)
+        return self.output(self.outputl(fr))

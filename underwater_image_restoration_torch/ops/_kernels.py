@@ -1,0 +1,152 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, cached under ``build/kernels/`` by a hash
+of the sources (``.cu`` and shared ``.cuh``) and the flags, and loaded with
+``ctypes``.  Nothing here runs at import time: the first ``library(name)``
+call builds what is missing, so the CPU tests can import every module of
+the port.
+
+The C functions take raw device pointers and the CUDA stream as integers and
+return the ``cudaError_t`` of the launch; ``check`` raises on a non-zero one.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every exported function: (library, symbol) -> argtypes
+SIGNATURES = {
+    ("ln_gdfn", "uir_ln_gdfn_fwd"):
+        # x, y, scale, bias, w_in, taps, w_out, B, C, H, W, hid_pad,
+        # gate_chunk, bf16, TH, TW, eps, stream
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+         _P],
+    ("ln_mdta", "uir_ln_mdta_stats"):
+        # x, scale, bias, w_qk, taps_qk, partials, counters, stats, B, C, H,
+        # W, cph, bf16, TH, TW, eps, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+         _P],
+    ("ln_mdta", "uir_ln_mdta_apply"):
+        # x, y, scale, bias, w_v, taps_v, w_vf, taps_vf, w_po, w_pof, temp,
+        # stats, B, C, H, W, cph, bf16, TH, TW, eps, stream
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+         _I, _I, _I, _F, _P],
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {cand} and on PATH): the CUDA "
+            "kernels are built on the machine with the GPU")
+    return found
+
+
+def _target(name: str) -> Path:
+    """Cache path of library ``name``: keyed by the flags and every source in
+    ``csrc/`` (the kernels share headers), so any edit there rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def kernel_names() -> list[str]:
+    return sorted({lib for lib, _ in SIGNATURES})
+
+
+def build_all(names=None) -> dict[str, dict]:
+    """Compile every missing library, one ``nvcc`` process per source, all
+    started together.  Returns {name: {"path", "seconds", "log"}}; raises
+    with the compiler's output if any build fails."""
+    names = kernel_names() if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            out[name] = {"path": str(target), "seconds": 0.0,
+                         "log": "cached"}
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (rc {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, target)
+        out[name] = {"path": str(target),
+                     "seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        info = build_all([name])[name]
+        lib = ctypes.CDLL(info["path"])
+        for (lname, sym), argtypes in SIGNATURES.items():
+            if lname == name:
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        lib.uir_error_string.argtypes = [ctypes.c_int]
+        lib.uir_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check_input(what: str, x, *weights) -> None:
+    """Validate what a kernel takes: a contiguous float32/bfloat16
+    (B, C, H, W) tensor with C a multiple of 4, and weights on its device."""
+    import torch
+
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: x must be float32 or bfloat16, not "
+                        f"{x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{what}: x must be a contiguous (B, C, H, W) "
+                         f"tensor, got shape {tuple(x.shape)}")
+    if x.shape[1] % 4:
+        raise ValueError(f"{what}: C={x.shape[1]} must be a multiple of 4")
+    for t in weights:
+        if t.device != x.device:
+            raise ValueError(f"{what}: weights on {t.device}, x on "
+                             f"{x.device}")
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        msg = lib.uir_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,98 @@
+"""Carry SpectralTransformer weights into the port.
+
+The port's ``state_dict`` uses the reference's names and OIHW layouts, so:
+
+- ``params_from_jax(flat)`` maps the JAX package's flat ``a/b/c`` parameter
+  paths (HWIO kernels) onto it.  It is the inverse of
+  the JAX package's ``tools/convert_checkpoint.py:81
+  convert_spectral_transformer``.
+- ``load_reference_state_dict(model, sd)`` loads a reference ``.pth``
+  ``state_dict`` after dropping the parameters the reference creates but
+  never uses (the port, like the JAX package, does not create them), and
+  loads strict.
+"""
+from __future__ import annotations
+
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+# parameters the reference creates but never uses in its forward
+# (reference SpectralTransformer.py:89,232,235,251-252)
+_DROP = re.compile(r"^(ups_4\.|ups1\.|ups2\.|output1\.)|(\.q1X1_2\.)")
+
+_STAGES = {"enc0": "encoders.0", "enc1": "encoders.1", "enc2": "encoders.2",
+           "enc3": "encoders.3", "dec0": "decoders.0", "dec1": "decoders.1",
+           "dec2": "decoders.2", "refinement": "refinement"}
+
+
+def _oihw(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(w, (3, 2, 0, 1)))
+
+
+def _leaf(kind: str, v: np.ndarray):
+    return ("weight", _oihw(v)) if kind == "kernel" else ("bias", v)
+
+
+def _name(path: str, v: np.ndarray):
+    """JAX flat path -> (reference name, array)."""
+    m = re.fullmatch(r"(enc\d|dec\d|refinement)_(\d+)/(.+)", path)
+    if m:
+        stage, i, rest = m.groups()
+        pre = f"{_STAGES[stage]}.{i}."
+        m2 = re.fullmatch(r"(norm[12])/(scale|bias)", rest)
+        if m2:
+            kind = "weight" if m2.group(2) == "scale" else "bias"
+            return f"{pre}{m2.group(1)}.{kind}", v
+        if rest == "attn/temperature":
+            return pre + "attn.temperature", v
+        m2 = re.fullmatch(r"(attn|ffn)/(\w+)/kernel", rest)
+        if m2:
+            mod, conv = m2.groups()
+            conv = {"q1x1_1": "q1X1_1"}.get(conv, conv)
+            return f"{pre}{mod}.{conv}.weight", _oihw(v)
+    m = re.fullmatch(r"(down\d)/conv/kernel", path)
+    if m:
+        return f"{m.group(1)}.body.0.weight", _oihw(v)
+    m = re.fullmatch(r"(ups_\d)/Fups/(amp_fuse|pha_fuse)_([02])/(kernel|bias)",
+                     path)
+    if m:
+        ups, seq, idx, kind = m.groups()
+        leaf, a = _leaf(kind, v)
+        return f"{ups}.Fups.{seq}.{idx}.{leaf}", a
+    m = re.fullmatch(r"(ups_\d)/Fups/post/(kernel|bias)", path)
+    if m:
+        leaf, a = _leaf(m.group(2), v)
+        return f"{m.group(1)}.Fups.post.{leaf}", a
+    m = re.fullmatch(r"(ups_\d)/Sups/conv/kernel", path)
+    if m:
+        return f"{m.group(1)}.Sups.body.0.weight", _oihw(v)
+    m = re.fullmatch(r"(ups_\d)/reduce/kernel", path)
+    if m:
+        return f"{m.group(1)}.reduce.weight", _oihw(v)
+    m = re.fullmatch(
+        r"(embed_conv_rgb|reduces1|reduces2|outputl|output)/kernel", path)
+    if m:
+        return f"{m.group(1)}.weight", _oihw(v)
+    raise KeyError(f"unmapped JAX parameter: {path}")
+
+
+def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """{'enc0_0/attn/qkv/kernel': HWIO array, ...} -> the port's state_dict
+    (f32 tensors on the CPU; ``load_state_dict`` moves them)."""
+    out = {}
+    for path, v in flat.items():
+        name, a = _name(path, np.asarray(v, np.float32))
+        out[name] = torch.from_numpy(np.array(a, np.float32))
+    return out
+
+
+def load_reference_state_dict(model: torch.nn.Module, sd) -> None:
+    """Load a reference checkpoint (the ``state_dict`` itself or the
+    trainer's ``{'model_state_dict': ...}``) into ``model``, strict after
+    dropping the never-used parameters."""
+    sd = sd.get("model_state_dict", sd)
+    model.load_state_dict({k: v for k, v in sd.items()
+                           if not _DROP.search(k)}, strict=True)

@@ -1,0 +1,102 @@
+"""Where the serving path's time goes on the GPU.
+
+Traces ITERS ``batched_apply`` calls of the full-width SpectralTransformer
+(the serving cell: SIZE x SIZE, batch BATCH, bf16, seeded weights) with
+``torch.profiler`` and prints device time by kernel, grouped into the
+port's own kernels, cuDNN/cuBLAS convolutions, FFTs and the rest, beside the
+wall time of the same calls, so the device's idle share shows.  Needs a
+CUDA GPU:
+
+    python -m underwater_image_restoration_torch.tools.profile_serving
+"""
+from __future__ import annotations
+
+import subprocess
+import time
+
+import torch
+
+from ..data import synthetic_pair_batch
+from ..eval import batched_apply
+from ..models import init_model
+
+# the serving cell's shape (``chip_smoke.py`` serves the same) and the
+# number of traced batches
+BATCH = 8
+SIZE = 256
+ITERS = 5
+
+GROUPS = (
+    ("ln_gdfn kernel", ("ln_gdfn_fwd_kernel",)),
+    ("ln_mdta stats kernel", ("ln_mdta_stats_kernel",)),
+    ("ln_mdta apply kernel", ("ln_mdta_apply_kernel",)),
+    ("fft", ("fft", "FFT", "regular_fft", "vector_fft")),
+    ("conv (cuDNN/cutlass)", ("conv", "Conv", "cudnn", "implicit", "xmma",
+                              "cutlass", "gemm", "nchw", "Nhwc")),
+)
+
+
+def group_of(name: str) -> str:
+    for label, keys in GROUPS:
+        if any(k in name for k in keys):
+            return label
+    return "other (elementwise, copies, weight prep)"
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA GPU")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip())
+    model = init_model("SpectralTransformer", seed=0,
+                       compute_dtype=torch.bfloat16)
+    raw, _ = synthetic_pair_batch(BATCH, SIZE, seed=0)
+    apply_b, _ = batched_apply(model, BATCH)
+    for _ in range(2):
+        apply_b(raw)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            apply_b(raw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+    by_group: dict[str, float] = {}
+    kernels = []
+    for ev in prof.key_averages():
+        # device-side events only: an aten op's row repeats its kernels' time
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us <= 0:
+            continue
+        kernels.append((dev_us, ev.key, ev.count))
+        g = group_of(ev.key)
+        by_group[g] = by_group.get(g, 0.0) + dev_us
+    total_ms = sum(by_group.values()) / 1e3 / ITERS
+    print(f"batch {BATCH} at {SIZE}x{SIZE} bf16: wall "
+          f"{wall_ms:.3f} ms a batch under the profiler, device busy "
+          f"{total_ms:.3f} ms ({100 * total_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - total_ms / wall_ms):.1f}%")
+    if not kernels:
+        print("the profiler saw no device time")
+        return 1
+    for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        ms = us / 1e3 / ITERS
+        print(f"  {g}: {ms:.3f} ms a batch ({100 * ms / total_ms:.1f}% of "
+              "device time)")
+    print("top kernels (device ms a batch, calls a batch):")
+    for us, name, count in sorted(kernels, reverse=True)[:15]:
+        print(f"  {us / 1e3 / ITERS:8.3f}  {count // ITERS:4d}  "
+              f"{name[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
