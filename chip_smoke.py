@@ -18,7 +18,22 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    the kernels, launch counts read from a run that starts at zero, output
    checked against the plain-version model in f32 and in bf16, with limits
    shown to lie below what a model without its MDTA or GDFN branches
-   produces; images/s.
+   produces; images/s;
+4. backward kernels: ln_gdfn_bwd and ln_mdta_bwd vs autograd through the
+   plain versions on the same input, dy and dtype (f32 and bf16), at the
+   five block shapes with the train batch and at the two ragged shapes,
+   every gradient's max abs error over its max|reference|; then median
+   times of the backward launches alone (given the saved residuals) and of
+   the plain versions' autograd backward;
+5. train step: ``make_train_step`` (L1withColor, Adam lr 3e-4, clip 1.0) on
+   the full-width model in bf16 at 256x256, batch 16: (a) launches of every
+   kernel in one step, from zero; (b) every used parameter has a finite,
+   non-zero gradient and the dead ones exact zeros; (c) one step's
+   gradients through the kernels vs the plain versions, f32 (TF32 off) and
+   bf16, with limits shown to lie below what dropping every MDTA (or GDFN)
+   branch moves; (d) three f32 steps' losses, kernels vs plain; (e) two
+   backward passes give bit-equal gradients; (f) images/s and peak memory,
+   kernels vs plain, in turns.
 The last line is the JSON device record; the line before it the kernels'.
 """
 import copy
@@ -51,6 +66,35 @@ MODEL_TOL = {"float32": 5e-5, "bfloat16": 5e-3}
 # (1) leaves the softmax near uniform, where dropping every MDTA branch moves
 # the output by about as much as bf16 rounding does
 MODEL_TEMPERATURE = 16.0
+# backward kernels vs autograd through the plain version in the same dtype:
+# per gradient tensor, max abs error over max|reference gradient|.
+# Weight gradients are sums over up to a million pixels; in bf16 both sides
+# round the same cotangents (the gate's, the LN output's, q/k's ...) and a
+# rounding that lands on the other side of a boundary moves its whole
+# contribution by one bf16 ulp.  A gradient term scaled by 0.95 scores about
+# 5e-2.  Readings on an H100 at these shapes: f32 at most 1.75e-5 (dtemp of
+# a gram over 65536 pixels), bf16 at most 8.4e-3 (dx; weight gradients at
+# most 1.6e-3).
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# train step, one step's gradients through the kernels vs the plain
+# versions, ||g - g_ref|| / ||g_ref|| over every parameter; each must be at
+# most a quarter of how far the gradients move without the MDTA branches,
+# or without the GDFN ones (at least 0.46 and 1.0 on an H100).  Readings
+# there over six runs: f32 2.9e-5 to 7.6e-5 (24 blocks of f32 sums in
+# another order, through softmaxes at temperature 16), bf16 1.5e-2 to
+# 3.4e-2 (bf16 rounding through 24 blocks, both ways).
+TRAIN_GRAD_TOL = {"float32": 3e-4, "bfloat16": 8e-2}
+# three f32 train steps' losses, kernels vs plain, relative.  Adam's first
+# steps move a weight by about lr * sign(g), so a last-bit difference in a
+# near-zero gradient moves it by 2 lr.  Readings on an H100 over eight runs
+# with cuDNN's default algorithms, whose sums are not bit-reproducible:
+# 1.1e-6 to 2.2e-4.  Phase 5 now runs cuDNN deterministic, so the reading
+# repeats.
+TRAIN_LOSS_TOL = 3e-4
+# batch of the gradient and loss comparisons (c, d): the plain versions'
+# autograd keeps every intermediate, about 4 GB an image in f32 at 256x256
+CHECK_BATCH = 4
+LR = 3e-4
 HBM_BYTES_PER_S = 3.35e12
 BF16_PEAK_FLOPS = 989e12  # dense tensor-core peak
 REPLACES = {
@@ -58,6 +102,18 @@ REPLACES = {
     "ln_mdta": ("underwater_image_restoration_tpu/ops/fused_attn_composed.py:"
                 "523; underwater_image_restoration_tpu/ops/"
                 "fused_attn_banded.py:648"),
+    "ln_gdfn_bwd": ("underwater_image_restoration_tpu/ops/"
+                    "fused_gdfn_banded.py:517; underwater_image_restoration"
+                    "_tpu/ops/fused_block.py:663"),
+    "ln_mdta_bwd": ("underwater_image_restoration_tpu/ops/"
+                    "fused_attn_composed.py:574; underwater_image_restoration"
+                    "_tpu/ops/fused_attn_banded.py:707; underwater_image_"
+                    "restoration_tpu/ops/fused_attn.py:560"),
+}
+GRAD_NAMES = {
+    "ln_gdfn": ("dx", "dscale", "dbias", "dw_in", "dw_dw", "dw_out"),
+    "ln_mdta": ("dx", "dscale", "dbias", "dw_qkv", "dt_qkv", "dtemp",
+                "dw_po", "dw_kv", "dt_kv", "dw_pof"),
 }
 
 
@@ -132,6 +188,43 @@ def work(name, c, h, w, nh, batch, itemsize):
     return act + wbytes, flops
 
 
+def work_bwd(name, c, h, w, nh, batch, itemsize):
+    """(bytes, flops) the backward needs at least: x and dy read once, dx
+    written once, weights read and their gradients written once (f32); the
+    multiply-adds of the forward chains it recomputes (q, k, v, out, vf,
+    outf; LN+GDFN's project_in and taps) and of the backward chains."""
+    px = batch * h * w
+    hid = int(c * EXPANSION)
+    act = 3 * batch * c * h * w * itemsize
+    if name == "ln_gdfn":
+        wbytes = 2 * 4 * (2 * c + 2 * hid * c + 9 * 2 * hid + hid * c)
+        flops = px * (2 * c * 2 * hid + 2 * 9 * 2 * hid      # recompute t
+                      + 2 * hid * c                          # W_out dy
+                      + 2 * 9 * 2 * hid + 2 * 9 * 2 * hid    # du, dtaps
+                      + 2 * c * 2 * hid + 2 * 2 * hid * c    # dW_in, dLN
+                      + 2 * hid * c)                         # dW_out
+    else:
+        cph = c // nh
+        wbytes = 2 * 4 * (2 * c + 3 * c * c + 27 * c + nh + c * c + c * c
+                          + 9 * c + c * c)
+        fwd = (2 * c * 3 * c + 2 * 9 * 3 * c + 2 * 2 * c * cph
+               + 2 * c * c + 2 * c * c + 2 * 9 * c)
+        bwd = (4 * 2 * c * c                  # d_outf, d_out, d_outs, dW_pof
+               + 2 * 2 * c * c                # dW_kvf, dW_po
+               + 6 * 2 * c * cph              # dvf, dA (2), dv, dq, dk
+               + 2 * 2 * 9 * c                # d(u_vf), dtaps_vf
+               + 2 * 2 * 9 * 3 * c            # d(u_qkv), dtaps_qkv
+               + 2 * 2 * c * 3 * c)           # dW_qkv, dLN
+        flops = px * (fwd + bwd)
+    return act + wbytes, flops
+
+
+def bound(nbytes, flops):
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / BF16_PEAK_FLOPS * 1e3
+    return max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
 def main():
     import torch
 
@@ -150,6 +243,7 @@ def main():
         MDTA,
         SpectralBlock,
     )
+    from underwater_image_restoration_torch.losses import LossFunction
     from underwater_image_restoration_torch.ops import (
         _kernels,
         ln_gdfn,
@@ -157,10 +251,27 @@ def main():
         ln_mdta,
         ln_mdta_plain,
     )
-    from underwater_image_restoration_torch.tools import profile_serving
+    from underwater_image_restoration_torch.ops.fused_gdfn import ln_gdfn_bwd
+    from underwater_image_restoration_torch.ops.fused_mdta import (
+        forward_with_stats,
+        ln_mdta_bwd,
+    )
+    from underwater_image_restoration_torch.tools import (
+        profile_serving,
+        profile_train,
+    )
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+        normalize_u8,
+    )
 
-    # the serving cell's shape, as the profiler traces it
+    # the serving and train cells' shapes, as the profilers trace them
     SERVE_BATCH, SIZE = profile_serving.BATCH, profile_serving.SIZE
+    TRAIN_BATCH = profile_train.BATCH
+    counters = {"ln_gdfn": ln_gdfn.launches, "ln_mdta": ln_mdta.launches,
+                "ln_gdfn_bwd": ln_gdfn_bwd.launches,
+                "ln_mdta_bwd": ln_mdta_bwd.launches}
 
     # ---- 1. setup
     smi = subprocess.run(
@@ -175,7 +286,7 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln or "entry" in ln]
         print(f"  {name}: {info['path']}", flush=True)
         for ln in regs:
             print(f"    ptxas {ln}", flush=True)
@@ -229,16 +340,13 @@ def main():
             ms = median_ms(lambda: call(name, kern, xb, ln, mdta, gdfn, nh))
             pms = median_ms(lambda: call(name, plain, xb, ln, mdta, gdfn, nh),
                             reps=5, warmup=1)
-            nbytes, flops = work(name, c, h, w, nh, SERVE_BATCH, 2)
-            tb = nbytes / HBM_BYTES_PER_S * 1e3
-            tf = flops / BF16_PEAK_FLOPS * 1e3
+            bms, by = bound(*work(name, c, h, w, nh, SERVE_BATCH, 2))
             rows[(name, c, h, w)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=max(tb, tf),
-                bound_by="bytes" if tb >= tf else "operations")
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by)
             print(f"{name} C={c} {h}x{w} bf16 batch {SERVE_BATCH}: kernel "
-                  f"{ms:.4f} ms, plain {pms:.4f} ms, bound {max(tb, tf):.4f}"
-                  f" ms ({'bytes' if tb >= tf else 'operations'}) on {card}",
-                  flush=True)
+                  f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f}"
+                  f" ms ({by}) on {card}", flush=True)
             del xb
     torch.cuda.empty_cache()
 
@@ -331,15 +439,271 @@ def main():
           f"{ips_plain:.2f} images/s with the plain versions, on {card}",
           flush=True)
 
+    del model, apply_b, apply_plain_bf16, y
+    torch.cuda.empty_cache()
+
+    # ---- 4. backward kernels vs autograd through the plain versions
+    bwd = {"ln_gdfn": ln_gdfn_bwd, "ln_mdta": ln_mdta_bwd}
+
+    def check_bwd(name, c, h, w, nh, batch, seed, timed):
+        """Every gradient of the backward kernel vs autograd through the
+        plain version on the same input, dy and dtype (f32, then bf16);
+        with ``timed``, bf16 times of the kernel launches given the saved
+        residuals and of the plain autograd backward."""
+        x, ln, mdta, gdfn = block_inputs(c, h, w, nh, batch, seed)
+        gen = torch.Generator().manual_seed(seed + 1)
+        dy32 = torch.randn(x.shape, generator=gen).cuda()
+        worst, row = 0.0, {}
+        for dt in (torch.float32, torch.bfloat16):
+            tag = str(dt).split(".")[1]
+            xin, dy = x.to(dt), dy32.to(dt)
+            ws = (*ln, *gdfn) if name == "ln_gdfn" else (*ln, *mdta)
+            ins = [t.detach().requires_grad_() for t in (xin, *ws)]
+            if name == "ln_gdfn":
+                def kern():
+                    return ln_gdfn_bwd(xin, dy, *ws)
+
+                def plain_fwd():
+                    return ln_gdfn_plain(*ins)
+            else:
+                stats = forward_with_stats(xin, *ws, nh)[1]
+
+                def kern():
+                    return ln_mdta_bwd(xin, dy, *ws, nh, stats=stats)
+
+                def plain_fwd():
+                    return ln_mdta_plain(*ins, nh)
+            got = kern()
+            ref = torch.autograd.grad(plain_fwd(), ins, dy)
+            torch.cuda.synchronize()
+            rels = []
+            for gname, a, r in zip(GRAD_NAMES[name], got, ref):
+                a, r = a.float(), r.float()
+                if a.shape != r.shape or not bool(torch.isfinite(a).all()):
+                    fail(f"{name}_bwd {gname} at C={c} {h}x{w} {tag}: shape "
+                         f"{tuple(a.shape)} vs {tuple(r.shape)} or not "
+                         "finite")
+                err = (a - r).abs().max().item()
+                rels.append((err / max(r.abs().max().item(), 1e-30), gname))
+                worst = max(worst, err)
+            rel, gname = max(rels)
+            tol = GRAD_TOL[tag]
+            print(f"{name}_bwd C={c} {h}x{w} heads={nh} batch {batch} {tag}: "
+                  "max_abs/max|ref| " + " ".join(
+                      f"{n} {v:.2e}" for v, n in rels) +
+                  f"; worst {gname} {rel:.3e} tol {tol:.0e} "
+                  f"{'ok' if rel <= tol else 'FAIL'}", flush=True)
+            if rel > tol:
+                fail(f"{name}_bwd {gname} disagrees with the plain backward "
+                     f"at C={c} {h}x{w} {tag}")
+            if timed and dt == torch.bfloat16:
+                ms = median_ms(kern, reps=10, warmup=2)
+                y_ref = plain_fwd()
+                pms = median_ms(lambda: torch.autograd.grad(
+                    y_ref, ins, dy, retain_graph=True), reps=5, warmup=1)
+                del y_ref
+                bms, by = bound(*work_bwd(name, c, h, w, nh, batch, 2))
+                row = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+                print(f"{name}_bwd C={c} {h}x{w} bf16 batch {batch}: kernel "
+                      f"{ms:.4f} ms, plain autograd {pms:.4f} ms, bound "
+                      f"{bms:.4f} ms ({by}) on {card}", flush=True)
+            del got, ref, ins
+        torch.cuda.empty_cache()
+        row["max_abs_err"] = worst
+        return row
+
+    for c, h, w, nh in EDGE_SHAPES:
+        for name in bwd:
+            check_bwd(name, c, h, w, nh, 2, seed=c + h + 1, timed=False)
+    for c, h, w, nh in SHAPES:
+        for name in bwd:
+            rows[(name + "_bwd", c, h, w)] = check_bwd(
+                name, c, h, w, nh, TRAIN_BATCH, seed=c + h + 1, timed=True)
+
+    # ---- 5. the train step at full width
+    # (a)-(e) run cuDNN's deterministic algorithms: (d) starts from the
+    # weights the steps of (a) left, so what it reads repeats from run to run
+    torch.backends.cudnn.deterministic = True
+    lossfn = LossFunction("L1withColor")
+    model = init_model("SpectralTransformer", seed=0,
+                       compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        for blk in model.modules():
+            if isinstance(blk, MDTA):
+                blk.temperature.fill_(MODEL_TEMPERATURE)
+    raw, ref = synthetic_pair_batch(TRAIN_BATCH, SIZE, seed=0)
+    step = make_train_step(model, lossfn,
+                           get_optimizer("adam", model.parameters(), LR))
+    step(raw, ref)  # warm-up: cuFFT plans, cuDNN algorithms
+    torch.cuda.synchronize()
+    for cnt in counters.values():
+        cnt.clear()
+    out = step(raw, ref)
+    torch.cuda.synchronize()
+    train_launches = {k: dict(v) for k, v in counters.items()}
+    totals = {k: sum(v.values()) for k, v in train_launches.items()}
+    print(f"(a) launches in one train step: {totals} (ln_mdta 2 a block, "
+          "ln_gdfn_bwd 2, ln_mdta_bwd 3)", flush=True)
+    for name in ("ln_gdfn_bwd", "ln_mdta_bwd"):
+        for (c, h, w), n in sorted(train_launches[name].items()):
+            print(f"  {name} C={c} {h}x{w}: {n}", flush=True)
+    want = {"ln_gdfn": 24, "ln_mdta": 48, "ln_gdfn_bwd": 48,
+            "ln_mdta_bwd": 72}
+    if totals != want:
+        fail(f"expected launches {want} in one train step, got {totals}")
+    loss0 = float(out["loss"])
+    print(f"train step loss {loss0:.6f} grad_norm "
+          f"{float(out['grad_norm']):.6f}", flush=True)
+    if not (loss0 == loss0 and abs(loss0) < float("inf")):
+        fail("non-finite train loss")
+
+    def dead(name, p):
+        """Zero-gradient mask of a parameter (q1X1_1, the kf half of kv
+        and kv_conv), or None for a live one."""
+        if "q1X1_1" in name:
+            return torch.ones_like(p, dtype=torch.bool)
+        if ".attn.kv." in name or ".attn.kv_conv." in name:
+            m = torch.zeros_like(p, dtype=torch.bool)
+            m[:p.shape[0] // 2] = True
+            return m
+        return None
+
+    n_dead = 0
+    for name, p in model.named_parameters():
+        g, m = p.grad, dead(name, p)
+        if g is None or not bool(torch.isfinite(g).all()):
+            fail(f"(b) {name}: gradient missing or not finite")
+        live = g if m is None else g[~m]
+        if m is not None:
+            n_dead += 1
+            if bool(g[m].any()):
+                fail(f"(b) dead parameter {name} has a non-zero gradient")
+        if live.numel() and not bool(live.any()):
+            fail(f"(b) {name}: the gradient is all zero")
+    print(f"(b) gradients: every parameter's finite and non-zero where it "
+          f"is used; {n_dead} parameters with dead parts, exactly zero "
+          "there", flush=True)
+
+    xc = normalize_u8(torch.as_tensor(raw[:CHECK_BATCH]).cuda()).permute(
+        0, 3, 1, 2).contiguous()
+    yc = normalize_u8(torch.as_tensor(ref[:CHECK_BATCH]).cuda()).permute(
+        0, 3, 1, 2).contiguous()
+
+    def grads_of(m, use_kernels, x=xc, y=yc):
+        m.zero_grad(set_to_none=True)
+        lossfn(m(x, use_kernels).float(), y).backward()
+        out = {n: p.grad.detach().clone() for n, p in m.named_parameters()
+               if p.grad is not None}
+        m.zero_grad(set_to_none=True)
+        return out
+
+    def grad_dist(g, r):
+        """(||g - r|| / ||r||, max abs / max|r|) over r's parameters."""
+        d = sum(float((g[n].float() - r[n].float()).square().sum())
+                for n in r)
+        nr = sum(float(r[n].float().square().sum()) for n in r)
+        top = max(float(r[n].abs().max()) for n in r)
+        mx = max(float((g[n].float() - r[n].float()).abs().max())
+                 for n in r)
+        return (d / nr) ** 0.5, mx / top
+
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).split(".")[1]
+        model.compute_dtype = dt
+        g_ref = grads_of(model, False)
+        rel, mx = grad_dist(grads_of(model, True), g_ref)
+        gone = {}
+        for b in ("MDTA", "GDFN"):
+            gone[b] = grad_dist(grads_of(without(b), False), g_ref)[0]
+        tol = TRAIN_GRAD_TOL[tag]
+        print(f"(c) gradients {tag}, batch {CHECK_BATCH}, kernels vs plain: "
+              f"||g - g_ref||/||g_ref|| {rel:.3e} (tol {tol:.0e}), max abs/"
+              f"max|g_ref| {mx:.3e}; without the MDTA branches the plain "
+              f"gradients move {gone['MDTA']:.3e}, without GDFN "
+              f"{gone['GDFN']:.3e}", flush=True)
+        if not tol <= min(gone.values()) / 4:
+            fail(f"(c) the {tag} gradient limit would not see a missing "
+                 "branch")
+        if not rel <= tol:
+            fail(f"(c) {tag} gradients disagree with the plain model")
+        torch.cuda.empty_cache()
+
+    model.compute_dtype = torch.float32
+    losses = {}
+    for use in (True, False):
+        m = copy.deepcopy(model)
+        st = make_train_step(m, lossfn, get_optimizer("adam",
+                                                      m.parameters(), LR),
+                             use_kernels=use)
+        losses[use] = [float(st(*synthetic_pair_batch(CHECK_BATCH, SIZE,
+                                                      seed=10 + i))["loss"])
+                       for i in range(3)]
+        del m, st
+        torch.cuda.empty_cache()
+    drift = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                   losses[False]))
+    print(f"(d) three f32 steps, batch {CHECK_BATCH}: losses kernels "
+          f"{losses[True]} plain {losses[False]}, max relative difference "
+          f"{drift:.3e} (tol {TRAIN_LOSS_TOL:.0e})", flush=True)
+    if not drift <= TRAIN_LOSS_TOL:
+        fail("(d) the f32 train losses of the kernels and the plain "
+             "versions disagree")
+
+    model.compute_dtype = torch.bfloat16
+    xt =normalize_u8(torch.as_tensor(raw).cuda()).permute(0, 3, 1, 2)
+    yt = normalize_u8(torch.as_tensor(ref).cuda()).permute(0, 3, 1, 2)
+    g1 = grads_of(model, True, xt.contiguous(), yt.contiguous())
+    g2 = grads_of(model, True, xt.contiguous(), yt.contiguous())
+    torch.backends.cudnn.deterministic = False
+    differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+    print(f"(e) two bf16 backward passes, batch {TRAIN_BATCH}: "
+          f"{len(g1) - len(differ)} of {len(g1)} gradients bit-equal",
+          flush=True)
+    if differ:
+        fail(f"(e) gradients differ between two passes: {differ[:5]}")
+    del g1, g2, xt, yt
+    torch.cuda.empty_cache()
+
+    def train_rate(use_kernels, steps=5):
+        st = make_train_step(model, lossfn, get_optimizer(
+            "adam", model.parameters(), LR), use_kernels=use_kernels)
+        st(raw, ref)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(steps):
+            st(raw, ref)
+        torch.cuda.synchronize()
+        rate = steps * TRAIN_BATCH / (time.perf_counter() - t)
+        return rate, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    rates = {True: [], False: []}
+    mem = {}
+    for use in (True, False, False, True):
+        r, mem[use] = train_rate(use)
+        rates[use].append(r)
+        torch.cuda.empty_cache()
+    print(f"(f) train step SpectralTransformer {SIZE}x{SIZE} bf16 batch "
+          f"{TRAIN_BATCH}: {sum(rates[True]) / 2:.2f} images/s with the "
+          f"kernels {rates[True]}, {sum(rates[False]) / 2:.2f} with the plain "
+          f"versions {rates[False]}; peak memory {mem[True]:.2f} GiB and "
+          f"{mem[False]:.2f} GiB; on {card}", flush=True)
+
     # ---- the record
+    counts = {**{k: launches[k] for k in launches},
+              "ln_gdfn_bwd": train_launches["ln_gdfn_bwd"],
+              "ln_mdta_bwd": train_launches["ln_mdta_bwd"]}
     kernels = []
     for (name, c, h, w), row in rows.items():
+        n = counts[name].get((c, h, w), 0)
+        if n == 0:
+            fail(f"{name} C={c} {h}x{w} was not launched on its path")
         kernels.append({
             "name": f"{name}[C={c},{h}x{w}]",
             "route": "cuda",
             "source": f"underwater_image_restoration_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": launches[name].get((c, h, w), 0),
+            "launches": n,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

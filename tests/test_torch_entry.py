@@ -4,8 +4,9 @@
   ``_batched_apply``/``_run_batched`` with the same weights (f32, CPU);
 - the ``infer`` subcommand writes one PNG a input image;
 - without CUDA and without ``device="cpu"`` the entry points raise;
-- every module of the port imports with ``jax`` and the JAX package blocked,
-  and no file of the port names either.
+- every module of the port (the training modules, losses and backward
+  kernels' sources included) imports with ``jax`` and the JAX package
+  blocked, and no file of the port names either.
 """
 import os
 import pathlib
@@ -105,18 +106,26 @@ def test_port_imports_without_jax():
         "[importlib.import_module(n) for n in names]\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
         "if sys.modules[m] is not None]\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=str(PORT.parent))
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    names = set(res.stdout.split())
+    assert len(names) >= 20
+    pkg = "underwater_image_restoration_torch."
+    for mod in ("losses", "losses.primitives", "train", "train.optim",
+                "train.trainer", "tools.profile_train", "ops.fused_gdfn",
+                "ops.fused_mdta"):
+        assert pkg + mod in names, mod
 
 
 def test_port_files_name_no_jax():
     files = [p for p in PORT.rglob("*") if p.is_file()
              and p.suffix in (".py", ".cu", ".cuh")]
-    assert len(files) >= 15
+    assert len(files) >= 24
+    assert {"ln_gdfn_bwd.cu", "ln_mdta_bwd.cu", "grad.cuh"} <= {
+        p.name for p in files}
     for p in files:
         text = p.read_text()
         assert "underwater_image_restoration_tpu" not in text, p

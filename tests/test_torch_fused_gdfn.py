@@ -8,7 +8,15 @@ kernels, run in interpret mode on the CPU.
 - the operands the CUDA kernel reads (``kernel_weights``: hidden channels in
   chunks of gate pairs, zero-padded hidden width) give the same function
   when used the way the kernel uses them.
+- ``ln_gdfn_bwd_plain`` (autograd through the plain version) vs ``jax.vjp``
+  of ``fused_ln_gdfn_banded`` (TPU kernel row 2) at (1, 8, 16, 128) and
+  (1, 8, 8, 64) and of ``fused_block.fused_ln_gdfn`` (row 8) at
+  (1, 8, 16, 128): all six gradients;
+- the CUDA backward kernel's algorithm (csrc/ln_gdfn_bwd.cu), written in
+  torch over the kernel's operand layout, gives the plain backward's
+  gradients, and ``unchunk`` undoes the layout.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,3 +104,104 @@ def test_kernel_operand_layout():
     assert taps.shape == (2 * hp, 9) and wo.shape == (hp, C)
     _close(_emulate_kernel(*args).numpy(),
            fused_gdfn.ln_gdfn_plain(*args).numpy())
+
+
+def _dy(shape, seed=9):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("ref, shape", [
+    (fused_gdfn_banded.fused_ln_gdfn_banded, (1, C, 16, 128)),
+    (fused_gdfn_banded.fused_ln_gdfn_banded, (1, C, 8, 64)),
+    (fused_block.fused_ln_gdfn, (1, C, 16, 128)),
+], ids=["banded-16x128", "banded-8x64", "whole-16x128"])
+def test_plain_backward_matches_pallas_vjp(ref, shape):
+    x, w = _case(shape)
+    dy = _dy(shape)
+    _, vjp = jax.vjp(ref, jnp.asarray(x), *(jnp.asarray(a) for a in w))
+    want = vjp(jnp.asarray(dy))
+    got = fused_gdfn.ln_gdfn_bwd_plain(
+        torch.from_numpy(x), torch.from_numpy(dy),
+        *(torch.from_numpy(a) for a in w))
+    assert len(got) == len(want) == 6
+    for g, r in zip(got, want):
+        assert g.shape == r.shape
+        _close(g.numpy(), r)
+
+
+def _tap_t(d, taps):
+    """sum_k taps[:, k] d(p - d_k): the transposed zero-padded 3x3."""
+    c = d.shape[1]
+    return F.conv2d(d, taps.flip(1).reshape(c, 1, 3, 3), padding=1,
+                    groups=c)
+
+
+def _tap_grad(d, u):
+    """(C, 9): sum_p d(p) u(p + d_k), the depthwise taps' gradient."""
+    b, c, h, w = u.shape
+    cols = F.unfold(u.reshape(b * c, 1, h, w), 3, padding=1)
+    return torch.einsum("bcl,bckl->ck", d.reshape(b, c, h * w),
+                        cols.reshape(b, c, 9, h * w))
+
+
+def _ln_backward(x, dln, scale, eps=1e-5):
+    """The LayerNorm backward of grad.cuh ln_backward_tile."""
+    mean = x.mean(1, keepdim=True)
+    rstd = torch.rsqrt((x - mean).square().mean(1, keepdim=True) + eps)
+    xh = (x - mean) * rstd
+    g = dln * scale.view(1, -1, 1, 1)
+    dx = rstd * (g - g.mean(1, keepdim=True)
+                 - xh * (g * xh).mean(1, keepdim=True))
+    return dx, (dln * xh).sum((0, 2, 3)), dln.sum((0, 2, 3))
+
+
+def _emulate_backward(x, dy, scale, bias, w_in, w_dw, w_out):
+    """The CUDA backward's algorithm over its operands (chunked, padded
+    hidden width): recompute u and t; the gate's cotangent W_out dy; dt1 =
+    dgo t2 gelu'(t1), dt2 = dgo gelu(t1); du by the transposed taps; dW_in
+    = LN du^T, dtaps = dt * shifted u, dW_out = o dy^T; dLN = W_in du; the
+    LN backward; dx = dy + dx_ln.  The wrapper's ``unchunk`` restores the
+    argument layouts."""
+    b, c, h, w = x.shape
+    hid, g = w_out.shape[0], fused_gdfn.GATE_CHUNK
+    win, taps, wo, hp = fused_gdfn.kernel_weights(w_in, w_dw, w_out)
+    ln = layer_norm_channels(x, scale, bias)
+    u = fused_gdfn.conv1x1(ln, win)
+    t = fused_gdfn.dwconv3x3(u, taps.t().reshape(3, 3, 2 * hp))
+    t = t.view(b, hp // g, 2, g, h, w)
+    t1, t2 = (t[:, :, i].reshape(b, hp, h, w) for i in (0, 1))
+    dgo = fused_gdfn.conv1x1(dy, wo.t())
+    gelu_grad = (0.5 * (1 + torch.erf(t1 * 0.5 ** 0.5))
+                 + t1 * torch.exp(-0.5 * t1 * t1) / (2 * np.pi) ** 0.5)
+    dt = torch.stack([(dgo * t2 * gelu_grad).view(b, hp // g, g, h, w),
+                      (dgo * F.gelu(t1)).view(b, hp // g, g, h, w)], 2)
+    dt = dt.reshape(b, 2 * hp, h, w)
+    du = _tap_t(dt, taps)
+    dx_ln, dsc, dbi = _ln_backward(x, fused_gdfn.conv1x1(du, win.t()), scale)
+    d_win = torch.einsum("bchw,bkhw->ck", ln, du)
+    d_wo = torch.einsum("bghw,bchw->gc", F.gelu(t1) * t2, dy)
+    return (dy + dx_ln, dsc, dbi, fused_gdfn.unchunk(d_win, hid, 1),
+            fused_gdfn.unchunk(_tap_grad(dt, u), hid, 0).t().reshape(
+                3, 3, 2 * hid), d_wo[:hid])
+
+
+def test_backward_kernel_algorithm():
+    x, w = _case((2, C, 8, 12), seed=6)
+    args = [torch.from_numpy(a) for a in (x, _dy(x.shape), *w)]
+    got = _emulate_backward(*args)
+    want = fused_gdfn.ln_gdfn_bwd_plain(*args)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape
+        _close(g.numpy(), r.numpy())
+
+
+def test_backward_kernel_refuses_cpu_tensor():
+    """The backward's wrapper launches the CUDA kernel only; on the CPU,
+    autograd differentiates ``ln_gdfn_plain`` and never reaches it."""
+    x, w = _case((1, C, 8, 8), seed=2)
+    args = [torch.from_numpy(a) for a in (x, _dy(x.shape), *w)]
+    before = sum(fused_gdfn.ln_gdfn_bwd.launches.values())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_gdfn.ln_gdfn_bwd(*args)
+    assert sum(fused_gdfn.ln_gdfn_bwd.launches.values()) == before

@@ -1,5 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
+- forward kernels: output vs the plain version on the same input;
+- backward kernels: every gradient vs autograd through the plain version on
+  the same input, dy and dtype, at one small and one ragged shape, the error
+  over max|reference gradient|;
+- gradients reach every parameter of a small model through the kernels
+  (the autograd Functions), and the dead ones get exact zeros.
+
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 The file imports no JAX, so it also runs where only the port is installed:
 
@@ -17,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from underwater_image_restoration_torch.models import init_model
 from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
 
 
@@ -76,3 +84,66 @@ def test_gdfn_refuses_another_gate_chunk(cuda, monkeypatch):
     monkeypatch.setattr(fused_gdfn, "GATE_CHUNK", 8)
     with pytest.raises(RuntimeError, match="ln_gdfn"):
         fused_gdfn.ln_gdfn(x, *w)
+
+
+# backward kernels vs autograd through the plain version, max abs error over
+# max|reference gradient|, per gradient tensor (chip_smoke.py's limits)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gdfn", "mdta"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 16), (2, 32, 20, 36)],
+                         ids=["16x16", "ragged-20x36"])
+def test_backward_kernel_matches_plain(cuda, kind, dtype, shape):
+    rng = np.random.default_rng(11)
+    c, nh = shape[1], 2
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x, dy = x.to(cuda, dtype), dy.to(cuda, dtype)
+    w = [torch.from_numpy(a).to(cuda) for a in _weights(kind, c, nh, rng)]
+    if kind == "gdfn":
+        got = fused_gdfn.ln_gdfn_bwd(x, dy, *w)
+        want = fused_gdfn.ln_gdfn_bwd_plain(x, dy, *w)
+    else:
+        stats = fused_mdta.forward_with_stats(x, *w, nh)[1]
+        got = fused_mdta.ln_mdta_bwd(x, dy, *w, nh, stats=stats)
+        want = fused_mdta.ln_mdta_bwd_plain(x, dy, *w, nh)
+    torch.cuda.synchronize()
+    for i, (g, r) in enumerate(zip(got, want)):
+        assert g.shape == r.shape, i
+        scale = r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * scale, (i, err, scale)
+
+
+@pytest.mark.cuda
+def test_model_gradients_reach_every_parameter(cuda):
+    """One backward() through a small model on the card: every parameter
+    the forward uses gets a finite gradient through the kernels' autograd
+    Functions (a result detached from its inputs would leave None upstream
+    of the last block), and the dead ones (q1X1_1, the kf half of kv and
+    kv_conv) stay unused."""
+    model = init_model("SpectralTransformer", device=cuda, seed=2,
+                       channels=(16, 32, 64, 128), num_blocks=(1, 1, 1, 1),
+                       num_refinement=1)
+    fused_gdfn.ln_gdfn_bwd.launches.clear()
+    fused_mdta.ln_mdta_bwd.launches.clear()
+    x = torch.rand(2, 3, 32, 32, device=cuda) * 2 - 1
+    model(x).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert sum(fused_gdfn.ln_gdfn_bwd.launches.values()) == 2 * 8
+    assert sum(fused_mdta.ln_mdta_bwd.launches.values()) == 3 * 8
+    for name, p in model.named_parameters():
+        if "q1X1_1" in name:
+            assert p.grad is None, name
+            continue
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        if ".kv." in name or ".kv_conv." in name:
+            c = p.shape[0] // 2
+            assert torch.count_nonzero(p.grad[:c]) == 0, name
+            assert torch.count_nonzero(p.grad[c:]) > 0, name
+        else:
+            assert torch.count_nonzero(p.grad) > 0, name

@@ -13,6 +13,7 @@ return the ``cudaError_t`` of the launch; ``check`` raises on a non-zero one.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,6 +46,16 @@ SIGNATURES = {
         # stats, B, C, H, W, cph, bf16, TH, TW, eps, stream
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
          _I, _I, _I, _F, _P],
+    ("ln_gdfn_bwd", "uir_ln_gdfn_bwd"):
+        # x, dy, dx, scale, bias, w_in, taps, w_in^T, w_out^T, part, grads,
+        # B, C, H, W, hid_pad, gate_chunk, bf16, TH, TW, groups, eps, stream
+        [_P] * 11 + [_I] * 10 + [_F, _P],
+    ("ln_mdta_bwd", "uir_ln_mdta_bwd"):
+        # x, dy, dx, scale, bias, w_qkv, taps_qkv, w_qkv^T, w_vf, taps_vf,
+        # w_po, w_po^T, w_pof^T, w_vf^T, temp, stats, dv, partA, counters,
+        # bstats, dtemp, part, grads, B, C, H, W, cph, bf16, TH and TW of
+        # the v pass, TH and TW of the q/k pass, groups, eps, stream
+        [_P] * 23 + [_I] * 11 + [_F, _P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -128,9 +139,13 @@ def library(name: str) -> ctypes.CDLL:
 
 def check_input(what: str, x, *weights) -> None:
     """Validate what a kernel takes: a contiguous float32/bfloat16
-    (B, C, H, W) tensor with C a multiple of 4, and weights on its device."""
+    (B, C, H, W) CUDA tensor with C a multiple of 4, and weights on its
+    device."""
     import torch
 
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, x is "
+                         f"on {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what}: x must be float32 or bfloat16, not "
                         f"{x.dtype}")
@@ -150,3 +165,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.uir_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def block_rows(tiles: int, device) -> int:
+    """Blocks of a backward tile kernel, each owning one row of weight-
+    gradient partials: two a streaming multiprocessor (each block walks over
+    tiles blockIdx.x, blockIdx.x + grid, ...), no more than there are
+    tiles."""
+    return max(1, min(tiles, 2 * _sm_count(device.index or 0)))

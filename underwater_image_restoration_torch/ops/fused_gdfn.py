@@ -10,6 +10,13 @@ takes the plain version ``ln_gdfn_plain`` for a CPU one.  Rounding points
 follow the TPU kernel: the LN output, the gated product and project_out's
 output round to x.dtype; project_in and the taps act in f32 on the rounded
 LN output (the composed contraction) and weights stay f32.
+
+On CUDA the forward is ``LnGdfnFn``, whose backward launches
+``csrc/ln_gdfn_bwd.cu`` (the VJP of the JAX package's
+``fused_gdfn_banded.py:517 _bwd_call`` and ``fused_block.py:663``); it saves
+only x and the weights, as the TPU VJP does.  ``ln_gdfn_bwd`` is that
+backward's wrapper and ``ln_gdfn_bwd_plain`` its plain version (autograd
+through ``ln_gdfn_plain``).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import collections
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import _kernels
 from .layers import gelu, layer_norm_channels
@@ -85,11 +93,31 @@ def kernel_weights(w_in, w_dw, w_out):
     return win.contiguous(), taps.contiguous(), wo.contiguous(), hp
 
 
-def ln_gdfn(x, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
-    """``x + GDFN(LayerNorm(x))``: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
-    if x.device.type == "cpu":
-        return ln_gdfn_plain(x, scale, bias, w_in, w_dw, w_out, eps)
+def unchunk(t, hid, dim):
+    """Inverse of ``kernel_weights``'s layout along ``dim``: drop the
+    zero-padded hidden channels and put the t1 and t2 halves back in order
+    (2 * hid_pad -> 2 * hid)."""
+    hp2 = t.shape[dim]
+    shape = t.shape[:dim] + (hp2 // (2 * GATE_CHUNK), 2, GATE_CHUNK) + \
+        t.shape[dim + 1:]
+    t = t.reshape(shape)
+    a, b = (t.select(dim + 1, i).flatten(dim, dim + 1).narrow(dim, 0, hid)
+            for i in (0, 1))
+    return torch.cat([a, b], dim)
+
+
+def bwd_tile_shape(c: int) -> tuple[int, int]:
+    """(TH, TW) of the backward kernel: it keeps LN on a 2-pixel halo, dy on
+    a 1-pixel halo and f32 chunk planes in shared memory, so the tile
+    shrinks with C to stay under the 227 KB a block may use (in f32)."""
+    if c <= 16:
+        return 16, 16
+    if c <= 32:
+        return 8, 16
+    return 8, 8
+
+
+def _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps):
     b, c, h, w = x.shape
     _kernels.check_input("ln_gdfn", x, scale, bias, w_in, w_dw, w_out)
     lib = _kernels.library("ln_gdfn")
@@ -109,5 +137,84 @@ def ln_gdfn(x, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
     return y
 
 
+def ln_gdfn_bwd_plain(x, dy, scale, bias, w_in, w_dw, w_out,
+                      eps: float = 1e-5):
+    """Gradients of ``ln_gdfn_plain`` at (x, weights) for the cotangent dy,
+    by autograd: (dx, dscale, dbias, dw_in, dw_dw, dw_out)."""
+    ins = [t.detach().requires_grad_() for t in
+           (x, scale, bias, w_in, w_dw, w_out)]
+    with torch.enable_grad():
+        y = ln_gdfn_plain(*ins, eps=eps)
+        return torch.autograd.grad(y, ins, dy)
+
+
+def ln_gdfn_bwd(x, dy, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
+    """The LN+GDFN backward's CUDA kernel, on CUDA tensors.  Returns (dx,
+    dscale, dbias, dw_in, dw_dw, dw_out), dx in x.dtype and the rest f32."""
+    b, c, h, w = x.shape
+    _kernels.check_input("ln_gdfn_bwd", x, dy, scale, bias, w_in, w_dw,
+                         w_out)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError("ln_gdfn_bwd: dy must match x in shape and dtype")
+    if c % 8:
+        raise ValueError(f"ln_gdfn_bwd: C={c} must be a multiple of 8")
+    lib = _kernels.library("ln_gdfn_bwd")
+    hid = w_out.shape[0]
+    win, taps, wo, hp = kernel_weights(w_in, w_dw, w_out)
+    win_t = win.t().contiguous()
+    wo_t = wo.t().contiguous()
+    sc = scale.float().contiguous()
+    bi = bias.float().contiguous()
+    dy = dy.contiguous()
+    th, tw = bwd_tile_shape(c)
+    groups = _kernels.block_rows(b * -(-h // th) * -(-w // tw), x.device)
+    sizes = (c * 2 * hp, 2 * hp * 9, hp * c, c, c)
+    part = torch.empty(groups * sum(sizes), device=x.device,
+                       dtype=torch.float32)
+    grads = torch.empty(sum(sizes), device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.uir_ln_gdfn_bwd(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), sc.data_ptr(),
+        bi.data_ptr(), win.data_ptr(), taps.data_ptr(), win_t.data_ptr(),
+        wo_t.data_ptr(), part.data_ptr(), grads.data_ptr(), b, c, h, w, hp,
+        GATE_CHUNK, int(x.dtype == torch.bfloat16), th, tw, groups,
+        float(eps), stream)
+    _kernels.check(lib, err, "ln_gdfn_bwd")
+    ln_gdfn_bwd.launches[(c, h, w)] += 2  # tiles, then the row sum
+    g_win, g_taps, g_wo, dsc, dbi = grads.split(sizes)
+    dw_in = unchunk(g_win.view(c, 2 * hp), hid, 1)
+    dw_dw = unchunk(g_taps.view(2 * hp, 9), hid, 0).t().reshape(3, 3,
+                                                                 2 * hid)
+    return (dx, dsc, dbi, dw_in, dw_dw, g_wo.view(hp, c)[:hid])
+
+
+class LnGdfnFn(torch.autograd.Function):
+    """The CUDA forward with the CUDA backward; saves x and the weights."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w_in, w_dw, w_out, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale, bias, w_in, w_dw, w_out)
+        return _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, *ws = ctx.saved_tensors
+        grads = ln_gdfn_bwd(x, dy, *ws, eps=ctx.eps)
+        return (grads[0],) + tuple(g.to(t.dtype) for g, t in
+                                   zip(grads[1:], ws)) + (None,)
+
+
+def ln_gdfn(x, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
+    """``x + GDFN(LayerNorm(x))``: the CUDA kernels (forward and backward)
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    if x.device.type == "cpu":
+        return ln_gdfn_plain(x, scale, bias, w_in, w_dw, w_out, eps)
+    return LnGdfnFn.apply(x, scale, bias, w_in, w_dw, w_out, eps)
+
+
 # launches of the CUDA kernel(s), by (C, H, W); the CPU path adds none
 ln_gdfn.launches = collections.Counter()
+ln_gdfn_bwd.launches = collections.Counter()

@@ -15,12 +15,22 @@ the spatial attention is applied to ``vf``, the second half of kv.
 apply) for a CUDA tensor and takes ``ln_mdta_plain`` for a CPU one.  Rounding
 points follow the TPU kernels: LN output, q and k, A·v, project_out's output,
 A·vf and project_outf's output round to x.dtype; v and vf stay f32.
+
+On CUDA the forward is ``LnMdtaFn``, whose backward launches
+``csrc/ln_mdta_bwd.cu`` (the VJP of the JAX package's
+``fused_attn_composed.py:574``, ``fused_attn_banded.py:707`` and
+``fused_attn.py:560`` ``_bwd_call``).  It saves x, the weights and the
+per-image stats the stats kernel wrote (gram and row sums of squares), as
+the TPU VJP saves (x, G, Sq, Sk).  ``ln_mdta_bwd`` is that backward's wrapper
+and ``ln_mdta_bwd_plain`` its plain version (autograd through
+``ln_mdta_plain``); the dead ``kf`` half of w_kv / t_kv gets zeros.
 """
 from __future__ import annotations
 
 import collections
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _kernels
 from .attention import channel_attention_core
@@ -76,21 +86,37 @@ def tile_shape(c: int) -> tuple[int, int]:
     return 4, 8
 
 
-def ln_mdta(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
-            num_heads: int, eps: float = 1e-5):
-    """``x + MDTA(LayerNorm(x))``: the CUDA kernels for a CUDA tensor, the
-    plain version for a CPU tensor."""
-    if x.device.type == "cpu":
-        return ln_mdta_plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
-                             t_kv, w_pof, num_heads, eps)
-    b, c, h, w = x.shape
-    _kernels.check_input("ln_mdta", x, scale, bias, w_qkv, t_qkv, temp, w_po,
-                         w_kv, t_kv, w_pof)
+def bwd_tile_shapes(c: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """(TH, TW) of the backward's v pass and q/k pass.  The v pass keeps
+    about ten channel-major copies of its tile (LN on a 2-pixel halo, v,
+    out, u_vf and their cotangents on a 1-pixel halo), the q/k pass about
+    six, so both shrink with C to stay under the 227 KB a block may use."""
+    if c <= 16:
+        return (16, 16), (16, 16)
+    if c <= 32:
+        return (8, 16), (8, 16)
+    if c <= 64:
+        return (8, 8), (8, 8)
+    return (4, 4), (4, 8)
+
+
+def _check_heads(c, num_heads):
     cph = c // num_heads
     if c % 16 or c % num_heads or cph not in (8, 16, 32):
         raise ValueError(f"ln_mdta: C={c} with {num_heads} heads; the "
                          "kernels take C a multiple of 16 and 8, 16 or 32 "
                          "channels a head")
+    return cph
+
+
+def forward_with_stats(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
+                       t_kv, w_pof, num_heads, eps: float = 1e-5):
+    """The CUDA forward of a CUDA tensor: (y, stats), stats holding each
+    image's gram, Sq and Sk (what the backward needs besides x)."""
+    b, c, h, w = x.shape
+    _kernels.check_input("ln_mdta", x, scale, bias, w_qkv, t_qkv, temp, w_po,
+                         w_kv, t_kv, w_pof)
+    cph = _check_heads(c, num_heads)
     lib = _kernels.library("ln_mdta")
     wqk, tqk, wv, tv, wvf, tvf = kernel_weights(w_qkv, t_qkv, w_kv, t_kv)
     sc = scale.float().contiguous()
@@ -121,8 +147,108 @@ def ln_mdta(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
         float(eps), stream)
     _kernels.check(lib, err, "ln_mdta apply")
     ln_mdta.launches[(c, h, w)] += 1
-    return y
+    return y, stats
+
+
+def ln_mdta_bwd_plain(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
+                      t_kv, w_pof, num_heads: int, eps: float = 1e-5):
+    """Gradients of ``ln_mdta_plain`` at (x, weights) for the cotangent dy,
+    by autograd: (dx, dscale, dbias, dw_qkv, dt_qkv, dtemp, dw_po, dw_kv,
+    dt_kv, dw_pof)."""
+    ins = [t.detach().requires_grad_() for t in
+           (x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof)]
+    with torch.enable_grad():
+        y = ln_mdta_plain(*ins, num_heads, eps=eps)
+        return torch.autograd.grad(y, ins, dy)
+
+
+def ln_mdta_bwd(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
+                w_pof, num_heads: int, stats, eps: float = 1e-5):
+    """The LN+MDTA backward's CUDA kernels, on CUDA tensors, with ``stats``
+    as ``forward_with_stats`` wrote them.  Returns the gradients in the
+    order of ``ln_mdta_bwd_plain``, dx in x.dtype and the rest f32."""
+    b, c, h, w = x.shape
+    _kernels.check_input("ln_mdta_bwd", x, dy, scale, bias, w_qkv, t_qkv,
+                         temp, w_po, w_kv, t_kv, w_pof, stats)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError("ln_mdta_bwd: dy must match x in shape and dtype")
+    cph = _check_heads(c, num_heads)
+    lib = _kernels.library("ln_mdta_bwd")
+    f32 = dict(device=x.device, dtype=torch.float32)
+    wqkv = w_qkv.float().contiguous()
+    taps3 = t_qkv.float().reshape(9, 3 * c).t().contiguous()
+    wvf = w_kv[:, c:].float().contiguous()
+    tvf = t_kv.float().reshape(9, 2 * c).t()[c:].contiguous()
+    wpo = w_po.float().contiguous()
+    ops = (x, dy.contiguous(), torch.empty_like(x),
+           scale.float().contiguous(), bias.float().contiguous(), wqkv, taps3,
+           wqkv.t().contiguous(), wvf, tvf, wpo, wpo.t().contiguous(),
+           w_pof.float().t().contiguous(), wvf.t().contiguous(),
+           temp.float().reshape(-1).contiguous(), stats)
+    (tha, twa), (thb, twb) = bwd_tile_shapes(c)
+    tiles_a = -(-h // tha) * -(-w // twa)
+    tiles_b = -(-h // thb) * -(-w // twb)
+    groups = _kernels.block_rows(b * max(tiles_a, tiles_b), x.device)
+    sizes = (c * c, c * c, 9 * c, c * c, 3 * c * c, 27 * c, c, c)
+    scratch = (torch.empty(b * c * h * w, **f32),            # dv
+               torch.empty(b * tiles_a * c * cph, **f32),    # dA partials
+               torch.zeros(b, device=x.device, dtype=torch.int32),
+               torch.empty(b * (c * cph + 2 * c), **f32),    # M, alphas
+               torch.empty(b * num_heads, **f32),            # dtemp
+               torch.empty(groups * sum(sizes), **f32),      # partial rows
+               torch.empty(sum(sizes), **f32))               # grads
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.uir_ln_mdta_bwd(
+        *(t.data_ptr() for t in ops + scratch), b, c, h, w, cph,
+        int(x.dtype == torch.bfloat16), tha, twa, thb, twb, groups,
+        float(eps), stream)
+    _kernels.check(lib, err, "ln_mdta_bwd")
+    ln_mdta_bwd.launches[(c, h, w)] += 3  # v pass, q/k pass, row sum
+    g_pof, g_kvf, g_tvf, g_po, g_qkv, g_t3, dsc, dbi = scratch[-1].split(sizes)
+    zero = torch.zeros(c, c, **f32)
+    dw_kv = torch.cat([zero, g_kvf.view(c, c)], 1)
+    dt_kv = torch.cat([zero[:, :9], g_tvf.view(c, 9)]).t().reshape(3, 3,
+                                                                   2 * c)
+    dtemp = scratch[4].view(b, num_heads).sum(0).view(1, num_heads, 1, 1)
+    return (ops[2], dsc, dbi, g_qkv.view(c, 3 * c),
+            g_t3.view(3 * c, 9).t().reshape(3, 3, 3 * c), dtemp,
+            g_po.view(c, c), dw_kv, dt_kv, g_pof.view(c, c))
+
+
+class LnMdtaFn(torch.autograd.Function):
+    """The CUDA forward with the CUDA backward; saves x, the weights and the
+    per-image stats."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
+                w_pof, num_heads, eps):
+        y, stats = forward_with_stats(x, scale, bias, w_qkv, t_qkv, temp,
+                                      w_po, w_kv, t_kv, w_pof, num_heads, eps)
+        ctx.num_heads, ctx.eps = num_heads, eps
+        ctx.save_for_backward(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
+                              t_kv, w_pof, stats)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, *ws, stats = ctx.saved_tensors
+        grads = ln_mdta_bwd(x, dy, *ws, ctx.num_heads, stats, eps=ctx.eps)
+        return (grads[0],) + tuple(g.to(t.dtype) for g, t in
+                                   zip(grads[1:], ws)) + (None, None)
+
+
+def ln_mdta(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
+            num_heads: int, eps: float = 1e-5):
+    """``x + MDTA(LayerNorm(x))``: the CUDA kernels (forward and backward)
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    if x.device.type == "cpu":
+        return ln_mdta_plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
+                             t_kv, w_pof, num_heads, eps)
+    return LnMdtaFn.apply(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
+                          t_kv, w_pof, num_heads, eps)
 
 
 # launches of the CUDA kernel(s), by (C, H, W); the CPU path adds none
 ln_mdta.launches = collections.Counter()
+ln_mdta_bwd.launches = collections.Counter()

@@ -6,6 +6,9 @@ The port's ``state_dict`` uses the reference's names and OIHW layouts, so:
   paths (HWIO kernels) onto it.  It is the inverse of
   the JAX package's ``tools/convert_checkpoint.py:81
   convert_spectral_transformer``.
+- The map is linear (names and transposes), so it carries gradients and
+  parameter trajectories too: ``params_from_jax(flatten(jax_grads))`` puts
+  the JAX package's gradient tree beside the port's ``.grad`` tensors.
 - ``load_reference_state_dict(model, sd)`` loads a reference ``.pth``
   ``state_dict`` after dropping the parameters the reference creates but
   never uses (the port, like the JAX package, does not create them), and
@@ -77,6 +80,19 @@ def _name(path: str, v: np.ndarray):
     if m:
         return f"{m.group(1)}.weight", _oihw(v)
     raise KeyError(f"unmapped JAX parameter: {path}")
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested {name: {...: array}} tree (a JAX parameter or gradient tree,
+    without its top ``params`` key) -> {'a/b/c': numpy array}."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
 
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -30,9 +30,14 @@ GROUPS = (
     ("ln_gdfn kernel", ("ln_gdfn_fwd_kernel",)),
     ("ln_mdta stats kernel", ("ln_mdta_stats_kernel",)),
     ("ln_mdta apply kernel", ("ln_mdta_apply_kernel",)),
+    ("ln_gdfn_bwd kernel", ("ln_gdfn_bwd_kernel",)),
+    ("ln_mdta_bwd v-pass kernel", ("ln_mdta_bwd_v_kernel",)),
+    ("ln_mdta_bwd q/k-pass kernel", ("ln_mdta_bwd_qk_kernel",)),
+    ("backward row sums", ("reduce_rows_kernel",)),
     ("fft", ("fft", "FFT", "regular_fft", "vector_fft")),
     ("conv (cuDNN/cutlass)", ("conv", "Conv", "cudnn", "implicit", "xmma",
                               "cutlass", "gemm", "nchw", "Nhwc")),
+    ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
 )
 
 
@@ -43,28 +48,25 @@ def group_of(name: str) -> str:
     return "other (elementwise, copies, weight prep)"
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA GPU")
-    print(subprocess.run(
+def card() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip())
-    model = init_model("SpectralTransformer", seed=0,
-                       compute_dtype=torch.bfloat16)
-    raw, _ = synthetic_pair_batch(BATCH, SIZE, seed=0)
-    apply_b, _ = batched_apply(model, BATCH)
-    for _ in range(2):
-        apply_b(raw)
-    torch.cuda.synchronize()
+        check=True, timeout=60).stdout.strip()
+
+
+def profile(fn, iters: int, what: str) -> int:
+    """Trace ``iters`` calls of ``fn`` (warmed up by the caller) and print
+    wall time a call, device busy and idle shares, device time by group and
+    the top kernels.  Returns 1 if the profiler saw no device time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(ITERS):
-            apply_b(raw)
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / ITERS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     by_group: dict[str, float] = {}
     kernels = []
     for ev in prof.key_averages():
@@ -79,23 +81,37 @@ def main():
         kernels.append((dev_us, ev.key, ev.count))
         g = group_of(ev.key)
         by_group[g] = by_group.get(g, 0.0) + dev_us
-    total_ms = sum(by_group.values()) / 1e3 / ITERS
-    print(f"batch {BATCH} at {SIZE}x{SIZE} bf16: wall "
-          f"{wall_ms:.3f} ms a batch under the profiler, device busy "
-          f"{total_ms:.3f} ms ({100 * total_ms / wall_ms:.1f}%), idle "
+    total_ms = sum(by_group.values()) / 1e3 / iters
+    print(f"{what}: wall {wall_ms:.3f} ms a call under the profiler, device "
+          f"busy {total_ms:.3f} ms ({100 * total_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - total_ms / wall_ms):.1f}%")
     if not kernels:
         print("the profiler saw no device time")
         return 1
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        ms = us / 1e3 / ITERS
-        print(f"  {g}: {ms:.3f} ms a batch ({100 * ms / total_ms:.1f}% of "
+        ms = us / 1e3 / iters
+        print(f"  {g}: {ms:.3f} ms a call ({100 * ms / total_ms:.1f}% of "
               "device time)")
-    print("top kernels (device ms a batch, calls a batch):")
+    print("top kernels (device ms a call, launches a call):")
     for us, name, count in sorted(kernels, reverse=True)[:15]:
-        print(f"  {us / 1e3 / ITERS:8.3f}  {count // ITERS:4d}  "
+        print(f"  {us / 1e3 / iters:8.3f}  {count // iters:4d}  "
               f"{name[:100]}")
     return 0
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA GPU")
+    print(card())
+    model = init_model("SpectralTransformer", seed=0,
+                       compute_dtype=torch.bfloat16)
+    raw, _ = synthetic_pair_batch(BATCH, SIZE, seed=0)
+    apply_b, _ = batched_apply(model, BATCH)
+    for _ in range(2):
+        apply_b(raw)
+    torch.cuda.synchronize()
+    return profile(lambda: apply_b(raw), ITERS,
+                   f"batch {BATCH} at {SIZE}x{SIZE} bf16")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,49 @@
+"""Where the train step's time goes on the GPU: the training twin of
+``profile_serving``.
+
+Traces STEPS train steps of the full-width SpectralTransformer (SIZE x
+SIZE, batch BATCH, bf16 compute over f32 parameters, ``L1withColor``, Adam
+lr 3e-4 behind the global-norm clip, seeded weights, ``make_train_step``)
+with ``torch.profiler`` and prints device time by kernel group (the port's
+forward and backward kernels, cuDNN convolutions and their gradients, FFTs,
+the optimizer, the rest) beside the wall time, so the device's idle share
+shows.  Needs a CUDA GPU:
+
+    python -m underwater_image_restoration_torch.tools.profile_train
+"""
+from __future__ import annotations
+
+import torch
+
+from ..data import synthetic_pair_batch
+from ..losses import LossFunction
+from ..models import init_model
+from ..train import get_optimizer, make_train_step
+from .profile_serving import card, profile
+
+# the train cell's shape (``chip_smoke.py`` trains the same) and the number
+# of traced steps
+BATCH = 16
+SIZE = 256
+STEPS = 5
+LR = 3e-4
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA GPU")
+    print(card())
+    model = init_model("SpectralTransformer", seed=0,
+                       compute_dtype=torch.bfloat16)
+    opt = get_optimizer("adam", model.parameters(), LR)
+    step = make_train_step(model, LossFunction("L1withColor"), opt)
+    raw, ref = synthetic_pair_batch(BATCH, SIZE, seed=0)
+    for _ in range(2):
+        step(raw, ref)
+    torch.cuda.synchronize()
+    return profile(lambda: step(raw, ref), STEPS,
+                   f"train step, batch {BATCH} at {SIZE}x{SIZE} bf16")
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
