@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """GPU check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
-against its plain PyTorch version at every SpectralBlock shape of the
-256x256 forward, then serves a batch through the full-width
-SpectralTransformer and checks where the time and the launches went.
+against its plain PyTorch version at every shape of its model's 256x256
+path, then serves batches through the full-width SpectralTransformer and
+AST, trains the SpectralTransformer, and checks where the time and the
+launches went.
 
     python3 chip_smoke.py            # needs one CUDA GPU; no arguments
+    python3 chip_smoke.py --phase ast    # phases 1 (AST kernels only) and 6
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, TF32 off;
@@ -33,11 +35,24 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    bf16, with limits shown to lie below what dropping every MDTA (or GDFN)
    branch moves; (d) three f32 steps' losses, kernels vs plain; (e) two
    backward passes give bit-equal gradients; (f) images/s and peak memory,
-   kernels vs plain, in turns.
+   kernels vs plain, in turns;
+6. AST serving (AST@256, the JAX bench's second cell, default kwargs):
+   (a) ln_leff and window_attn vs their plain versions at every AST@256
+   shape, batch 8, f32 and bf16, and at ragged and small shapes, the error
+   over max|branch| (ln_leff's y - x, window_attn's whole output), then
+   median times; (b) launches in one forward of the full-width AST at
+   256x256 batch 8 bf16 (18 ln_leff, 10 window_attn of which 5 masked),
+   from zero; (c) the model's output, kernels vs plain model, in f32 (TF32
+   off) and bf16, with limits shown to lie below a quarter of what dropping
+   every LeFF (or attention) branch moves, q projections scaled by 8 so the
+   attention is far from uniform; (d) images/s and peak memory, kernels vs
+   plain, in turns.
 The last line is the JSON device record; the line before it the kernels'.
 """
+import argparse
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -95,6 +110,37 @@ TRAIN_LOSS_TOL = 3e-4
 # autograd keeps every intermediate, about 4 GB an image in f32 at 256x256
 CHECK_BATCH = 4
 LR = 3e-4
+# AST@256, default kwargs (embed 32, win 8): LN+LeFF at (C, H = W), hidden
+# 4C, two blocks a level; window attention (N = 64 tokens, d = 32) at
+# (windows an image, heads), two blocks a level, the second shifted (masked)
+LEFF_SHAPES = ((32, 256), (64, 128), (128, 64), (256, 32), (512, 16),
+               (512, 32), (256, 64), (128, 128), (64, 256))
+ATTN_SHAPES = ((1024, 2), (256, 4), (64, 8), (16, 16), (4, 16))
+AST_WIN, AST_HEAD_DIM = 8, 32
+# checked, not timed: LN+LeFF at C = 8 on 20x36 (ragged tiles), with and
+# without the residual and a per-image scale; window attention at N = 16,
+# d = 8 (masked, sparse) and N = 4 (dense): (windows, heads, ws, d)
+LEFF_EDGE = (8, 20, 36)
+ATTN_EDGE = ((16, 2, 4, 8, True, True), (4, 16, 2, 8, False, False))
+# AST kernels vs plain versions, max abs error over max|branch| (y - x for
+# ln_leff, the output for window_attn); f32: sums in another order; bf16:
+# both round at the same points, a sum on the other side of a rounding
+# boundary moves one bf16 ulp.  Readings on an H100: f32 at most 2.0e-6
+# (ln_leff) and 1.1e-7 (window_attn), bf16 at most 7.0e-3 and 1.7e-3; a
+# copy whose kernel scaled its output by 1.05 in one dtype read 5.0e-2 to
+# 5.1e-2 and failed at the first shape.
+AST_KERNEL_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+# AST model, absolute on the output (|y| up to ~3.5 with the q scaling
+# below), kernels vs plain model in one dtype through 18 blocks; each at
+# most a quarter of how far dropping every LeFF (or attention) branch moves
+# the output (4.7 and 2.8 on an H100).  Readings there: f32 1.1e-5, bf16
+# 6.3e-2 (four bf16 ulps at |y| in [2, 4): one-ulp flips carried through
+# the blocks)
+AST_MODEL_TOL = {"float32": 1e-4, "bfloat16": 0.25}
+# to_q scale in the AST model phase: the reference init (trunc_normal 0.02)
+# leaves the window softmax nearly flat, where a wrong attention kernel
+# would pass; scaled by 8, the scores have std ~1.6
+AST_Q_SCALE = 8.0
 HBM_BYTES_PER_S = 3.35e12
 BF16_PEAK_FLOPS = 989e12  # dense tensor-core peak
 REPLACES = {
@@ -109,6 +155,8 @@ REPLACES = {
                     "fused_attn_composed.py:574; underwater_image_restoration"
                     "_tpu/ops/fused_attn_banded.py:707; underwater_image_"
                     "restoration_tpu/ops/fused_attn.py:560"),
+    "ln_leff": "underwater_image_restoration_tpu/ops/fused_leff.py:301",
+    "window_attn": "underwater_image_restoration_tpu/ops/pallas.py:110",
 }
 GRAD_NAMES = {
     "ln_gdfn": ("dx", "dscale", "dbias", "dw_in", "dw_dw", "dw_out"),
@@ -219,15 +267,326 @@ def work_bwd(name, c, h, w, nh, batch, itemsize):
     return act + wbytes, flops
 
 
+def work_ast(name, shape, batch, itemsize):
+    """(bytes, flops) the AST kernels' functions need at least: activations
+    read once and written once, f32 weights (ln_leff) or bias and mask
+    (window_attn) read once; the multiply-adds of fc1, the taps and fc2, or
+    of q kᵀ and P v."""
+    if name == "ln_leff":
+        c, h = shape
+        hid, px = 4 * c, batch * h * h
+        wbytes = 4 * (2 * c * hid + 9 * hid + 2 * hid + 3 * c)
+        return (2 * px * c * itemsize + wbytes,
+                px * (2 * c * hid + 2 * 9 * hid + 2 * hid * c))
+    nw, heads, masked = shape
+    n, d, bq = AST_WIN ** 2, AST_HEAD_DIM, batch * nw
+    nbytes = (4 * bq * heads * n * d * itemsize + 4 * heads * n * n
+              + (4 * nw * n * n if masked else 0) + 8)
+    return nbytes, bq * heads * 4 * n * n * d
+
+
 def bound(nbytes, flops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / BF16_PEAK_FLOPS * 1e3
     return max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
-def main():
+def ast_phase(card, batch, size):
+    """6. AST serving; returns the kernels' JSON rows."""
     import torch
 
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.eval import (
+        batched_apply,
+        psnr_float_pm1,
+    )
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.models.blocks import (
+        LeFF,
+        WindowAttentionSparse,
+    )
+    from underwater_image_restoration_torch.ops import (
+        ln_leff,
+        ln_leff_plain,
+        shift_mask,
+        split_heads,
+        window_attention,
+        window_attention_plain,
+    )
+
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def verdict(what, err, scale, dt):
+        tag = str(dt).split(".")[1]
+        rel, tol = err / scale, AST_KERNEL_TOL[tag]
+        ok = rel <= tol
+        print(f"{what} {tag}: max_abs {err:.3e} max|branch| {scale:.3f} "
+              f"max_abs/max|branch| {rel:.3e} tol {tol:.0e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{what} {tag} disagrees with its plain version")
+
+    # ---- (a) kernels vs plain versions
+    def leff_inputs(c, h, w, b, seed):
+        """x ~ N(0, 1) tokens; fc1 N(0, 1/C), taps N(0, 1/9), fc2
+        N(0, 1/hid), biases of std 0.1, LN affine perturbed: an O(1)
+        branch."""
+        g = torch.Generator().manual_seed(seed)
+        hid = 4 * c
+
+        def n(*shape, fan_in=1):
+            return torch.randn(shape, generator=g) / fan_in ** 0.5
+
+        ws = (1 + 0.1 * n(c), 0.1 * n(c), n(c, hid, fan_in=c),
+              0.1 * n(hid), n(3, 3, hid, fan_in=9), 0.1 * n(hid),
+              n(hid, c, fan_in=hid), 0.1 * n(c))
+        return n(b, h, w, c).cuda(), [t.cuda() for t in ws]
+
+    def check_leff(c, h, w, b, seed, s=None, residual=True):
+        x, ws = leff_inputs(c, h, w, b, seed)
+        worst = 0.0
+        for dt in (f32, bf16):
+            xin = x.to(dt)
+            got = ln_leff(xin, *ws, s=s, residual=residual).float()
+            ref = ln_leff_plain(xin, *ws, s=s, residual=residual).float()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"ln_leff C={c} {h}x{w}: non-finite output")
+            err = (got - ref).abs().max().item()
+            branch = (ref - xin.float() if residual else ref).abs().max()
+            verdict(f"ln_leff C={c} {h}x{w} batch {b} residual={residual} "
+                    f"s={None if s is None else s.tolist()}", err,
+                    branch.item(), dt)
+            worst = max(worst, err)
+        return x.to(bf16), ws, worst
+
+    def attn_inputs(nw, heads, ws, d, b, masked, sparse, seed, dt):
+        """q and kv in the projections' (B', N, heads * d) layout, heads as
+        views (the model's layout); bias N(0, 1), mix weights (0.3, -0.4):
+        the softmax far from flat."""
+        g = torch.Generator().manual_seed(seed)
+        n, bq, c = ws * ws, b * nw, heads * d
+        q = torch.randn(bq, n, c, generator=g).cuda().to(dt)
+        kv = torch.randn(bq, n, 2 * c, generator=g).cuda().to(dt)
+        bias = torch.randn(heads, n, n, generator=g).cuda()
+        side = ws * math.isqrt(nw)
+        mask = shift_mask(side, side, ws, ws // 2, "cuda") if masked else None
+        w = torch.tensor([0.3, -0.4]).cuda() if sparse else None
+        return ((split_heads(q, heads), split_heads(kv[..., :c], heads),
+                 split_heads(kv[..., c:], heads), bias),
+                dict(scale=d ** -0.5, sparse_w=w, mask=mask))
+
+    def check_attn(nw, heads, ws, d, b, masked, modes, seed):
+        """Kernel vs plain version, f32 and bf16, sparse and/or dense
+        (``modes``): the dense softmax alone shows a fault that the sparse
+        mix's relu² term would outweigh."""
+        worst = 0.0
+        for dt, sparse in ((dt, sp) for dt in (f32, bf16) for sp in modes):
+            args, kw = attn_inputs(nw, heads, ws, d, b, masked, sparse, seed,
+                                   dt)
+            got = window_attention(*args, **kw).float()
+            ref = window_attention_plain(*args, **kw).float()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"window_attn N={ws * ws}: non-finite output")
+            err = (got - ref).abs().max().item()
+            verdict(f"window_attn N={ws * ws} d={d} B'={b * nw} "
+                    f"heads={heads} masked={masked} sparse={sparse}", err,
+                    ref.abs().max().item(), dt)
+            worst = max(worst, err)
+        return worst
+
+    with torch.no_grad():
+        c, h, w = LEFF_EDGE
+        check_leff(c, h, w, 2, seed=1)
+        check_leff(c, h, w, 2, seed=2, s=torch.tensor([1.25, 0.5]).cuda(),
+                   residual=False)
+        for nw, heads, ws, d, masked, sparse in ATTN_EDGE:
+            check_attn(nw, heads, ws, d, 2, masked, (sparse,), seed=3)
+        rows = {}
+        for c, h in LEFF_SHAPES:
+            xb, ws, err = check_leff(c, h, h, batch, seed=c + h)
+            ms = median_ms(lambda: ln_leff(xb, *ws))
+            pms = median_ms(lambda: ln_leff_plain(xb, *ws), reps=5, warmup=1)
+            bms, by = bound(*work_ast("ln_leff", (c, h), batch, 2))
+            rows[("ln_leff", c, h, h)] = dict(
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                bound_by=by)
+            print(f"ln_leff C={c} {h}x{h} bf16 batch {batch}: kernel "
+                  f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+                  f"({by}) on {card}", flush=True)
+            del xb, ws
+        for nw, heads in ATTN_SHAPES:
+            for masked in (False, True):
+                err = check_attn(nw, heads, AST_WIN, AST_HEAD_DIM, batch,
+                                 masked, (True, False), seed=nw + heads)
+                args, kw = attn_inputs(nw, heads, AST_WIN, AST_HEAD_DIM,
+                                       batch, masked, True, nw + heads, bf16)
+                ms = median_ms(lambda: window_attention(*args, **kw))
+                pms = median_ms(lambda: window_attention_plain(*args, **kw),
+                                reps=5, warmup=1)
+                bms, by = bound(*work_ast("window_attn", (nw, heads, masked),
+                                          batch, 2))
+                rows[("window_attn", batch * nw, heads, masked)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                    bound_by=by)
+                print(f"window_attn B'={batch * nw} heads={heads} N=64 d=32 "
+                      f"masked={masked} bf16: kernel {ms:.4f} ms, plain "
+                      f"{pms:.4f} ms, bound {bms:.4f} ms ({by}) on {card}",
+                      flush=True)
+                del args, kw
+    torch.cuda.empty_cache()
+    print(f"phase 6(a) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- (b) launches in one forward of the full-width AST
+    model = init_model("AST", seed=0, img_size=size, compute_dtype=bf16)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, WindowAttentionSparse):
+                m.qkv.to_q.weight.mul_(AST_Q_SCALE)
+    n_params = sum(p.numel() for p in model.parameters())
+    raw, _ = synthetic_pair_batch(batch, size, seed=0)
+    apply_b, _ = batched_apply(model, batch)
+    apply_b(raw)  # warm-up: cuDNN algorithms, masks
+    torch.cuda.synchronize()
+    ln_leff.launches.clear()
+    window_attention.launches.clear()
+    y = apply_b(raw)
+    torch.cuda.synchronize()
+    launches = {"ln_leff": dict(ln_leff.launches),
+                "window_attn": dict(window_attention.launches)}
+    n_leff = sum(launches["ln_leff"].values())
+    n_attn = sum(launches["window_attn"].values())
+    n_masked = sum(v for k, v in launches["window_attn"].items() if k[4])
+    print(f"(b) AST {size}x{size} ({n_params} parameters), launches in one "
+          f"forward: ln_leff {n_leff}, window_attn {n_attn} ({n_masked} "
+          "masked)", flush=True)
+    for name in launches:
+        for key, n in sorted(launches[name].items()):
+            print(f"  {name} {key}: {n}", flush=True)
+    if (n_leff, n_attn, n_masked) != (18, 10, 5):
+        fail("expected 18 ln_leff and 10 window_attn (5 masked) launches")
+    counts = {("ln_leff", c, h, h): launches["ln_leff"].get((c, h, h), 0)
+              for c, h in LEFF_SHAPES}
+    for nw, heads in ATTN_SHAPES:
+        for masked in (False, True):
+            counts[("window_attn", batch * nw, heads, masked)] = \
+                launches["window_attn"].get(
+                    (batch * nw, heads, AST_WIN ** 2, AST_HEAD_DIM, masked),
+                    0)
+    if tuple(y.shape) != (batch, size, size, 3):
+        fail(f"AST output shape {tuple(y.shape)}")
+    if not bool(torch.isfinite(y).all()):
+        fail("AST: non-finite output")
+
+    # ---- (c) the model's output, kernels vs plain model
+    def outputs(m, dt, use_kernels):
+        m.compute_dtype = dt
+        out = batched_apply(m, batch, use_kernels)[0](raw)
+        torch.cuda.synchronize()
+        return out
+
+    def without(branch):
+        """The model with every block's LeFF fc2 (or attention output
+        projection) zeroed: what kernels that skipped the branch give."""
+        m = copy.deepcopy(model)
+        for mod in m.modules():
+            lin = (mod.linear2[0] if branch == "LeFF" and isinstance(
+                mod, LeFF) else mod.proj if branch == "attention"
+                and isinstance(mod, WindowAttentionSparse) else None)
+            if lin is not None:
+                lin.weight.data.zero_()
+                lin.bias.data.zero_()
+        return m
+
+    refs = {}
+    for dt in (f32, bf16):
+        tag = str(dt).split(".")[1]
+        refs[tag] = ref = outputs(model, dt, False)
+        out = y if dt == bf16 else outputs(model, dt, True)
+        err = (out - ref).abs().max().item()
+        gone = {b: (outputs(without(b), dt, False) - ref).abs().max().item()
+                for b in ("LeFF", "attention")}
+        tol = AST_MODEL_TOL[tag]
+        print(f"(c) AST {tag} kernels vs {tag} plain model: max_abs {err:.3e}"
+              f" (max|ref| {ref.abs().max().item():.3f}) tol {tol:.0e}; "
+              f"without the LeFF branches the plain model moves "
+              f"{gone['LeFF']:.3e}, without attention "
+              f"{gone['attention']:.3e}", flush=True)
+        if not tol <= min(gone.values()) / 4:
+            fail(f"(c) the AST {tag} limit would not see a missing branch")
+        if not err <= tol:
+            fail(f"(c) AST output ({tag}) disagrees with the plain model")
+    err = (y - refs["float32"]).abs().max().item()
+    psnr = psnr_float_pm1(refs["float32"].cpu().numpy(), y.cpu().numpy())
+    print(f"(c) AST bf16 kernels vs f32 plain model: max_abs {err:.3e}, PSNR "
+          f"{psnr:.2f} dB", flush=True)
+    del refs
+    torch.cuda.empty_cache()
+
+    # ---- (d) serving: images/s and peak memory, in turns
+    model.compute_dtype = bf16
+    fns = {True: apply_b, False: batched_apply(model, batch, False)[0]}
+
+    def serve(use_kernels, iters=10):
+        fns[use_kernels](raw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fns[use_kernels](raw)
+        torch.cuda.synchronize()
+        return (iters * batch / (time.perf_counter() - t),
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    rates, mem = {True: [], False: []}, {}
+    for use in (True, False, False, True):
+        r, mem[use] = serve(use)
+        rates[use].append(r)
+    print(f"(d) serving AST {size}x{size} bf16 batch {batch}: "
+          f"{sum(rates[True]) / 2:.2f} images/s with the kernels "
+          f"{rates[True]}, {sum(rates[False]) / 2:.2f} with the plain "
+          f"versions {rates[False]}; peak memory {mem[True]:.2f} GiB and "
+          f"{mem[False]:.2f} GiB; on {card}", flush=True)
+    print(f"phase 6 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    kernels = []
+    for key, row in rows.items():
+        n = counts[key]
+        if n == 0:
+            fail(f"{key} was not launched on the AST path")
+        if key[0] == "ln_leff":
+            label = f"ln_leff[C={key[1]},{key[2]}x{key[3]}]"
+        else:
+            label = (f"window_attn[B'={key[1]},heads={key[2]},N=64,d=32,"
+                     f"{'masked' if key[3] else 'unmasked'}]")
+        kernels.append({
+            "name": label,
+            "route": "cuda",
+            "source": ("underwater_image_restoration_torch/csrc/"
+                       f"{key[0]}.cu"),
+            "replaces": REPLACES[key[0]],
+            "launches": n,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
+    return kernels
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=("all", "ast"), default="all",
+                    help="'ast': the setup and the AST phase alone")
+    args = ap.parse_args(argv)
+    import torch
+
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: this check needs "
               "an NVIDIA GPU", flush=True)
@@ -282,7 +641,8 @@ def main():
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    built = _kernels.build_all()
+    built = _kernels.build_all(
+        ["ln_leff", "window_attn"] if args.phase == "ast" else None)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
@@ -292,6 +652,9 @@ def main():
             print(f"    ptxas {ln}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.phase == "ast":
+        kernels = ast_phase(card, SERVE_BATCH, SIZE)
+        return record(torch, kernels, t_start)
 
     # ---- 2. kernels vs plain versions
     fns = {"ln_gdfn": (ln_gdfn, ln_gdfn_plain),
@@ -711,6 +1074,16 @@ def main():
             "bound_by": row["bound_by"],
             "library_ms": None,
         })
+    print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    kernels += ast_phase(card, SERVE_BATCH, SIZE)
+    return record(torch, kernels, t_start)
+
+
+def record(torch, kernels, t_start):
+    """Print the kernels' JSON line, then the device record, last."""
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 - ``batched_apply``/``run_batched`` on a uint8 batch equal the JAX package's
   ``_batched_apply``/``_run_batched`` with the same weights (f32, CPU);
-- the ``infer`` subcommand writes one PNG a input image;
+- the ``infer`` subcommand writes one PNG a input image, for
+  SpectralTransformer and for AST;
 - without CUDA and without ``device="cpu"`` the entry points raise;
 - every module of the port (the training modules, losses and backward
   kernels' sources included) imports with ``jax`` and the JAX package
@@ -24,6 +25,7 @@ from underwater_image_restoration_tpu.models.spectral_transformer import (
     SpectralTransformer as JaxSpectralTransformer,
 )
 from underwater_image_restoration_tpu.tools.convert_checkpoint import (
+    convert_ast,
     convert_spectral_transformer,
     unflatten,
 )
@@ -86,12 +88,38 @@ def test_infer_subcommand_writes_images(tmp_path):
     assert sorted(os.listdir(out)) == ["0.png", "1.png", "2.png"]
 
 
+def test_infer_subcommand_serves_ast(tmp_path):
+    """``infer -a AST`` builds the full-width AST for ``--size`` and loads
+    the JAX package's flat parameters."""
+    from PIL import Image
+
+    port = init_model("AST", device="cpu", seed=5, img_size=32)
+    weights = tmp_path / "ast.npz"
+    np.savez(weights, **convert_ast(
+        {k: v.numpy() for k, v in port.state_dict().items()}))
+    src = tmp_path / "in"
+    src.mkdir()
+    for i, img in enumerate(synthetic_pair_batch(2, 40, seed=3)[0]):
+        Image.fromarray(img).save(src / f"{i}.png")
+    out = tmp_path / "out"
+    n = evaluate.main(["infer", "--weights", str(weights), "-a", "AST",
+                       "--input", str(src), "--out", str(out), "--size",
+                       "32", "--batch", "2", "--device", "cpu",
+                       "--compute-dtype", "fp32"])
+    assert n == 2
+    assert sorted(os.listdir(out)) == ["0.png", "1.png"]
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(_device.CudaUnavailableError, match="device='cpu'"):
         init_model("SpectralTransformer", **CFG)
+    with pytest.raises(_device.CudaUnavailableError, match="device='cpu'"):
+        init_model("AST", img_size=32, embed_dim=8, win_size=4)
     with pytest.raises(_device.CudaUnavailableError):
         evaluate.load_model("unused.npz", "SpectralTransformer")
+    with pytest.raises(_device.CudaUnavailableError):
+        evaluate.load_model("unused.npz", "AST", img_size=32)
     assert _device.resolve_device("cpu").type == "cpu"
 
 
@@ -116,15 +144,18 @@ def test_port_imports_without_jax():
     pkg = "underwater_image_restoration_torch."
     for mod in ("losses", "losses.primitives", "train", "train.optim",
                 "train.trainer", "tools.profile_train", "ops.fused_gdfn",
-                "ops.fused_mdta"):
+                "ops.fused_mdta", "ops.fused_leff", "ops.window_attention",
+                "ops.windows", "ops.droppath", "models.ast",
+                "models.blocks"):
         assert pkg + mod in names, mod
 
 
 def test_port_files_name_no_jax():
     files = [p for p in PORT.rglob("*") if p.is_file()
              and p.suffix in (".py", ".cu", ".cuh")]
-    assert len(files) >= 24
-    assert {"ln_gdfn_bwd.cu", "ln_mdta_bwd.cu", "grad.cuh"} <= {
+    assert len(files) >= 31
+    assert {"ln_gdfn_bwd.cu", "ln_mdta_bwd.cu", "grad.cuh", "ln_leff.cu",
+            "window_attn.cu", "ast.py", "window_attention.py"} <= {
         p.name for p in files}
     for p in files:
         text = p.read_text()

@@ -5,7 +5,13 @@
   the same input, dy and dtype, at one small and one ragged shape, the error
   over max|reference gradient|;
 - gradients reach every parameter of a small model through the kernels
-  (the autograd Functions), and the dead ones get exact zeros.
+  (the autograd Functions), and the dead ones get exact zeros;
+- the AST's kernels: LN+LeFF on channels-last tokens (with and without the
+  residual, a per-image scale, ragged tiles) and window attention (dense
+  and sparse, masked, N = 64/16/4) vs their plain versions, the window
+  attention's recompute backward vs autograd through the plain version, a
+  window of more than 64 tokens refused, and the LN+LeFF route refusing
+  inputs that need a gradient (it has no backward kernel yet).
 
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 The file imports no JAX, so it also runs where only the port is installed:
@@ -25,7 +31,14 @@ import pytest
 import torch
 
 from underwater_image_restoration_torch.models import init_model
-from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
+from underwater_image_restoration_torch.ops import (
+    fused_gdfn,
+    fused_leff,
+    fused_mdta,
+    window_attention,
+    window_attention_plain,
+)
+from underwater_image_restoration_torch.ops.windows import shift_mask
 
 
 @pytest.fixture
@@ -147,3 +160,124 @@ def test_model_gradients_reach_every_parameter(cuda):
             assert torch.count_nonzero(p.grad[c:]) > 0, name
         else:
             assert torch.count_nonzero(p.grad) > 0, name
+
+
+# the AST's kernels, with chip_smoke.py's limits: error over max|branch|
+AST_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+
+
+def _leff_weights(c, rng):
+    def n(fan_in, *shape):
+        return (rng.standard_normal(shape) / fan_in ** 0.5).astype(np.float32)
+
+    hid = 4 * c
+    return (1 + 0.1 * n(1, c), 0.1 * n(1, c), n(c, c, hid), 0.1 * n(1, hid),
+            n(9, 3, 3, hid), 0.1 * n(1, hid), n(hid, hid, c), 0.1 * n(1, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, residual", [((2, 20, 36, 8), True),
+                                             ((2, 16, 16, 64), False)],
+                         ids=["ragged-C8", "C64-branch"])
+def test_leff_kernel_matches_plain(cuda, dtype, shape, residual):
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x = x.to(cuda, dtype)
+    w = [torch.from_numpy(a).to(cuda) for a in _leff_weights(shape[-1], rng)]
+    s = torch.tensor([1.0, 0.5], device=cuda)
+    got = fused_leff.ln_leff(x, *w, s=s, residual=residual)
+    want = fused_leff.ln_leff_plain(x, *w, s=s, residual=residual)
+    torch.cuda.synchronize()
+    branch = (want.float() - (x.float() if residual else 0)).abs().max()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= AST_TOL[dtype] * branch.item()
+
+
+@pytest.mark.cuda
+def test_leff_refuses_inputs_that_need_gradients(cuda):
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((1, 8, 8, 8)).astype(
+        np.float32)).to(cuda)
+    w = [torch.from_numpy(a).to(cuda) for a in _leff_weights(8, rng)]
+    w[2].requires_grad_()
+    with pytest.raises(RuntimeError, match="row 12"):
+        fused_leff.ln_leff(x, *w)
+    with torch.no_grad():
+        fused_leff.ln_leff(x, *w)
+
+
+def _attn_inputs(cuda, dtype, nw, heads, ws, d, masked, sparse, seed):
+    rng = np.random.default_rng(seed)
+    n = ws * ws
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2 * nw, heads, n, d)).astype(np.float32)).to(cuda, dtype)
+        for _ in range(3))
+    bias = torch.from_numpy(rng.standard_normal((heads, n, n)).astype(
+        np.float32)).to(cuda)
+    side = ws * int(nw ** 0.5)
+    mask = shift_mask(side, side, ws, ws // 2, cuda) if masked else None
+    w = torch.tensor([0.3, -0.4], device=cuda) if sparse else None
+    return q, k, v, bias, w, mask, d ** -0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nw, heads, ws, d, masked, sparse", [
+    (4, 4, 8, 32, True, True), (4, 2, 4, 8, False, True),
+    (1, 16, 2, 8, False, False), (16, 2, 4, 64, True, False)],
+    ids=["N64-masked-sparse", "N16-sparse", "N4-dense", "N16-d64-masked"])
+def test_window_attn_kernel_matches_plain(cuda, dtype, nw, heads, ws, d,
+                                          masked, sparse):
+    q, k, v, bias, w, mask, scale = _attn_inputs(
+        cuda, dtype, nw, heads, ws, d, masked, sparse, 15)
+    got = window_attention(q, k, v, bias, scale=scale, sparse_w=w,
+                           mask=mask)
+    want = window_attention_plain(q, k, v, bias, scale=scale, sparse_w=w,
+                                  mask=mask)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= AST_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_window_attn_backward_matches_plain(cuda):
+    q, k, v, bias, w, mask, scale = _attn_inputs(
+        cuda, torch.float32, 4, 4, 8, 32, True, True, 16)
+    ins = [t.detach().requires_grad_() for t in (q, k, v, bias, w)]
+    g = torch.randn_like(q)
+    got = torch.autograd.grad(window_attention(
+        *ins[:4], scale=scale, sparse_w=ins[4], mask=mask), ins, g)
+    want = torch.autograd.grad(window_attention_plain(
+        *ins[:4], scale=scale, sparse_w=ins[4], mask=mask), ins, g)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_ast_forward_goes_through_the_kernels(cuda):
+    """A small AST on the card: 18 LN+LeFF and 10 window-attention
+    launches (3 masked at 32x32 with window 4: the levels at 8x8 and up),
+    output close to the plain versions' in f32."""
+    model = init_model("AST", device=cuda, seed=3, img_size=32, embed_dim=8,
+                       win_size=4)
+    fused_leff.ln_leff.launches.clear()
+    window_attention.launches.clear()
+    x = torch.rand(2, 3, 32, 32, device=cuda) * 2 - 1
+    with torch.no_grad():
+        got = model(x)
+        want = model(x, use_kernels=False)
+    torch.cuda.synchronize()
+    assert sum(fused_leff.ln_leff.launches.values()) == 18
+    assert sum(window_attention.launches.values()) == 10
+    assert sum(n for k, n in window_attention.launches.items() if k[4]) == 3
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_window_attn_refuses_unsupported_shape(cuda):
+    q, k, v, bias, w, mask, scale = _attn_inputs(
+        cuda, torch.float32, 1, 2, 9, 8, False, True, 17)
+    with pytest.raises(ValueError, match="N <= 64"):
+        window_attention(q, k, v, bias, scale=scale, sparse_w=w)

@@ -93,4 +93,4 @@ def test_reference_state_dict_loads_strict(jax_model):
 
 def test_other_architectures_are_not_ported_yet():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model("AST", device="cpu")
+        init_model("NewModel", device="cpu")

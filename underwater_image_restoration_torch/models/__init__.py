@@ -1,37 +1,44 @@
 """Model registry of the port (counterpart of
-the JAX package's ``models/__init__.py``).  Only
-SpectralTransformer is ported so far."""
+the JAX package's ``models/__init__.py``).  SpectralTransformer and AST are
+ported; the New* models are later slices."""
 from __future__ import annotations
 
 import torch
 
 from .._device import resolve_device
+from .ast import AST
 from .spectral_transformer import SpectralTransformer
 
-_PENDING = ("AST", "NewModel", "NewBigModel", "NewBigFRFNModel")
+_PENDING = ("NewModel", "NewBigModel", "NewBigFRFNModel")
+_FACTORY = {"SpectralTransformer": SpectralTransformer, "AST": AST}
+# archs whose window masks and drop-path schedule derive from img_size;
+# SpectralTransformer is size-agnostic and drops it, as the JAX registry does
+_SIZE_ARCHS = {"AST"}
 
 
 def get_names():
-    return ["SpectralTransformer"]
+    return list(_FACTORY)
 
 
 def init_model(name: str, *, device=None, seed: int = 0,
                compute_dtype: torch.dtype = torch.float32, **kwargs):
-    """Build ``name`` on ``device`` (CUDA unless ``device="cpu"``) with
-    torch-default init drawn from ``torch.Generator().manual_seed(seed)``.
-    ``kwargs`` go to the model (channels, num_blocks, ...)."""
+    """Build ``name`` on ``device`` (CUDA unless ``device="cpu"``) with its
+    reference init drawn from ``torch.Generator().manual_seed(seed)``, in
+    eval mode.  ``kwargs`` go to the model (channels, num_blocks, ... for
+    SpectralTransformer; img_size, embed_dim, win_size, ... for AST)."""
     if name in _PENDING:
         raise NotImplementedError(
-            f"{name} is not ported yet: the AST/New* models and their "
-            "kernels are later slices (ROADMAP.md, queue 1)")
-    if name != "SpectralTransformer":
+            f"{name} is not ported yet: the New* models and their kernels "
+            "are later slices (ROADMAP.md, queue 1)")
+    if name not in _FACTORY:
         raise KeyError(f"Unknown model: {name}")
+    if name not in _SIZE_ARCHS:
+        kwargs.pop("img_size", None)
     dev = resolve_device(device)
-    model = SpectralTransformer(compute_dtype=compute_dtype, device=dev,
-                                **kwargs)
+    model = _FACTORY[name](compute_dtype=compute_dtype, device=dev, **kwargs)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model.reset_parameters(gen)
     return model.eval()
 
 
-__all__ = ["SpectralTransformer", "get_names", "init_model"]
+__all__ = ["AST", "SpectralTransformer", "get_names", "init_model"]

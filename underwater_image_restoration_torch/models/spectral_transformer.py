@@ -19,7 +19,6 @@ import math
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops import (
@@ -35,15 +34,7 @@ from ..ops import (
     safe_angle,
     spectral_tile_upsample,
 )
-
-
-class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose f32 parameters are cast to the input's dtype."""
-
-    def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
-                        self.padding, self.dilation, self.groups)
+from ..ops.layers import Conv2d
 
 
 def _conv(cin, cout, k=1, groups=1, bias=False, device=None):

@@ -1,7 +1,16 @@
-"""Ops of the port: plain PyTorch layers and the two fused SpectralBlock
-halves whose CUDA kernels live in ``csrc/``."""
-from .attention import channel_attention_core
+"""Ops of the port: plain PyTorch layers, and the fused ops whose CUDA
+kernels live in ``csrc/``: the two SpectralBlock halves (LN+MDTA, LN+GDFN),
+the AST's LN+LeFF and its window attention."""
+from .attention import (
+    channel_attention_core,
+    merge_heads,
+    sparse_mix_weights,
+    split_heads,
+    window_attention_core,
+)
+from .droppath import DropPath
 from .fused_gdfn import ln_gdfn, ln_gdfn_plain
+from .fused_leff import ln_leff, ln_leff_plain
 from .fused_mdta import ln_mdta, ln_mdta_plain
 from .layers import (
     LayerNorm,
@@ -10,7 +19,12 @@ from .layers import (
     layer_norm_channels,
     leaky_relu,
 )
-from .resample import pixel_shuffle, pixel_unshuffle
+from .resample import (
+    image_to_tokens,
+    pixel_shuffle,
+    pixel_unshuffle,
+    tokens_to_image,
+)
 from .spectral import (
     fft2,
     ifft2,
@@ -19,24 +33,48 @@ from .spectral import (
     spectral_tile_upsample,
     zero_stuff2x,
 )
+from .window_attention import window_attention, window_attention_plain
+from .windows import (
+    relative_position_index,
+    shift_mask,
+    shift_window_mask,
+    window_partition,
+    window_reverse,
+)
 
 __all__ = [
+    "DropPath",
     "LayerNorm",
     "channel_attention_core",
     "fft2",
     "gelu",
     "ifft2",
+    "image_to_tokens",
     "l2_normalize",
     "layer_norm_channels",
     "leaky_relu",
     "ln_gdfn",
     "ln_gdfn_plain",
+    "ln_leff",
+    "ln_leff_plain",
     "ln_mdta",
     "ln_mdta_plain",
+    "merge_heads",
     "pixel_shuffle",
     "pixel_unshuffle",
+    "relative_position_index",
     "safe_abs",
     "safe_angle",
+    "shift_mask",
+    "shift_window_mask",
+    "sparse_mix_weights",
     "spectral_tile_upsample",
+    "split_heads",
+    "tokens_to_image",
+    "window_attention",
+    "window_attention_core",
+    "window_attention_plain",
+    "window_partition",
+    "window_reverse",
     "zero_stuff2x",
 ]

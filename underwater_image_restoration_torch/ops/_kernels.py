@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
 # C signature of every exported function: (library, symbol) -> argtypes
 SIGNATURES = {
     ("ln_gdfn", "uir_ln_gdfn_fwd"):
@@ -56,6 +57,14 @@ SIGNATURES = {
         # bstats, dtemp, part, grads, B, C, H, W, cph, bf16, TH and TW of
         # the v pass, TH and TW of the q/k pass, groups, eps, stream
         [_P] * 23 + [_I] * 11 + [_F, _P],
+    ("ln_leff", "uir_ln_leff_fwd"):
+        # x, y, scale, bias, w1, b1, taps, bdw, w2, b2, s, B, H, W, C,
+        # hid_pad, chunk, residual, bf16, TH, TW, eps, stream
+        [_P] * 11 + [_I] * 10 + [_F, _P],
+    ("window_attn", "uir_window_attn_fwd"):
+        # q, k, v, out, strides (12 int64, host), bias, mask, w, BQ, H, N,
+        # D, nW, scale, bf16, stream
+        [_P] * 4 + [_LL] + [_P] * 3 + [_I] * 5 + [_F, _I, _P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

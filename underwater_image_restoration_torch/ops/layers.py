@@ -1,5 +1,15 @@
-"""Elementwise and normalization layers (NCHW), counterparts of
-the JAX package's ``ops/layers.py``."""
+"""Convolution, dense, elementwise and normalization layers, counterparts of
+the JAX package's ``ops/layers.py``.
+
+Parameters are f32; each layer computes in its input's dtype (the JAX
+package's ``dtype``), casting the weights to it.  ``Linear`` keeps
+``Dense``'s rounding points: the product is accumulated in f32 (f32 math
+for f32 inputs; for bf16 inputs PyTorch's bf16 matmul accumulates in f32)
+and rounded to the compute dtype once, before the bias is added in that
+dtype.  Channel LayerNorm (``layer_norm_channels``) is over dim 1 of NCHW,
+token LayerNorm (``layer_norm_last``) over the last dim of (B, L, C); both
+keep their statistics and affine in f32.
+"""
 from __future__ import annotations
 
 import torch
@@ -32,6 +42,50 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return layer_norm_channels(x, self.weight, self.bias, self.eps)
+
+
+def layer_norm_last(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm over the last dim (tokens (B, L, C)): statistics and affine
+    in f32, result in ``x.dtype``."""
+    y = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(),
+                     eps)
+    return y.to(x.dtype)
+
+
+class TokenLayerNorm(LayerNorm):
+    """LayerNorm over the last dim, same parameters as ``LayerNorm``."""
+
+    def forward(self, x):
+        return layer_norm_last(x, self.weight, self.bias, self.eps)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose f32 parameters are cast to the input's dtype."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (weight ``(in, out, kh, kw)``, the reference's
+    layout) whose f32 parameters are cast to the input's dtype."""
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    """nn.Linear with ``Dense``'s rounding points: the product rounded to
+    x.dtype, then the bias added in x.dtype."""
+
+    def forward(self, x):
+        y = F.linear(x, self.weight.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 def gelu(x):

@@ -1,11 +1,14 @@
-"""Carry SpectralTransformer weights into the port.
+"""Carry SpectralTransformer and AST weights into the port.
 
-The port's ``state_dict`` uses the reference's names and OIHW layouts, so:
+The port's ``state_dict`` uses the reference's names and layouts (OIHW
+convs, ``(in, out, kh, kw)`` transposed convs, ``(out, in)`` Linears), so:
 
 - ``params_from_jax(flat)`` maps the JAX package's flat ``a/b/c`` parameter
-  paths (HWIO kernels) onto it.  It is the inverse of
-  the JAX package's ``tools/convert_checkpoint.py:81
-  convert_spectral_transformer``.
+  paths (HWIO kernels, ``(in, out)`` Dense kernels) onto it.  It is the
+  inverse of the JAX package's ``tools/convert_checkpoint.py``
+  ``convert_spectral_transformer`` (``:81``) and ``convert_ast`` (``:205``,
+  through ``_blocky_convert:141``), which flips the transposed-conv taps:
+  they are flipped back here.
 - The map is linear (names and transposes), so it carries gradients and
   parameter trajectories too: ``params_from_jax(flatten(jax_grads))`` puts
   the JAX package's gradient tree beside the port's ``.grad`` tensors.
@@ -23,8 +26,10 @@ import numpy as np
 import torch
 
 # parameters the reference creates but never uses in its forward
-# (reference SpectralTransformer.py:89,232,235,251-252)
-_DROP = re.compile(r"^(ups_4\.|ups1\.|ups2\.|output1\.)|(\.q1X1_2\.)")
+# (reference SpectralTransformer.py:89,232,235,251-252), and AST's
+# relative-position index buffers, which the port recomputes
+_DROP = re.compile(r"^(ups_4\.|ups1\.|ups2\.|output1\.)|(\.q1X1_2\.)"
+                   r"|(relative_position_index$)")
 
 _STAGES = {"enc0": "encoders.0", "enc1": "encoders.1", "enc2": "encoders.2",
            "enc3": "encoders.3", "dec0": "decoders.0", "dec1": "decoders.1",
@@ -39,8 +44,53 @@ def _leaf(kind: str, v: np.ndarray):
     return ("weight", _oihw(v)) if kind == "kernel" else ("bias", v)
 
 
+_AST_TOP = re.compile(
+    r"(?:input_proj|output_proj)/proj|dowsample_\d/conv|upsample_\d/deconv")
+_AST_BLOCK = re.compile(
+    r"((?:encoderlayer|decoderlayer)_\d|conv)/block_(\d+)/(.+)")
+# AST block-relative JAX module path -> reference module path
+_AST_MODULES = {"attn/to_q": "attn.qkv.to_q",
+                "attn/to_kv_from_q": "attn.qkv.to_kv",
+                "attn/proj": "attn.proj", "mlp/linear1": "mlp.linear1.0",
+                "mlp/dwconv": "mlp.dwconv.0", "mlp/linear2": "mlp.linear2.0",
+                "mlp/fc1": "mlp.fc1", "mlp/fc2": "mlp.fc2",
+                "norm1": "norm1", "norm2": "norm2"}
+
+
+def _ast_name(path: str, v: np.ndarray):
+    """AST JAX flat path -> (reference name, array), or None."""
+    mod, leaf = path.rsplit("/", 1)
+    if _AST_TOP.fullmatch(mod):
+        ref = mod.replace("/", ".") + ".0."
+        if leaf == "bias":
+            return ref + "bias", v
+        if mod.endswith("deconv"):
+            # HWIO with flipped taps -> (in, out, kh, kw), taps back in order
+            return ref + "weight", np.ascontiguousarray(
+                np.transpose(v[::-1, ::-1], (2, 3, 0, 1)))
+        return ref + "weight", _oihw(v)
+    m = _AST_BLOCK.fullmatch(path)
+    if not m:
+        return None
+    layer, i, rest = m.groups()
+    pre = f"{layer}.blocks.{i}."
+    if rest in ("attn/relative_position_bias_table", "attn/w"):
+        return pre + rest.replace("/", "."), v
+    mod, leaf = rest.rsplit("/", 1)
+    ref = _AST_MODULES[mod]
+    if leaf == "scale":
+        return f"{pre}{ref}.weight", v
+    if leaf == "bias":
+        return f"{pre}{ref}.bias", v
+    a = _oihw(v) if v.ndim == 4 else np.ascontiguousarray(v.T)
+    return f"{pre}{ref}.weight", a
+
+
 def _name(path: str, v: np.ndarray):
     """JAX flat path -> (reference name, array)."""
+    ast = _ast_name(path, v)
+    if ast is not None:
+        return ast
     m = re.fullmatch(r"(enc\d|dec\d|refinement)_(\d+)/(.+)", path)
     if m:
         stage, i, rest = m.groups()

@@ -1,16 +1,18 @@
 """Where the serving path's time goes on the GPU.
 
-Traces ITERS ``batched_apply`` calls of the full-width SpectralTransformer
-(the serving cell: SIZE x SIZE, batch BATCH, bf16, seeded weights) with
-``torch.profiler`` and prints device time by kernel, grouped into the
-port's own kernels, cuDNN/cuBLAS convolutions, FFTs and the rest, beside the
-wall time of the same calls, so the device's idle share shows.  Needs a
-CUDA GPU:
+Traces ITERS ``batched_apply`` calls of a full-width model (the serving
+cell: SIZE x SIZE, batch BATCH, bf16, seeded weights; SpectralTransformer,
+or AST with ``--arch AST``) with ``torch.profiler`` and prints device time
+by kernel, grouped into the port's own kernels, cuDNN/cuBLAS convolutions
+and matrix products, FFTs and the rest, beside the wall time of the same
+calls, so the device's idle share shows.  Needs a CUDA GPU:
 
-    python -m underwater_image_restoration_torch.tools.profile_serving
+    python -m underwater_image_restoration_torch.tools.profile_serving \
+        [--arch AST]
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -30,13 +32,16 @@ GROUPS = (
     ("ln_gdfn kernel", ("ln_gdfn_fwd_kernel",)),
     ("ln_mdta stats kernel", ("ln_mdta_stats_kernel",)),
     ("ln_mdta apply kernel", ("ln_mdta_apply_kernel",)),
+    ("ln_leff kernel", ("ln_leff_fwd_kernel",)),
+    ("window_attn kernel", ("window_attn_fwd_kernel",)),
     ("ln_gdfn_bwd kernel", ("ln_gdfn_bwd_kernel",)),
     ("ln_mdta_bwd v-pass kernel", ("ln_mdta_bwd_v_kernel",)),
     ("ln_mdta_bwd q/k-pass kernel", ("ln_mdta_bwd_qk_kernel",)),
     ("backward row sums", ("reduce_rows_kernel",)),
     ("fft", ("fft", "FFT", "regular_fft", "vector_fft")),
-    ("conv (cuDNN/cutlass)", ("conv", "Conv", "cudnn", "implicit", "xmma",
-                              "cutlass", "gemm", "nchw", "Nhwc")),
+    ("conv and matmul (cuDNN/cuBLAS)", ("conv", "Conv", "cudnn",
+                                        "implicit", "xmma", "cutlass",
+                                        "gemm", "nchw", "Nhwc")),
     ("optimizer (multi-tensor)", ("multi_tensor", "foreach")),
 )
 
@@ -99,19 +104,23 @@ def profile(fn, iters: int, what: str) -> int:
     return 0
 
 
-def main():
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="SpectralTransformer",
+                   choices=("SpectralTransformer", "AST"))
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     print(card())
-    model = init_model("SpectralTransformer", seed=0,
-                       compute_dtype=torch.bfloat16)
+    model = init_model(args.arch, seed=0, compute_dtype=torch.bfloat16,
+                       img_size=SIZE)
     raw, _ = synthetic_pair_batch(BATCH, SIZE, seed=0)
     apply_b, _ = batched_apply(model, BATCH)
     for _ in range(2):
         apply_b(raw)
     torch.cuda.synchronize()
     return profile(lambda: apply_b(raw), ITERS,
-                   f"batch {BATCH} at {SIZE}x{SIZE} bf16")
+                   f"{args.arch} batch {BATCH} at {SIZE}x{SIZE} bf16")
 
 
 if __name__ == "__main__":
