@@ -2,11 +2,11 @@
 """GPU check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
 against its plain PyTorch version at every shape of its model's 256x256
 path, then serves batches through the full-width SpectralTransformer and
-AST, trains the SpectralTransformer, and checks where the time and the
-launches went.
+AST, trains both, and checks where the time and the launches went.
 
     python3 chip_smoke.py            # needs one CUDA GPU; no arguments
     python3 chip_smoke.py --phase ast    # phases 1 (AST kernels only) and 6
+    python3 chip_smoke.py --phase ast-train    # phases 1 (the same) and 7
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, TF32 off;
@@ -46,7 +46,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    off) and bf16, with limits shown to lie below a quarter of what dropping
    every LeFF (or attention) branch moves, q projections scaled by 8 so the
    attention is far from uniform; (d) images/s and peak memory, kernels vs
-   plain, in turns.
+   plain, in turns;
+7. AST train step (``make_train_step``, L1withColor, Adam lr 3e-4, clip 1.0,
+   DropPath from a seeded generator, bf16, batch 16): (a) ln_leff_bwd vs
+   autograd through the plain version at every AST@256 shape (batch 16) and
+   at edge shapes (ragged tiles, C = 8, a hidden width that is not a
+   multiple of 32, no residual, s with zeros and 1.25), f32 and bf16, every
+   gradient's max abs error over its max|ref|, then median times; (b)
+   launches in one step (18 ln_leff, 18 ln_leff_bwd calls of two launches,
+   10 window_attn of which 5 masked), every gradient finite and non-zero;
+   (c) one step's gradients through the kernels vs the plain versions with
+   the same DropPath draws, f32 and bf16, with limits shown to lie below a
+   quarter of what dropping every LeFF branch moves; (d) three f32 steps'
+   losses, kernels vs plain; (e) two bf16 backward passes bit-equal; (f)
+   images/s and peak memory, kernels vs plain, in turns.
 The last line is the JSON device record; the line before it the kernels'.
 """
 import argparse
@@ -141,6 +154,23 @@ AST_MODEL_TOL = {"float32": 1e-4, "bfloat16": 0.25}
 # leaves the window softmax nearly flat, where a wrong attention kernel
 # would pass; scaled by 8, the scores have std ~1.6
 AST_Q_SCALE = 8.0
+# AST train step, one step's gradients through the kernels vs the plain
+# versions with the same DropPath draws, ||g - g_ref|| / ||g_ref|| over
+# every parameter; each at most a quarter of how far the gradients move
+# without the LeFF branches (0.90 on an H100).  Readings there over two
+# runs: f32 2.3e-7 (18 blocks of f32 sums in another order), bf16 1.0e-3
+# and 1.1e-3 (the kernels and autograd round cotangents at other points).
+AST_TRAIN_GRAD_TOL = {"float32": 3e-4, "bfloat16": 1e-2}
+# ln_leff_bwd edge shapes, checked, not timed: (C, H, W, hidden, residual,
+# s): ragged tiles in both dtypes' tiles, C = 8, hidden 40 (not a multiple
+# of the 32-channel padding), no residual, s with zeros and 1.25
+LEFF_BWD_EDGE = ((8, 20, 36, 40, True, (1.25, 0.0)),
+                 (8, 20, 36, 32, False, (0.0, 1.25)),
+                 (256, 12, 20, 1024, False, (1.25, 0.5)),
+                 (512, 10, 10, 2048, True, None))
+LEFF_GRADS = ("dx", "dscale", "dbias", "dw1", "db1", "dw_dw", "db_dw", "dw2",
+              "db2")
+AST_PARAMS = 19_919_507  # AST@256 at the default kwargs
 HBM_BYTES_PER_S = 3.35e12
 BF16_PEAK_FLOPS = 989e12  # dense tensor-core peak
 REPLACES = {
@@ -156,6 +186,7 @@ REPLACES = {
                     "_tpu/ops/fused_attn_banded.py:707; underwater_image_"
                     "restoration_tpu/ops/fused_attn.py:560"),
     "ln_leff": "underwater_image_restoration_tpu/ops/fused_leff.py:301",
+    "ln_leff_bwd": "underwater_image_restoration_tpu/ops/fused_leff.py:337",
     "window_attn": "underwater_image_restoration_tpu/ops/pallas.py:110",
 }
 GRAD_NAMES = {
@@ -285,6 +316,94 @@ def work_ast(name, shape, batch, itemsize):
     return nbytes, bq * heads * 4 * n * n * d
 
 
+def work_leff_bwd(c, h, batch, itemsize):
+    """(bytes, flops) the LN+LeFF backward needs at least: x and dy read
+    once, dx written once, the f32 weights read and their gradients written
+    once; the multiply-adds of the forward chain it needs (fc1, the taps;
+    fc2's output is not needed) and of the backward's (dg2 = W2 dy, dW2,
+    the transposed taps, dtaps, dW1, dLN): 10 C hid + 54 hid a pixel."""
+    hid, px = 4 * c, batch * h * h
+    wbytes = 2 * 4 * (2 * c * hid + 9 * hid + 2 * hid + 3 * c)
+    return (3 * px * c * itemsize + wbytes,
+            px * (10 * c * hid + 6 * 9 * hid))
+
+
+def grad_dist(g, r):
+    """(||g - r|| / ||r||, max abs / max|r|) over r's parameters."""
+    d = sum(float((g[n].float() - r[n].float()).square().sum()) for n in r)
+    nr = sum(float(r[n].float().square().sum()) for n in r)
+    top = max(float(r[n].abs().max()) for n in r)
+    mx = max(float((g[n].float() - r[n].float()).abs().max()) for n in r)
+    return (d / nr) ** 0.5, mx / top
+
+
+def ast_without(model, branch):
+    """A copy of the AST with every block's LeFF fc2 (or attention output
+    projection) zeroed: what kernels that skipped the branch give."""
+    from underwater_image_restoration_torch.models.blocks import (
+        LeFF,
+        WindowAttentionSparse,
+    )
+
+    m = copy.deepcopy(model)
+    for mod in m.modules():
+        lin = (mod.linear2[0] if branch == "LeFF" and isinstance(mod, LeFF)
+               else mod.proj if branch == "attention"
+               and isinstance(mod, WindowAttentionSparse) else None)
+        if lin is not None:
+            lin.weight.data.zero_()
+            lin.bias.data.zero_()
+    return m
+
+
+def grads_of(model, lossfn, x, y, use_kernels, generator=None):
+    """One backward pass of ``lossfn`` on (x, y): every parameter's gradient,
+    cloned; ``.grad`` cleared before and after.  With a ``generator`` the
+    model runs in training mode, its DropPath drawing from it."""
+    model.zero_grad(set_to_none=True)
+    kw = {} if generator is None else {"generator": generator}
+    was_training = model.training
+    model.train(generator is not None)
+    lossfn(model(x, use_kernels, **kw).float(), y).backward()
+    model.train(was_training)
+    out = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+           if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def train_turns(model, lossfn, raw, ref, generator=None, steps=5):
+    """Train images/s and peak GiB of ``steps`` Adam steps after a warm-up,
+    in turns (kernels, plain, plain, kernels); ``generator()`` gives each
+    turn's DropPath generator.  Returns ({use_kernels: [rate, rate]},
+    {use_kernels: GiB})."""
+    import torch
+
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+    )
+
+    rates, mem = {True: [], False: []}, {}
+    for use in (True, False, False, True):
+        st = make_train_step(
+            model, lossfn, get_optimizer("adam", model.parameters(), LR),
+            use_kernels=use,
+            generator=None if generator is None else generator())
+        st(raw, ref)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(steps):
+            st(raw, ref)
+        torch.cuda.synchronize()
+        rates[use].append(steps * len(raw) / (time.perf_counter() - t))
+        mem[use] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del st
+        torch.cuda.empty_cache()
+    return rates, mem
+
+
 def bound(nbytes, flops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / BF16_PEAK_FLOPS * 1e3
@@ -302,7 +421,6 @@ def ast_phase(card, batch, size):
     )
     from underwater_image_restoration_torch.models import init_model
     from underwater_image_restoration_torch.models.blocks import (
-        LeFF,
         WindowAttentionSparse,
     )
     from underwater_image_restoration_torch.ops import (
@@ -488,27 +606,14 @@ def ast_phase(card, batch, size):
         torch.cuda.synchronize()
         return out
 
-    def without(branch):
-        """The model with every block's LeFF fc2 (or attention output
-        projection) zeroed: what kernels that skipped the branch give."""
-        m = copy.deepcopy(model)
-        for mod in m.modules():
-            lin = (mod.linear2[0] if branch == "LeFF" and isinstance(
-                mod, LeFF) else mod.proj if branch == "attention"
-                and isinstance(mod, WindowAttentionSparse) else None)
-            if lin is not None:
-                lin.weight.data.zero_()
-                lin.bias.data.zero_()
-        return m
-
     refs = {}
     for dt in (f32, bf16):
         tag = str(dt).split(".")[1]
         refs[tag] = ref = outputs(model, dt, False)
         out = y if dt == bf16 else outputs(model, dt, True)
         err = (out - ref).abs().max().item()
-        gone = {b: (outputs(without(b), dt, False) - ref).abs().max().item()
-                for b in ("LeFF", "attention")}
+        gone = {b: (outputs(ast_without(model, b), dt, False) - ref)
+                .abs().max().item() for b in ("LeFF", "attention")}
         tol = AST_MODEL_TOL[tag]
         print(f"(c) AST {tag} kernels vs {tag} plain model: max_abs {err:.3e}"
               f" (max|ref| {ref.abs().max().item():.3f}) tol {tol:.0e}; "
@@ -579,10 +684,258 @@ def ast_phase(card, batch, size):
     return kernels
 
 
+def ast_train_phase(card, batch, size, check_batch):
+    """7. the AST train step; returns ln_leff_bwd's JSON rows."""
+    import torch
+
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.models.blocks import (
+        WindowAttentionSparse,
+    )
+    from underwater_image_restoration_torch.ops import (
+        ln_leff,
+        ln_leff_plain,
+        window_attention,
+    )
+    from underwater_image_restoration_torch.ops.fused_leff import (
+        ln_leff_bwd,
+        ln_leff_bwd_plain,
+    )
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+        normalize_u8,
+    )
+
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    # ---- (a) ln_leff_bwd vs autograd through the plain version
+    def check_bwd(c, h, w, hid, b, seed, s=None, residual=True,
+                  timed=False):
+        """Every gradient of the kernel vs autograd through the plain
+        version on the same x, dy, weights and dtype (f32, then bf16); with
+        ``timed``, bf16 times of the kernel and of the plain autograd
+        backward (s = None: the work does not depend on it)."""
+        g = torch.Generator().manual_seed(seed)
+
+        def n(*shape, fan_in=1):
+            return (torch.randn(shape, generator=g) / fan_in ** 0.5).cuda()
+
+        x, dy32 = n(b, h, w, c), n(b, h, w, c)
+        ws = (1 + 0.1 * n(c), 0.1 * n(c), n(c, hid, fan_in=c),
+              0.1 * n(hid), n(3, 3, hid, fan_in=9), 0.1 * n(hid),
+              n(hid, c, fan_in=hid), 0.1 * n(c))
+        sv = None if s is None else torch.tensor(s).cuda()
+        worst, row = 0.0, {}
+        for dt in (f32, bf16):
+            tag = str(dt).split(".")[1]
+            xin, dy = x.to(dt), dy32.to(dt)
+            got = ln_leff_bwd(xin, dy, *ws, s=sv, residual=residual)
+            ref = ln_leff_bwd_plain(xin, dy, *ws, s=sv, residual=residual)
+            torch.cuda.synchronize()
+            rels = []
+            for gname, a, r in zip(LEFF_GRADS, got, ref):
+                a, r = a.float(), r.float()
+                if a.shape != r.shape or not bool(torch.isfinite(a).all()):
+                    fail(f"ln_leff_bwd {gname} at C={c} {h}x{w} {tag}: "
+                         f"shape {tuple(a.shape)} vs {tuple(r.shape)} or "
+                         "not finite")
+                err = (a - r).abs().max().item()
+                rels.append((err / max(r.abs().max().item(), 1e-30), gname))
+                worst = max(worst, err)
+            rel, gname = max(rels)
+            tol = GRAD_TOL[tag]
+            print(f"ln_leff_bwd C={c} {h}x{w} hidden {hid} batch {b} "
+                  f"residual={residual} s={s} {tag}: max_abs/max|ref| " +
+                  " ".join(f"{nm} {v:.2e}" for v, nm in rels) +
+                  f"; worst {gname} {rel:.3e} tol {tol:.0e} "
+                  f"{'ok' if rel <= tol else 'FAIL'}", flush=True)
+            if rel > tol:
+                fail(f"ln_leff_bwd {gname} disagrees with the plain backward "
+                     f"at C={c} {h}x{w} {tag}")
+            if timed and dt == bf16:
+                ms = median_ms(lambda: ln_leff_bwd(xin, dy, *ws), reps=10,
+                               warmup=2)
+                ins = [t.detach().requires_grad_() for t in (xin, *ws)]
+                y_ref = ln_leff_plain(*ins)
+                pms = median_ms(lambda: torch.autograd.grad(
+                    y_ref, ins, dy, retain_graph=True), reps=5, warmup=1)
+                del y_ref, ins
+                bms, by = bound(*work_leff_bwd(c, h, b, 2))
+                row = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+                print(f"ln_leff_bwd C={c} {h}x{w} bf16 batch {b}: kernel "
+                      f"{ms:.4f} ms, plain autograd {pms:.4f} ms, bound "
+                      f"{bms:.4f} ms ({by}) on {card}", flush=True)
+            del got, ref
+        torch.cuda.empty_cache()
+        row["max_abs_err"] = worst
+        return row
+
+    for i, (c, h, w, hid, residual, s) in enumerate(LEFF_BWD_EDGE):
+        check_bwd(c, h, w, hid, 2, seed=20 + i, s=s, residual=residual)
+    rows = {}
+    for c, h in LEFF_SHAPES:
+        rows[("ln_leff_bwd", c, h, h)] = check_bwd(
+            c, h, h, 4 * c, batch, seed=c + h + 1, timed=True)
+    print(f"phase 7(a) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- (b) launches in one train step of the full-width AST
+    # (b)-(e) run cuDNN's deterministic algorithms, as phase 5
+    torch.backends.cudnn.deterministic = True
+    lossfn = LossFunction("L1withColor")
+    model = init_model("AST", seed=0, img_size=size, compute_dtype=bf16)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, WindowAttentionSparse):
+                m.qkv.to_q.weight.mul_(AST_Q_SCALE)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != AST_PARAMS:
+        fail(f"AST@{size} has {n_params} parameters, not {AST_PARAMS}")
+    raw, ref = synthetic_pair_batch(batch, size, seed=0)
+    step = make_train_step(model, lossfn,
+                           get_optimizer("adam", model.parameters(), LR),
+                           generator=gen(0))
+    step(raw, ref)  # warm-up: cuDNN algorithms, masks
+    torch.cuda.synchronize()
+    counters = {"ln_leff": ln_leff.launches,
+                "ln_leff_bwd": ln_leff_bwd.launches,
+                "window_attn": window_attention.launches}
+    for cnt in counters.values():
+        cnt.clear()
+    out = step(raw, ref)
+    torch.cuda.synchronize()
+    launches = {k: dict(v) for k, v in counters.items()}
+    totals = {k: sum(v.values()) for k, v in launches.items()}
+    n_masked = sum(v for k, v in launches["window_attn"].items() if k[4])
+    print(f"(b) AST {size}x{size} ({n_params} parameters), launches in one "
+          f"train step, batch {batch}: {totals} ({n_masked} window_attn "
+          "masked; ln_leff_bwd 2 a call: tiles, ordered row sum)",
+          flush=True)
+    for (c, h, w), n in sorted(launches["ln_leff_bwd"].items()):
+        print(f"  ln_leff_bwd C={c} {h}x{w}: {n}", flush=True)
+    if (totals["ln_leff"], totals["ln_leff_bwd"], totals["window_attn"],
+            n_masked) != (18, 36, 10, 5):
+        fail("expected 18 ln_leff, 36 ln_leff_bwd (18 calls) and 10 "
+             "window_attn (5 masked) launches in one train step")
+    loss0 = float(out["loss"])
+    print(f"AST train step loss {loss0:.6f} grad_norm "
+          f"{float(out['grad_norm']):.6f}", flush=True)
+    if not math.isfinite(loss0):
+        fail("non-finite AST train loss")
+    for name, p in model.named_parameters():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            fail(f"(b) {name}: gradient missing or not finite")
+        if not bool(p.grad.any()):
+            fail(f"(b) {name}: the gradient is all zero")
+    print("(b) gradients: every parameter's present, finite and non-zero",
+          flush=True)
+
+    # ---- (c) one step's gradients, kernels vs plain, same DropPath draws
+    xc, yc = (normalize_u8(torch.as_tensor(t[:check_batch]).cuda()).permute(
+        0, 3, 1, 2).contiguous() for t in (raw, ref))
+
+    for dt in (f32, bf16):
+        tag = str(dt).split(".")[1]
+        model.compute_dtype = dt
+        g_ref = grads_of(model, lossfn, xc, yc, False, gen(1))
+        rel, mx = grad_dist(grads_of(model, lossfn, xc, yc, True, gen(1)),
+                            g_ref)
+        gone = grad_dist(grads_of(ast_without(model, "LeFF"), lossfn, xc, yc,
+                                  False, gen(1)), g_ref)[0]
+        tol = AST_TRAIN_GRAD_TOL[tag]
+        print(f"(c) AST gradients {tag}, batch {check_batch}, kernels vs "
+              f"plain: ||g - g_ref||/||g_ref|| {rel:.3e} (tol {tol:.0e}), "
+              f"max abs/max|g_ref| {mx:.3e}; without the LeFF branches the "
+              f"plain gradients move {gone:.3e}", flush=True)
+        if not tol <= gone / 4:
+            fail(f"(c) the AST {tag} gradient limit would not see a missing "
+                 "LeFF branch")
+        if not rel <= tol:
+            fail(f"(c) AST {tag} gradients disagree with the plain model")
+        del g_ref
+        torch.cuda.empty_cache()
+
+    # ---- (d) three f32 steps, kernels vs plain
+    model.compute_dtype = f32
+    losses = {}
+    for use in (True, False):
+        m = copy.deepcopy(model)
+        st = make_train_step(m, lossfn, get_optimizer("adam", m.parameters(),
+                                                      LR),
+                             use_kernels=use, generator=gen(2))
+        losses[use] = [float(st(*synthetic_pair_batch(
+            check_batch, size, seed=10 + i))["loss"]) for i in range(3)]
+        del m, st
+        torch.cuda.empty_cache()
+    drift = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                   losses[False]))
+    print(f"(d) AST three f32 steps, batch {check_batch}: losses kernels "
+          f"{losses[True]} plain {losses[False]}, max relative difference "
+          f"{drift:.3e} (tol {TRAIN_LOSS_TOL:.0e})", flush=True)
+    if not drift <= TRAIN_LOSS_TOL:
+        fail("(d) the AST f32 train losses of the kernels and the plain "
+             "versions disagree")
+
+    # ---- (e) two bf16 backward passes, bit-equal
+    model.compute_dtype = bf16
+    xt, yt = (normalize_u8(torch.as_tensor(t).cuda()).permute(
+        0, 3, 1, 2).contiguous() for t in (raw, ref))
+    g1 = grads_of(model, lossfn, xt, yt, True, gen(1))
+    g2 = grads_of(model, lossfn, xt, yt, True, gen(1))
+    torch.backends.cudnn.deterministic = False
+    differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+    print(f"(e) AST two bf16 backward passes, batch {batch}: "
+          f"{len(g1) - len(differ)} of {len(g1)} gradients bit-equal",
+          flush=True)
+    if differ or len(g1) != len(list(model.parameters())):
+        fail(f"(e) gradients missing or differing between two passes: "
+             f"{differ[:5]}")
+    del g1, g2, xt, yt
+    torch.cuda.empty_cache()
+
+    # ---- (f) train images/s and peak memory, in turns
+    rates, mem = train_turns(model, lossfn, raw, ref, lambda: gen(3))
+    print(f"(f) train step AST {size}x{size} bf16 batch {batch}: "
+          f"{sum(rates[True]) / 2:.2f} images/s with the kernels "
+          f"{rates[True]}, {sum(rates[False]) / 2:.2f} with the plain "
+          f"versions {rates[False]}; peak memory {mem[True]:.2f} GiB and "
+          f"{mem[False]:.2f} GiB; on {card}", flush=True)
+    print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    kernels = []
+    for key, row in rows.items():
+        n = launches["ln_leff_bwd"].get(key[1:], 0)
+        if n == 0:
+            fail(f"{key} was not launched on the AST train path")
+        kernels.append({
+            "name": f"ln_leff_bwd[C={key[1]},{key[2]}x{key[3]}]",
+            "route": "cuda",
+            "source": "underwater_image_restoration_torch/csrc/ln_leff_bwd.cu",
+            "replaces": REPLACES["ln_leff_bwd"],
+            "launches": n,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
+    return kernels
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "ast"), default="all",
-                    help="'ast': the setup and the AST phase alone")
+    ap.add_argument("--phase", choices=("all", "ast", "ast-train"),
+                    default="all",
+                    help="'ast' ('ast-train'): the setup and the AST serving "
+                         "(training) phase alone")
     args = ap.parse_args(argv)
     import torch
 
@@ -642,7 +995,8 @@ def main(argv=None):
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     built = _kernels.build_all(
-        ["ln_leff", "window_attn"] if args.phase == "ast" else None)
+        None if args.phase == "all" else ["ln_leff", "ln_leff_bwd",
+                                          "window_attn"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
@@ -654,6 +1008,9 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     if args.phase == "ast":
         kernels = ast_phase(card, SERVE_BATCH, SIZE)
+        return record(torch, kernels, t_start)
+    if args.phase == "ast-train":
+        kernels = ast_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
         return record(torch, kernels, t_start)
 
     # ---- 2. kernels vs plain versions
@@ -952,32 +1309,15 @@ def main(argv=None):
     yc = normalize_u8(torch.as_tensor(ref[:CHECK_BATCH]).cuda()).permute(
         0, 3, 1, 2).contiguous()
 
-    def grads_of(m, use_kernels, x=xc, y=yc):
-        m.zero_grad(set_to_none=True)
-        lossfn(m(x, use_kernels).float(), y).backward()
-        out = {n: p.grad.detach().clone() for n, p in m.named_parameters()
-               if p.grad is not None}
-        m.zero_grad(set_to_none=True)
-        return out
-
-    def grad_dist(g, r):
-        """(||g - r|| / ||r||, max abs / max|r|) over r's parameters."""
-        d = sum(float((g[n].float() - r[n].float()).square().sum())
-                for n in r)
-        nr = sum(float(r[n].float().square().sum()) for n in r)
-        top = max(float(r[n].abs().max()) for n in r)
-        mx = max(float((g[n].float() - r[n].float()).abs().max())
-                 for n in r)
-        return (d / nr) ** 0.5, mx / top
-
     for dt in (torch.float32, torch.bfloat16):
         tag = str(dt).split(".")[1]
         model.compute_dtype = dt
-        g_ref = grads_of(model, False)
-        rel, mx = grad_dist(grads_of(model, True), g_ref)
+        g_ref = grads_of(model, lossfn, xc, yc, False)
+        rel, mx = grad_dist(grads_of(model, lossfn, xc, yc, True), g_ref)
         gone = {}
         for b in ("MDTA", "GDFN"):
-            gone[b] = grad_dist(grads_of(without(b), False), g_ref)[0]
+            gone[b] = grad_dist(grads_of(without(b), lossfn, xc, yc, False),
+                                g_ref)[0]
         tol = TRAIN_GRAD_TOL[tag]
         print(f"(c) gradients {tag}, batch {CHECK_BATCH}, kernels vs plain: "
               f"||g - g_ref||/||g_ref|| {rel:.3e} (tol {tol:.0e}), max abs/"
@@ -1015,8 +1355,8 @@ def main(argv=None):
     model.compute_dtype = torch.bfloat16
     xt =normalize_u8(torch.as_tensor(raw).cuda()).permute(0, 3, 1, 2)
     yt = normalize_u8(torch.as_tensor(ref).cuda()).permute(0, 3, 1, 2)
-    g1 = grads_of(model, True, xt.contiguous(), yt.contiguous())
-    g2 = grads_of(model, True, xt.contiguous(), yt.contiguous())
+    g1 = grads_of(model, lossfn, xt.contiguous(), yt.contiguous(), True)
+    g2 = grads_of(model, lossfn, xt.contiguous(), yt.contiguous(), True)
     torch.backends.cudnn.deterministic = False
     differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
     print(f"(e) two bf16 backward passes, batch {TRAIN_BATCH}: "
@@ -1027,25 +1367,7 @@ def main(argv=None):
     del g1, g2, xt, yt
     torch.cuda.empty_cache()
 
-    def train_rate(use_kernels, steps=5):
-        st = make_train_step(model, lossfn, get_optimizer(
-            "adam", model.parameters(), LR), use_kernels=use_kernels)
-        st(raw, ref)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        for _ in range(steps):
-            st(raw, ref)
-        torch.cuda.synchronize()
-        rate = steps * TRAIN_BATCH / (time.perf_counter() - t)
-        return rate, torch.cuda.max_memory_allocated() / 2 ** 30
-
-    rates = {True: [], False: []}
-    mem = {}
-    for use in (True, False, False, True):
-        r, mem[use] = train_rate(use)
-        rates[use].append(r)
-        torch.cuda.empty_cache()
+    rates, mem = train_turns(model, lossfn, raw, ref)
     print(f"(f) train step SpectralTransformer {SIZE}x{SIZE} bf16 batch "
           f"{TRAIN_BATCH}: {sum(rates[True]) / 2:.2f} images/s with the "
           f"kernels {rates[True]}, {sum(rates[False]) / 2:.2f} with the plain "
@@ -1077,6 +1399,7 @@ def main(argv=None):
     print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
     kernels += ast_phase(card, SERVE_BATCH, SIZE)
+    kernels += ast_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     return record(torch, kernels, t_start)
 
 

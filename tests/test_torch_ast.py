@@ -13,7 +13,13 @@ port's ``state_dict`` through ``tools/convert_checkpoint.py convert_ast``.
 - every LN+LeFF call gets contiguous channels-last tokens (the CUDA
   kernel's layout);
 - the ``token_mlp="mlp"`` block matches the JAX ``Mlp``;
-- training-only and unported options raise.
+- every parameter's gradient of an ``L1withColor`` loss, in training mode
+  at ``drop_path_rate=0`` (the JAX rng stream cannot be reproduced), against
+  ``jax.grad`` of the JAX AST at img_size 32 / win_size 4 with one block a
+  level (two at the bottleneck and the last decoder level, which then has
+  a shifted, masked block), batch 2, mapped through ``params_from_jax``;
+- unported options raise, and training at a non-zero rate needs a DropPath
+  generator: with one, it runs and returns gradients.
 
 The weights are redrawn so every branch is O(1) and the attention far from
 uniform (the reference init, trunc_normal(0.02) Linears and bias tables,
@@ -21,7 +27,9 @@ leaves both branches small and the softmax nearly flat): Linears
 N(0, 1/fan_in) with biases of std 0.1, bias tables of std 1, mix weights
 (0.3, -0.4); the output then reaches |y| ~ 20-50.  Tolerance 3e-5 x
 max(1, max|ref|): f32 sums in another order through 18 blocks (readings
-4e-6 and 1e-5 of max|ref|).
+4e-6 and 1e-5 of max|ref|).  Gradients: 1e-4 of the largest gradient,
+as ``tests/test_torch_train.py`` (f32 sums in another order through the
+forward and the backward of 11 blocks).
 """
 import jax
 import jax.numpy as jnp
@@ -29,12 +37,16 @@ import numpy as np
 import pytest
 import torch
 
+from underwater_image_restoration_tpu.losses import (
+    LossFunction as JaxLossFunction,
+)
 from underwater_image_restoration_tpu.models.ast import AST as JaxAST
 from underwater_image_restoration_tpu.models.blocks import Mlp as JaxMlp
 from underwater_image_restoration_tpu.tools.convert_checkpoint import (
     convert_ast,
     convert_state_dict,
 )
+from underwater_image_restoration_torch.losses import LossFunction
 from underwater_image_restoration_torch.models import init_model
 from underwater_image_restoration_torch.models.blocks import (
     Mlp,
@@ -167,12 +179,43 @@ def test_mlp_token_mixer_matches_jax():
                                rtol=0)
 
 
+def test_gradients_match_jax():
+    cfg = dict(CONFIGS["32-win4"], depths=(1, 1, 1, 1, 2, 1, 1, 1, 2),
+               drop_path_rate=0.0)
+    port = _port(cfg, seed=6).train()
+    sd = {k: v.numpy() for k, v in port.state_dict().items()}
+    params = jax.tree.map(jnp.asarray, convert_state_dict("AST", sd))
+    rng = np.random.default_rng(9)
+    x, y = (rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+            for _ in range(2))
+    jloss = JaxLossFunction("L1withColor")
+    want = jax.jit(jax.grad(lambda p: jloss(
+        JaxAST(**cfg).apply(p, jnp.asarray(x)), jnp.asarray(y))))(params)
+    want = params_from_jax(flatten(want["params"]))
+    loss = LossFunction("L1withColor")(
+        port(torch.from_numpy(x).permute(0, 3, 1, 2)),
+        torch.from_numpy(y).permute(0, 3, 1, 2))
+    loss.backward()
+    named = dict(port.named_parameters())
+    assert sorted(named) == sorted(want)
+    top = max(float(g.abs().max()) for g in want.values())
+    for name, g in want.items():
+        assert named[name].grad is not None, name
+        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(),
+                                   atol=1e-4 * top, rtol=0, err_msg=name)
+
+
 def test_training_and_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_model("AST", device="cpu", token_mlp="frfn",
                    **CONFIGS["32-win4"])
     model = init_model("AST", device="cpu", **CONFIGS["32-win4"]).train()
-    with pytest.raises(NotImplementedError, match="row 12"):
+    with pytest.raises(ValueError, match="generator"):
         model(torch.zeros(1, 3, 32, 32))
+    gen = torch.Generator().manual_seed(0)
+    model(torch.rand(2, 3, 32, 32) * 2 - 1,
+          generator=gen).square().mean().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
     with pytest.raises(ValueError, match="32x32"):
         model.eval()(torch.zeros(1, 3, 16, 16))

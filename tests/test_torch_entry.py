@@ -155,7 +155,8 @@ def test_port_files_name_no_jax():
              and p.suffix in (".py", ".cu", ".cuh")]
     assert len(files) >= 31
     assert {"ln_gdfn_bwd.cu", "ln_mdta_bwd.cu", "grad.cuh", "ln_leff.cu",
-            "window_attn.cu", "ast.py", "window_attention.py"} <= {
+            "ln_leff_bwd.cu", "window_attn.cu", "ast.py",
+            "window_attention.py"} <= {
         p.name for p in files}
     for p in files:
         text = p.read_text()

@@ -12,16 +12,33 @@ CPU.
   operands ``kernel_weights`` lays out: pixel tiles with a one-pixel halo,
   hidden chunks of HIDDEN_CHUNK (the width 48 zero-padded to 64) whose fc2
   terms add into f32 accumulators, ragged edge tiles;
-- the CPU route takes the plain version and counts no launch.
+- the CPU route takes the plain version and counts no launch;
+- ``ln_leff_bwd_plain`` (autograd through the plain version) vs ``jax.vjp``
+  of the TPU kernel's VJP (row 12, ``fused_leff.py:337 _bwd_call``) in
+  interpret mode at (2, 8, 16, 128), with and without the residual and with
+  s = [0, 1.25]: every gradient, and the TPU VJP's zero ds;
+- the CUDA backward kernel's algorithm (csrc/ln_leff_bwd.cu) written in
+  torch over the operands ``kernel_weights`` lays out: pixel tiles with
+  2- and 1-pixel halos, hidden chunks of BWD_CHUNK, each tile's
+  weight-gradient shares added into its block's row and the rows summed in
+  order, ragged edge tiles, the TPU kernel's rounding points; against the
+  plain backward in f32 and bf16;
+- the backward's tile and shared-memory choice and its weight-gradient
+  rows; its wrapper refuses a CPU tensor.
 
 Weights keep unit variance through fc1, the taps and fc2, with non-zero
 biases, so the branch is O(1).  Tolerances, over max(1, max|ref|): f32
 3e-5 (f32 sums in another order, XLA's erf rational against torch's erf);
 bf16 1.6e-2 of max|ref|, two bf16 ulps (both round at the same points; a
 sum on the other side of a rounding boundary moves the branch one ulp,
-which the scale 1.25 and its rounding can make two).
+which the scale 1.25 and its rounding can make two).  Gradients: each over
+its own max|ref|, f32 3e-5 (weight gradients sum over 4096 pixels in
+another order); the kernel algorithm in bf16 2e-2, the card's limit
+(``chip_smoke.py`` phase 7(a)): it rounds at the TPU kernel's points and
+autograd through the plain version at others (dg2, dt2, dLN and the weight
+gradients), a bf16 ulp apart.
 """
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -194,3 +211,191 @@ def test_cpu_tensor_takes_plain_version():
     assert torch.equal(got, fused_leff.ln_leff_plain(x, *ws))
     assert got.requires_grad  # the plain version carries gradients
     assert sum(fused_leff.ln_leff.launches.values()) == before
+
+
+GRAD_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+
+
+def _grads_close(got, want, dtype):
+    assert len(got) == len(want)
+    for i, (g, r) in enumerate(zip(got, want)):
+        g, r = np.asarray(g, np.float32), np.asarray(r, np.float32)
+        assert g.shape == r.shape, i
+        top = float(np.abs(r).max())
+        assert top > 0, i
+        np.testing.assert_allclose(g, r, atol=GRAD_TOL[dtype] * top, rtol=0,
+                                   err_msg=f"gradient {i}")
+
+
+@pytest.mark.parametrize("s, residual", [((0.0, 1.25), False),
+                                         ((0.0, 1.25), True),
+                                         (None, True)],
+                         ids=["scaled-branch", "scaled-residual",
+                              "residual"])
+def test_plain_backward_matches_pallas_vjp(s, residual):
+    b, c, h, w = 2, 8, 16, 128
+    x = _x((b, h, w, c), 11)
+    dy = _x((b, h, w, c), 12)
+    ws = _weights(c, 4 * c, 13)
+    sv = np.ones(b, np.float32) if s is None else np.array(s, np.float32)
+
+    def f(xc, *args):
+        return jax_fused_leff.fused_ln_leff(xc, *args, interpret=True,
+                                            residual=residual)
+
+    _, vjp = jax.vjp(f, jnp.asarray(x.transpose(0, 3, 1, 2)),
+                     *(jnp.asarray(a) for a in ws), jnp.asarray(sv))
+    want = vjp(jnp.asarray(dy.transpose(0, 3, 1, 2)))
+    assert not np.asarray(want[-1]).any()  # the TPU VJP gives s no gradient
+    want = [np.asarray(want[0]).transpose(0, 2, 3, 1)] + [
+        np.asarray(g) for g in want[1:-1]]
+    got = fused_leff.ln_leff_bwd_plain(
+        torch.from_numpy(x), torch.from_numpy(dy),
+        *(torch.from_numpy(a) for a in ws),
+        s=None if s is None else torch.from_numpy(sv), residual=residual)
+    _grads_close([g.numpy() for g in got], want, torch.float32)
+
+
+def _gelu_grad(t):
+    return (0.5 * (1 + torch.erf(t * 0.5 ** 0.5))
+            + t * torch.exp(-0.5 * t * t) / (2 * np.pi) ** 0.5)
+
+
+def _backward_algorithm(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
+                        residual, th, tw, groups, eps=1e-5):
+    """csrc/ln_leff_bwd.cu in torch: tile t adds its shares into row
+    t % groups (the kernel's blocks walk over tiles blockIdx.x, + grid,
+    ...), and the rows are summed in order."""
+    dt = x.dtype
+    b, h, w, c = x.shape
+    hid = w1.shape[1]
+    w1k, b1k, taps, bdwk, w2k, _, hp = fused_leff.kernel_weights(
+        w1, b1, w_dw, b_dw, w2, b2, dt)
+    w1k, w2k = w1k.float(), w2k.float()
+    g = fused_leff.BWD_CHUNK
+    assert hp % g == 0
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    xf = x.float()
+    ln = rnd(layer_norm_last(x, scale, bias, eps))
+    sb = torch.ones(b) if s is None else s.float()
+    dyk = rnd(dy.float() * sb.view(-1, 1, 1, 1))
+    ones = torch.ones(b, h, w, 1)
+    lnp, in4 = (F.pad(t, (0, 0, 2, tw + 2, 2, th + 2)) for t in (ln, ones))
+    dyp, in2 = (F.pad(t, (0, 0, 1, tw + 1, 1, th + 1)) for t in (dyk, ones))
+    rows = torch.zeros(groups, fused_leff.bwd_row_size(c, hp))
+    dx = torch.empty_like(x)
+    tiles = [(i, r0, c0) for i in range(b) for r0 in range(0, h, th)
+             for c0 in range(0, w, tw)]
+    for n, (i, r0, c0) in enumerate(tiles):
+        row = rows[n % groups]
+        d_w1, d_b1, d_taps, d_bdw, d_w2, d_b2, d_sc, d_bi = row.split(
+            (c * hp, hp, 9 * hp, hp, hp * c, c, c, c))
+        d_w1, d_taps, d_w2 = (d_w1.view(c, hp), d_taps.view(hp, 9),
+                              d_w2.view(hp, c))
+        patch = lnp[i, r0:r0 + th + 4, c0:c0 + tw + 4]
+        m4 = in4[i, r0:r0 + th + 4, c0:c0 + tw + 4]
+        dyq = dyp[i, r0:r0 + th + 2, c0:c0 + tw + 2]
+        m2 = in2[i, r0:r0 + th + 2, c0:c0 + tw + 2]
+        mt = m4[2:2 + th, 2:2 + tw]
+        d_b2 += dyq[1:1 + th, 1:1 + tw].sum((0, 1))
+        acc = torch.zeros(th, tw, c)
+        for j0 in range(0, hp, g):
+            j = slice(j0, j0 + g)
+            t1 = rnd(rnd(patch @ w1k[:, j]) + b1k[j])
+            g1 = rnd(F.gelu(t1)) * m4
+            gp = _gelu_grad(t1)[2:2 + th, 2:2 + tw]
+            dg2 = (dyq @ w2k[j].t()) * m2
+            t2 = sum(taps[k, j] * g1[k // 3:k // 3 + th + 2,
+                                     k % 3:k % 3 + tw + 2] for k in range(9))
+            t2 = rnd(rnd(t2) + bdwk[j])
+            dt2 = dg2 * _gelu_grad(t2) * m2
+            g2 = rnd(F.gelu(t2))[1:1 + th, 1:1 + tw] * m2[1:1 + th, 1:1 + tw]
+            dg1 = sum(taps[k, j] * rnd(dt2)[2 - k // 3:2 - k // 3 + th,
+                                            2 - k % 3:2 - k % 3 + tw]
+                      for k in range(9))
+            dt1 = dg1 * gp * mt
+            d_b1[j] += dt1.sum((0, 1))
+            d_bdw[j] += dt2[1:1 + th, 1:1 + tw].sum((0, 1))
+            d1 = rnd(dt1)
+            for k in range(9):
+                d_taps[j, k] += (dt2[1:1 + th, 1:1 + tw] * g1[
+                    1 + k // 3:1 + k // 3 + th,
+                    1 + k % 3:1 + k % 3 + tw]).sum((0, 1))
+            d_w1[:, j] += patch[2:2 + th, 2:2 + tw].reshape(-1, c).t() @ \
+                d1.reshape(-1, g)
+            d_w2[j] += g2.reshape(-1, g).t() @ \
+                dyq[1:1 + th, 1:1 + tw].reshape(-1, c)
+            acc += d1 @ w1k[:, j].t()
+        # the LayerNorm backward of the tile's in-image pixels
+        xt = xf[i, r0:r0 + th, c0:c0 + tw]
+        dl = acc[:xt.shape[0], :xt.shape[1]]
+        mean = xt.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((xt - mean).square().mean(-1, keepdim=True) + eps)
+        xh = (xt - mean) * rstd
+        gs = dl * scale.float()
+        dxl = rnd(rstd * (gs - gs.mean(-1, keepdim=True)
+                          - xh * (gs * xh).mean(-1, keepdim=True)))
+        dyt = dy[i, r0:r0 + th, c0:c0 + tw].float()
+        dx[i, r0:r0 + th, c0:c0 + tw] = (dyt + dxl if residual else
+                                         dxl).to(dt)
+        d_sc += (dl * xh).sum((0, 1))
+        d_bi += dl.sum((0, 1))
+    grads = rows.sum(0)
+    d_w1, d_b1, d_taps, d_bdw, d_w2, d_b2, d_sc, d_bi = grads.split(
+        (c * hp, hp, 9 * hp, hp, hp * c, c, c, c))
+    return (dx, d_sc, d_bi, d_w1.view(c, hp)[:, :hid], d_b1[:hid],
+            d_taps.view(hp, 9)[:hid].t().reshape(3, 3, hid), d_bdw[:hid],
+            d_w2.view(hp, c)[:hid], d_b2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("residual", [True, False])
+def test_backward_kernel_algorithm_matches_plain(dtype, residual):
+    """Ragged 4 x 8 tiles on 10 x 12, hidden width 48 (padded to 64, four
+    chunks), 12 tiles over 5 rows, s with a zero."""
+    b, h, w, c, hid = 2, 10, 12, 8, 48
+    x = torch.from_numpy(_x((b, h, w, c), 14)).to(dtype)
+    dy = torch.from_numpy(_x((b, h, w, c), 15)).to(dtype)
+    ws = [torch.from_numpy(a) for a in _weights(c, hid, 16)]
+    s = torch.tensor([1.25, 0.0]) if residual else torch.tensor([0.5, 1.25])
+    got = _backward_algorithm(x, dy, *ws, s, residual, 4, 8, 5)
+    want = fused_leff.ln_leff_bwd_plain(x, dy, *ws, s=s, residual=residual)
+    assert got[0].dtype == dtype
+    _grads_close([t.float().numpy() for t in got],
+                 [t.float().numpy() for t in want], dtype)
+
+
+def test_backward_tiles_and_rows():
+    """Every AST width gets a backward tile whose shared memory fits a
+    block, in both dtypes; the weight-gradient rows of a launch stay within
+    PART_BYTES, and rows are multiples of 8 floats (the kernel zeroes them
+    as float4 and loads eight-value pieces)."""
+    want = {2: [(8, 8), (8, 8), (8, 8), (4, 8), (4, 4)],
+            4: [(8, 8), (8, 8), (8, 8), (4, 4), (2, 2)]}
+    for itemsize, tiles in want.items():
+        got = [fused_leff.bwd_tile_shape(c, itemsize)
+               for c in (32, 64, 128, 256, 512)]
+        assert got == tiles
+        for c, (th, tw) in zip((32, 64, 128, 256, 512), got):
+            assert 32 % tw == 0
+            assert fused_leff.bwd_shared_bytes(c, th, tw, itemsize) <= \
+                fused_leff.MAX_SHARED
+    assert fused_leff.HIDDEN_CHUNK % fused_leff.BWD_CHUNK == 0
+    e = fused_leff.bwd_row_size(512, 2048)
+    assert e % 8 == 0 and fused_leff.bwd_row_size(8, 32) % 8 == 0
+    assert fused_leff.PART_BYTES // (4 * e) == 126
+
+
+def test_backward_kernel_refuses_cpu_tensor():
+    """The backward's wrapper launches the CUDA kernel only; on the CPU,
+    autograd differentiates ``ln_leff_plain`` and never reaches it."""
+    x = torch.from_numpy(_x((1, 8, 8, 8), 17))
+    ws = [torch.from_numpy(a) for a in _weights(8, 32, 18)]
+    before = sum(fused_leff.ln_leff_bwd.launches.values())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_leff.ln_leff_bwd(x, torch.ones_like(x), *ws)
+    assert sum(fused_leff.ln_leff_bwd.launches.values()) == before

@@ -10,8 +10,12 @@
   residual, a per-image scale, ragged tiles) and window attention (dense
   and sparse, masked, N = 64/16/4) vs their plain versions, the window
   attention's recompute backward vs autograd through the plain version, a
-  window of more than 64 tokens refused, and the LN+LeFF route refusing
-  inputs that need a gradient (it has no backward kernel yet).
+  window of more than 64 tokens refused;
+- the LN+LeFF backward kernel vs autograd through the plain version (f32
+  and bf16, with and without the residual, s with a zero, ragged tiles, a
+  hidden width that is not a multiple of 32), the LN+LeFF result carrying a
+  ``grad_fn`` whose gradients reach every LeFF parameter, and a small AST's
+  train-mode backward reaching every parameter through the kernels.
 
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 The file imports no JAX, so it also runs where only the port is installed:
@@ -196,15 +200,63 @@ def test_leff_kernel_matches_plain(cuda, dtype, shape, residual):
 
 @pytest.mark.cuda
 def test_leff_refuses_inputs_that_need_gradients(cuda):
+    """Once the LN+LeFF route refused inputs that need a gradient (it had no
+    backward kernel); now its CUDA result carries a ``grad_fn`` (LnLeffFn),
+    and ``.grad`` reaches the LayerNorm's and every LeFF parameter through
+    the views ``LeFF.operands()`` passes, close to the plain version's."""
+    from underwater_image_restoration_torch.models.blocks import LeFF
+    from underwater_image_restoration_torch.ops.layers import TokenLayerNorm
+
     rng = np.random.default_rng(14)
-    x = torch.from_numpy(rng.standard_normal((1, 8, 8, 8)).astype(
+    x = torch.from_numpy(rng.standard_normal((2, 8, 8, 16)).astype(
         np.float32)).to(cuda)
-    w = [torch.from_numpy(a).to(cuda) for a in _leff_weights(8, rng)]
-    w[2].requires_grad_()
-    with pytest.raises(RuntimeError, match="row 12"):
-        fused_leff.ln_leff(x, *w)
-    with torch.no_grad():
-        fused_leff.ln_leff(x, *w)
+    grads = {}
+    for route in (fused_leff.ln_leff, fused_leff.ln_leff_plain):
+        torch.manual_seed(0)
+        norm, leff = TokenLayerNorm(16, device=cuda), LeFF(16, 64, device=cuda)
+        y = route(x, norm.weight, norm.bias, *leff.operands())
+        assert y.grad_fn is not None
+        y.square().sum().backward()
+        grads[route] = {n: p.grad for m in (norm, leff)
+                        for n, p in m.named_parameters()}
+    torch.cuda.synchronize()
+    got, want = grads[fused_leff.ln_leff], grads[fused_leff.ln_leff_plain]
+    assert len(got) == 8
+    for name, g in got.items():
+        assert g is not None and torch.isfinite(g).all(), name
+        assert torch.count_nonzero(g) > 0, name
+        err = (g - want[name]).abs().max().item()
+        assert err <= BWD_TOL[torch.float32] * want[name].abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, hid, residual", [
+    ((2, 20, 36, 8), 40, True), ((2, 20, 36, 8), 32, False),
+    ((2, 12, 12, 64), 256, True)],
+    ids=["ragged-C8-hid40", "ragged-C8-branch", "C64"])
+def test_leff_backward_kernel_matches_plain(cuda, dtype, shape, hid,
+                                            residual):
+    rng = np.random.default_rng(19)
+    c = shape[-1]
+
+    def n(fan_in, *sh):
+        return torch.from_numpy((rng.standard_normal(sh) / fan_in ** 0.5)
+                                .astype(np.float32)).to(cuda)
+
+    x, dy = n(1, *shape).to(dtype), n(1, *shape).to(dtype)
+    w = [1 + 0.1 * n(1, c), 0.1 * n(1, c), n(c, c, hid), 0.1 * n(1, hid),
+         n(9, 3, 3, hid), 0.1 * n(1, hid), n(hid, hid, c), 0.1 * n(1, c)]
+    s = torch.tensor([1.25, 0.0], device=cuda)
+    got = fused_leff.ln_leff_bwd(x, dy, *w, s=s, residual=residual)
+    want = fused_leff.ln_leff_bwd_plain(x, dy, *w, s=s, residual=residual)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 9
+    for i, (g, r) in enumerate(zip(got, want)):
+        assert g.shape == r.shape and torch.isfinite(g).all(), i
+        scale = r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * scale, (i, err, scale)
 
 
 def _attn_inputs(cuda, dtype, nw, heads, ws, d, masked, sparse, seed):
@@ -273,6 +325,28 @@ def test_ast_forward_goes_through_the_kernels(cuda):
     assert sum(window_attention.launches.values()) == 10
     assert sum(n for k, n in window_attention.launches.items() if k[4]) == 3
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_ast_gradients_reach_every_parameter(cuda):
+    """A small AST's train-mode backward on the card (DropPath at rate 0, so
+    every branch counts): 18 LN+LeFF forward and 18 backward calls (two
+    launches each), 10 window attentions, every parameter's gradient finite
+    and non-zero."""
+    model = init_model("AST", device=cuda, seed=4, img_size=32, embed_dim=8,
+                       win_size=4, drop_path_rate=0.0).train()
+    fused_leff.ln_leff.launches.clear()
+    fused_leff.ln_leff_bwd.launches.clear()
+    window_attention.launches.clear()
+    x = torch.rand(2, 3, 32, 32, device=cuda) * 2 - 1
+    model(x).square().mean().backward()
+    torch.cuda.synchronize()
+    assert sum(fused_leff.ln_leff.launches.values()) == 18
+    assert sum(fused_leff.ln_leff_bwd.launches.values()) == 2 * 18
+    assert sum(window_attention.launches.values()) == 10
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert torch.count_nonzero(p.grad) > 0, name
 
 
 @pytest.mark.cuda

@@ -13,7 +13,13 @@ batches; the JAX model runs its unfused NHWC path.
   (SGD is linear in the gradient; Adam's first steps are lr * sign(g),
   where roundoff flips a few elements);
 - ``grad_accum=2`` against ``grad_accum=1`` in the port, the refusal of the
-  Adaptive loss, and zero (not None) gradients for the dead parameters.
+  Adaptive loss, and zero (not None) gradients for the dead parameters;
+- the AST (32x32, window 4, the default drop-path rate 0.1) through
+  ``make_train_step`` with a DropPath generator: finite loss and grad_norm,
+  the same steps from the same seed, other draws from another, and
+  ``grad_accum=2`` drawing per microbatch (the JAX rng stream cannot be
+  reproduced; the AST's gradients are held against JAX at rate 0 in
+  ``tests/test_torch_ast.py``).
 
 Tolerances: 1e-4 x max(1, max|ref|) as the forward test (FFT roundoff
 between torch.fft and jnp.fft), relative to the largest gradient for
@@ -188,3 +194,28 @@ def test_dead_parameters_get_zero_gradients(setup):
         elif ".kv." in name or ".kv_conv." in name:
             c = g.shape[0] // 2
             assert not g[:c].any() and g[c:].any(), name
+
+
+def _ast_steps(seed, grad_accum=1):
+    model = init_model("AST", device="cpu", seed=1, img_size=32, embed_dim=8,
+                       win_size=4)
+    step = make_train_step(model, LossFunction("L1withColor"),
+                           get_optimizer("adam", model.parameters(), 3e-4),
+                           grad_accum=grad_accum,
+                           generator=torch.Generator().manual_seed(seed))
+    outs = [step(*synthetic_pair_batch(2, 32, seed=i)) for i in range(2)]
+    return [(float(o["loss"]), float(o["grad_norm"])) for o in outs], model
+
+
+def test_ast_step_with_droppath_is_seeded():
+    same, model = _ast_steps(0)
+    again, model2 = _ast_steps(0)
+    other, _ = _ast_steps(1)
+    accum, _ = _ast_steps(0, grad_accum=2)
+    assert not model.training  # the step restores the mode
+    for loss, gnorm in same + accum:
+        assert np.isfinite(loss) and np.isfinite(gnorm) and gnorm > 0
+    assert same == again
+    for (n, p), q in zip(model.named_parameters(), model2.parameters()):
+        assert torch.equal(p, q), n
+    assert same != other and same != accum

@@ -16,7 +16,11 @@ use_kernels=False)`` takes the plain versions on any device.
 Kept quirks of the reference: odd blocks of a level shift by win // 2; a
 level whose resolution is at most the window uses one window of the whole
 map and no shift; ``mlp_ratio`` is not passed to the blocks, which use 4.
-DropPath is the identity at inference; training it is the next slice's.
+DropPath is the identity at inference.  In training mode (``train()``, as
+the train step runs it) each block draws its two DropPath decisions, the
+attention branch's then the LeFF branch's (the JAX block's order), from the
+``generator`` that ``forward`` threads through the layers; both routes
+(``use_kernels`` True or False) draw the same numbers.
 """
 from __future__ import annotations
 
@@ -136,7 +140,7 @@ class ASTTransformerBlock(nn.Module):
         else:
             raise ValueError(f"Unknown token_mlp type: {token_mlp}")
 
-    def forward(self, x, use_kernels: bool = True):
+    def forward(self, x, use_kernels: bool = True, generator=None):
         b, l, c = x.shape
         h = w = math.isqrt(l)
         ws, ss = self.win_size, self.shift_size
@@ -150,12 +154,13 @@ class ASTTransformerBlock(nn.Module):
             img = window_reverse(wins.reshape(-1, ws, ws, c), ws, h, w)
             if ss > 0:
                 img = torch.roll(img, (ss, ss), (1, 2))
-            x = x + self.drop_path(image_to_tokens(img))
+            x = x + self.drop_path(image_to_tokens(img), generator)
         if self.token_mlp != "leff":
-            return x + self.drop_path(self.mlp(self.norm2(x)))
+            return x + self.drop_path(self.mlp(self.norm2(x)), generator)
         leff = ln_leff if use_kernels else ln_leff_plain
         y = leff(tokens_to_image(x, h, w), self.norm2.weight, self.norm2.bias,
-                 *self.mlp.operands(), s=self.drop_path.sample_scale(b),
+                 *self.mlp.operands(),
+                 s=self.drop_path.sample_scale(b, generator),
                  eps=self.norm2.eps)
         return image_to_tokens(y)
 
@@ -178,9 +183,9 @@ class BasicASTLayer(nn.Module):
                 device=device)
             for i in range(depth)])
 
-    def forward(self, x, use_kernels: bool = True):
+    def forward(self, x, use_kernels: bool = True, generator=None):
         for block in self.blocks:
-            x = block(x, use_kernels)
+            x = block(x, use_kernels, generator)
         return x
 
 
@@ -256,23 +261,26 @@ class AST(nn.Module):
             elif isinstance(m, WindowAttentionSparse):
                 normal(m.relative_position_bias_table)
 
-    def forward(self, x, use_kernels: bool = True):
+    def forward(self, x, use_kernels: bool = True,
+                generator: torch.Generator | None = None):
+        """``generator``: where DropPath draws in training mode (required
+        there at a non-zero ``drop_path_rate``; unused at inference)."""
         if x.shape[-2:] != (self.img_size, self.img_size):
             raise ValueError(f"AST(img_size={self.img_size}) takes "
                              f"{self.img_size}x{self.img_size} images, got "
                              f"{tuple(x.shape[-2:])}")
-        k = use_kernels
+        k, g = use_kernels, generator
         x = x.to(self.compute_dtype)
         skips = []
         y = self.input_proj(x)
         for i in range(4):
-            y = getattr(self, f"encoderlayer_{i}")(y, k)
+            y = getattr(self, f"encoderlayer_{i}")(y, k, g)
             skips.append(y)
             y = getattr(self, f"dowsample_{i}")(y)
-        y = self.conv(y, k)
+        y = self.conv(y, k, g)
         for i in range(4):
             y = torch.cat([getattr(self, f"upsample_{i}")(y), skips[3 - i]],
                           -1)
-            y = getattr(self, f"decoderlayer_{i}")(y, k)
+            y = getattr(self, f"decoderlayer_{i}")(y, k, g)
         y = self.output_proj(y)
         return x + y if self.dd_in == 3 else y

@@ -61,6 +61,11 @@ SIGNATURES = {
         # x, y, scale, bias, w1, b1, taps, bdw, w2, b2, s, B, H, W, C,
         # hid_pad, chunk, residual, bf16, TH, TW, eps, stream
         [_P] * 11 + [_I] * 10 + [_F, _P],
+    ("ln_leff_bwd", "uir_ln_leff_bwd"):
+        # x, dy, dx, scale, bias, w1, b1, taps, bdw, w2, s, part, grads, B,
+        # H, W, C, hid_pad, chunk, residual, bf16, TH, TW, groups, eps,
+        # stream
+        [_P] * 13 + [_I] * 11 + [_F, _P],
     ("window_attn", "uir_window_attn_fwd"):
         # q, k, v, out, strides (12 int64, host), bias, mask, w, BQ, H, N,
         # D, nW, scale, bf16, stream

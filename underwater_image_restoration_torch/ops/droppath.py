@@ -1,13 +1,20 @@
 """Stochastic depth, counterpart of the JAX package's ``ops/droppath.py``.
 
-At inference (``eval()``, or a rate of 0) it is the identity, which is all
-the serving path needs.  Training draws one keep mask a sample from an
-explicit ``torch.Generator``; that comes with the AST train step
-(ROADMAP.md, TPU kernel row 12), so a training-mode call with a non-zero
-rate raises rather than drawing from the global generator.
+At inference (``eval()``, or a rate of 0) it is the identity.  In training
+each call draws one keep decision a sample, Bernoulli(1 - rate), from an
+explicit ``torch.Generator`` (the counterpart of the JAX module's
+``make_rng("dropout")``): a kept sample's branch is scaled by 1/keep, a
+dropped one's is zero.  A training-mode call at a non-zero rate without a
+generator raises rather than draw from the global generator.
+
+``sample_scale`` and ``forward`` draw alike (``batch`` uniforms a call), so
+a block draws the same numbers whether its branch goes through a fused
+kernel (which takes the scale) or through plain ops (``forward``).  The JAX
+rng stream cannot be reproduced here: parity with JAX runs at rate 0.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 
@@ -18,20 +25,30 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def sample_scale(self, batch: int):
+    def sample_scale(self, batch: int, generator: torch.Generator | None):
         """The per-sample scale a fused kernel applies to its branch (the
-        ``s`` of ``ops.ln_leff``): None where the module is the identity."""
+        ``s`` of ``ops.ln_leff``): (batch,) f32 of 0 or 1/keep on the
+        generator's device, or None where the module is the identity."""
         if not self.training or self.rate == 0.0:
             return None
-        raise NotImplementedError(
-            "DropPath in training mode draws from an explicit generator, "
-            "which comes with the AST train step (ROADMAP.md, TPU kernel "
-            "row 12); call eval() for inference")
+        if generator is None:
+            raise ValueError(
+                "DropPath in training mode at rate "
+                f"{self.rate} draws from an explicit torch.Generator: pass "
+                "generator= (make_train_step(..., generator=...)), or call "
+                "eval() for inference")
+        keep = 1.0 - self.rate
+        u = torch.rand(batch, generator=generator, device=generator.device)
+        return (u < keep).float() / keep
 
-    def forward(self, x):
-        """The identity at inference (training raises: ``sample_scale``)."""
-        self.sample_scale(x.shape[0])
-        return x
+    def forward(self, x, generator: torch.Generator | None = None):
+        """``x / keep`` (in x's dtype) where a sample is kept, 0 where it is
+        dropped; the identity at inference."""
+        s = self.sample_scale(x.shape[0], generator)
+        if s is None:
+            return x
+        kept = (s > 0).view((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(kept, x / (1.0 - self.rate), torch.zeros_like(x))
 
     def extra_repr(self) -> str:
         return f"rate={self.rate}"

@@ -17,9 +17,12 @@ f32 and round once, before their bias is added in x.dtype; each gelu acts in
 f32 on the rounded value and rounds; the s_b scale acts in f32.  fc1, fc2
 and the biases are cast to x.dtype, the taps stay f32.
 
-There is no backward kernel yet (TPU kernel row 12 comes with the AST train
-step), so the CUDA route refuses inputs that would need a gradient rather
-than return a result detached from them.
+On CUDA the forward is ``LnLeffFn``, whose backward launches
+``csrc/ln_leff_bwd.cu`` (the VJP of the JAX package's ``fused_leff.py:337
+_bwd_call``); it saves x, the weights and s, never the hidden activations,
+and gives s no gradient, as the TPU VJP does.  ``ln_leff_bwd`` is that
+backward's wrapper and ``ln_leff_bwd_plain`` its plain version (autograd
+through ``ln_leff_plain``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import collections
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from . import _kernels
 from .layers import gelu, layer_norm_last
@@ -105,31 +109,45 @@ def kernel_weights(w1, b1, w_dw, b_dw, w2, b2, dtype):
     return tuple(t.contiguous() for t in ops) + (hid + pad,)
 
 
-def _forward_cuda(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
-                  residual):
+def _check(what, x, w1, w2, *weights):
+    """What the kernels take: contiguous float32/bfloat16 (B, H, W, C)
+    tokens on a CUDA device, C a multiple of 8 matching w1 (C, hid) and w2
+    (hid, C), the weights on x's device."""
     if x.device.type != "cuda":
-        raise ValueError(f"ln_leff: the CUDA kernel takes a CUDA tensor, x "
+        raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, x "
                          f"is on {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"ln_leff: x must be float32 or bfloat16, not "
+        raise TypeError(f"{what}: x must be float32 or bfloat16, not "
                         f"{x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"ln_leff: x must be contiguous (B, H, W, C) tokens,"
+        raise ValueError(f"{what}: x must be contiguous (B, H, W, C) tokens,"
                          f" got shape {tuple(x.shape)}")
-    b, h, w, c = x.shape
+    c = x.shape[3]
     if c % 8 or w1.shape[0] != c or tuple(w2.shape) != (w1.shape[1], c):
-        raise ValueError(f"ln_leff: C={c} must be a multiple of 8 and match "
+        raise ValueError(f"{what}: C={c} must be a multiple of 8 and match "
                          f"w1 {tuple(w1.shape)} and w2 {tuple(w2.shape)}")
-    for t in (scale, bias, w1, b1, w_dw, b_dw, w2, b2, s):
+    for t in (w1, w2, *weights):
         if t is not None and t.device != x.device:
-            raise ValueError(f"ln_leff: weights on {t.device}, x on "
+            raise ValueError(f"{what}: weights on {t.device}, x on "
                              f"{x.device}")
+
+
+def _scales(s, b, device):
+    """The per-image scale as the kernels read it: (B,) f32, ones for
+    None."""
+    return (torch.ones(b, device=device) if s is None
+            else s.float().reshape(b).contiguous())
+
+
+def _forward_cuda(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
+                  residual):
+    _check("ln_leff", x, w1, w2, scale, bias, b1, w_dw, b_dw, b2, s)
+    b, h, w, c = x.shape
     lib = _kernels.library("ln_leff")
     *ops, hp = kernel_weights(w1, b1, w_dw, b_dw, w2, b2, x.dtype)
     sc = scale.float().contiguous()
     bi = bias.float().contiguous()
-    sb = (torch.ones(b, device=x.device) if s is None
-          else s.float().reshape(b).contiguous())
+    sb = _scales(s, b, x.device)
     y = torch.empty_like(x)
     th, tw = tile_shape(c, x.element_size())
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -143,24 +161,135 @@ def _forward_cuda(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
     return y
 
 
+def ln_leff_bwd_plain(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
+                      eps: float = 1e-5, residual: bool = True):
+    """Gradients of ``ln_leff_plain`` at (x, weights) for the cotangent dy,
+    by autograd: (dx, dscale, dbias, dw1, db1, dw_dw, db_dw, dw2, db2).  s
+    is held fixed (it gets no gradient)."""
+    ins = [t.detach().requires_grad_() for t in
+           (x, scale, bias, w1, b1, w_dw, b_dw, w2, b2)]
+    with torch.enable_grad():
+        y = ln_leff_plain(*ins, s=s, eps=eps, residual=residual)
+        return torch.autograd.grad(y, ins, dy)
+
+
+# hidden channels a chunk of the backward kernel; passed with every launch,
+# and csrc/ln_leff_bwd.cu refuses any other value than its own G.  It
+# divides HIDDEN_CHUNK, so the backward reads the forward's padded operands.
+BWD_CHUNK = 16
+# the weight-gradient rows of one backward launch stay within this many
+# bytes (a row is 8.5 MB at C = 512, hidden 2048: 126 rows, one a
+# multiprocessor of an H100)
+PART_BYTES = 1 << 30
+
+
+def bwd_shared_bytes(c: int, th: int, tw: int, itemsize: int) -> int:
+    """Shared memory of one block of csrc/ln_leff_bwd.cu (its layout,
+    mirrored): f32 dLN accumulators (C, P|1), the chunk's fc1 columns and
+    fc2 rows (2 C G), g1 (G, NP4), dt2 (G, NP2), gelu'(t1), g2 and
+    round(dt1) (3 G P) and 2 P of LN statistics; the LN patch (C, NP4|1)
+    and dyk (C, NP2|1) in the compute dtype.  P = TH TW, NP2 = (TH+2)(TW+2),
+    NP4 = (TH+4)(TW+4)."""
+    p, np2, np4 = th * tw, (th + 2) * (tw + 2), (th + 4) * (tw + 4)
+    g = BWD_CHUNK
+    return (4 * (c * (p | 1) + 2 * c * g + g * np4 + g * np2 + 3 * g * p
+                 + 2 * p) + itemsize * c * ((np4 | 1) + (np2 | 1)))
+
+
+def bwd_tile_shape(c: int, itemsize: int) -> tuple[int, int]:
+    """(TH, TW) of the backward kernel: as ``tile_shape``, the largest tile
+    whose accumulators hold at most 16384 values and whose shared memory
+    fits a block (bf16: 8 x 8 up to C = 128, 4 x 8 at 256, 4 x 4 at 512;
+    f32: 8 x 8 up to 128, 4 x 4 at 256, 2 x 2 at 512)."""
+    for th, tw in TILES:
+        if th * tw * c <= 16384 and \
+                bwd_shared_bytes(c, th, tw, itemsize) <= MAX_SHARED:
+            return th, tw
+    raise ValueError(f"ln_leff_bwd: no tile fits C={c} in shared memory")
+
+
+def bwd_row_size(c: int, hid_pad: int) -> int:
+    """Floats of one weight-gradient row: dw1, db1, the taps (hid_pad, 9),
+    db_dw, dw2, db2, dscale, dbias."""
+    return 2 * c * hid_pad + 11 * hid_pad + 3 * c
+
+
+def ln_leff_bwd(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
+                eps: float = 1e-5, residual: bool = True):
+    """The LN+LeFF backward's CUDA kernel, on CUDA tensors.  Returns (dx,
+    dscale, dbias, dw1, db1, dw_dw, db_dw, dw2, db2): dx in x.dtype, the rest
+    f32 in the arguments' shapes (the hidden padding dropped)."""
+    _check("ln_leff_bwd", x, w1, w2, dy, scale, bias, b1, w_dw, b_dw, b2, s)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError("ln_leff_bwd: dy must match x in shape and dtype")
+    b, h, w, c = x.shape
+    hid = w1.shape[1]
+    lib = _kernels.library("ln_leff_bwd")
+    w1k, b1k, taps, bdwk, w2k, _, hp = kernel_weights(
+        w1, b1, w_dw, b_dw, w2, b2, x.dtype)
+    sc = scale.float().contiguous()
+    bi = bias.float().contiguous()
+    sb = _scales(s, b, x.device)
+    dy = dy.contiguous()
+    th, tw = bwd_tile_shape(c, x.element_size())
+    e = bwd_row_size(c, hp)
+    # block_rows' two blocks a multiprocessor, no more rows than PART_BYTES
+    groups = min(_kernels.block_rows(b * -(-h // th) * -(-w // tw), x.device),
+                 max(1, PART_BYTES // (4 * e)))
+    part = torch.empty(groups * e, device=x.device, dtype=torch.float32)
+    grads = torch.empty(e, device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.uir_ln_leff_bwd(
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), sc.data_ptr(),
+        bi.data_ptr(), w1k.data_ptr(), b1k.data_ptr(), taps.data_ptr(),
+        bdwk.data_ptr(), w2k.data_ptr(), sb.data_ptr(), part.data_ptr(),
+        grads.data_ptr(), b, h, w, c, hp, BWD_CHUNK, int(residual),
+        int(x.dtype == torch.bfloat16), th, tw, groups, float(eps), stream)
+    _kernels.check(lib, err, "ln_leff_bwd")
+    ln_leff_bwd.launches[(c, h, w)] += 2  # tiles, then the row sum
+    g_w1, g_b1, g_taps, g_bdw, g_w2, g_b2, dsc, dbi = grads.split(
+        (c * hp, hp, 9 * hp, hp, hp * c, c, c, c))
+    return (dx, dsc, dbi, g_w1.view(c, hp)[:, :hid].contiguous(), g_b1[:hid],
+            g_taps.view(hp, 9)[:hid].t().reshape(3, 3, hid), g_bdw[:hid],
+            g_w2.view(hp, c)[:hid], g_b2)
+
+
+class LnLeffFn(torch.autograd.Function):
+    """The CUDA forward with the CUDA backward; saves x, the weights and s.
+    Gradients come back for the Function's own inputs (the views
+    ``LeFF.operands()`` passes), f32 for f32 parameters; none for s."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
+                residual):
+        ctx.eps, ctx.residual = eps, residual
+        ctx.save_for_backward(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s)
+        return _forward_cuda(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
+                             eps, residual)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, *ws, s = ctx.saved_tensors
+        grads = ln_leff_bwd(x, dy, *ws, s=s, eps=ctx.eps,
+                            residual=ctx.residual)
+        return ((grads[0],) + tuple(g.to(t.dtype) for g, t in
+                                    zip(grads[1:], ws)) + (None,) * 3)
+
+
 def ln_leff(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
             eps: float = 1e-5, residual: bool = True):
-    """``x + s_b * LeFF(LayerNorm(x))`` on (B, H, W, C): the CUDA kernel for
-    a CUDA tensor, the plain version for a CPU tensor."""
+    """``x + s_b * LeFF(LayerNorm(x))`` on (B, H, W, C): the CUDA kernels
+    (forward and backward) for a CUDA tensor, the plain version for a CPU
+    tensor."""
     if x.device.type == "cpu":
         return ln_leff_plain(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
                              eps, residual)
-    ins = (x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in ins):
-        raise RuntimeError(
-            "ln_leff: the CUDA kernel has no backward yet (the LN+LeFF "
-            "backward is TPU kernel row 12, ROADMAP.md), and its result "
-            "would not carry gradients: run under torch.no_grad(), or take "
-            "the plain version (use_kernels=False)")
-    return _forward_cuda(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
-                         residual)
+    return LnLeffFn.apply(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
+                          residual)
 
 
-# launches of the CUDA kernel, by (C, H, W); the CPU path adds none
+# launches of the CUDA kernels, by (C, H, W); the CPU path adds none
 ln_leff.launches = collections.Counter()
+ln_leff_bwd.launches = collections.Counter()

@@ -4,7 +4,10 @@
 A step is uint8 NHWC normalize -> forward (NCHW, the model's compute dtype
 over f32 parameters) -> loss in f32 -> backward -> global-norm clip ->
 optimizer update, with ``grad_accum`` microbatches as the JAX step scans
-them.  On CUDA the SpectralBlocks' forward and backward run through the
+them.  The model runs in training mode, as the JAX step always passes
+``deterministic=False``: the AST's DropPath draws from the step's
+``generator`` (SpectralTransformer has no module whose output depends on the
+mode).  On CUDA the blocks' forward and backward run through the
 hand-written kernels (``use_kernels=False`` takes their plain versions, as
 a reference).  The state is the model and the optimizer, updated in place.
 
@@ -13,6 +16,8 @@ kernels' autograd Functions save only x and the stats), and ``k_steps``
 (a workaround for the TPU's remote dispatch).
 """
 from __future__ import annotations
+
+import inspect
 
 import numpy as np
 import torch
@@ -24,7 +29,8 @@ def normalize_u8(u8):
 
 
 def make_train_step(model, lossfn, optimizer, grad_accum: int = 1,
-                    use_kernels: bool = True):
+                    use_kernels: bool = True,
+                    generator: torch.Generator | None = None):
     """``optimizer`` is ``train.optim.get_optimizer``'s (its ``step()``
     clips and returns the pre-clip global norm).  Returns
     ``step(raw_u8, ref_u8) -> {"loss", "grad_norm"}``: one
@@ -38,7 +44,14 @@ def make_train_step(model, lossfn, optimizer, grad_accum: int = 1,
     smaller); the Adaptive pair couples the whole batch and is refused.
     Parameters the loss does not reach (q1X1_1, the dead kf half of kv)
     get zero gradients, not None, so that every optimizer updates them as
-    optax does (AdamW decays every leaf)."""
+    optax does (AdamW decays every leaf).
+
+    The forward runs in training mode (the model's mode is restored after
+    the step).  A model whose ``forward`` takes a ``generator`` (the AST's
+    DropPath) gets ``generator``: steps and microbatches draw from it one
+    after another (the counterpart of the JAX step's ``fold_in(rng, step)``
+    and ``fold_in(rng, i)``, not the same stream); one seed gives the same
+    draws with and without the kernels."""
     if grad_accum > 1 and not (lossfn.batch_linear or lossfn.bc_divided):
         raise ValueError(
             f"grad_accum={grad_accum} is not exact for loss "
@@ -46,6 +59,8 @@ def make_train_step(model, lossfn, optimizer, grad_accum: int = 1,
             "whole batch, so microbatch accumulation changes the loss. Use "
             "grad_accum=1.")
     params = [p for p in model.parameters() if p.requires_grad]
+    kwargs = ({"generator": generator} if "generator" in
+              inspect.signature(model.forward).parameters else {})
     device = params[0].device
     inv = 1.0 / grad_accum
     if lossfn.bc_divided:
@@ -65,11 +80,17 @@ def make_train_step(model, lossfn, optimizer, grad_accum: int = 1,
         for p in params:
             p.grad = None
         loss = torch.zeros((), device=device)
-        for i in range(grad_accum):
-            sl = slice(i * mb, (i + 1) * mb)
-            li = lossfn(model(x[sl], use_kernels).float(), y[sl])
-            (li * inv if grad_accum > 1 else li).backward()
-            loss = loss + li.detach()
+        was_training = model.training
+        model.train()
+        try:
+            for i in range(grad_accum):
+                sl = slice(i * mb, (i + 1) * mb)
+                li = lossfn(model(x[sl], use_kernels, **kwargs).float(),
+                            y[sl])
+                (li * inv if grad_accum > 1 else li).backward()
+                loss = loss + li.detach()
+        finally:
+            model.train(was_training)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
