@@ -9,7 +9,9 @@ AST, trains both, and checks where the time and the launches went.
     python3 chip_smoke.py --phase ast-train    # phases 1 (the same) and 7
 
 Phases (any failure exits non-zero; nothing is caught and continued):
-1. setup: card name and power limit, kernel build time, TF32 off;
+1. setup: card name and power limit, kernel build time, the count of
+   tensor-core (HMMA) instructions in the SASS of ln_leff_bwd and
+   ln_gdfn_bwd (``cuobjdump -sass``; none fails), TF32 off;
 2. kernels: ln_gdfn and ln_mdta vs their plain versions at the five block
    shapes and the serving batch (and at two shapes with ragged edge tiles),
    in f32 and in bf16, each against the plain version on the same input, so
@@ -53,8 +55,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    at edge shapes (ragged tiles, C = 8, a hidden width that is not a
    multiple of 32, no residual, s with zeros and 1.25), f32 and bf16, every
    gradient's max abs error over its max|ref|, then median times; (b)
-   launches in one step (18 ln_leff, 18 ln_leff_bwd calls of two launches,
-   10 window_attn of which 5 masked), every gradient finite and non-zero;
+   launches in one step (18 ln_leff, 18 ln_leff_bwd calls of seven
+   launches a slice of the batch, ``fused_leff.bwd_plan``, 10 window_attn
+   of which 5 masked), every gradient finite and non-zero;
    (c) one step's gradients through the kernels vs the plain versions with
    the same DropPath draws, f32 and bf16, with limits shown to lie below a
    quarter of what dropping every LeFF branch moves; (d) three f32 steps'
@@ -189,6 +192,10 @@ REPLACES = {
     "ln_leff_bwd": "underwater_image_restoration_tpu/ops/fused_leff.py:337",
     "window_attn": "underwater_image_restoration_tpu/ops/pallas.py:110",
 }
+# libraries whose 1x1 products run on the tensor cores (csrc/mma.cuh), and
+# the count of HMMA instructions found in each one's SASS by this run
+TENSOR_CORE_LIBS = ("ln_leff_bwd", "ln_gdfn_bwd")
+HMMA = {}
 GRAD_NAMES = {
     "ln_gdfn": ("dx", "dscale", "dbias", "dw_in", "dw_dw", "dw_out"),
     "ln_mdta": ("dx", "dscale", "dbias", "dw_qkv", "dt_qkv", "dtemp",
@@ -699,6 +706,7 @@ def ast_train_phase(card, batch, size, check_batch):
         ln_leff_plain,
         window_attention,
     )
+    from underwater_image_restoration_torch.ops import _kernels, fused_leff
     from underwater_image_restoration_torch.ops.fused_leff import (
         ln_leff_bwd,
         ln_leff_bwd_plain,
@@ -814,16 +822,22 @@ def ast_train_phase(card, batch, size, check_batch):
     launches = {k: dict(v) for k, v in counters.items()}
     totals = {k: sum(v.values()) for k, v in launches.items()}
     n_masked = sum(v for k, v in launches["window_attn"].items() if k[4])
+    # two ln_leff_bwd calls a level, each BWD_LAUNCHES a slice of the batch
+    sms = _kernels.sm_count(torch.device("cuda"))
+    want_bwd = {(c, h, h): 2 * fused_leff.bwd_plan(
+        batch, h, h, c, 4 * c, 2, sms).launches for c, h in LEFF_SHAPES}
     print(f"(b) AST {size}x{size} ({n_params} parameters), launches in one "
           f"train step, batch {batch}: {totals} ({n_masked} window_attn "
-          "masked; ln_leff_bwd 2 a call: tiles, ordered row sum)",
-          flush=True)
+          f"masked; ln_leff_bwd {fused_leff.BWD_LAUNCHES} a slice of the "
+          "batch: prep, fc1, dg2, depthwise, weight gradients, dLN, row "
+          "sums)", flush=True)
     for (c, h, w), n in sorted(launches["ln_leff_bwd"].items()):
-        print(f"  ln_leff_bwd C={c} {h}x{w}: {n}", flush=True)
-    if (totals["ln_leff"], totals["ln_leff_bwd"], totals["window_attn"],
-            n_masked) != (18, 36, 10, 5):
-        fail("expected 18 ln_leff, 36 ln_leff_bwd (18 calls) and 10 "
-             "window_attn (5 masked) launches in one train step")
+        print(f"  ln_leff_bwd C={c} {h}x{w}: {n} (2 calls of "
+              f"{want_bwd.get((c, h, w), 0) // 2})", flush=True)
+    if (totals["ln_leff"], totals["window_attn"], n_masked) != (18, 10, 5) \
+            or launches["ln_leff_bwd"] != want_bwd:
+        fail(f"expected 18 ln_leff, ln_leff_bwd {want_bwd} (18 calls) and "
+             "10 window_attn (5 masked) launches in one train step")
     loss0 = float(out["loss"])
     print(f"AST train step loss {loss0:.6f} grad_norm "
           f"{float(out['grad_norm']):.6f}", flush=True)
@@ -926,6 +940,7 @@ def ast_train_phase(card, batch, size, check_batch):
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
+            "hmma": HMMA["ln_leff_bwd"],
         })
     return kernels
 
@@ -1004,6 +1019,15 @@ def main(argv=None):
         print(f"  {name}: {info['path']}", flush=True)
         for ln in regs:
             print(f"    ptxas {ln}", flush=True)
+    # the redesigned backward libraries must run their products on the
+    # tensor cores: HMMA instructions in their SASS (cuobjdump -sass)
+    for name in TENSOR_CORE_LIBS:
+        if name in built:
+            HMMA[name] = _kernels.sass_count(name, "HMMA")
+            print(f"  {name}: {HMMA[name]} HMMA instructions in the SASS",
+                  flush=True)
+            if HMMA[name] == 0:
+                fail(f"{name} has no tensor-core (HMMA) instruction")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.phase == "ast":
@@ -1395,6 +1419,7 @@ def main(argv=None):
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
+            **({"hmma": HMMA[name]} if name in HMMA else {}),
         })
     print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -13,8 +13,10 @@ kernels, run in interpret mode on the CPU.
   (1, 8, 8, 64) and of ``fused_block.fused_ln_gdfn`` (row 8) at
   (1, 8, 16, 128): all six gradients;
 - the CUDA backward kernel's algorithm (csrc/ln_gdfn_bwd.cu), written in
-  torch over the kernel's operand layout, gives the plain backward's
-  gradients, and ``unchunk`` undoes the layout.
+  torch over the kernel's operand layout with its tensor-core products'
+  bf16 hi/lo split of f32 operands, gives the plain backward's gradients
+  (at C = 32 in f32 within the card's limit, 1e-4 of max|ref|), and
+  ``unchunk`` undoes the layout; the backward's tile choice.
 """
 import jax
 import jax.numpy as jnp
@@ -156,31 +158,52 @@ def _ln_backward(x, dln, scale, eps=1e-5):
     return dx, (dln * xh).sum((0, 2, 3)), dln.sum((0, 2, 3))
 
 
-def _emulate_backward(x, dy, scale, bias, w_in, w_dw, w_out):
+def _split(t):
+    """csrc/mma.cuh's planes of an f32 operand, as f32: hi = bf16(t), lo =
+    bf16(t - hi)."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
+def _product(f, a, b, split):
+    """The bilinear f(a, b) as the kernel's tensor-core products take it:
+    with ``split``, f(a_hi, b_hi) + f(a_hi, b_lo) + f(a_lo, b_hi), f32
+    sums of bf16 products (an operand that is exactly bf16 has lo = 0)."""
+    if not split:
+        return f(a, b)
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return f(ah, bh) + f(ah, bl) + f(al, bh)
+
+
+def _emulate_backward(x, dy, scale, bias, w_in, w_dw, w_out, split=True):
     """The CUDA backward's algorithm over its operands (chunked, padded
     hidden width): recompute u and t; the gate's cotangent W_out dy; dt1 =
     dgo t2 gelu'(t1), dt2 = dgo gelu(t1); du by the transposed taps; dW_in
     = LN du^T, dtaps = dt * shifted u, dW_out = o dy^T; dLN = W_in du; the
-    LN backward; dx = dy + dx_ln.  The wrapper's ``unchunk`` restores the
-    argument layouts."""
+    LN backward; dx = dy + dx_ln.  With ``split`` the five 1x1 products
+    take their f32 operands as bf16 hi/lo planes, as the kernel's tensor
+    cores do.  The wrapper's ``unchunk`` restores the argument layouts."""
     b, c, h, w = x.shape
     hid, g = w_out.shape[0], fused_gdfn.GATE_CHUNK
     win, taps, wo, hp = fused_gdfn.kernel_weights(w_in, w_dw, w_out)
     ln = layer_norm_channels(x, scale, bias)
-    u = fused_gdfn.conv1x1(ln, win)
+    u = _product(fused_gdfn.conv1x1, ln, win, split)
     t = fused_gdfn.dwconv3x3(u, taps.t().reshape(3, 3, 2 * hp))
     t = t.view(b, hp // g, 2, g, h, w)
     t1, t2 = (t[:, :, i].reshape(b, hp, h, w) for i in (0, 1))
-    dgo = fused_gdfn.conv1x1(dy, wo.t())
+    dgo = _product(fused_gdfn.conv1x1, dy, wo.t(), split)
     gelu_grad = (0.5 * (1 + torch.erf(t1 * 0.5 ** 0.5))
                  + t1 * torch.exp(-0.5 * t1 * t1) / (2 * np.pi) ** 0.5)
     dt = torch.stack([(dgo * t2 * gelu_grad).view(b, hp // g, g, h, w),
                       (dgo * F.gelu(t1)).view(b, hp // g, g, h, w)], 2)
     dt = dt.reshape(b, 2 * hp, h, w)
     du = _tap_t(dt, taps)
-    dx_ln, dsc, dbi = _ln_backward(x, fused_gdfn.conv1x1(du, win.t()), scale)
-    d_win = torch.einsum("bchw,bkhw->ck", ln, du)
-    d_wo = torch.einsum("bghw,bchw->gc", F.gelu(t1) * t2, dy)
+    dx_ln, dsc, dbi = _ln_backward(
+        x, _product(fused_gdfn.conv1x1, du, win.t(), split), scale)
+    d_win = _product(lambda a, b: torch.einsum("bchw,bkhw->ck", a, b), ln,
+                     du, split)
+    d_wo = _product(lambda a, b: torch.einsum("bghw,bchw->gc", a, b),
+                    F.gelu(t1) * t2, dy, split)
     return (dy + dx_ln, dsc, dbi, fused_gdfn.unchunk(d_win, hid, 1),
             fused_gdfn.unchunk(_tap_grad(dt, u), hid, 0).t().reshape(
                 3, 3, 2 * hid), d_wo[:hid])
@@ -194,6 +217,38 @@ def test_backward_kernel_algorithm():
     for g, r in zip(got, want):
         assert g.shape == r.shape
         _close(g.numpy(), r.numpy())
+
+
+def test_backward_split_products_f32():
+    """At C = 32 in f32 (hidden 85, padded to 96), the split products stay
+    within the card's f32 limit, 1e-4 of each gradient's max|ref|, of the
+    plain backward, and they are not the exact f32 products."""
+    x, w = _case((2, 32, 8, 12), seed=8)
+    args = [torch.from_numpy(a) for a in (x, _dy(x.shape, 10), *w)]
+    got = _emulate_backward(*args)
+    exact = _emulate_backward(*args, split=False)
+    want = fused_gdfn.ln_gdfn_bwd_plain(*args)
+    for g, e, r in zip(got, exact, want):
+        assert g.shape == r.shape
+        top = float(r.abs().max())
+        assert float((g - r).abs().max()) <= 1e-4 * top
+    assert not all(torch.equal(g, e) for g, e in zip(got, exact))
+
+
+def test_backward_tile_shapes():
+    """The backward's tile at every Spectral width, both dtypes: its dLN
+    accumulators fit the registers and its shared memory a block."""
+    want = {2: [(16, 16), (16, 16), (8, 16), (8, 8)],
+            4: [(16, 16), (8, 16), (8, 16), (4, 8)]}
+    for itemsize, tiles in want.items():
+        got = [fused_gdfn.bwd_tile_shape(c, itemsize)
+               for c in (16, 32, 64, 128)]
+        assert got == tiles
+        for c, (th, tw) in zip((16, 32, 64, 128), got):
+            assert 32 % tw == 0 and th * tw % 16 == 0
+            assert -(-c // 16) * 16 * th * tw <= fused_gdfn.BWD_ACC
+            assert fused_gdfn.bwd_shared_bytes(c, th, tw, itemsize) <= \
+                fused_gdfn.MAX_SHARED
 
 
 def test_backward_kernel_refuses_cpu_tensor():

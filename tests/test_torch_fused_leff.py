@@ -17,14 +17,15 @@ CPU.
   of the TPU kernel's VJP (row 12, ``fused_leff.py:337 _bwd_call``) in
   interpret mode at (2, 8, 16, 128), with and without the residual and with
   s = [0, 1.25]: every gradient, and the TPU VJP's zero ds;
-- the CUDA backward kernel's algorithm (csrc/ln_leff_bwd.cu) written in
-  torch over the operands ``kernel_weights`` lays out: pixel tiles with
-  2- and 1-pixel halos, hidden chunks of BWD_CHUNK, each tile's
-  weight-gradient shares added into its block's row and the rows summed in
-  order, ragged edge tiles, the TPU kernel's rounding points; against the
-  plain backward in f32 and bf16;
-- the backward's tile and shared-memory choice and its weight-gradient
-  rows; its wrapper refuses a CPU tensor.
+- the CUDA backward's staged algorithm (csrc/ln_leff_bwd.cu) written in
+  torch over the operands ``kernel_weights`` lays out: the batch in image
+  slices, the five tensor-core products (f32 operands as bf16 hi/lo
+  planes), the depthwise pass's rows, the weight gradients split over
+  pixel ranges, dLN with the LayerNorm backward in blocks of pixels, every
+  row summed in order, the TPU kernel's rounding points; against the plain
+  backward in f32 and bf16;
+- the backward's planner (slices within WORKSPACE_BYTES, aligned launch
+  arguments); its wrapper refuses a CPU tensor.
 
 Weights keep unit variance through fc1, the taps and fc2, with non-zero
 biases, so the branch is O(1).  Tolerances, over max(1, max|ref|): f32
@@ -261,89 +262,122 @@ def _gelu_grad(t):
             + t * torch.exp(-0.5 * t * t) / (2 * np.pi) ** 0.5)
 
 
+def _split(t):
+    """csrc/mma.cuh's planes of an f32 operand, as f32: hi = bf16(t), lo =
+    bf16(t - hi)."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
+def _mm(a, b, split):
+    """a @ b as the kernel's tensor-core products take it: bf16 operands,
+    f32 sums; with ``split`` (an f32 call) each operand as its hi/lo planes,
+    a_hi b_hi + a_hi b_lo + a_lo b_hi."""
+    if not split:
+        return a @ b
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _in_order(rows):
+    """Rows summed one after another, as the kernel's ordered row sum does
+    below 64 rows (from 64, a warp an output: lanes over the rows, then a
+    fixed shuffle tree; not reached at these sizes)."""
+    out = rows[0]
+    for r in rows[1:]:
+        out = out + r
+    return out
+
+
 def _backward_algorithm(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
-                        residual, th, tw, groups, eps=1e-5):
-    """csrc/ln_leff_bwd.cu in torch: tile t adds its shares into row
-    t % groups (the kernel's blocks walk over tiles blockIdx.x, + grid,
-    ...), and the rows are summed in order."""
+                        residual, imgs, ks, eps=1e-5):
+    """csrc/ln_leff_bwd.cu's staged design in torch: the batch in slices of
+    ``imgs`` images, per slice prep (LN, dyk), fc1 (t1, g1), dg2 with t2
+    from g1's neighbourhood (dt2 f32, g2), the depthwise pass (round(dt1)
+    and a row of shares an image row), dW1 and dW2 split over ``ks``-pixel
+    ranges, dLN and the LayerNorm backward in blocks of 32 pixels; every
+    launch's rows summed in order, slices added in order; the TPU kernel's
+    rounding points, the f32 operands of an f32 call split."""
     dt = x.dtype
+    split = dt == torch.float32
     b, h, w, c = x.shape
     hid = w1.shape[1]
     w1k, b1k, taps, bdwk, w2k, _, hp = fused_leff.kernel_weights(
         w1, b1, w_dw, b_dw, w2, b2, dt)
     w1k, w2k = w1k.float(), w2k.float()
-    g = fused_leff.BWD_CHUNK
-    assert hp % g == 0
+    fm = fused_leff.BWD_DLN_PIXELS
+    assert ks % fused_leff.BWD_K == 0
 
     def rnd(t):
         return t.to(dt).float()
 
-    xf = x.float()
-    ln = rnd(layer_norm_last(x, scale, bias, eps))
+    def shifted(t, dh, dw):
+        """t(p + (dh, dw)) on (n, h, w, hp), zero outside the image."""
+        tp = F.pad(t, (0, 0, 1, 1, 1, 1))
+        return tp[:, 1 + dh:1 + dh + h, 1 + dw:1 + dw + w]
+
     sb = torch.ones(b) if s is None else s.float()
-    dyk = rnd(dy.float() * sb.view(-1, 1, 1, 1))
-    ones = torch.ones(b, h, w, 1)
-    lnp, in4 = (F.pad(t, (0, 0, 2, tw + 2, 2, th + 2)) for t in (ln, ones))
-    dyp, in2 = (F.pad(t, (0, 0, 1, tw + 1, 1, th + 1)) for t in (dyk, ones))
-    rows = torch.zeros(groups, fused_leff.bwd_row_size(c, hp))
+    grads = None
     dx = torch.empty_like(x)
-    tiles = [(i, r0, c0) for i in range(b) for r0 in range(0, h, th)
-             for c0 in range(0, w, tw)]
-    for n, (i, r0, c0) in enumerate(tiles):
-        row = rows[n % groups]
-        d_w1, d_b1, d_taps, d_bdw, d_w2, d_b2, d_sc, d_bi = row.split(
-            (c * hp, hp, 9 * hp, hp, hp * c, c, c, c))
-        d_w1, d_taps, d_w2 = (d_w1.view(c, hp), d_taps.view(hp, 9),
-                              d_w2.view(hp, c))
-        patch = lnp[i, r0:r0 + th + 4, c0:c0 + tw + 4]
-        m4 = in4[i, r0:r0 + th + 4, c0:c0 + tw + 4]
-        dyq = dyp[i, r0:r0 + th + 2, c0:c0 + tw + 2]
-        m2 = in2[i, r0:r0 + th + 2, c0:c0 + tw + 2]
-        mt = m4[2:2 + th, 2:2 + tw]
-        d_b2 += dyq[1:1 + th, 1:1 + tw].sum((0, 1))
-        acc = torch.zeros(th, tw, c)
-        for j0 in range(0, hp, g):
-            j = slice(j0, j0 + g)
-            t1 = rnd(rnd(patch @ w1k[:, j]) + b1k[j])
-            g1 = rnd(F.gelu(t1)) * m4
-            gp = _gelu_grad(t1)[2:2 + th, 2:2 + tw]
-            dg2 = (dyq @ w2k[j].t()) * m2
-            t2 = sum(taps[k, j] * g1[k // 3:k // 3 + th + 2,
-                                     k % 3:k % 3 + tw + 2] for k in range(9))
-            t2 = rnd(rnd(t2) + bdwk[j])
-            dt2 = dg2 * _gelu_grad(t2) * m2
-            g2 = rnd(F.gelu(t2))[1:1 + th, 1:1 + tw] * m2[1:1 + th, 1:1 + tw]
-            dg1 = sum(taps[k, j] * rnd(dt2)[2 - k // 3:2 - k // 3 + th,
-                                            2 - k % 3:2 - k % 3 + tw]
-                      for k in range(9))
-            dt1 = dg1 * gp * mt
-            d_b1[j] += dt1.sum((0, 1))
-            d_bdw[j] += dt2[1:1 + th, 1:1 + tw].sum((0, 1))
-            d1 = rnd(dt1)
-            for k in range(9):
-                d_taps[j, k] += (dt2[1:1 + th, 1:1 + tw] * g1[
-                    1 + k // 3:1 + k // 3 + th,
-                    1 + k % 3:1 + k % 3 + tw]).sum((0, 1))
-            d_w1[:, j] += patch[2:2 + th, 2:2 + tw].reshape(-1, c).t() @ \
-                d1.reshape(-1, g)
-            d_w2[j] += g2.reshape(-1, g).t() @ \
-                dyq[1:1 + th, 1:1 + tw].reshape(-1, c)
-            acc += d1 @ w1k[:, j].t()
-        # the LayerNorm backward of the tile's in-image pixels
-        xt = xf[i, r0:r0 + th, c0:c0 + tw]
-        dl = acc[:xt.shape[0], :xt.shape[1]]
-        mean = xt.mean(-1, keepdim=True)
-        rstd = torch.rsqrt((xt - mean).square().mean(-1, keepdim=True) + eps)
-        xh = (xt - mean) * rstd
+    for b0 in range(0, b, imgs):
+        xs, dys = x[b0:b0 + imgs].float(), dy[b0:b0 + imgs].float()
+        n, p = xs.shape[0], xs.shape[0] * h * w
+        # prep
+        mean = xs.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((xs - mean).square().mean(-1, keepdim=True) + eps)
+        xh = (xs - mean) * rstd
+        ln = rnd(xh * scale + bias)
+        dyk = rnd(dys * sb[b0:b0 + n].view(-1, 1, 1, 1))
+        # fc1, then dg2 and its epilogue
+        t1 = rnd(rnd(_mm(ln.reshape(p, c), w1k, split)) + b1k)
+        g1 = rnd(F.gelu(t1)).view(n, h, w, hp)
+        t1 = t1.view(n, h, w, hp)
+        dg2 = _mm(dyk.reshape(p, c), w2k.t(), split).view(n, h, w, hp)
+        t2 = torch.zeros(n, h, w, hp)
+        for k in range(9):
+            t2 = t2 + taps[k] * shifted(g1, k // 3 - 1, k % 3 - 1)
+        t2 = rnd(rnd(t2) + bdwk)
+        dt2 = dg2 * _gelu_grad(t2)
+        g2 = rnd(F.gelu(t2))
+        # the depthwise pass: a row of shares an image row
+        dt1 = torch.zeros(n, h, w, hp)
+        for k in range(9):
+            dt1 = dt1 + taps[k] * rnd(shifted(dt2, 1 - k // 3, 1 - k % 3))
+        dt1 = dt1 * _gelu_grad(t1)
+        d1 = rnd(dt1)
+        dtaps = torch.stack([(dt2 * shifted(g1, k // 3 - 1, k % 3 - 1))
+                             for k in range(9)], -1)
+        rows_d = torch.cat([dt1, dtaps.reshape(n, h, w, 9 * hp), dt2], -1)
+        rows_b2 = dyk
+        # a row of shares a patch of BWD_DW_ROWS rows and BWD_DW_COLS
+        # columns, patches in (image, row, column) order
+        r, q = fused_leff.BWD_DW_ROWS, fused_leff.BWD_DW_COLS
+        rows_d, rows_b2 = (
+            torch.stack([t[:, i:i + r, j:j + q].sum((1, 2))
+                         for i in range(0, h, r) for j in range(0, w, q)], 1)
+            .reshape(-1, t.shape[-1]) for t in (rows_d, rows_b2))
+        # the weight gradients, split over pixel ranges
+        lnf, dykf = ln.reshape(p, c), dyk.reshape(p, c)
+        d1f, g2f = d1.reshape(p, hp), g2.reshape(p, hp)
+        rows_w1, rows_w2 = [], []
+        for k0 in range(0, p, ks):
+            r = slice(k0, k0 + ks)
+            rows_w1.append(_mm(d1f[r].t(), lnf[r], split).t().reshape(-1))
+            rows_w2.append(_mm(g2f[r].t(), dykf[r], split).reshape(-1))
+        # dLN and the LayerNorm backward, blocks of fm pixels
+        dl = _mm(d1f, w1k.t(), split)
+        xhf = xh.reshape(p, c)
         gs = dl * scale.float()
-        dxl = rnd(rstd * (gs - gs.mean(-1, keepdim=True)
-                          - xh * (gs * xh).mean(-1, keepdim=True)))
-        dyt = dy[i, r0:r0 + th, c0:c0 + tw].float()
-        dx[i, r0:r0 + th, c0:c0 + tw] = (dyt + dxl if residual else
-                                         dxl).to(dt)
-        d_sc += (dl * xh).sum((0, 1))
-        d_bi += dl.sum((0, 1))
-    grads = rows.sum(0)
+        dxl = rnd(rstd.reshape(p, 1) * (gs - gs.mean(-1, keepdim=True) - xhf
+                                        * (gs * xhf).mean(-1, keepdim=True)))
+        out = dys.reshape(p, c) + dxl if residual else dxl
+        dx[b0:b0 + n] = out.view(n, h, w, c).to(dt)
+        rows_ln = [torch.cat([(dl[i:i + fm] * xhf[i:i + fm]).sum(0),
+                              dl[i:i + fm].sum(0)]) for i in range(0, p, fm)]
+        sl = torch.cat([_in_order(rows_w1), _in_order(list(rows_d)),
+                        _in_order(rows_w2), _in_order(list(rows_b2)),
+                        _in_order(rows_ln)])
+        grads = sl if grads is None else grads + sl
     d_w1, d_b1, d_taps, d_bdw, d_w2, d_b2, d_sc, d_bi = grads.split(
         (c * hp, hp, 9 * hp, hp, hp * c, c, c, c))
     return (dx, d_sc, d_bi, d_w1.view(c, hp)[:, :hid], d_b1[:hid],
@@ -355,14 +389,16 @@ def _backward_algorithm(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("residual", [True, False])
 def test_backward_kernel_algorithm_matches_plain(dtype, residual):
-    """Ragged 4 x 8 tiles on 10 x 12, hidden width 48 (padded to 64, four
-    chunks), 12 tiles over 5 rows, s with a zero."""
-    b, h, w, c, hid = 2, 10, 12, 8, 48
+    """Three slices of one image, 10 x 12 (120 pixels: weight-gradient
+    splits of 64 and dLN blocks of 32, both ragged), hidden width 48
+    (padded to 64), s with a zero."""
+    b, h, w, c, hid = 3, 10, 12, 8, 48
     x = torch.from_numpy(_x((b, h, w, c), 14)).to(dtype)
     dy = torch.from_numpy(_x((b, h, w, c), 15)).to(dtype)
     ws = [torch.from_numpy(a) for a in _weights(c, hid, 16)]
-    s = torch.tensor([1.25, 0.0]) if residual else torch.tensor([0.5, 1.25])
-    got = _backward_algorithm(x, dy, *ws, s, residual, 4, 8, 5)
+    s = (torch.tensor([1.25, 0.0, 0.5]) if residual
+         else torch.tensor([0.5, 1.25, 0.0]))
+    got = _backward_algorithm(x, dy, *ws, s, residual, 1, 64)
     want = fused_leff.ln_leff_bwd_plain(x, dy, *ws, s=s, residual=residual)
     assert got[0].dtype == dtype
     _grads_close([t.float().numpy() for t in got],
@@ -370,24 +406,35 @@ def test_backward_kernel_algorithm_matches_plain(dtype, residual):
 
 
 def test_backward_tiles_and_rows():
-    """Every AST width gets a backward tile whose shared memory fits a
-    block, in both dtypes; the weight-gradient rows of a launch stay within
-    PART_BYTES, and rows are multiples of 8 floats (the kernel zeroes them
-    as float4 and loads eight-value pieces)."""
-    want = {2: [(8, 8), (8, 8), (8, 8), (4, 8), (4, 4)],
-            4: [(8, 8), (8, 8), (8, 8), (4, 4), (2, 2)]}
-    for itemsize, tiles in want.items():
-        got = [fused_leff.bwd_tile_shape(c, itemsize)
-               for c in (32, 64, 128, 256, 512)]
-        assert got == tiles
-        for c, (th, tw) in zip((32, 64, 128, 256, 512), got):
-            assert 32 % tw == 0
-            assert fused_leff.bwd_shared_bytes(c, th, tw, itemsize) <= \
-                fused_leff.MAX_SHARED
-    assert fused_leff.HIDDEN_CHUNK % fused_leff.BWD_CHUNK == 0
-    e = fused_leff.bwd_row_size(512, 2048)
-    assert e % 8 == 0 and fused_leff.bwd_row_size(8, 32) % 8 == 0
-    assert fused_leff.PART_BYTES // (4 * e) == 126
+    """The backward's planner at every AST@256 width, batch 16, both
+    dtypes: each slice's workspace (intermediates and weight-gradient rows)
+    stays within WORKSPACE_BYTES, the slices cover the batch evenly, and
+    the launch arguments stay aligned (C a multiple of 8 up to 512, the
+    hidden width of 16, a split's pixels of the staged k depth); the widest
+    workspace, 64@256² in bf16, walks the batch in four slices of four, and
+    a 1024² image, whose workspace exceeds the cap, is a slice by itself."""
+    for itemsize in (2, 4):
+        for c, side in ((32, 256), (64, 128), (128, 64), (256, 32),
+                        (512, 16), (512, 32), (256, 64), (128, 128),
+                        (64, 256)):
+            hp = 4 * c
+            plan = fused_leff.bwd_plan(16, side, side, c, hp, itemsize)
+            assert plan.workspace <= fused_leff.WORKSPACE_BYTES
+            assert plan.workspace == fused_leff.bwd_workspace_bytes(
+                plan.imgs, side, side, c, hp, itemsize, plan.split_pixels)
+            assert plan.imgs * plan.slices >= 16 > \
+                plan.imgs * (plan.slices - 1)
+            assert plan.launches == fused_leff.BWD_LAUNCHES * plan.slices
+            assert c % 8 == 0 and c <= fused_leff.BWD_MAX_C
+            assert hp % 16 == 0
+            assert plan.split_pixels % fused_leff.BWD_K == 0
+            assert plan.split_pixels >= fused_leff.BWD_K
+    assert fused_leff.bwd_plan(16, 256, 256, 64, 256, 2)[:2] == (4, 4)
+    # an image wider than the cap is a slice by itself
+    big = fused_leff.bwd_plan(2, 1024, 1024, 32, 128, 2)
+    assert big.imgs == 1 and big.slices == 2
+    assert big.workspace > fused_leff.WORKSPACE_BYTES
+    assert fused_leff.bwd_row_size(512, 2048) % 8 == 0
 
 
 def test_backward_kernel_refuses_cpu_tensor():

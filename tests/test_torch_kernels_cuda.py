@@ -12,8 +12,9 @@
   attention's recompute backward vs autograd through the plain version, a
   window of more than 64 tokens refused;
 - the LN+LeFF backward kernel vs autograd through the plain version (f32
-  and bf16, with and without the residual, s with a zero, ragged tiles, a
-  hidden width that is not a multiple of 32), the LN+LeFF result carrying a
+  and bf16, with and without the residual, s with a zero, ragged edges, a
+  hidden width that is not a multiple of 32, the widest AST level), two
+  calls bit-equal, a refused launch raising, the LN+LeFF result carrying a
   ``grad_fn`` whose gradients reach every LeFF parameter, and a small AST's
   train-mode backward reaching every parameter through the kernels.
 
@@ -111,28 +112,71 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["gdfn", "mdta"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 16, 16, 16), (2, 32, 20, 36)],
-                         ids=["16x16", "ragged-20x36"])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 16), (2, 32, 20, 36),
+                                   (2, 128, 32, 32)],
+                         ids=["16x16", "ragged-20x36", "C128-32x32"])
 def test_backward_kernel_matches_plain(cuda, kind, dtype, shape):
+    """Hidden widths 42, 85 and 340 are not multiples of GATE_CHUNK; C = 128
+    at 32x32 is the widest Spectral block.  A second call gives bit-equal
+    gradients (per-block rows summed in order, no float atomics)."""
     rng = np.random.default_rng(11)
-    c, nh = shape[1], 2
+    c = shape[1]
+    nh = max(2, c // 16)  # the model's 8 heads at C = 128
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     dy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     x, dy = x.to(cuda, dtype), dy.to(cuda, dtype)
     w = [torch.from_numpy(a).to(cuda) for a in _weights(kind, c, nh, rng)]
     if kind == "gdfn":
-        got = fused_gdfn.ln_gdfn_bwd(x, dy, *w)
+        def kern():
+            return fused_gdfn.ln_gdfn_bwd(x, dy, *w)
         want = fused_gdfn.ln_gdfn_bwd_plain(x, dy, *w)
     else:
         stats = fused_mdta.forward_with_stats(x, *w, nh)[1]
-        got = fused_mdta.ln_mdta_bwd(x, dy, *w, nh, stats=stats)
+
+        def kern():
+            return fused_mdta.ln_mdta_bwd(x, dy, *w, nh, stats=stats)
         want = fused_mdta.ln_mdta_bwd_plain(x, dy, *w, nh)
+    got, again = kern(), kern()
     torch.cuda.synchronize()
     for i, (g, r) in enumerate(zip(got, want)):
         assert g.shape == r.shape, i
         scale = r.float().abs().max().item()
         err = (g.float() - r.float()).abs().max().item()
         assert err <= BWD_TOL[dtype] * scale, (i, err, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["leff", "gdfn"])
+def test_backward_refuses_a_bad_launch(cuda, kind, monkeypatch):
+    """A launch the kernel refuses (here: a weight-gradient split that is
+    not a multiple of the staged k depth, or a tile too wide for the
+    tensor-core steps) raises instead of leaving gradients unwritten."""
+    rng = np.random.default_rng(23)
+    if kind == "leff":
+        c, hid = 8, 32
+        x = torch.from_numpy(rng.standard_normal((1, 8, 8, c)).astype(
+            np.float32)).to(cuda)
+        w = [torch.from_numpy(a).to(cuda) for a in (
+            np.ones(c, np.float32), np.zeros(c, np.float32),
+            rng.standard_normal((c, hid)).astype(np.float32),
+            np.zeros(hid, np.float32),
+            rng.standard_normal((3, 3, hid)).astype(np.float32),
+            np.zeros(hid, np.float32),
+            rng.standard_normal((hid, c)).astype(np.float32),
+            np.zeros(c, np.float32))]
+        monkeypatch.setattr(fused_leff, "bwd_split_pixels",
+                            lambda *a: fused_leff.BWD_K + 1)
+        with pytest.raises(RuntimeError, match="ln_leff_bwd"):
+            fused_leff.ln_leff_bwd(x, x, *w)
+    else:
+        x = torch.from_numpy(rng.standard_normal((1, 16, 8, 8)).astype(
+            np.float32)).to(cuda)
+        w = [torch.from_numpy(a).to(cuda)
+             for a in _weights("gdfn", 16, 1, rng)]
+        monkeypatch.setattr(fused_gdfn, "bwd_tile_shape", lambda *a: (8, 6))
+        with pytest.raises(RuntimeError, match="ln_gdfn_bwd"):
+            fused_gdfn.ln_gdfn_bwd(x, x, *w)
 
 
 @pytest.mark.cuda
@@ -233,10 +277,12 @@ def test_leff_refuses_inputs_that_need_gradients(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape, hid, residual", [
     ((2, 20, 36, 8), 40, True), ((2, 20, 36, 8), 32, False),
-    ((2, 12, 12, 64), 256, True)],
-    ids=["ragged-C8-hid40", "ragged-C8-branch", "C64"])
+    ((2, 12, 12, 64), 256, True), ((2, 16, 16, 512), 2048, True)],
+    ids=["ragged-C8-hid40", "ragged-C8-branch", "C64", "C512-hid2048"])
 def test_leff_backward_kernel_matches_plain(cuda, dtype, shape, hid,
                                             residual):
+    """Hidden 40 pads to 64; C = 512 at 16x16 with hidden 2048 is the
+    widest AST level.  A second call gives bit-equal gradients."""
     rng = np.random.default_rng(19)
     c = shape[-1]
 
@@ -249,6 +295,7 @@ def test_leff_backward_kernel_matches_plain(cuda, dtype, shape, hid,
          n(9, 3, 3, hid), 0.1 * n(1, hid), n(hid, hid, c), 0.1 * n(1, c)]
     s = torch.tensor([1.25, 0.0], device=cuda)
     got = fused_leff.ln_leff_bwd(x, dy, *w, s=s, residual=residual)
+    again = fused_leff.ln_leff_bwd(x, dy, *w, s=s, residual=residual)
     want = fused_leff.ln_leff_bwd_plain(x, dy, *w, s=s, residual=residual)
     torch.cuda.synchronize()
     assert len(got) == len(want) == 9
@@ -257,6 +304,7 @@ def test_leff_backward_kernel_matches_plain(cuda, dtype, shape, hid,
         scale = r.float().abs().max().item()
         err = (g.float() - r.float()).abs().max().item()
         assert err <= BWD_TOL[dtype] * scale, (i, err, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def _attn_inputs(cuda, dtype, nw, heads, ws, d, masked, sparse, seed):
@@ -330,9 +378,9 @@ def test_ast_forward_goes_through_the_kernels(cuda):
 @pytest.mark.cuda
 def test_ast_gradients_reach_every_parameter(cuda):
     """A small AST's train-mode backward on the card (DropPath at rate 0, so
-    every branch counts): 18 LN+LeFF forward and 18 backward calls (two
-    launches each), 10 window attentions, every parameter's gradient finite
-    and non-zero."""
+    every branch counts): 18 LN+LeFF forward and 18 backward calls (one
+    slice of BWD_LAUNCHES launches each), 10 window attentions, every
+    parameter's gradient finite and non-zero."""
     model = init_model("AST", device=cuda, seed=4, img_size=32, embed_dim=8,
                        win_size=4, drop_path_rate=0.0).train()
     fused_leff.ln_leff.launches.clear()
@@ -342,7 +390,8 @@ def test_ast_gradients_reach_every_parameter(cuda):
     model(x).square().mean().backward()
     torch.cuda.synchronize()
     assert sum(fused_leff.ln_leff.launches.values()) == 18
-    assert sum(fused_leff.ln_leff_bwd.launches.values()) == 2 * 18
+    assert sum(fused_leff.ln_leff_bwd.launches.values()) == \
+        fused_leff.BWD_LAUNCHES * 18
     assert sum(window_attention.launches.values()) == 10
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name

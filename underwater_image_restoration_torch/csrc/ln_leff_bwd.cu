@@ -6,81 +6,84 @@
 // in the TPU kernel's VJP.
 //
 // Replaces the TPU kernel of the JAX package ops/fused_leff.py:337 _bwd_call
-// (_bwd_kernel:152).  That kernel streamed row bands through VMEM and
-// finalized each band's LayerNorm backward one band late (its rolling lag-1
-// dLN); a block here owns a pixel tile and recomputes what its halo needs,
-// as csrc/ln_gdfn_bwd.cu does, so no band waits on another.
+// (_bwd_kernel:152), which streamed row bands through VMEM and finalized
+// each band's LayerNorm backward one band late.
 //
-// Design.  dx on a TH x TW tile needs dt1 on the tile, which needs dt2 on a
-// 1-pixel halo (the transposed 3x3), which needs t2 there, which needs
-// g1 = gelu(fc1(LN x)) on a 2-pixel halo, and W2 (s dy) on the 1-pixel halo.
-// A block walks over tiles (blockIdx.x, blockIdx.x + gridDim.x, ...), and
-// per tile:
-//   1. LN of the 2-pixel-halo patch and dyk = round(s_b dy) on the 1-pixel
-//      halo, a warp a pixel (lanes over channels), channel-major in shared
-//      memory (zero outside the image); the tile's share of db2;
-//   2. the hidden width in chunks of G channels (the 3x3 is depthwise, so a
-//      chunk is exact by itself); per chunk, its fc1 columns and fc2 rows
-//      staged in shared memory as f32, then
-//      - t1 = fc1 LN + b1 on the 2-pixel halo: g1 (zero outside the image,
-//        the 3x3's zero padding), gelu'(t1) on the tile;
-//      - on the 1-pixel halo: dg2 = W2 dyk, t2 from the taps, dt2 =
-//        dg2 gelu'(t2) (zero outside the image), g2 = gelu(t2) on the tile;
-//      - on the tile: dt1 = (transposed taps of round(dt2)) gelu'(t1), zero
-//        outside the image, a warp a hidden channel, which also sums the
-//        tile's shares of db1 and db_dw;
-//      - the tile's shares of dtaps (dt2 times the shifted g1), dW1
-//        (LN round(dt1)^T) and dW2 (g2 dyk^T), a thread a 4 x 4 block of
-//        outputs, and dLN += W1 round(dt1) into a per-pixel f32
-//        accumulator;
-//   3. the LayerNorm backward of the tile: dx, and the shares of dscale and
-//      dbias.
-// Every weight-gradient share counts only the pixels the tile owns: the halo
-// is recomputed, never summed.  The shares add into the block's own row of
-// `part` (written by that block alone, in its own order); a second launch
-// sums the rows in block order (grad.cuh reduce_rows): no float atomics, so
-// two runs give the same bits.  The weight products sum in the kernel, as
-// the TPU kernel's body does, with per-block rows rather than a second
-// kernel split over pixels: that would have to write g2 and dt1 (hid wide)
-// to device memory.  The wrapper caps the number of rows by their size
-// (ops/fused_leff.py PART_BYTES; a row is 8.5 MB at C = 512, hid = 2048).
+// What bounds it on an H100.  Per pixel the required work is the forward's
+// fc1 and taps and the backward's dg2, dW2, dW1 and dLN products and three
+// tap sums: 10 C hid + 54 hid flops against 3 C itemsize bytes of x, dy and
+// dx, far above the bf16 ridge: at peak rates it is bound by the tensor
+// cores' operations.  A tile-local design (each block recomputing fc1 on a
+// 2-pixel halo, as this kernel once did) cannot feed them: its LN patch and
+// f32 dLN accumulators in shared memory shrink the tile to 4 x 4 pixels at
+// C = 512, too small an M for tensor-core tiles, with fc1 recomputed 4x.
+//
+// Design.  The backward runs as a short sequence of launches over the
+// batch in image slices, each 1x1 product a tensor-core product (mma.cuh:
+// mma.sync m16n8k16, bf16 in, f32 accumulate, operand tiles staged by
+// cp.async in two stages) over pixels x channels, its elementwise work in
+// the epilogue:
+//   1. prep: LN statistics (mean, rstd in f32) a pixel, LN = round(LN x)
+//      and dyk = round(s_b dy), a warp a pixel;
+//   2. fc1 (M = pixels, N = hid, K = C): t1 = round(round(LN W1) + b1) and
+//      g1 = round(gelu(t1)), both in T;
+//   3. dg2 = dyk W2^T (M = pixels, N = hid, K = C); the epilogue walks
+//      consecutive pixels with a sliding 3x3 window of g1 (zero outside the
+//      image), t2 = round(round(taps * g1) + b_dw), and stores dt2 = dg2
+//      gelu'(t2) in f32 and g2 = round(gelu(t2));
+//   4. the depthwise pass on the FMA pipe (9-tap work), a thread a hidden
+//      channel walking DW_R image rows by DW_W columns with a sliding 3x3
+//      window: round(dt1) = round((transposed taps of round(dt2))
+//      gelu'(t1)); the patch's shares of db1 (f32 dt1), db_dw (f32 dt2),
+//      dtaps (dt2 x shifted g1) and db2;
+//   5. dW1^T = round(dt1)^T LN and dW2 = g2^T dyk (M = hid, N = C, K =
+//      pixels), one launch, split over pixel ranges, each split writing its
+//      own row;
+//   6. dLN = round(dt1) W1^T (M = pixels, N = C, K = hid): a block owns 32
+//      whole pixel rows (C <= 512), and its epilogue runs the LayerNorm
+//      backward (dx = dy + round(dx_ln), or round(dx_ln) without the
+//      residual) and the block's shares of dscale and dbias;
+//   7. the sum of every launch's rows into the gradients in a fixed order,
+//      added to the previous slices' sums in slice order.
+// No float atomics: every share is written to its own row and the rows are
+// summed in a fixed order, so two runs give the same bits.  The hidden-wide
+// intermediates (t1, g1, g2, round(dt1) in T, dt2 in f32) and the rows live
+// in one workspace the wrapper allocates and sizes by its slices
+// (ops/fused_leff.py bwd_plan, WORKSPACE_BYTES).
 //
 // Rounding points (the TPU kernel's, _bwd_kernel:224-249): dyk =
 // round(s_b dy); dg2 and dt2 stay f32 (dtaps and db_dw from the f32 dt2);
 // dt2 rounds before the transposed taps; dt1 stays f32 for db1 and rounds
 // before dW1 and dLN; dLN stays f32; dx = dy + round(dx_ln) in T
 // (round(dx_ln) without the residual).  The recomputed forward rounds where
-// csrc/ln_leff.cu does.  Autograd through the plain version rounds some
-// cotangents elsewhere (dg2, dt2, dLN and the weight gradients in bf16), so
-// the two agree exactly in f32 and within bf16 roundoff in bf16.
-//
-// What bounds it on an H100.  Per pixel the required work is the forward's
-// fc1 and taps and the backward's dg2, dW2, dW1 and dLN products and three
-// tap sums: 10 C hid + 54 hid flops against 3 C itemsize bytes of x, dy and
-// dx, far above the bf16 ridge, so at peak rates it is bound by operations.  This version runs
-// them on the f32 FMA pipe (67 TFLOP/s), with fc1 recomputed on the 2-pixel
-// halo ((TH+4)(TW+4)/(TH TW): 2.25x at 8 x 8, 4x at 4 x 4) and dg2 on the
-// 1-pixel halo; plain FMA, no tensor cores yet.
+// csrc/ln_leff.cu does.  In bf16 every product operand (LN, W1, W2, dyk, g2,
+// round(dt1)) is exactly bf16, one pass each; in f32 each is carried as a
+// bf16 hi/lo pair (mma.cuh), three passes.  Autograd through the plain
+// version rounds some cotangents elsewhere (dg2, dt2, dLN and the weight
+// gradients in bf16), so the two agree to the split's roundoff (about
+// 2^-17 of an operand) in f32 and within bf16 roundoff in bf16.
 #include <cstdint>
+#include <type_traits>
 
 #include "grad.cuh"
+#include "mma.cuh"
 
 namespace {
 
+namespace mm = uir::mma;
+using bf16 = __nv_bfloat16;
 using uir::from_f;
-using uir::in_image;
 using uir::round_to;
 using uir::to_f;
 using uir::warp_sum;
 
 constexpr int kThreads = 256;
-// hidden channels a chunk; the wrapper passes it with every launch
-// (ops/fused_leff.py BWD_CHUNK), and a launch with another one is refused
-constexpr int G = 16;
-// hidden channels of one item of the fc1 and W2 dyk products (a multiple
-// of 4 dividing G): each channel step reads one activation and JW / 4
-// float4 weight broadcasts for JW multiply-adds
-constexpr int JW = 8;
+constexpr int BK = 32;       // k depth of a staged operand tile
+constexpr int FM = 32;       // pixels a block of the dLN launch
+constexpr int DW_T = 128;    // threads a block of the depthwise pass
+constexpr int DW_R = 2;      // image rows a thread of the depthwise pass
+constexpr int DW_W = 64;     // columns a thread of the depthwise pass
+constexpr int MAX_C = 512;   // widest C the dLN launch holds in one block
 
 __device__ __forceinline__ float gelu_f(float t) {
   return 0.5f * t * (1.f + erff(t * 0.70710678118654752f));
@@ -92,24 +95,19 @@ __device__ __forceinline__ float gelu_grad(float t) {
          t * 0.39894228040143268f * expf(-0.5f * t * t);
 }
 
-// Eight consecutive T values of global memory (16-byte aligned in bf16,
-// 32-byte in f32) as f32.
-__device__ __forceinline__ void load8(float (&v)[8], const float* src) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(src));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+// gelu(t) and gelu'(t) from one erf, bit-equal to gelu_f and gelu_grad
+__device__ __forceinline__ void gelu_both(float t, float& g, float& gp) {
+  const float e = erff(t * 0.70710678118654752f);
+  g = 0.5f * t * (1.f + e);
+  gp = 0.5f * (1.f + e) + t * 0.39894228040143268f * expf(-0.5f * t * t);
 }
-__device__ __forceinline__ void load8(float (&v)[8],
-                                      const __nv_bfloat16* src) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(src));
-  const auto* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
+
+// Two consecutive T values (i even) as f32, in one load.
+__device__ __forceinline__ float2 load2(const float* p, size_t i) {
+  return *reinterpret_cast<const float2*>(p + i);
+}
+__device__ __forceinline__ float2 load2(const bf16* p, size_t i) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
 }
 
 // Mean and rstd of the C channels at xp, a warp a pixel (lanes over
@@ -129,408 +127,750 @@ __device__ __forceinline__ void ln_stats(const T* xp, int C, int lane,
   rstd = rsqrtf(warp_sum(var) / C + eps);
 }
 
-// s[i] = sum_{ch < n} a[ch * lda] * w[ch * G + i], i < JW: JW hidden
-// channels of a 1x1 product at one pixel of a channel-major shared plane
-// (a, in T) with the chunk's staged weights (w, f32, [C][G], 16-byte
-// aligned rows; reads are broadcasts).
-template <typename T>
-__device__ __forceinline__ void project(float (&s)[JW], int n, const T* a,
-                                        int lda, const float* w) {
-#pragma unroll
-  for (int i = 0; i < JW; ++i) s[i] = 0.f;
-#pragma unroll 8
-  for (int ch = 0; ch < n; ++ch, w += G) {
-    const float l = to_f(a[ch * lda]);
-#pragma unroll
-    for (int i = 0; i < JW; i += 4) {
-      const float4 w4 = *reinterpret_cast<const float4*>(w + i);
-      s[i] = fmaf(l, w4.x, s[i]);
-      s[i + 1] = fmaf(l, w4.y, s[i + 1]);
-      s[i + 2] = fmaf(l, w4.z, s[i + 2]);
-      s[i + 3] = fmaf(l, w4.w, s[i + 3]);
+// A product operand in device memory: bf16 planes hi and (when split) lo,
+// rows ld elements apart.
+struct Opnd {
+  const bf16* hi;
+  const bf16* lo;
+  int ld;
+};
+
+// One block tile of a product: BM x BN outputs, WM x WN warps, A stored
+// [k][m] (AKM) or [m][k], B stored [k][n] (BKN) or [n][k], NP planes an
+// operand (2: hi/lo split).  Shared memory holds two stages of operand tiles
+// and, after the k loop, the f32 result tile (OLD floats a row).
+template <int BM_, int BN_, int WM_, int WN_, bool AKM_, bool BKN_, int NP_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, NP = NP_;
+  static constexpr bool AKM = AKM_, BKN = BKN_;
+  static_assert(WM * WN * 32 == kThreads, "one warp a warp tile");
+  static constexpr int TM = BM / WM, TN = BN / WN;
+  static constexpr int MI = TM / 16, NI = TN / 8;
+  static_assert(MI >= 1 && NI >= 2 && NI % 2 == 0, "warp tile shape");
+  static constexpr int ALD = mm::pad_ld(AKM ? BM : BK);
+  static constexpr int BLD = mm::pad_ld(BKN ? BN : BK);
+  static constexpr int AT = (AKM ? BK : BM) * ALD;  // elements a plane
+  static constexpr int BT = (BKN ? BK : BN) * BLD;
+  static constexpr int STAGE = NP * (AT + BT);
+  static constexpr int OLD = BN + 8;
+  static constexpr size_t OPER_BYTES = 2 * STAGE * sizeof(bf16);
+  static constexpr size_t OUT_BYTES = (size_t)BM * OLD * sizeof(float);
+  static constexpr size_t SMEM = OPER_BYTES > OUT_BYTES ? OPER_BYTES
+                                                        : OUT_BYTES;
+};
+
+// Stage the operand tiles of k slice [k0, k0 + BK) with cp.async; rows and
+// columns outside (M, N, kend) are zero-filled.
+template <class TL>
+__device__ void load_stage(bf16* s, const Opnd& A, const Opnd& B, int M,
+                           int N, int kend, int m0, int n0, int k0) {
+  bf16* sa = s;
+  bf16* sb = s + TL::NP * TL::AT;
+  constexpr int ACH = TL::AKM ? BK * (TL::BM / 8) : TL::BM * (BK / 8);
+  for (int i = threadIdx.x; i < ACH; i += kThreads) {
+    int r, cc;
+    bool ok;
+    size_t src;
+    if (TL::AKM) {  // rows k, chunks of 8 m
+      r = i / (TL::BM / 8), cc = 8 * (i % (TL::BM / 8));
+      ok = k0 + r < kend && m0 + cc < M;
+      src = (size_t)(k0 + r) * A.ld + m0 + cc;
+    } else {  // rows m, chunks of 8 k
+      r = i / (BK / 8), cc = 8 * (i % (BK / 8));
+      ok = m0 + r < M && k0 + cc < kend;
+      src = (size_t)(m0 + r) * A.ld + k0 + cc;
     }
+    bf16* d = sa + r * TL::ALD + cc;
+    mm::cp_async16(d, ok ? A.hi + src : A.hi, ok);
+    if constexpr (TL::NP == 2)
+      mm::cp_async16(d + TL::AT, ok ? A.lo + src : A.lo, ok);
+  }
+  constexpr int BCH = TL::BKN ? BK * (TL::BN / 8) : TL::BN * (BK / 8);
+  for (int i = threadIdx.x; i < BCH; i += kThreads) {
+    int r, cc;
+    bool ok;
+    size_t src;
+    if (TL::BKN) {  // rows k, chunks of 8 n
+      r = i / (TL::BN / 8), cc = 8 * (i % (TL::BN / 8));
+      ok = k0 + r < kend && n0 + cc < N;
+      src = (size_t)(k0 + r) * B.ld + n0 + cc;
+    } else {  // rows n, chunks of 8 k
+      r = i / (BK / 8), cc = 8 * (i % (BK / 8));
+      ok = n0 + r < N && k0 + cc < kend;
+      src = (size_t)(n0 + r) * B.ld + k0 + cc;
+    }
+    bf16* d = sb + r * TL::BLD + cc;
+    mm::cp_async16(d, ok ? B.hi + src : B.hi, ok);
+    if constexpr (TL::NP == 2)
+      mm::cp_async16(d + TL::BT, ok ? B.lo + src : B.lo, ok);
   }
 }
 
-// dst[i * ldd + o] += sum over tile pixels p of a[i][p] * b[o][p] for i < NI
-// and o < NO (multiples of 4): a tile's share of a 1x1 weight gradient, a
-// thread a 4 x 4 block of outputs summing the pixels in order, then four
-// float4 read-modify-writes of the block's row that do not wait on each
-// other.  (grad.cuh outer_acc, a warp a block with lanes over pixels, waits
-// on one read of the row per block and at 4 x 4 tiles spends 80 shuffles on
-// 16 multiply-adds: 2.9x slower here, where the rows reach 1 GiB.)  Pixel p of the tile sits at a[i * sa + ha * (pwa + 1) + (p / TW) *
-// pwa + p % TW] (a plane on a halo of ha pixels, pwa = TW + 2 ha); b alike.
-template <typename TA, typename TB>
-__device__ void outer4(float* dst, int ldd, const TA* a, int sa, int ha,
-                       int NI, const TB* b, int sb, int hb, int NO, int TH,
-                       int TW) {
-  const int P = TH * TW, pwa = TW + 2 * ha, pwb = TW + 2 * hb;
-  const TA* a0 = a + ha * (pwa + 1);
-  const TB* b0 = b + hb * (pwb + 1);
-  const int nbo = NO / 4;
-  for (int it = threadIdx.x; it < (NI / 4) * nbo; it += blockDim.x) {
-    const int o0 = 4 * (it % nbo), i0 = 4 * (it / nbo);
-    float s[16];
+// The block's BM x BN tile of A B over k in [kbeg, kend), left in shared
+// memory as f32 (row r at out[r * TL::OLD]); the block is synchronized.
+// k slices add into the accumulators in order, each k16 step's split passes
+// in mma_split's order.
+template <class TL>
+__device__ float* tile_product(bf16* smem, const Opnd& A, const Opnd& B,
+                               int M, int N, int kbeg, int kend, int m0,
+                               int n0) {
+  float acc[TL::MI][TL::NI][4];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) s[e] = 0.f;
-    for (int p = 0; p < P; ++p) {
-      const int pa = (p / TW) * pwa + p % TW, pb = (p / TW) * pwb + p % TW;
-      float av[4], bv[4];
+  for (int i = 0; i < TL::MI; ++i)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        av[u] = to_f(a0[(i0 + u) * sa + pa]);
-        bv[u] = to_f(b0[(o0 + u) * sb + pb]);
-      }
+    for (int j = 0; j < TL::NI; ++j)
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          s[4 * u + v] = fmaf(av[u], bv[v], s[4 * u + v]);
-    }
-    float4* d[4];
-    float4 r[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      d[u] = reinterpret_cast<float4*>(dst + (size_t)(i0 + u) * ldd + o0);
-      r[u] = *d[u];
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      r[u].x += s[4 * u];
-      r[u].y += s[4 * u + 1];
-      r[u].z += s[4 * u + 2];
-      r[u].w += s[4 * u + 3];
-      *d[u] = r[u];
-    }
-  }
-}
-
-// Weight-gradient row of one block (E floats): dW1 [C][hid], db1 [hid],
-// dtaps [hid][9], db_dw [hid], dW2 [hid][C], db2 [C], dscale [C], dbias [C].
-__host__ __device__ __forceinline__ size_t row_size(int C, int hid) {
-  return 2 * (size_t)C * hid + 11 * (size_t)hid + 3 * (size_t)C;
-}
-
-// w1: [C][hid] in T; b1, bdw: [hid] f32; taps: [9][hid] f32 with
-// k = 3 * dh + dw; w2: [hid][C] in T; s: [B] f32.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ln_leff_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                       T* __restrict__ dx, const float* __restrict__ scale,
-                       const float* __restrict__ bias,
-                       const T* __restrict__ w1,
-                       const float* __restrict__ b1,
-                       const float* __restrict__ taps,
-                       const float* __restrict__ bdw,
-                       const T* __restrict__ w2,
-                       const float* __restrict__ s, float* __restrict__ part,
-                       int B, int H, int W, int C, int hid, int TH, int TW,
-                       int residual, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int PW2 = TW + 2, NP2 = PW2 * (TH + 2);
-  const int PW4 = TW + 4, NP4 = PW4 * (TH + 4), P = TH * TW;
-  // odd strides where lanes walk over channels
-  const int LS4 = NP4 | 1, LS2 = NP2 | 1, AS = P | 1;
-  float* acc = reinterpret_cast<float*>(smem);  // [C][AS]: dLN, f32
-  float* w1s = acc + (size_t)C * AS;             // [C][G]: fc1 columns
-  float* w2t = w1s + (size_t)C * G;              // [C][G]: fc2 rows^T
-  float* g1 = w2t + (size_t)C * G;               // [G][NP4]: gelu(t1)
-  float* dt2 = g1 + G * NP4;                     // [G][NP2]: dt2, f32
-  float* gp = dt2 + G * NP2;                     // [G][P]: gelu'(t1)
-  float* g2 = gp + G * P;                        // [G][P]: gelu(t2)
-  float* d1 = g2 + G * P;                        // [G][P]: round(dt1)
-  float* st = d1 + G * P;                        // [2P]: LN mean, rstd
-  T* ln = reinterpret_cast<T*>(st + 2 * P);      // [C][LS4]
-  T* dyk = ln + (size_t)C * LS4;                 // [C][LS2]
-
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nw = nthr >> 5;
-  const int tiles_x = (W + TW - 1) / TW;
-  const int per_img = tiles_x * ((H + TH - 1) / TH);
-  const size_t E = row_size(C, hid);
-  float* g_w1 = part + blockIdx.x * E;
-  float* g_b1 = g_w1 + (size_t)C * hid;
-  float* g_taps = g_b1 + hid;
-  float* g_bdw = g_taps + (size_t)hid * 9;
-  float* g_w2 = g_bdw + hid;
-  float* g_b2 = g_w2 + (size_t)hid * C;
-  float* g_sc = g_b2 + C;
-  float* g_bi = g_sc + C;
-  // E is a multiple of 8 (C % 8, hid % G), so rows stay 32-byte aligned
-  for (size_t e = tid; e < E / 4; e += nthr)
-    reinterpret_cast<float4*>(g_w1)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int tile = blockIdx.x; tile < B * per_img; tile += gridDim.x) {
-    const int b = tile / per_img, t = tile % per_img;
-    const int r0 = (t / tiles_x) * TH, c0 = (t % tiles_x) * TW;
-    const float sb = __ldg(s + b);
-    __syncthreads();  // the previous tile is done with every buffer
-
-    for (int q = warp; q < NP4; q += nw) {
-      const int r = r0 - 2 + q / PW4, c = c0 - 2 + q % PW4;
-      if (!in_image(r, c, H, W)) {
-        for (int ch = lane; ch < C; ch += 32) ln[ch * LS4 + q] = from_f<T>(0.f);
-        continue;
-      }
-      const T* xp = x + (((size_t)b * H + r) * W + c) * C;
-      float mean, rstd;
-      ln_stats(xp, C, lane, eps, mean, rstd);
-      for (int ch = lane; ch < C; ch += 32)
-        ln[ch * LS4 + q] = from_f<T>((to_f(xp[ch]) - mean) * rstd *
-                                         __ldg(scale + ch) +
-                                     __ldg(bias + ch));
-    }
-    for (int q = warp; q < NP2; q += nw) {
-      const int r = r0 - 1 + q / PW2, c = c0 - 1 + q % PW2;
-      if (!in_image(r, c, H, W)) {
-        for (int ch = lane; ch < C; ch += 32) dyk[ch * LS2 + q] = from_f<T>(0.f);
-        continue;
-      }
-      const T* dp = dy + (((size_t)b * H + r) * W + c) * C;
-      for (int ch = lane; ch < C; ch += 32)
-        dyk[ch * LS2 + q] = from_f<T>(to_f(dp[ch]) * sb);
-    }
-    for (int i = tid; i < C * AS; i += nthr) acc[i] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % TL::WM, wn = warp / TL::WM;
+  const int nk = (kend - kbeg + BK - 1) / BK;
+  if (nk > 0) load_stage<TL>(smem, A, B, M, N, kend, m0, n0, kbeg);
+  mm::cp_async_commit();
+  for (int t = 0; t < nk; ++t) {
+    if (t + 1 < nk)
+      load_stage<TL>(smem + ((t + 1) & 1) * TL::STAGE, A, B, M, N, kend, m0,
+                     n0, kbeg + (t + 1) * BK);
+    mm::cp_async_commit();
+    mm::cp_async_wait<1>();
     __syncthreads();
-
-    // the tile's share of db2, a thread a channel
-    for (int ch = tid; ch < C; ch += nthr) {
-      float a = 0.f;
-      for (int p = 0; p < P; ++p)
-        a += to_f(dyk[ch * LS2 + (p / TW + 1) * PW2 + p % TW + 1]);
-      g_b2[ch] += a;
+    const bf16* sa = smem + (t & 1) * TL::STAGE;
+    const bf16* sb = sa + TL::NP * TL::AT;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[TL::MI][TL::NP][4];
+      uint32_t bfr[TL::NI][TL::NP][2];
+#pragma unroll
+      for (int mi = 0; mi < TL::MI; ++mi) {
+        const int m = wm * TL::TM + mi * 16;
+#pragma unroll
+        for (int pl = 0; pl < TL::NP; ++pl)
+          mm::frag_a<TL::AKM>(af[mi][pl],
+                              sa + pl * TL::AT +
+                                  (TL::AKM ? kk * TL::ALD + m
+                                           : m * TL::ALD + kk),
+                              TL::ALD);
+      }
+#pragma unroll
+      for (int ni = 0; ni < TL::NI; ni += 2) {
+        const int n = wn * TL::TN + ni * 8;
+#pragma unroll
+        for (int pl = 0; pl < TL::NP; ++pl) {
+          uint32_t r[4];
+          mm::frag_b2<TL::BKN>(r,
+                               sb + pl * TL::BT +
+                                   (TL::BKN ? kk * TL::BLD + n
+                                            : n * TL::BLD + kk),
+                               TL::BLD);
+          bfr[ni][pl][0] = r[0];
+          bfr[ni][pl][1] = r[1];
+          bfr[ni + 1][pl][0] = r[2];
+          bfr[ni + 1][pl][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < TL::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < TL::NI; ++ni)
+          mm::mma_split<TL::NP, TL::NP>(acc[mi][ni], af[mi], bfr[ni]);
     }
-
-    for (int j0 = 0; j0 < hid; j0 += G) {
-      // the chunk's fc1 columns and fc2 rows (transposed), both [C][G]
-      for (int i = tid; i < C * (G / 8); i += nthr) {
-        const int c = i / (G / 8), k = 8 * (i % (G / 8));
-        float v[8];
-        load8(v, w1 + (size_t)c * hid + j0 + k);
-        float4* d = reinterpret_cast<float4*>(w1s + c * G + k);
-        d[0] = make_float4(v[0], v[1], v[2], v[3]);
-        d[1] = make_float4(v[4], v[5], v[6], v[7]);
-      }
-      for (int i = tid; i < G * (C / 8); i += nthr) {
-        const int j = i % G, c8 = 8 * (i / G);
-        float v[8];
-        load8(v, w2 + (size_t)(j0 + j) * C + c8);
+    __syncthreads();  // the next stage's load overwrites this one
+  }
+  float* out = reinterpret_cast<float*>(smem);
+  const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-        for (int u = 0; u < 8; ++u) w2t[(c8 + u) * G + j] = v[u];
-      }
-      __syncthreads();
-
-      // t1 on the 2-pixel halo: items (pixel, JW hidden channels)
-      for (int it = tid; it < NP4 * (G / JW); it += nthr) {
-        const int q = it % NP4, j8 = JW * (it / NP4);
-        const int qy = q / PW4, qx = q % PW4;
-        const bool inside = in_image(r0 - 2 + qy, c0 - 2 + qx, H, W);
-        const bool tile_px = qy >= 2 && qy < TH + 2 && qx >= 2 && qx < TW + 2;
-        float sv[JW];
-        project<T>(sv, inside ? C : 0, ln + q, LS4, w1s + j8);
+  for (int mi = 0; mi < TL::MI; ++mi)
 #pragma unroll
-        for (int i = 0; i < JW; ++i) {
-          const int j = j8 + i;
-          const float t1 =
-              round_to<T>(round_to<T>(sv[i]) + __ldg(b1 + j0 + j));
-          g1[j * NP4 + q] = inside ? round_to<T>(gelu_f(t1)) : 0.f;
-          if (tile_px) gp[j * P + (qy - 2) * TW + qx - 2] = gelu_grad(t1);
-        }
-      }
-      __syncthreads();
-
-      // on the 1-pixel halo: items (pixel, JW hidden channels)
-      for (int it = tid; it < NP2 * (G / JW); it += nthr) {
-        const int q = it % NP2, j8 = JW * (it / NP2);
-        const int qy = q / PW2, qx = q % PW2;
-        const bool inside = in_image(r0 - 1 + qy, c0 - 1 + qx, H, W);
-        const bool tile_px = qy >= 1 && qy <= TH && qx >= 1 && qx <= TW;
-        float dg[JW];
-        project<T>(dg, inside ? C : 0, dyk + q, LS2, w2t + j8);
-#pragma unroll
-        for (int i = 0; i < JW; ++i) {
-          const int j = j8 + i;
-          float dt = 0.f, gv = 0.f;
-          if (inside) {
-            // q's 3x3 starts at (qy, qx) of the 2-pixel-halo plane
-            const float* gj = g1 + j * NP4 + qy * PW4 + qx;
-            const float* tj = taps + j0 + j;
-            float t2 = 0.f;
-#pragma unroll
-            for (int k = 0; k < 9; ++k)
-              t2 = fmaf(__ldg(tj + k * hid), gj[(k / 3) * PW4 + k % 3], t2);
-            t2 = round_to<T>(round_to<T>(t2) + __ldg(bdw + j0 + j));
-            dt = dg[i] * gelu_grad(t2);
-            gv = round_to<T>(gelu_f(t2));
-          }
-          dt2[j * NP2 + q] = dt;
-          if (tile_px) g2[j * P + (qy - 1) * TW + qx - 1] = gv;
-        }
-      }
-      __syncthreads();
-
-      // dt1 on the tile, a warp a hidden channel (lanes over pixels), and
-      // the tile's shares of db1 (f32 dt1) and db_dw (f32 dt2)
-      for (int j = warp; j < G; j += nw) {
-        const float* tj = taps + j0 + j;
-        const float* dj = dt2 + j * NP2;
-        float s1 = 0.f, s2 = 0.f;
-        for (int p = lane; p < P; p += 32) {
-          const int py = p / TW, px = p % TW;
-          float d = 0.f;
-          if (in_image(r0 + py, c0 + px, H, W)) {
-            // sum_k tap_k round(dt2)(p - d_k), d_k = (k / 3 - 1, k % 3 - 1)
-            const float* dc = dj + (py + 2) * PW2 + px + 2;
-            float u = 0.f;
-#pragma unroll
-            for (int k = 0; k < 9; ++k)
-              u = fmaf(__ldg(tj + k * hid),
-                       round_to<T>(dc[-(k / 3) * PW2 - k % 3]), u);
-            d = u * gp[j * P + p];
-            s2 += dj[(py + 1) * PW2 + px + 1];
-          }
-          d1[j * P + p] = round_to<T>(d);
-          s1 += d;
-        }
-        s1 = warp_sum(s1);
-        s2 = warp_sum(s2);
-        if (lane == 0) {
-          g_b1[j0 + j] += s1;
-          g_bdw[j0 + j] += s2;
-        }
-      }
-      __syncthreads();
-
-      // the tile's shares of dtaps, dW1 and dW2; dLN += W1 round(dt1)
-      uir::tap_grad_acc<float>(g_taps + (size_t)j0 * 9, dt2, 1, g1, 2, G, TH,
-                               TW);
-      outer4<T, float>(g_w1 + j0, hid, ln, LS4, 2, C, d1, P, 0, G, TH, TW);
-      outer4<float, T>(g_w2 + (size_t)j0 * C, C, g2, P, 0, G, dyk, LS2, 1, C,
-                       TH, TW);
-      for (int it = tid; it < P * (C / 4); it += nthr) {
-        const int p = it % P, c4 = 4 * (it / P);
-        float u0 = 0.f, u1 = 0.f, u2 = 0.f, u3 = 0.f;
-        const float* wr = w1s + c4 * G;
-#pragma unroll 8
-        for (int j = 0; j < G; ++j) {
-          const float dv = d1[j * P + p];
-          u0 = fmaf(wr[j], dv, u0);
-          u1 = fmaf(wr[G + j], dv, u1);
-          u2 = fmaf(wr[2 * G + j], dv, u2);
-          u3 = fmaf(wr[3 * G + j], dv, u3);
-        }
-        acc[c4 * AS + p] += u0;
-        acc[(c4 + 1) * AS + p] += u1;
-        acc[(c4 + 2) * AS + p] += u2;
-        acc[(c4 + 3) * AS + p] += u3;
-      }
-      // the next chunk overwrites the weights and the chunk planes
-      __syncthreads();
+    for (int ni = 0; ni < TL::NI; ++ni) {
+      const int r = wm * TL::TM + mi * 16 + g;
+      const int c = wn * TL::TN + ni * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(out + r * TL::OLD + c) =
+          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(out + (r + 8) * TL::OLD + c) =
+          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
     }
+  __syncthreads();
+  return out;
+}
 
-    // LayerNorm backward of the tile, a warp a pixel: dx, and the pixel's
-    // mean and rstd for the dscale/dbias shares below
-    for (int p = warp; p < P; p += nw) {
-      const int r = r0 + p / TW, c = c0 + p % TW;
-      if (!in_image(r, c, H, W)) continue;
-      const size_t base = (((size_t)b * H + r) * W + c) * C;
-      float mean, rstd;
-      ln_stats(x + base, C, lane, eps, mean, rstd);
+// A product launch: blockIdx.x the m tile, blockIdx.y the n tile, blockIdx.z
+// = nprob * split + problem (problem 1 takes A1, B1).  Split s covers
+// k in [s Ks, min(K, (s + 1) Ks)).  The epilogue gets the result tile.
+template <class TL, class Epi>
+__global__ void __launch_bounds__(kThreads)
+    ln_leff_bwd_gemm_kernel(Opnd A0, Opnd B0, Opnd A1, Opnd B1, int M,
+                            int N, int K, int Ks, int nprob, Epi epi) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int prob = blockIdx.z % nprob, split = blockIdx.z / nprob;
+  const int kbeg = split * Ks, kend = min(K, kbeg + Ks);
+  const int m0 = blockIdx.x * TL::BM, n0 = blockIdx.y * TL::BN;
+  const float* out = tile_product<TL>(smem, prob ? A1 : A0, prob ? B1 : B0,
+                                      M, N, kbeg, kend, m0, n0);
+  epi(out, TL::OLD, TL::BM, TL::BN, m0, n0, prob, split);
+}
+
+// Calls f(m, n, v0, v1) for the result pairs (n, n + 1) of a tile inside
+// (M, N), consecutive threads on consecutive pairs of a row.
+template <class F>
+__device__ __forceinline__ void for_pairs(const float* o, int ld, int bm,
+                                          int bn, int m0, int n0, int M,
+                                          int N, F f) {
+  const int hp = bn / 2;
+  for (int i = threadIdx.x; i < bm * hp; i += blockDim.x) {
+    const int r = i / hp, c = 2 * (i % hp);
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const float2 v = *reinterpret_cast<const float2*>(o + r * ld + c);
+    f(m, n, v.x, v.y);
+  }
+}
+
+// Two consecutive values (i even), rounded to T, in one store.
+__device__ __forceinline__ void store2(float* p, size_t i, float a, float b) {
+  *reinterpret_cast<float2*>(p + i) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, size_t i, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(a, b);
+}
+
+// 2. fc1's epilogue: t1 and g1 [pixel][hid] in T
+template <typename T>
+struct Fc1Epi {
+  T* t1;
+  T* g1;
+  const float* b1;
+  int M, N;
+  __device__ void operator()(const float* o, int ld, int bm, int bn, int m0,
+                             int n0, int, int) const {
+    for_pairs(o, ld, bm, bn, m0, n0, M, N,
+              [&](int m, int n, float v0, float v1) {
+                const float a =
+                    round_to<T>(round_to<T>(v0) + __ldg(b1 + n));
+                const float b =
+                    round_to<T>(round_to<T>(v1) + __ldg(b1 + n + 1));
+                const size_t i = (size_t)m * N + n;
+                store2(t1, i, a, b);
+                store2(g1, i, gelu_f(a), gelu_f(b));
+              });
+  }
+};
+
+// 3. dg2's epilogue: t2 from g1's 3x3 neighbourhood, dt2 (f32) and g2
+// (planes) [pixel][hid]
+template <typename T, int NP>
+struct Dg2Epi {
+  const T* g1;
+  const float* taps;  // [9][hid]
+  const float* bdw;
+  float* dt2;
+  bf16* g2;
+  size_t g2_lo;
+  int M, N, H, W;
+  // dt2 and g2 of a channel from t2's tap sum s and its bias bd
+  __device__ float one(float s, float bd, float dg, float& gv) const {
+    const float t2 = round_to<T>(round_to<T>(s) + bd);
+    float g, gp;
+    gelu_both(t2, g, gp);
+    gv = round_to<T>(g);
+    return dg * gp;
+  }
+  // g1 pair (n, n + 1) at row hh, column wc of the image whose pixel
+  // (0, 0) is base; zero outside the image
+  __device__ float2 g1_at(size_t base, int hh, int wc, int n) const {
+    return hh >= 0 && hh < H && wc >= 0 && wc < W
+               ? load2(g1, (base + (size_t)hh * W + wc) * N + n)
+               : make_float2(0.f, 0.f);
+  }
+  // A thread keeps one pair of columns (its taps and biases in registers)
+  // and walks bm / (kThreads / (bn / 2)) consecutive pixels of the tile
+  // with a sliding 3x3 window of g1 (three new loads a pixel).
+  __device__ void operator()(const float* o, int ld, int bm, int bn, int m0,
+                             int n0, int, int) const {
+    const int hp = bn / 2, per = bm / (kThreads / hp);
+    const int c = 2 * (threadIdx.x % hp), n = n0 + c;
+    const int rbeg = (threadIdx.x / hp) * per;
+    const int rend = min(rbeg + per, M - m0);
+    if (n >= N || rbeg >= rend) return;
+    float2 tk[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+      tk[k] = __ldg(reinterpret_cast<const float2*>(taps + k * N + n));
+    const float ba = __ldg(bdw + n), bb = __ldg(bdw + n + 1);
+    const int hw = (m0 + rbeg) % (H * W);
+    int h = hw / W, w = hw % W;
+    size_t base = (size_t)(m0 + rbeg) - hw;
+    float2 win[3][3];  // rows h - 1 + i, columns w - 1 + j
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        win[i][j] = g1_at(base, h - 1 + i, w - 1 + j, n);
+    for (int r = rbeg; r < rend; ++r) {
+      float sa = 0.f, sb = 0.f;  // zeros outside the image add nothing
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        sa = fmaf(tk[k].x, win[k / 3][k % 3].x, sa);
+        sb = fmaf(tk[k].y, win[k / 3][k % 3].y, sb);
+      }
+      const float2 v = *reinterpret_cast<const float2*>(o + r * ld + c);
+      float ga, gb;
+      const float da = one(sa, ba, v.x, ga);
+      const float db = one(sb, bb, v.y, gb);
+      const size_t q = (size_t)(m0 + r) * N + n;
+      *reinterpret_cast<float2*>(dt2 + q) = make_float2(da, db);
+      mm::put2<NP>(g2, g2_lo, q, ga, gb);
+      if (++w < W) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          win[i][0] = win[i][1];
+          win[i][1] = win[i][2];
+          win[i][2] = g1_at(base, h - 1 + i, w + 1, n);
+        }
+      } else if (r + 1 < rend) {
+        w = 0;
+        if (++h == H) h = 0, base += (size_t)H * W;
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            win[i][j] = g1_at(base, h - 1 + i, j - 1, n);
+      }
+    }
+  }
+};
+
+// 5. the weight gradients' epilogue: problem 0 is dW1^T (stored as dW1
+// [C][hid]), problem 1 dW2 [hid][C]; split s writes its own rows.
+struct WgradEpi {
+  float* part;  // [2][splits][hid * C]
+  int M, N, splits;
+  __device__ void operator()(const float* o, int ld, int bm, int bn, int m0,
+                             int n0, int prob, int split) const {
+    float* row = part + ((size_t)prob * splits + split) * M * N;
+    for_pairs(o, ld, bm, bn, m0, n0, M, N,
+              [&](int m, int n, float v0, float v1) {
+                if (prob == 0) {
+                  row[(size_t)n * M + m] = v0;
+                  row[(size_t)(n + 1) * M + m] = v1;
+                } else {
+                  *reinterpret_cast<float2*>(row + (size_t)m * N + n) =
+                      make_float2(v0, v1);
+                }
+              });
+  }
+};
+
+// 6. dLN's epilogue: the LayerNorm backward of the block's pixels (a warp a
+// pixel) and its shares of dscale and dbias (a thread a channel, pixels in
+// order) into its row of part [blocks][2C].
+template <typename T>
+struct DlnEpi {
+  const T* x;
+  const T* dy;
+  T* dx;
+  const float2* stats;
+  const float* scale;
+  float* part;
+  int M, C, residual;
+  __device__ void operator()(const float* o, int ld, int bm, int, int m0,
+                             int, int, int) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < bm; r += kThreads / 32) {
+      const int m = m0 + r;
+      if (m >= M) break;
+      const float2 st = stats[m];
+      const size_t base = (size_t)m * C;
       float s1 = 0.f, s2 = 0.f;
       for (int ch = lane; ch < C; ch += 32) {
-        const float xh = (to_f(x[base + ch]) - mean) * rstd;
-        const float g = acc[ch * AS + p] * __ldg(scale + ch);
+        const float xh = (to_f(x[base + ch]) - st.x) * st.y;
+        const float g = o[r * ld + ch] * __ldg(scale + ch);
         s1 += g;
         s2 = fmaf(g, xh, s2);
       }
       s1 = warp_sum(s1) / C;
       s2 = warp_sum(s2) / C;
       for (int ch = lane; ch < C; ch += 32) {
-        const float xh = (to_f(x[base + ch]) - mean) * rstd;
-        const float g = acc[ch * AS + p] * __ldg(scale + ch);
-        const float dxl = round_to<T>(rstd * (g - s1 - xh * s2));
+        const float xh = (to_f(x[base + ch]) - st.x) * st.y;
+        const float g = o[r * ld + ch] * __ldg(scale + ch);
+        const float dxl = round_to<T>(st.y * (g - s1 - xh * s2));
         dx[base + ch] =
             from_f<T>(residual ? to_f(dy[base + ch]) + dxl : dxl);
       }
-      if (lane == 0) {
-        st[p] = mean;
-        st[P + p] = rstd;
-      }
     }
-    __syncthreads();
-    // the tile's shares of dscale and dbias, a thread a channel, pixels in
-    // order
-    for (int ch = tid; ch < C; ch += nthr) {
-      float a = 0.f, bsum = 0.f;
-      for (int p = 0; p < P; ++p) {
-        const int r = r0 + p / TW, c = c0 + p % TW;
-        if (!in_image(r, c, H, W)) continue;
-        const float dl = acc[ch * AS + p];
+    float* row = part + (size_t)blockIdx.x * 2 * C;
+    for (int ch = threadIdx.x; ch < C; ch += kThreads) {
+      float a = 0.f, b = 0.f;
+      for (int r = 0; r < bm && m0 + r < M; ++r) {
+        const float2 st = stats[m0 + r];
+        const float dl = o[r * ld + ch];
         const float xh =
-            (to_f(x[(((size_t)b * H + r) * W + c) * C + ch]) - st[p]) *
-            st[P + p];
+            (to_f(x[(size_t)(m0 + r) * C + ch]) - st.x) * st.y;
         a = fmaf(dl, xh, a);
-        bsum += dl;
+        b += dl;
       }
-      g_sc[ch] += a;
-      g_bi[ch] += bsum;
+      row[ch] = a;
+      row[C + ch] = b;
+    }
+  }
+};
+
+// 1. prep: a warp a pixel of the slice (M pixels, HW a image).
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads)
+    ln_leff_bwd_prep_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                const float* __restrict__ scale,
+                const float* __restrict__ bias, const float* __restrict__ s,
+                float2* __restrict__ stats, bf16* __restrict__ ln,
+                bf16* __restrict__ dyk, int M, int HW, int C, float eps) {
+  const int lane = threadIdx.x & 31;
+  const size_t lo = (size_t)M * C;
+  for (int m = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5); m < M;
+       m += gridDim.x * (kThreads / 32)) {
+    const size_t base = (size_t)m * C;
+    float mean, rstd;
+    ln_stats(x + base, C, lane, eps, mean, rstd);
+    if (lane == 0) stats[m] = make_float2(mean, rstd);
+    const float sb = __ldg(s + m / HW);
+    for (int ch = lane; ch < C; ch += 32) {
+      mm::put<NP>(ln, lo, base + ch,
+                  round_to<T>((to_f(x[base + ch]) - mean) * rstd *
+                                  __ldg(scale + ch) +
+                              __ldg(bias + ch)));
+      mm::put<NP>(dyk, lo, base + ch, round_to<T>(to_f(dy[base + ch]) * sb));
     }
   }
 }
 
+// 4. the depthwise pass.  blockIdx.y is a group of DW_R image rows and a
+// segment of DW_W columns of the slice (segment-fastest).  Blocks x < hch: a
+// thread a hidden channel j walks the segment's columns with a sliding
+// window (the next column loaded a step ahead); blocks beyond: a thread a
+// channel c of dyk, for db2.  Row y of part1 [groups][11 hid] holds the
+// group and segment's db1 [hid], dtaps [hid][9], db_dw [hid]; of part2
+// [groups][C], db2.
+template <typename T, int NP>
+__global__ void __launch_bounds__(DW_T)
+    ln_leff_bwd_dw_kernel(const T* __restrict__ t1, const T* __restrict__ g1,
+                          const float* __restrict__ dt2,
+                          const float* __restrict__ taps,
+                          const T* __restrict__ dy,
+                          const float* __restrict__ s, bf16* __restrict__ d1,
+                          size_t d1_lo, float* __restrict__ part1,
+                          float* __restrict__ part2, int H, int W, int C,
+                          int hid, int hch) {
+  const int hg = (H + DW_R - 1) / DW_R, ns = (W + DW_W - 1) / DW_W;
+  const int grp = blockIdx.y / ns, seg = blockIdx.y % ns;
+  const int b = grp / hg, h0 = (grp % hg) * DW_R;
+  const int nr = min(DW_R, H - h0);
+  const int w0 = seg * DW_W, w1 = min(W, w0 + DW_W);
+  const size_t img0 = (size_t)b * H * W;  // pixel (b, 0, 0) of the slice
+  if ((int)blockIdx.x >= hch) {
+    const int c = (blockIdx.x - hch) * DW_T + threadIdx.x;
+    if (c >= C) return;
+    const float sb = __ldg(s + b);
+    float a = 0.f;
+    for (int r = 0; r < nr; ++r)
+      for (int w = w0; w < w1; ++w)
+        a += round_to<T>(to_f(dy[(img0 + (size_t)(h0 + r) * W + w) * C + c]) *
+                         sb);
+    part2[(size_t)blockIdx.y * C + c] = a;
+    return;
+  }
+  const int j = blockIdx.x * DW_T + threadIdx.x;
+  if (j >= hid) return;
+  float tp[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) tp[k] = __ldg(taps + k * hid + j);
+  // window[i][dc]: rows h0 - 1 + i, columns w - 1 + dc (zero outside); nD,
+  // nG: column w + 1's and nT: t1 at (h0 + r, w), loaded one step ahead
+  float D[DW_R + 2][3], G[DW_R + 2][3], nD[DW_R + 2], nG[DW_R + 2];
+  float nT[DW_R];
+#pragma unroll
+  for (int i = 0; i < DW_R + 2; ++i) {
+    const int hh = h0 - 1 + i;
+    const bool in = hh >= 0 && hh < H;
+    const size_t q = (img0 + (size_t)hh * W + w0) * hid + j;
+    D[i][0] = in && w0 > 0 ? dt2[q - hid] : 0.f;
+    G[i][0] = in && w0 > 0 ? to_f(g1[q - hid]) : 0.f;
+    D[i][1] = in ? dt2[q] : 0.f;
+    G[i][1] = in ? to_f(g1[q]) : 0.f;
+    nD[i] = in && w0 + 1 < W ? dt2[q + hid] : 0.f;
+    nG[i] = in && w0 + 1 < W ? to_f(g1[q + hid]) : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < DW_R; ++r)
+    nT[r] = r < nr
+                ? to_f(t1[(img0 + (size_t)(h0 + r) * W + w0) * hid + j])
+                : 0.f;
+  float sb1 = 0.f, sbdw = 0.f, st[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) st[k] = 0.f;
+  for (int w = w0; w < w1; ++w) {
+    float tv[DW_R];
+#pragma unroll
+    for (int r = 0; r < DW_R; ++r) {
+      tv[r] = nT[r];
+      const bool ok = r < nr && w + 1 < w1;
+      nT[r] = ok ? to_f(t1[(img0 + (size_t)(h0 + r) * W + w + 1) * hid + j])
+                 : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < DW_R + 2; ++i) {
+      D[i][2] = nD[i];
+      G[i][2] = nG[i];
+      const int hh = h0 - 1 + i;
+      const bool ok = hh >= 0 && hh < H && w + 2 < W;
+      const size_t q = (img0 + (size_t)hh * W + w + 2) * hid + j;
+      nD[i] = ok ? dt2[q] : 0.f;
+      nG[i] = ok ? to_f(g1[q]) : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < DW_R; ++r) {
+      if (r >= nr) break;
+      // dt1 = sum_k tap_k round(dt2)(p - d_k), d_k = (k / 3 - 1, k % 3 - 1)
+      float u = 0.f;
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        u = fmaf(tp[k], round_to<T>(D[r + 2 - k / 3][2 - k % 3]), u);
+      const float d = u * gelu_grad(tv[r]);
+      mm::put<NP>(d1, d1_lo, (img0 + (size_t)(h0 + r) * W + w) * hid + j,
+                  round_to<T>(d));
+      sb1 += d;
+      const float dv = D[r + 1][1];
+      sbdw += dv;
+      // dtaps_k += dt2(p) g1(p + d_k)
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        st[k] = fmaf(dv, G[r + k / 3][k % 3], st[k]);
+    }
+#pragma unroll
+    for (int i = 0; i < DW_R + 2; ++i) {
+      D[i][0] = D[i][1];
+      D[i][1] = D[i][2];
+      G[i][0] = G[i][1];
+      G[i][1] = G[i][2];
+    }
+  }
+  float* r = part1 + (size_t)blockIdx.y * 11 * hid;
+  r[j] = sb1;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) r[hid + j * 9 + k] = st[k];
+  r[10 * hid + j] = sbdw;
+}
+
+// 7. out[off + e] (+)= sum over the rows of part[row][e] for each segment,
+// in a fixed order: a thread an output summing the rows in order, or, for
+// a segment of TALL rows or more, a warp an output whose lane l sums rows
+// l, l + 32, ... in order before a fixed shuffle tree.  Segments start on
+// warp boundaries (vbase, in threads).  accumulate adds to the previous
+// slices' sums.
+constexpr int TALL = 64;
+struct Seg {
+  const float* part;
+  int rows, width, off, lanes, vbase;
+};
+constexpr int NSEG = 5;
+struct Segs {
+  Seg s[NSEG];
+  int total;  // threads
+};
+
+Segs make_segs(const Seg (&in)[NSEG]) {
+  Segs out{};
+  int v = 0;
+  for (int i = 0; i < NSEG; ++i) {
+    out.s[i] = in[i];
+    out.s[i].lanes = in[i].rows >= TALL ? 32 : 1;
+    out.s[i].vbase = v;
+    v += (in[i].width * out.s[i].lanes + 31) / 32 * 32;
+  }
+  out.total = v;
+  return out;
+}
+
+__global__ void ln_leff_bwd_reduce_kernel(Segs segs, float* __restrict__ out,
+                              int accumulate) {
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= segs.total) return;  // a multiple of 32: whole warps leave
+  int i = 0;
+  while (i + 1 < NSEG && v >= segs.s[i + 1].vbase) ++i;
+  const Seg sg = segs.s[i];
+  const int rel = v - sg.vbase, e = rel / sg.lanes, lane = rel % sg.lanes;
+  float a = 0.f;
+  if (e < sg.width)
+    for (int g = lane; g < sg.rows; g += sg.lanes)
+      a += sg.part[(size_t)g * sg.width + e];
+  if (sg.lanes == 32) a = warp_sum(a);  // the warp lies in one segment
+  if (e < sg.width && lane == 0) {
+    float* o = out + sg.off + e;
+    *o = accumulate ? *o + a : a;
+  }
+}
+
+// The workspace of one slice of P pixels (rows image rows), in order, each
+// piece 256-byte aligned (ops/fused_leff.py bwd_workspace_bytes mirrors it).
+struct Layout {
+  size_t off[13];
+  Layout(int P, int rows, int C, int hid, int NP, int item, int Ks) {
+    const size_t p = P;
+    const size_t splits = (P + Ks - 1) / Ks, fb = (P + FM - 1) / FM;
+    const size_t sz[12] = {8 * p,
+                           (size_t)NP * 2 * p * C,     // ln planes
+                           (size_t)NP * 2 * p * C,     // dyk planes
+                           p * hid * item,             // t1
+                           p * hid * item,             // g1
+                           4 * p * hid,                // dt2
+                           (size_t)NP * 2 * p * hid,   // g2 planes
+                           (size_t)NP * 2 * p * hid,   // round(dt1) planes
+                           4 * 2 * splits * hid * C,   // dW1^T, dW2 rows
+                           4 * (size_t)rows * 11 * hid,  // depthwise rows
+                           4 * (size_t)rows * C,         // db2 rows
+                           4 * fb * 2 * C};              // dscale/dbias rows
+    off[0] = 0;
+    for (int i = 0; i < 12; ++i)
+      off[i + 1] = off[i] + (sz[i] + 255) / 256 * 256;
+  }
+};
+
+template <class TL, class Epi>
+cudaError_t gemm(dim3 grid, const Opnd& A0, const Opnd& B0, const Opnd& A1,
+                 const Opnd& B1, int M, int N, int K, int Ks, int nprob,
+                 const Epi& epi, cudaStream_t stream) {
+  auto kern = ln_leff_bwd_gemm_kernel<TL, Epi>;
+  cudaError_t e = uir::set_smem(kern, TL::SMEM);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kThreads, TL::SMEM, stream>>>(A0, B0, A1, B1, M, N, K, Ks,
+                                              nprob, epi);
+  return cudaGetLastError();
+}
+
+template <typename T, int BNF>
+cudaError_t dln(int P, const Opnd& A, const Opnd& B, int C, int hid,
+                const DlnEpi<T>& epi, cudaStream_t stream) {
+  constexpr int NP = std::is_same<T, float>::value ? 2 : 1;
+  using TL = Tile<FM, BNF, 1, 8, false, false, NP>;
+  return gemm<TL>(dim3((P + FM - 1) / FM, 1, 1), A, B, A, B, P, C, hid, hid,
+                  1, epi, stream);
+}
+
+#define UIR_TRY(call)                       \
+  do {                                      \
+    const cudaError_t e_ = (call);          \
+    if (e_ != cudaSuccess) return (int)e_;  \
+  } while (0)
+
 template <typename T>
-int launch(const void* x, const void* dy, void* dx, const float* scale,
-           const float* bias, const void* w1, const float* b1,
-           const float* taps, const float* bdw, const void* w2,
-           const float* s, float* part, float* grads, int B, int H, int W,
-           int C, int hid, int TH, int TW, int groups, int residual,
-           float eps, cudaStream_t stream) {
-  const size_t np2 = (size_t)(TH + 2) * (TW + 2);
-  const size_t np4 = (size_t)(TH + 4) * (TW + 4), p = (size_t)TH * TW;
-  const size_t smem = (C * (p | 1) + 2 * (size_t)C * G + G * np4 + G * np2 +
-                       3 * G * p + 2 * p) * sizeof(float) +
-                      C * ((np4 | 1) + (np2 | 1)) * sizeof(T);
-  auto kern = ln_leff_bwd_kernel<T>;
-  cudaError_t e = uir::set_smem(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<groups, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx),
-      scale, bias, static_cast<const T*>(w1), b1, taps, bdw,
-      static_cast<const T*>(w2), s, part, B, H, W, C, hid, TH, TW, residual,
-      eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)uir::reduce_rows(part, grads, groups, (int)row_size(C, hid),
-                               stream);
+int launch(const T* x, const T* dy, T* dx, const float* scale,
+           const float* bias, const bf16* w1h, const bf16* w1l,
+           const float* b1, const float* taps, const float* bdw,
+           const bf16* w2h, const bf16* w2l, const float* s,
+           unsigned char* work, float* grads, int B, int H, int W, int C,
+           int hid, int imgs, int Ks, int residual, float eps,
+           cudaStream_t st) {
+  constexpr int NP = std::is_same<T, float>::value ? 2 : 1;
+  const int HW = H * W;
+  // the depthwise pass's row groups and column segments an image
+  const int hg = (H + DW_R - 1) / DW_R * ((W + DW_W - 1) / DW_W);
+  const Layout L(imgs * HW, imgs * hg, C, hid, NP, sizeof(T), Ks);
+  auto* stats = reinterpret_cast<float2*>(work + L.off[0]);
+  auto* ln = reinterpret_cast<bf16*>(work + L.off[1]);
+  auto* dyk = reinterpret_cast<bf16*>(work + L.off[2]);
+  auto* t1 = reinterpret_cast<T*>(work + L.off[3]);
+  auto* g1 = reinterpret_cast<T*>(work + L.off[4]);
+  auto* dt2 = reinterpret_cast<float*>(work + L.off[5]);
+  auto* g2 = reinterpret_cast<bf16*>(work + L.off[6]);
+  auto* d1 = reinterpret_cast<bf16*>(work + L.off[7]);
+  auto* partW = reinterpret_cast<float*>(work + L.off[8]);
+  auto* partD1 = reinterpret_cast<float*>(work + L.off[9]);
+  auto* partD2 = reinterpret_cast<float*>(work + L.off[10]);
+  auto* partF = reinterpret_cast<float*>(work + L.off[11]);
+  const Opnd W1{w1h, w1l, hid}, W2{w2h, w2l, C};
+  using TA = Tile<128, 128, 2, 4, false, true, NP>;   // fc1: B = W1 [C][hid]
+  using TB = Tile<128, 128, 2, 4, false, false, NP>;  // dg2: B = W2 [hid][C]
+  using TW = Tile<128, 64, 4, 2, true, true, NP>;     // dW1^T, dW2
+  for (int b0 = 0; b0 < B; b0 += imgs) {
+    const int nb = min(imgs, B - b0), P = nb * HW, rows = nb * hg;
+    const size_t px0 = (size_t)b0 * HW;
+    const size_t pc = (size_t)P * C, ph = (size_t)P * hid;
+    const Opnd LN{ln, ln + pc, C}, DYK{dyk, dyk + pc, C};
+    const Opnd G2{g2, g2 + ph, hid}, D1{d1, d1 + ph, hid};
+    const int splits = (P + Ks - 1) / Ks, fblocks = (P + FM - 1) / FM;
+
+    ln_leff_bwd_prep_kernel<T, NP><<<(P + 7) / 8, kThreads, 0, st>>>(
+        x + px0 * C, dy + px0 * C, scale, bias, s + b0, stats, ln, dyk, P, HW,
+        C, eps);
+    UIR_TRY(cudaGetLastError());
+    const dim3 gmn((P + 127) / 128, (hid + 127) / 128, 1);
+    UIR_TRY(gemm<TA>(gmn, LN, W1, LN, W1, P, hid, C, C, 1,
+                     Fc1Epi<T>{t1, g1, b1, P, hid}, st));
+    UIR_TRY(gemm<TB>(gmn, DYK, W2, DYK, W2, P, hid, C, C, 1,
+                     Dg2Epi<T, NP>{g1, taps, bdw, dt2, g2, ph, P, hid, H, W},
+                     st));
+    const int hch = (hid + DW_T - 1) / DW_T, cch = (C + DW_T - 1) / DW_T;
+    ln_leff_bwd_dw_kernel<T, NP><<<dim3(hch + cch, rows), DW_T, 0, st>>>(
+        t1, g1, dt2, taps, dy + px0 * C, s + b0, d1, ph, partD1, partD2, H,
+        W, C, hid, hch);
+    UIR_TRY(cudaGetLastError());
+    UIR_TRY(gemm<TW>(dim3((hid + 127) / 128, (C + 63) / 64, 2 * splits), D1,
+                     LN, G2, DYK, hid, C, P, Ks, 2,
+                     WgradEpi{partW, hid, C, splits}, st));
+    const DlnEpi<T> de{x + px0 * C, dy + px0 * C, dx + px0 * C, stats,
+                       scale, partF, P, C, residual};
+    if (C <= 128)
+      UIR_TRY((dln<T, 128>(P, D1, W1, C, hid, de, st)));
+    else if (C <= 256)
+      UIR_TRY((dln<T, 256>(P, D1, W1, C, hid, de, st)));
+    else
+      UIR_TRY((dln<T, 512>(P, D1, W1, C, hid, de, st)));
+    const int ch = C * hid;
+    const Segs segs = make_segs(
+        {{partW, splits, ch, 0, 0, 0},
+         {partD1, rows, 11 * hid, ch, 0, 0},
+         {partW + (size_t)splits * ch, splits, ch, ch + 11 * hid, 0, 0},
+         {partD2, rows, C, 2 * ch + 11 * hid, 0, 0},
+         {partF, fblocks, 2 * C, 2 * ch + 11 * hid + C, 0, 0}});
+    ln_leff_bwd_reduce_kernel<<<(segs.total + 255) / 256, 256, 0, st>>>(
+        segs, grads, b0 > 0);
+    UIR_TRY(cudaGetLastError());
+  }
+  return 0;
 }
 
 }  // namespace
 
-// Two launches: the tile kernel (grid `groups`, each block's weight-gradient
-// row in part [groups][E]) and the ordered row sum into grads [E].
+// The backward over the batch in slices of `imgs` images, seven launches a
+// slice (prep, fc1, dg2, depthwise, weight gradients, dLN, row sums); Ks:
+// pixels a split of the weight-gradient products (a multiple of 32).  work:
+// the workspace of one slice (Layout); grads [E] as ops/fused_leff.py
+// bwd_row_size lays it out.  w1l and w2l (the lo planes) are read only in
+// f32.
 extern "C" int uir_ln_leff_bwd(const void* x, const void* dy, void* dx,
                                const void* scale, const void* bias,
-                               const void* w1, const void* b1,
-                               const void* taps, const void* bdw,
-                               const void* w2, const void* s, void* part,
+                               const void* w1h, const void* w1l,
+                               const void* b1, const void* taps,
+                               const void* bdw, const void* w2h,
+                               const void* w2l, const void* s, void* work,
                                void* grads, int B, int H, int W, int C,
-                               int hid_pad, int chunk, int residual, int bf16,
-                               int TH, int TW, int groups, float eps,
-                               void* stream) {
-  // C % 8 and hid_pad % G: the eight-value loads stay aligned
-  if (chunk != G || hid_pad % G || C % 8 || B < 1 || groups < 1 ||
-      !uir::tile_ok(TH, TW))
+                               int hid_pad, int residual, int bf16, int imgs,
+                               int Ks, float eps, void* stream) {
+  // C % 8 and hid_pad % 16: 16-byte operand rows and whole k16 steps
+  if (hid_pad % 16 || C % 8 || C > MAX_C || B < 1 || H < 1 || W < 1 ||
+      imgs < 1 || Ks < BK || Ks % BK)
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto* pt = static_cast<float*>(part);
+  auto h = [](const void* p) {
+    return static_cast<const __nv_bfloat16*>(p);
+  };
+  auto* wk = static_cast<unsigned char*>(work);
   auto* gr = static_cast<float*>(grads);
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(x, dy, dx, f(scale), f(bias), w1, f(b1),
-                                 f(taps), f(bdw), w2, f(s), pt, gr, B, H, W,
-                                 C, hid_pad, TH, TW, groups, residual, eps,
-                                 st);
-  return launch<float>(x, dy, dx, f(scale), f(bias), w1, f(b1), f(taps),
-                       f(bdw), w2, f(s), pt, gr, B, H, W, C, hid_pad, TH, TW,
-                       groups, residual, eps, st);
+    return launch<__nv_bfloat16>(
+        h(x), h(dy), static_cast<__nv_bfloat16*>(dx), f(scale), f(bias),
+        h(w1h), h(w1l), f(b1), f(taps), f(bdw), h(w2h), h(w2l), f(s), wk, gr,
+        B, H, W, C, hid_pad, imgs, Ks, residual, eps, st);
+  return launch<float>(f(x), f(dy), static_cast<float*>(dx), f(scale),
+                       f(bias), h(w1h), h(w1l), f(b1), f(taps), f(bdw),
+                       h(w2h), h(w2l), f(s), wk, gr, B, H, W, C, hid_pad,
+                       imgs, Ks, residual, eps, st);
 }

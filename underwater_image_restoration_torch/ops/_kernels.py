@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,9 +49,10 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
          _I, _I, _I, _F, _P],
     ("ln_gdfn_bwd", "uir_ln_gdfn_bwd"):
-        # x, dy, dx, scale, bias, w_in, taps, w_in^T, w_out^T, part, grads,
-        # B, C, H, W, hid_pad, gate_chunk, bf16, TH, TW, groups, eps, stream
-        [_P] * 11 + [_I] * 10 + [_F, _P],
+        # x, dy, dx, scale, bias, w_in hi, w_in lo, taps, w_out hi, w_out
+        # lo, part, grads, B, C, H, W, hid_pad, gate_chunk, bf16, TH, TW,
+        # groups, eps, stream
+        [_P] * 12 + [_I] * 10 + [_F, _P],
     ("ln_mdta_bwd", "uir_ln_mdta_bwd"):
         # x, dy, dx, scale, bias, w_qkv, taps_qkv, w_qkv^T, w_vf, taps_vf,
         # w_po, w_po^T, w_pof^T, w_vf^T, temp, stats, dv, partA, counters,
@@ -62,10 +64,10 @@ SIGNATURES = {
         # hid_pad, chunk, residual, bf16, TH, TW, eps, stream
         [_P] * 11 + [_I] * 10 + [_F, _P],
     ("ln_leff_bwd", "uir_ln_leff_bwd"):
-        # x, dy, dx, scale, bias, w1, b1, taps, bdw, w2, s, part, grads, B,
-        # H, W, C, hid_pad, chunk, residual, bf16, TH, TW, groups, eps,
-        # stream
-        [_P] * 13 + [_I] * 11 + [_F, _P],
+        # x, dy, dx, scale, bias, w1 hi, w1 lo, b1, taps, bdw, w2 hi, w2 lo,
+        # s, workspace, grads, B, H, W, C, hid_pad, residual, bf16, images a
+        # slice, pixels a split, eps, stream
+        [_P] * 15 + [_I] * 9 + [_F, _P],
     ("window_attn", "uir_window_attn_fwd"):
         # q, k, v, out, strides (12 int64, host), bias, mask, w, BQ, H, N,
         # D, nW, scale, bf16, stream
@@ -188,9 +190,37 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return _sm_count(device.index or 0)
+
+
 def block_rows(tiles: int, device) -> int:
     """Blocks of a backward tile kernel, each owning one row of weight-
     gradient partials: two a streaming multiprocessor (each block walks over
     tiles blockIdx.x, blockIdx.x + grid, ...), no more than there are
     tiles."""
-    return max(1, min(tiles, 2 * _sm_count(device.index or 0)))
+    return max(1, min(tiles, 2 * sm_count(device)))
+
+
+def split_bf16(t):
+    """The bf16 hi and lo planes of a tensor-core operand (csrc/mma.cuh):
+    hi = bf16(t), lo = bf16(t - hi), which carry an f32 t to about 2^-17 of
+    |t|.  A bf16 t is its own hi plane, and lo (never read) is t again."""
+    import torch
+
+    hi = t.to(torch.bfloat16).contiguous()
+    if t.dtype == torch.bfloat16:
+        return hi, hi
+    return hi, (t.float() - hi.float()).to(torch.bfloat16).contiguous()
+
+
+def sass_count(name: str, opcode: str = "HMMA") -> int:
+    """Instructions of ``opcode`` in library ``name``'s SASS, by the
+    toolkit's ``cuobjdump -sass`` (from the same toolkit as ``nvcc``); the
+    library is built first if needed."""
+    path = build_all([name])[name]["path"]
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], check=True,
+                         capture_output=True, text=True).stdout
+    return len(re.findall(rf"\b{opcode}\b", out))

@@ -13,7 +13,8 @@ LN output (the composed contraction) and weights stay f32.
 
 On CUDA the forward is ``LnGdfnFn``, whose backward launches
 ``csrc/ln_gdfn_bwd.cu`` (the VJP of the JAX package's
-``fused_gdfn_banded.py:517 _bwd_call`` and ``fused_block.py:663``); it saves
+``fused_gdfn_banded.py:517 _bwd_call`` and ``fused_block.py:663``; its 1x1
+products on the tensor cores, the f32 weights as bf16 hi/lo planes); it saves
 only x and the weights, as the TPU VJP does.  ``ln_gdfn_bwd`` is that
 backward's wrapper and ``ln_gdfn_bwd_plain`` its plain version (autograd
 through ``ln_gdfn_plain``).
@@ -106,15 +107,63 @@ def unchunk(t, hid, dim):
     return torch.cat([a, b], dim)
 
 
-def bwd_tile_shape(c: int) -> tuple[int, int]:
-    """(TH, TW) of the backward kernel: it keeps LN on a 2-pixel halo, dy on
-    a 1-pixel halo and f32 chunk planes in shared memory, so the tile
-    shrinks with C to stay under the 227 KB a block may use (in f32)."""
-    if c <= 16:
-        return 16, 16
-    if c <= 32:
-        return 8, 16
-    return 8, 8
+# tiles the backward kernel may take, largest first, and the shared memory
+# a block may use
+BWD_TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
+MAX_SHARED = 227 * 1024
+# dLN's f32 accumulators stay in registers: C (padded to 16) x tile pixels
+# at most this many (16 a thread of the kernel's BWD_THREADS)
+BWD_ACC = 8192
+BWD_THREADS = 512
+
+
+def _pad_ld(n: int) -> int:
+    """csrc/mma.cuh pad_ld: a shared-memory row of n bf16 values, in
+    elements, rounded to 16 bytes and an odd number of 16-byte units."""
+    u = -(-n // 8)
+    return 8 * u if u % 2 else 8 * u + 8
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def bwd_shared_bytes(c: int, th: int, tw: int, itemsize: int) -> int:
+    """Shared memory of one block of csrc/ln_gdfn_bwd.cu (its Smem layout,
+    mirrored; each region 16-byte aligned): the LN patch on the 2-pixel halo
+    and dy on the 1-pixel halo as bf16 planes (two in f32: hi/lo), C padded
+    to 16, rows padded for the tensor-core loads; the chunk's W_in columns
+    and W_out rows (hi and lo) in two buffers; f32 u and dt (whose room
+    takes dLN and the LayerNorm backward's partial sums after the chunks);
+    du (hi and lo) and the gate output (planes as LN); the tile's LN mean
+    and rstd."""
+    npl = 2 if itemsize == 4 else 1
+    cp = _up16(c)
+    np4, np2, p = (th + 4) * (tw + 4), (th + 2) * (tw + 2), th * tw
+    g = GATE_CHUNK
+
+    def al(n):
+        return -(-n // 16) * 16
+
+    ln = al(npl * cp * _pad_ld(_up16(np4)) * 2)
+    dy = al(npl * cp * _pad_ld(_up16(np2 + 1)) * 2)
+    wts = al(2 * (2 * cp * _pad_ld(2 * g) + 2 * g * _pad_ld(cp)) * 2)
+    r1 = al(max(4 * 2 * g * (np4 + np2), 4 * (c * p + 2 * BWD_THREADS)))
+    du = al(2 * 2 * g * _pad_ld(p) * 2)
+    ov = al(npl * g * _pad_ld(p) * 2)
+    return ln + dy + wts + r1 + du + ov + al(4 * 2 * p)
+
+
+def bwd_tile_shape(c: int, itemsize: int) -> tuple[int, int]:
+    """(TH, TW) of the backward kernel: the largest tile (least halo
+    recompute) whose dLN accumulators fit the registers and whose shared
+    memory fits a block (bf16: 16 x 16 up to C = 32, 8 x 16 at 64, 8 x 8 at
+    128; f32: 16 x 16 at 16, 8 x 16 at 32 and 64, 4 x 8 at 128)."""
+    for th, tw in BWD_TILES:
+        if _up16(c) * th * tw <= BWD_ACC and \
+                bwd_shared_bytes(c, th, tw, itemsize) <= MAX_SHARED:
+            return th, tw
+    raise ValueError(f"ln_gdfn_bwd: no tile fits C={c} in shared memory")
 
 
 def _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps):
@@ -161,12 +210,12 @@ def ln_gdfn_bwd(x, dy, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
     lib = _kernels.library("ln_gdfn_bwd")
     hid = w_out.shape[0]
     win, taps, wo, hp = kernel_weights(w_in, w_dw, w_out)
-    win_t = win.t().contiguous()
-    wo_t = wo.t().contiguous()
+    win_h, win_l = _kernels.split_bf16(win)
+    wo_h, wo_l = _kernels.split_bf16(wo)
     sc = scale.float().contiguous()
     bi = bias.float().contiguous()
     dy = dy.contiguous()
-    th, tw = bwd_tile_shape(c)
+    th, tw = bwd_tile_shape(c, x.element_size())
     groups = _kernels.block_rows(b * -(-h // th) * -(-w // tw), x.device)
     sizes = (c * 2 * hp, 2 * hp * 9, hp * c, c, c)
     part = torch.empty(groups * sum(sizes), device=x.device,
@@ -176,10 +225,10 @@ def ln_gdfn_bwd(x, dy, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.uir_ln_gdfn_bwd(
         x.data_ptr(), dy.data_ptr(), dx.data_ptr(), sc.data_ptr(),
-        bi.data_ptr(), win.data_ptr(), taps.data_ptr(), win_t.data_ptr(),
-        wo_t.data_ptr(), part.data_ptr(), grads.data_ptr(), b, c, h, w, hp,
-        GATE_CHUNK, int(x.dtype == torch.bfloat16), th, tw, groups,
-        float(eps), stream)
+        bi.data_ptr(), win_h.data_ptr(), win_l.data_ptr(), taps.data_ptr(),
+        wo_h.data_ptr(), wo_l.data_ptr(), part.data_ptr(), grads.data_ptr(),
+        b, c, h, w, hp, GATE_CHUNK, int(x.dtype == torch.bfloat16), th, tw,
+        groups, float(eps), stream)
     _kernels.check(lib, err, "ln_gdfn_bwd")
     ln_gdfn_bwd.launches[(c, h, w)] += 2  # tiles, then the row sum
     g_win, g_taps, g_wo, dsc, dbi = grads.split(sizes)

@@ -19,8 +19,9 @@ and the biases are cast to x.dtype, the taps stay f32.
 
 On CUDA the forward is ``LnLeffFn``, whose backward launches
 ``csrc/ln_leff_bwd.cu`` (the VJP of the JAX package's ``fused_leff.py:337
-_bwd_call``); it saves x, the weights and s, never the hidden activations,
-and gives s no gradient, as the TPU VJP does.  ``ln_leff_bwd`` is that
+_bwd_call``: tensor-core products over pixels x channels, the batch walked
+in image slices, ``bwd_plan``); it saves x, the weights and s, never the
+hidden activations, and gives s no gradient, as the TPU VJP does.  ``ln_leff_bwd`` is that
 backward's wrapper and ``ln_leff_bwd_plain`` its plain version (autograd
 through ``ln_leff_plain``).
 """
@@ -173,81 +174,133 @@ def ln_leff_bwd_plain(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
         return torch.autograd.grad(y, ins, dy)
 
 
-# hidden channels a chunk of the backward kernel; passed with every launch,
-# and csrc/ln_leff_bwd.cu refuses any other value than its own G.  It
-# divides HIDDEN_CHUNK, so the backward reads the forward's padded operands.
-BWD_CHUNK = 16
-# the weight-gradient rows of one backward launch stay within this many
-# bytes (a row is 8.5 MB at C = 512, hidden 2048: 126 rows, one a
-# multiprocessor of an H100)
-PART_BYTES = 1 << 30
+# the backward's launches a slice of images (csrc/ln_leff_bwd.cu): prep,
+# fc1, dg2, the depthwise pass, the weight gradients, dLN with the
+# LayerNorm backward, the ordered row sums
+BWD_LAUNCHES = 7
+# a slice's workspace (its hidden-wide intermediates and weight-gradient
+# rows) stays within this many bytes; the batch is walked in slices
+WORKSPACE_BYTES = 1 << 30
+# the kernel's tiles, mirrored: the k depth of a staged operand tile (a
+# split's pixels are a multiple of it), the dLN launch's pixels a block,
+# and the weight-gradient launch's output tile (hidden x C)
+BWD_K = 32
+BWD_DLN_PIXELS = 32
+BWD_WGRAD_TILE = (128, 64)
+# the widest C whose dLN rows one block holds
+BWD_MAX_C = 512
+# image rows and columns a thread of the depthwise pass walks (a row of
+# shares each such patch)
+BWD_DW_ROWS = 2
+BWD_DW_COLS = 64
 
 
-def bwd_shared_bytes(c: int, th: int, tw: int, itemsize: int) -> int:
-    """Shared memory of one block of csrc/ln_leff_bwd.cu (its layout,
-    mirrored): f32 dLN accumulators (C, P|1), the chunk's fc1 columns and
-    fc2 rows (2 C G), g1 (G, NP4), dt2 (G, NP2), gelu'(t1), g2 and
-    round(dt1) (3 G P) and 2 P of LN statistics; the LN patch (C, NP4|1)
-    and dyk (C, NP2|1) in the compute dtype.  P = TH TW, NP2 = (TH+2)(TW+2),
-    NP4 = (TH+4)(TW+4)."""
-    p, np2, np4 = th * tw, (th + 2) * (tw + 2), (th + 4) * (tw + 4)
-    g = BWD_CHUNK
-    return (4 * (c * (p | 1) + 2 * c * g + g * np4 + g * np2 + 3 * g * p
-                 + 2 * p) + itemsize * c * ((np4 | 1) + (np2 | 1)))
+def _align256(n: int) -> int:
+    return -(-n // 256) * 256
 
 
-def bwd_tile_shape(c: int, itemsize: int) -> tuple[int, int]:
-    """(TH, TW) of the backward kernel: as ``tile_shape``, the largest tile
-    whose accumulators hold at most 16384 values and whose shared memory
-    fits a block (bf16: 8 x 8 up to C = 128, 4 x 8 at 256, 4 x 4 at 512;
-    f32: 8 x 8 up to 128, 4 x 4 at 256, 2 x 2 at 512)."""
-    for th, tw in TILES:
-        if th * tw * c <= 16384 and \
-                bwd_shared_bytes(c, th, tw, itemsize) <= MAX_SHARED:
-            return th, tw
-    raise ValueError(f"ln_leff_bwd: no tile fits C={c} in shared memory")
+def bwd_workspace_bytes(imgs: int, h: int, w: int, c: int, hid_pad: int,
+                        itemsize: int, ks: int) -> int:
+    """Bytes of the backward's workspace for a slice of ``imgs`` images
+    (csrc/ln_leff_bwd.cu Layout, mirrored): LN statistics (2 f32 a pixel);
+    LN and dyk (C a pixel) and g2 and round(dt1) (hid) as bf16 planes, two
+    in f32 (hi/lo); t1 and g1 (hid, in the compute dtype) and dt2 (hid,
+    f32); the weight-gradient rows (two products, a row a split of ``ks``
+    pixels), the depthwise pass's rows (11 hid + C a patch of BWD_DW_ROWS
+    image rows and BWD_DW_COLS columns) and dLN's (2 C a block of pixels).
+    Each piece 256-byte aligned."""
+    p = imgs * h * w
+    rows = imgs * -(-h // BWD_DW_ROWS) * -(-w // BWD_DW_COLS)
+    npl = 2 if itemsize == 4 else 1
+    splits = -(-p // ks)
+    blocks = -(-p // BWD_DLN_PIXELS)
+    sizes = (8 * p, npl * 2 * p * c, npl * 2 * p * c,
+             p * hid_pad * itemsize, p * hid_pad * itemsize, 4 * p * hid_pad,
+             npl * 2 * p * hid_pad, npl * 2 * p * hid_pad,
+             4 * 2 * splits * hid_pad * c, 4 * rows * 11 * hid_pad,
+             4 * rows * c, 4 * blocks * 2 * c)
+    return sum(_align256(n) for n in sizes)
+
+
+def bwd_split_pixels(pixels: int, c: int, hid_pad: int, sms: int) -> int:
+    """Pixels a split of the weight-gradient launch: enough splits that its
+    blocks (two products of ceil(hid/128) x ceil(C/64) output tiles each)
+    reach two a multiprocessor, a multiple of BWD_K."""
+    th, tc = BWD_WGRAD_TILE
+    tiles = -(-hid_pad // th) * -(-c // tc)
+    splits = max(1, -(-sms // tiles))
+    return -(-pixels // (splits * BWD_K)) * BWD_K
+
+
+class BwdPlan(collections.namedtuple(
+        "BwdPlan", "imgs slices split_pixels workspace launches")):
+    """How the backward walks a batch: images a slice, slices, pixels a
+    weight-gradient split, workspace bytes, launches a call."""
+
+
+def bwd_plan(b: int, h: int, w: int, c: int, hid_pad: int, itemsize: int,
+             sms: int = 132) -> BwdPlan:
+    """The fewest slices whose workspace stays within WORKSPACE_BYTES, the
+    batch split evenly between them (an H100 has 132 multiprocessors); an
+    image whose own workspace exceeds it is a slice by itself."""
+    for most in range(b, 1, -1):
+        ks = bwd_split_pixels(most * h * w, c, hid_pad, sms)
+        if bwd_workspace_bytes(most, h, w, c, hid_pad, itemsize, ks) <= \
+                WORKSPACE_BYTES:
+            break
+    else:
+        most = 1
+    slices = -(-b // most)
+    imgs = -(-b // slices)
+    ks = bwd_split_pixels(imgs * h * w, c, hid_pad, sms)
+    return BwdPlan(imgs, slices, ks,
+                   bwd_workspace_bytes(imgs, h, w, c, hid_pad, itemsize, ks),
+                   BWD_LAUNCHES * slices)
 
 
 def bwd_row_size(c: int, hid_pad: int) -> int:
-    """Floats of one weight-gradient row: dw1, db1, the taps (hid_pad, 9),
-    db_dw, dw2, db2, dscale, dbias."""
+    """Floats of the gradients the kernel writes: dw1, db1, the taps
+    (hid_pad, 9), db_dw, dw2, db2, dscale, dbias."""
     return 2 * c * hid_pad + 11 * hid_pad + 3 * c
 
 
 def ln_leff_bwd(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
                 eps: float = 1e-5, residual: bool = True):
-    """The LN+LeFF backward's CUDA kernel, on CUDA tensors.  Returns (dx,
+    """The LN+LeFF backward's CUDA kernels, on CUDA tensors.  Returns (dx,
     dscale, dbias, dw1, db1, dw_dw, db_dw, dw2, db2): dx in x.dtype, the rest
     f32 in the arguments' shapes (the hidden padding dropped)."""
     _check("ln_leff_bwd", x, w1, w2, dy, scale, bias, b1, w_dw, b_dw, b2, s)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError("ln_leff_bwd: dy must match x in shape and dtype")
     b, h, w, c = x.shape
+    if c > BWD_MAX_C:
+        raise ValueError(f"ln_leff_bwd: C={c} is wider than {BWD_MAX_C}")
     hid = w1.shape[1]
     lib = _kernels.library("ln_leff_bwd")
     w1k, b1k, taps, bdwk, w2k, _, hp = kernel_weights(
         w1, b1, w_dw, b_dw, w2, b2, x.dtype)
+    w1h, w1l = _kernels.split_bf16(w1k)
+    w2h, w2l = _kernels.split_bf16(w2k)
     sc = scale.float().contiguous()
     bi = bias.float().contiguous()
     sb = _scales(s, b, x.device)
     dy = dy.contiguous()
-    th, tw = bwd_tile_shape(c, x.element_size())
-    e = bwd_row_size(c, hp)
-    # block_rows' two blocks a multiprocessor, no more rows than PART_BYTES
-    groups = min(_kernels.block_rows(b * -(-h // th) * -(-w // tw), x.device),
-                 max(1, PART_BYTES // (4 * e)))
-    part = torch.empty(groups * e, device=x.device, dtype=torch.float32)
-    grads = torch.empty(e, device=x.device, dtype=torch.float32)
+    plan = bwd_plan(b, h, w, c, hp, x.element_size(),
+                    _kernels.sm_count(x.device))
+    work = torch.empty(plan.workspace, device=x.device, dtype=torch.uint8)
+    grads = torch.empty(bwd_row_size(c, hp), device=x.device,
+                        dtype=torch.float32)
     dx = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.uir_ln_leff_bwd(
         x.data_ptr(), dy.data_ptr(), dx.data_ptr(), sc.data_ptr(),
-        bi.data_ptr(), w1k.data_ptr(), b1k.data_ptr(), taps.data_ptr(),
-        bdwk.data_ptr(), w2k.data_ptr(), sb.data_ptr(), part.data_ptr(),
-        grads.data_ptr(), b, h, w, c, hp, BWD_CHUNK, int(residual),
-        int(x.dtype == torch.bfloat16), th, tw, groups, float(eps), stream)
+        bi.data_ptr(), w1h.data_ptr(), w1l.data_ptr(), b1k.data_ptr(),
+        taps.data_ptr(), bdwk.data_ptr(), w2h.data_ptr(), w2l.data_ptr(),
+        sb.data_ptr(), work.data_ptr(), grads.data_ptr(), b, h, w, c, hp,
+        int(residual), int(x.dtype == torch.bfloat16), plan.imgs,
+        plan.split_pixels, float(eps), stream)
     _kernels.check(lib, err, "ln_leff_bwd")
-    ln_leff_bwd.launches[(c, h, w)] += 2  # tiles, then the row sum
+    ln_leff_bwd.launches[(c, h, w)] += plan.launches
     g_w1, g_b1, g_taps, g_bdw, g_w2, g_b2, dsc, dbi = grads.split(
         (c * hp, hp, 9 * hp, hp, hp * c, c, c, c))
     return (dx, dsc, dbi, g_w1.view(c, hp)[:, :hid].contiguous(), g_b1[:hid],

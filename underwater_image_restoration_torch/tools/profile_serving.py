@@ -33,7 +33,10 @@ GROUPS = (
     ("ln_mdta stats kernel", ("ln_mdta_stats_kernel",)),
     ("ln_mdta apply kernel", ("ln_mdta_apply_kernel",)),
     ("ln_leff kernel", ("ln_leff_fwd_kernel",)),
-    ("ln_leff_bwd kernel", ("ln_leff_bwd_kernel",)),
+    ("ln_leff_bwd products", ("ln_leff_bwd_gemm_kernel",)),
+    ("ln_leff_bwd depthwise pass", ("ln_leff_bwd_dw_kernel",)),
+    ("ln_leff_bwd prep and row sums", ("ln_leff_bwd_prep_kernel",
+                                       "ln_leff_bwd_reduce_kernel")),
     ("window_attn kernel", ("window_attn_fwd_kernel",)),
     ("ln_gdfn_bwd kernel", ("ln_gdfn_bwd_kernel",)),
     ("ln_mdta_bwd v-pass kernel", ("ln_mdta_bwd_v_kernel",)),
