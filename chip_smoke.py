@@ -10,14 +10,17 @@ AST, trains both, and checks where the time and the launches went.
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
-   tensor-core (HMMA) instructions in the SASS of ln_leff_bwd and
-   ln_gdfn_bwd (``cuobjdump -sass``; none fails), TF32 off;
+   tensor-core (HMMA) instructions in the SASS of ln_leff, ln_leff_bwd,
+   ln_gdfn_bwd and ln_mdta_bwd (``cuobjdump -sass``; none fails), TF32 off;
 2. kernels: ln_gdfn and ln_mdta vs their plain versions at the five block
    shapes and the serving batch (and at two shapes with ragged edge tiles),
    in f32 and in bf16, each against the plain version on the same input, so
    both round at the same points; the error is scaled by the branch
-   max|ref - x|, with weights that make the branch O(1); then median times
-   of kernel and plain version on the same inputs;
+   max|ref - x|, with weights that make the branch O(1); then times of
+   kernel and plain version on the same inputs (every time in this script:
+   TIMER_WARMUP untimed calls, then TIMER_REPEATS repeats of the timed
+   calls between CUDA events, printed as the median of the repeats'
+   medians with their spread);
 3. model: ``batched_apply`` on a uint8 batch of 8 at 256x256 in bf16 through
    the kernels, launch counts read from a run that starts at zero, output
    checked against the plain-version model in f32 and in bf16, with limits
@@ -31,7 +34,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    the plain versions' autograd backward;
 5. train step: ``make_train_step`` (L1withColor, Adam lr 3e-4, clip 1.0) on
    the full-width model in bf16 at 256x256, batch 16: (a) launches of every
-   kernel in one step, from zero; (b) every used parameter has a finite,
+   kernel in one step, from zero (ln_mdta_bwd: 23 a slice of the batch and
+   one a call, ``fused_mdta.bwd_plan``); (b) every used parameter has a
+   finite,
    non-zero gradient and the dead ones exact zeros; (c) one step's
    gradients through the kernels vs the plain versions, f32 (TF32 off) and
    bf16, with limits shown to lie below what dropping every MDTA (or GDFN)
@@ -42,9 +47,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (a) ln_leff and window_attn vs their plain versions at every AST@256
    shape, batch 8, f32 and bf16, and at ragged and small shapes, the error
    over max|branch| (ln_leff's y - x, window_attn's whole output), then
-   median times; (b) launches in one forward of the full-width AST at
-   256x256 batch 8 bf16 (18 ln_leff, 10 window_attn of which 5 masked),
-   from zero; (c) the model's output, kernels vs plain model, in f32 (TF32
+   times; (b) launches in one forward of the full-width AST at 256x256
+   batch 8 bf16 (18 ln_leff calls of four launches a slice of the batch,
+   ``fused_leff.fwd_plan``; 10 window_attn of which 5 masked), from zero;
+   (c) the model's output, kernels vs plain model, in f32 (TF32
    off) and bf16, with limits shown to lie below a quarter of what dropping
    every LeFF (or attention) branch moves, q projections scaled by 8 so the
    attention is far from uniform; (d) images/s and peak memory, kernels vs
@@ -54,10 +60,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    autograd through the plain version at every AST@256 shape (batch 16) and
    at edge shapes (ragged tiles, C = 8, a hidden width that is not a
    multiple of 32, no residual, s with zeros and 1.25), f32 and bf16, every
-   gradient's max abs error over its max|ref|, then median times; (b)
-   launches in one step (18 ln_leff, 18 ln_leff_bwd calls of seven
-   launches a slice of the batch, ``fused_leff.bwd_plan``, 10 window_attn
-   of which 5 masked), every gradient finite and non-zero;
+   gradient's max abs error over its max|ref|, then times; (b) launches
+   in one step (18 ln_leff calls of four launches a slice of the batch,
+   18 ln_leff_bwd calls of seven, ``fused_leff.fwd_plan`` and
+   ``bwd_plan``, 10 window_attn of which 5 masked), every gradient finite
+   and non-zero;
    (c) one step's gradients through the kernels vs the plain versions with
    the same DropPath draws, f32 and bf16, with limits shown to lie below a
    quarter of what dropping every LeFF branch moves; (d) three f32 steps'
@@ -66,6 +73,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 The last line is the JSON device record; the line before it the kernels'.
 """
 import argparse
+import collections
 import copy
 import json
 import math
@@ -175,6 +183,11 @@ LEFF_GRADS = ("dx", "dscale", "dbias", "dw1", "db1", "dw_dw", "db_dw", "dw2",
               "db2")
 AST_PARAMS = 19_919_507  # AST@256 at the default kwargs
 HBM_BYTES_PER_S = 3.35e12
+# every per-call time: TIMER_WARMUP untimed calls (build, autotune, caches),
+# then TIMER_REPEATS repeats of the timed calls; the median of the repeats'
+# medians is reported with their spread (least and greatest)
+TIMER_WARMUP = 3
+TIMER_REPEATS = 3
 BF16_PEAK_FLOPS = 989e12  # dense tensor-core peak
 REPLACES = {
     "ln_gdfn": "underwater_image_restoration_tpu/ops/fused_gdfn_banded.py:479",
@@ -192,9 +205,10 @@ REPLACES = {
     "ln_leff_bwd": "underwater_image_restoration_tpu/ops/fused_leff.py:337",
     "window_attn": "underwater_image_restoration_tpu/ops/pallas.py:110",
 }
-# libraries whose 1x1 products run on the tensor cores (csrc/mma.cuh), and
-# the count of HMMA instructions found in each one's SASS by this run
-TENSOR_CORE_LIBS = ("ln_leff_bwd", "ln_gdfn_bwd")
+# libraries whose 1x1 products run on the tensor cores (csrc/mma.cuh,
+# csrc/gemm.cuh), and the count of HMMA instructions found in each one's
+# SASS by this run
+TENSOR_CORE_LIBS = ("ln_leff", "ln_leff_bwd", "ln_gdfn_bwd", "ln_mdta_bwd")
 HMMA = {}
 GRAD_NAMES = {
     "ln_gdfn": ("dx", "dscale", "dbias", "dw_in", "dw_dw", "dw_out"),
@@ -208,22 +222,45 @@ def fail(msg):
     raise SystemExit(1)
 
 
-def median_ms(fn, reps=20, warmup=3):
+class Timing(collections.namedtuple("Timing", "ms lo hi")):
+    """A per-call time in ms: the median of TIMER_REPEATS repeats' medians,
+    and the least and greatest of those medians (the spread)."""
+
+    def __str__(self):
+        return f"{self.ms:.4f} ms [{self.lo:.4f}-{self.hi:.4f}]"
+
+
+def median_ms(fn, reps=20, warmup=TIMER_WARMUP, repeats=TIMER_REPEATS):
+    """CUDA-event time of one call of fn: ``warmup`` untimed calls, then
+    ``repeats`` repeats of ``reps`` timed calls, each call between two
+    events; the median of each repeat, and their median and spread."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    meds = []
+    for _ in range(repeats):
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        times.sort()
+        meds.append(times[len(times) // 2])
+    meds.sort()
+    return Timing(meds[len(meds) // 2], meds[0], meds[-1])
+
+
+def timing_row(ms, pms, bms, by, err):
+    """A kernel's row: its and the plain version's median times with their
+    spreads, its bound and max abs error."""
+    return dict(max_abs_err=err, ms=ms.ms, ms_spread=[ms.lo, ms.hi],
+                plain_ms=pms.ms, plain_ms_spread=[pms.lo, pms.hi],
+                bound_ms=bms, bound_by=by)
 
 
 def block_inputs(c, h, w, nh, batch, seed):
@@ -430,6 +467,7 @@ def ast_phase(card, batch, size):
     from underwater_image_restoration_torch.models.blocks import (
         WindowAttentionSparse,
     )
+    from underwater_image_restoration_torch.ops import fused_leff
     from underwater_image_restoration_torch.ops import (
         ln_leff,
         ln_leff_plain,
@@ -533,14 +571,12 @@ def ast_phase(card, batch, size):
         for c, h in LEFF_SHAPES:
             xb, ws, err = check_leff(c, h, h, batch, seed=c + h)
             ms = median_ms(lambda: ln_leff(xb, *ws))
-            pms = median_ms(lambda: ln_leff_plain(xb, *ws), reps=5, warmup=1)
+            pms = median_ms(lambda: ln_leff_plain(xb, *ws), reps=5)
             bms, by = bound(*work_ast("ln_leff", (c, h), batch, 2))
-            rows[("ln_leff", c, h, h)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by)
+            rows[("ln_leff", c, h, h)] = timing_row(ms, pms, bms, by, err)
             print(f"ln_leff C={c} {h}x{h} bf16 batch {batch}: kernel "
-                  f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-                  f"({by}) on {card}", flush=True)
+                  f"{ms}, plain {pms}, bound {bms:.4f} ms ({by}) on {card}",
+                  flush=True)
             del xb, ws
         for nw, heads in ATTN_SHAPES:
             for masked in (False, True):
@@ -550,16 +586,14 @@ def ast_phase(card, batch, size):
                                        batch, masked, True, nw + heads, bf16)
                 ms = median_ms(lambda: window_attention(*args, **kw))
                 pms = median_ms(lambda: window_attention_plain(*args, **kw),
-                                reps=5, warmup=1)
+                                reps=5)
                 bms, by = bound(*work_ast("window_attn", (nw, heads, masked),
                                           batch, 2))
-                rows[("window_attn", batch * nw, heads, masked)] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                    bound_by=by)
+                rows[("window_attn", batch * nw, heads, masked)] = \
+                    timing_row(ms, pms, bms, by, err)
                 print(f"window_attn B'={batch * nw} heads={heads} N=64 d=32 "
-                      f"masked={masked} bf16: kernel {ms:.4f} ms, plain "
-                      f"{pms:.4f} ms, bound {bms:.4f} ms ({by}) on {card}",
-                      flush=True)
+                      f"masked={masked} bf16: kernel {ms}, plain {pms}, "
+                      f"bound {bms:.4f} ms ({by}) on {card}", flush=True)
                 del args, kw
     torch.cuda.empty_cache()
     print(f"phase 6(a) took {time.perf_counter() - t_phase:.1f} s",
@@ -582,17 +616,21 @@ def ast_phase(card, batch, size):
     torch.cuda.synchronize()
     launches = {"ln_leff": dict(ln_leff.launches),
                 "window_attn": dict(window_attention.launches)}
-    n_leff = sum(launches["ln_leff"].values())
     n_attn = sum(launches["window_attn"].values())
     n_masked = sum(v for k, v in launches["window_attn"].items() if k[4])
+    # two ln_leff calls a level, each FWD_LAUNCHES a slice of the batch
+    want_leff = {(c, h, h): 2 * fused_leff.fwd_plan(
+        batch, h, h, c, 4 * c, 2).launches for c, h in LEFF_SHAPES}
     print(f"(b) AST {size}x{size} ({n_params} parameters), launches in one "
-          f"forward: ln_leff {n_leff}, window_attn {n_attn} ({n_masked} "
-          "masked)", flush=True)
+          f"forward: ln_leff {sum(launches['ln_leff'].values())} (18 calls "
+          f"of {fused_leff.FWD_LAUNCHES} a slice of the batch), window_attn "
+          f"{n_attn} ({n_masked} masked)", flush=True)
     for name in launches:
         for key, n in sorted(launches[name].items()):
             print(f"  {name} {key}: {n}", flush=True)
-    if (n_leff, n_attn, n_masked) != (18, 10, 5):
-        fail("expected 18 ln_leff and 10 window_attn (5 masked) launches")
+    if launches["ln_leff"] != want_leff or (n_attn, n_masked) != (10, 5):
+        fail(f"expected ln_leff {want_leff} (18 calls) and 10 window_attn "
+             "(5 masked) launches")
     counts = {("ln_leff", c, h, h): launches["ln_leff"].get((c, h, h), 0)
               for c, h in LEFF_SHAPES}
     for nw, heads in ATTN_SHAPES:
@@ -677,13 +715,16 @@ def ast_phase(card, batch, size):
         kernels.append({
             "name": label,
             "route": "cuda",
+            **({"hmma": HMMA[key[0]]} if key[0] in HMMA else {}),
             "source": ("underwater_image_restoration_torch/csrc/"
                        f"{key[0]}.cu"),
             "replaces": REPLACES[key[0]],
             "launches": n,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
+            "ms_spread": row["ms_spread"],
             "plain_ms": row["plain_ms"],
+            "plain_ms_spread": row["plain_ms_spread"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
@@ -768,18 +809,17 @@ def ast_train_phase(card, batch, size, check_batch):
                 fail(f"ln_leff_bwd {gname} disagrees with the plain backward "
                      f"at C={c} {h}x{w} {tag}")
             if timed and dt == bf16:
-                ms = median_ms(lambda: ln_leff_bwd(xin, dy, *ws), reps=10,
-                               warmup=2)
+                ms = median_ms(lambda: ln_leff_bwd(xin, dy, *ws), reps=10)
                 ins = [t.detach().requires_grad_() for t in (xin, *ws)]
                 y_ref = ln_leff_plain(*ins)
                 pms = median_ms(lambda: torch.autograd.grad(
-                    y_ref, ins, dy, retain_graph=True), reps=5, warmup=1)
+                    y_ref, ins, dy, retain_graph=True), reps=5)
                 del y_ref, ins
                 bms, by = bound(*work_leff_bwd(c, h, b, 2))
-                row = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+                row = timing_row(ms, pms, bms, by, 0.0)
                 print(f"ln_leff_bwd C={c} {h}x{w} bf16 batch {b}: kernel "
-                      f"{ms:.4f} ms, plain autograd {pms:.4f} ms, bound "
-                      f"{bms:.4f} ms ({by}) on {card}", flush=True)
+                      f"{ms}, plain autograd {pms}, bound {bms:.4f} ms "
+                      f"({by}) on {card}", flush=True)
             del got, ref
         torch.cuda.empty_cache()
         row["max_abs_err"] = worst
@@ -822,22 +862,30 @@ def ast_train_phase(card, batch, size, check_batch):
     launches = {k: dict(v) for k, v in counters.items()}
     totals = {k: sum(v.values()) for k, v in launches.items()}
     n_masked = sum(v for k, v in launches["window_attn"].items() if k[4])
-    # two ln_leff_bwd calls a level, each BWD_LAUNCHES a slice of the batch
+    # two ln_leff and ln_leff_bwd calls a level, each FWD_LAUNCHES or
+    # BWD_LAUNCHES a slice of the batch
     sms = _kernels.sm_count(torch.device("cuda"))
-    want_bwd = {(c, h, h): 2 * fused_leff.bwd_plan(
-        batch, h, h, c, 4 * c, 2, sms).launches for c, h in LEFF_SHAPES}
+    want = {"ln_leff": {(c, h, h): 2 * fused_leff.fwd_plan(
+                batch, h, h, c, 4 * c, 2).launches for c, h in LEFF_SHAPES},
+            "ln_leff_bwd": {(c, h, h): 2 * fused_leff.bwd_plan(
+                batch, h, h, c, 4 * c, 2, sms).launches
+                for c, h in LEFF_SHAPES}}
     print(f"(b) AST {size}x{size} ({n_params} parameters), launches in one "
           f"train step, batch {batch}: {totals} ({n_masked} window_attn "
-          f"masked; ln_leff_bwd {fused_leff.BWD_LAUNCHES} a slice of the "
-          "batch: prep, fc1, dg2, depthwise, weight gradients, dLN, row "
+          f"masked; ln_leff {fused_leff.FWD_LAUNCHES} a slice of the batch: "
+          f"prep, fc1, g2, fc2; ln_leff_bwd {fused_leff.BWD_LAUNCHES} a "
+          "slice: prep, fc1, dg2, depthwise, weight gradients, dLN, row "
           "sums)", flush=True)
-    for (c, h, w), n in sorted(launches["ln_leff_bwd"].items()):
-        print(f"  ln_leff_bwd C={c} {h}x{w}: {n} (2 calls of "
-              f"{want_bwd.get((c, h, w), 0) // 2})", flush=True)
-    if (totals["ln_leff"], totals["window_attn"], n_masked) != (18, 10, 5) \
-            or launches["ln_leff_bwd"] != want_bwd:
-        fail(f"expected 18 ln_leff, ln_leff_bwd {want_bwd} (18 calls) and "
-             "10 window_attn (5 masked) launches in one train step")
+    for name in ("ln_leff", "ln_leff_bwd"):
+        for (c, h, w), n in sorted(launches[name].items()):
+            print(f"  {name} C={c} {h}x{w}: {n} (2 calls of "
+                  f"{want[name].get((c, h, w), 0) // 2})", flush=True)
+    if (totals["window_attn"], n_masked) != (10, 5) \
+            or launches["ln_leff"] != want["ln_leff"] \
+            or launches["ln_leff_bwd"] != want["ln_leff_bwd"]:
+        fail(f"expected ln_leff {want['ln_leff']}, ln_leff_bwd "
+             f"{want['ln_leff_bwd']} (18 calls each) and 10 window_attn (5 "
+             "masked) launches in one train step")
     loss0 = float(out["loss"])
     print(f"AST train step loss {loss0:.6f} grad_norm "
           f"{float(out['grad_norm']):.6f}", flush=True)
@@ -936,7 +984,9 @@ def ast_train_phase(card, batch, size, check_batch):
             "launches": n,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
+            "ms_spread": row["ms_spread"],
             "plain_ms": row["plain_ms"],
+            "plain_ms_spread": row["plain_ms_spread"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
@@ -979,6 +1029,7 @@ def main(argv=None):
         ln_mdta_plain,
     )
     from underwater_image_restoration_torch.ops.fused_gdfn import ln_gdfn_bwd
+    from underwater_image_restoration_torch.ops import fused_mdta
     from underwater_image_restoration_torch.ops.fused_mdta import (
         forward_with_stats,
         ln_mdta_bwd,
@@ -1083,14 +1134,12 @@ def main(argv=None):
             # times on the same inputs, in the serving dtype (bf16)
             ms = median_ms(lambda: call(name, kern, xb, ln, mdta, gdfn, nh))
             pms = median_ms(lambda: call(name, plain, xb, ln, mdta, gdfn, nh),
-                            reps=5, warmup=1)
+                            reps=5)
             bms, by = bound(*work(name, c, h, w, nh, SERVE_BATCH, 2))
-            rows[(name, c, h, w)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                bound_by=by)
+            rows[(name, c, h, w)] = timing_row(ms, pms, bms, by, err)
             print(f"{name} C={c} {h}x{w} bf16 batch {SERVE_BATCH}: kernel "
-                  f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f}"
-                  f" ms ({by}) on {card}", flush=True)
+                  f"{ms}, plain {pms}, bound {bms:.4f} ms ({by}) on {card}",
+                  flush=True)
             del xb
     torch.cuda.empty_cache()
 
@@ -1241,16 +1290,16 @@ def main(argv=None):
                 fail(f"{name}_bwd {gname} disagrees with the plain backward "
                      f"at C={c} {h}x{w} {tag}")
             if timed and dt == torch.bfloat16:
-                ms = median_ms(kern, reps=10, warmup=2)
+                ms = median_ms(kern, reps=10)
                 y_ref = plain_fwd()
                 pms = median_ms(lambda: torch.autograd.grad(
-                    y_ref, ins, dy, retain_graph=True), reps=5, warmup=1)
+                    y_ref, ins, dy, retain_graph=True), reps=5)
                 del y_ref
                 bms, by = bound(*work_bwd(name, c, h, w, nh, batch, 2))
-                row = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+                row = timing_row(ms, pms, bms, by, 0.0)
                 print(f"{name}_bwd C={c} {h}x{w} bf16 batch {batch}: kernel "
-                      f"{ms:.4f} ms, plain autograd {pms:.4f} ms, bound "
-                      f"{bms:.4f} ms ({by}) on {card}", flush=True)
+                      f"{ms}, plain autograd {pms}, bound {bms:.4f} ms "
+                      f"({by}) on {card}", flush=True)
             del got, ref, ins
         torch.cuda.empty_cache()
         row["max_abs_err"] = worst
@@ -1286,15 +1335,24 @@ def main(argv=None):
     torch.cuda.synchronize()
     train_launches = {k: dict(v) for k, v in counters.items()}
     totals = {k: sum(v.values()) for k, v in train_launches.items()}
+    # ln_mdta_bwd: BWD_LAUNCHES a slice of the batch and one a call
+    # (fused_mdta.bwd_plan) for each block's call; the blocks a shape from
+    # the forward's launches
+    sms = _kernels.sm_count(torch.device("cuda"))
+    want_mdta_bwd = {key: n // 2 * fused_mdta.bwd_plan(
+        TRAIN_BATCH, key[1], key[2], key[0], 2, sms).launches
+        for key, n in train_launches["ln_mdta"].items()}
     print(f"(a) launches in one train step: {totals} (ln_mdta 2 a block, "
-          "ln_gdfn_bwd 2, ln_mdta_bwd 3)", flush=True)
+          f"ln_gdfn_bwd 2, ln_mdta_bwd {fused_mdta.BWD_LAUNCHES} a slice of "
+          "the batch and one a call)", flush=True)
     for name in ("ln_gdfn_bwd", "ln_mdta_bwd"):
         for (c, h, w), n in sorted(train_launches[name].items()):
             print(f"  {name} C={c} {h}x{w}: {n}", flush=True)
-    want = {"ln_gdfn": 24, "ln_mdta": 48, "ln_gdfn_bwd": 48,
-            "ln_mdta_bwd": 72}
-    if totals != want:
-        fail(f"expected launches {want} in one train step, got {totals}")
+    want = {"ln_gdfn": 24, "ln_mdta": 48, "ln_gdfn_bwd": 48}
+    if {k: totals[k] for k in want} != want \
+            or train_launches["ln_mdta_bwd"] != want_mdta_bwd:
+        fail(f"expected launches {want} and ln_mdta_bwd {want_mdta_bwd} in "
+             f"one train step, got {totals}")
     loss0 = float(out["loss"])
     print(f"train step loss {loss0:.6f} grad_norm "
           f"{float(out['grad_norm']):.6f}", flush=True)
@@ -1415,7 +1473,9 @@ def main(argv=None):
             "launches": n,
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
+            "ms_spread": row["ms_spread"],
             "plain_ms": row["plain_ms"],
+            "plain_ms_spread": row["plain_ms_spread"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,

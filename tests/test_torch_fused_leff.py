@@ -8,10 +8,13 @@ CPU.
 - vs the unfused JAX chain (``ops.LayerNorm`` over tokens, then
   ``models/blocks.py LeFF``) at 8 x 8, a shape the TPU kernel's
   ``supports`` refuses, f32;
-- the CUDA kernel's algorithm (csrc/ln_leff.cu), written in torch over the
-  operands ``kernel_weights`` lays out: pixel tiles with a one-pixel halo,
-  hidden chunks of HIDDEN_CHUNK (the width 48 zero-padded to 64) whose fc2
-  terms add into f32 accumulators, ragged edge tiles;
+- the CUDA forward's staged algorithm (csrc/ln_leff.cu), written in torch
+  over the operands ``kernel_weights`` lays out (the width 48 zero-padded
+  to 64): the batch in image slices, LN, fc1 and fc2 as the tensor-core
+  products take them (f32 operands as bf16 hi/lo planes), g2 from g1's 3x3
+  window, the biases rounded where the kernels add them; the forward's
+  planner (slices within FWD_WORKSPACE_BYTES at every AST@256 shape, serve
+  batch 8 and train batch 16);
 - the CPU route takes the plain version and counts no launch;
 - ``ln_leff_bwd_plain`` (autograd through the plain version) vs ``jax.vjp``
   of the TPU kernel's VJP (row 12, ``fused_leff.py:337 _bwd_call``) in
@@ -126,46 +129,50 @@ def test_plain_matches_unfused_jax_chain():
     _close(got.numpy(), want, torch.float32)
 
 
+def _shifted(t, dh, dw):
+    """t(p + (dh, dw)) on (n, h, w, ch), zero outside the image."""
+    h, w = t.shape[1:3]
+    tp = F.pad(t, (0, 0, 1, 1, 1, 1))
+    return tp[:, 1 + dh:1 + dh + h, 1 + dw:1 + dw + w]
+
+
 def _kernel_algorithm(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
-                      residual, th, tw, eps=1e-5):
-    """csrc/ln_leff.cu in torch: one (TH, TW) tile at a time with its halo,
-    the hidden width in chunks over the kernel's operands."""
+                      residual, imgs, eps=1e-5):
+    """csrc/ln_leff.cu's staged design in torch: the batch in slices of
+    ``imgs`` images, per slice LN (rounded), fc1 with g1 in its epilogue, g2
+    from g1's 3x3 window (zero outside the image), fc2 with y in its
+    epilogue; the products as the tensor cores take them (f32 operands
+    split into bf16 hi/lo planes), the biases rounded to the compute dtype
+    where they are added."""
     dt = x.dtype
+    split = dt == torch.float32
     b, h, w, c = x.shape
-    *ops, hp = fused_leff.kernel_weights(w1, b1, w_dw, b_dw, w2, b2, dt)
-    w1k, b1k, taps, bdwk, w2k, b2k = ops
-    assert w1k.dtype == w2k.dtype == dt  # staged as f32 by the kernel
+    w1k, b1k, taps, bdwk, w2k, b2k, hp = fused_leff.kernel_weights(
+        w1, b1, w_dw, b_dw, w2, b2, dt)
+    assert w1k.dtype == w2k.dtype == dt and hp % fused_leff.HIDDEN_CHUNK == 0
+    assert taps.shape == (9, hp)
     w1k, w2k = w1k.float(), w2k.float()
-    g = fused_leff.HIDDEN_CHUNK
-    assert hp % g == 0 and taps.shape == (9, hp)
 
     def rnd(t):
         return t.to(dt).float()
 
-    ln = rnd(layer_norm_last(x, scale, bias, eps))
-    pad = (0, 0, 1, th + 1, 1, tw + 1)
-    lnp = F.pad(ln, pad)
-    inside = F.pad(torch.ones(b, h, w, 1), pad)
+    sb = torch.ones(b) if s is None else s.float()
     y = torch.empty_like(x)
-    for r0 in range(0, h, th):
-        for c0 in range(0, w, tw):
-            patch = lnp[:, r0:r0 + th + 2, c0:c0 + tw + 2]
-            keep = inside[:, r0:r0 + th + 2, c0:c0 + tw + 2]
-            acc = torch.zeros(b, th, tw, c)
-            for j0 in range(0, hp, g):
-                j = slice(j0, j0 + g)
-                t1 = rnd(rnd(patch @ w1k[:, j]) + b1k[j])
-                g1 = rnd(gelu(t1)) * keep
-                t2 = sum(taps[3 * dh + dw, j] * g1[:, dh:dh + th, dw:dw + tw]
-                         for dh in range(3) for dw in range(3))
-                g2 = rnd(gelu(rnd(rnd(t2) + bdwk[j])))
-                acc += g2 @ w2k[j]
-            yd = rnd(rnd(acc) + b2k)
-            sc = rnd(yd * (1.0 if s is None else s.view(-1, 1, 1, 1)))
-            xt = x[:, r0:r0 + th, c0:c0 + tw].float()
-            out = xt + sc[:, :xt.shape[1], :xt.shape[2]] if residual else \
-                sc[:, :xt.shape[1], :xt.shape[2]]
-            y[:, r0:r0 + th, c0:c0 + tw] = out.to(dt)
+    for b0 in range(0, b, imgs):
+        xs = x[b0:b0 + imgs].float()
+        n, p = xs.shape[0], xs.shape[0] * h * w
+        mean = xs.mean(-1, keepdim=True)
+        rstd = torch.rsqrt((xs - mean).square().mean(-1, keepdim=True) + eps)
+        ln = rnd((xs - mean) * rstd * scale + bias).reshape(p, c)
+        t1 = rnd(rnd(_mm(ln, w1k, split)) + rnd(b1k))
+        g1 = rnd(gelu(t1)).view(n, h, w, hp)
+        t2 = sum(taps[k] * _shifted(g1, k // 3 - 1, k % 3 - 1)
+                 for k in range(9))
+        g2 = rnd(gelu(rnd(rnd(t2) + rnd(bdwk)))).reshape(p, hp)
+        yd = rnd(rnd(_mm(g2, w2k, split)) + rnd(b2k))
+        yd = rnd(yd * sb[b0:b0 + n].repeat_interleave(h * w)[:, None])
+        out = xs.reshape(p, c) + yd if residual else yd
+        y[b0:b0 + n] = out.view(n, h, w, c).to(dt)
     return y
 
 
@@ -173,35 +180,67 @@ def _kernel_algorithm(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("residual", [True, False])
 def test_kernel_algorithm_matches_plain(dtype, residual):
-    b, h, w, c, hid = 2, 10, 12, 12, 48
+    """Three images in two slices, 10 x 12, C = 16, hidden width 48 (padded
+    to 64), s with a zero in the unscaled branch."""
+    b, h, w, c, hid = 3, 10, 12, 16, 48
     x = torch.from_numpy(_x((b, h, w, c), 4)).to(dtype)
     ws = [torch.from_numpy(a) for a in _weights(c, hid, 5)]
-    s = torch.tensor([1.25, 0.5])
-    got = _kernel_algorithm(x, *ws, s, residual, 4, 8)
+    s = torch.tensor([1.25, 0.5, 1.0]) if residual else \
+        torch.tensor([0.5, 0.0, 1.25])
+    got = _kernel_algorithm(x, *ws, s, residual, 2)
     want = fused_leff.ln_leff_plain(x, *ws, s=s, residual=residual)
     _close(got.float().numpy(), want.float().numpy(), dtype)
 
 
 def test_tile_shapes_and_hidden_padding():
-    """Every AST width gets a tile whose shared memory fits a block, in
-    both dtypes; the hidden width pads with zeros."""
-    want = {2: [(8, 8), (8, 8), (8, 8), (8, 8), (4, 4)],
-            4: [(8, 8), (8, 8), (8, 8), (4, 8), (2, 4)]}
-    for itemsize, tiles in want.items():
-        got = [fused_leff.tile_shape(c, itemsize)
-               for c in (32, 64, 128, 256, 512)]
-        assert got == tiles
-        for c, (th, tw) in zip((32, 64, 128, 256, 512), got):
-            assert fused_leff.shared_bytes(c, th, tw, itemsize) <= \
-                fused_leff.MAX_SHARED
+    """The forward's slices at every AST width, both dtypes: the workspace
+    mirrors the kernel's layout and stays within FWD_WORKSPACE_BYTES, the
+    slices cover the batch evenly, four launches a slice; an image wider
+    than the budget is a slice by itself.  The hidden width pads with zeros
+    (and is not copied when it needs no padding); the biases stay f32, for
+    the kernels to round."""
+    for itemsize in (2, 4):
+        for c in (32, 64, 128, 256, 512):
+            plan = fused_leff.fwd_plan(8, 32, 32, c, 4 * c, itemsize)
+            assert plan.workspace == fused_leff.fwd_workspace_bytes(
+                plan.imgs, 32, 32, c, 4 * c, itemsize)
+            assert plan.workspace <= fused_leff.FWD_WORKSPACE_BYTES
+            assert plan.imgs * plan.slices >= 8 > plan.imgs * (
+                plan.slices - 1)
+            assert plan.launches == fused_leff.FWD_LAUNCHES * plan.slices
+    big = fused_leff.fwd_plan(2, 1024, 1024, 64, 256, 2)
+    assert big.imgs == 1 and big.slices == 2
+    assert big.workspace > fused_leff.FWD_WORKSPACE_BYTES
     ws = [torch.from_numpy(a) for a in _weights(8, 40, 6)]
     *ops, hp = fused_leff.kernel_weights(*ws[2:], torch.bfloat16)
     assert hp == 64 and ops[0].shape == (8, 64) and ops[4].shape == (64, 8)
     assert ops[0].dtype == ops[4].dtype == torch.bfloat16
     assert not ops[0][:, 40:].any() and not ops[4][40:].any()
     assert torch.equal(ops[0][:, :40], ws[2].bfloat16())
-    assert torch.equal(ops[1][:40], ws[3].bfloat16().float())
+    assert torch.equal(ops[1][:40], ws[3])  # biases f32, rounded in-kernel
     assert torch.equal(ops[2][:, :40], ws[4].reshape(9, 40))  # taps stay f32
+    ws = [torch.from_numpy(a) for a in _weights(8, 32, 6)]
+    ops = fused_leff.kernel_weights(*ws[2:], torch.float32)
+    assert ops[-1] == 32 and ops[0] is ws[2] and ops[4] is ws[6]
+
+
+@pytest.mark.parametrize("batch", [8, 16], ids=["serve-b8", "train-b16"])
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+def test_forward_plan_within_budget(batch, itemsize):
+    """The forward's planner at every AST@256 shape: the workspace within
+    FWD_WORKSPACE_BYTES, the fewest slices that fit (one image more a slice
+    would not), the batch covered evenly."""
+    for c, side in ((32, 256), (64, 128), (128, 64), (256, 32), (512, 16),
+                    (512, 32), (256, 64), (128, 128), (64, 256)):
+        plan = fused_leff.fwd_plan(batch, side, side, c, 4 * c, itemsize)
+        assert plan.workspace <= fused_leff.FWD_WORKSPACE_BYTES
+        assert plan.imgs * plan.slices >= batch > plan.imgs * (
+            plan.slices - 1)
+        if plan.slices > 1:
+            most = -(-batch // (plan.slices - 1))
+            assert fused_leff.fwd_workspace_bytes(
+                most, side, side, c, 4 * c, itemsize) > \
+                fused_leff.FWD_WORKSPACE_BYTES
 
 
 def test_cpu_tensor_takes_plain_version():
@@ -329,14 +368,14 @@ def _backward_algorithm(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
         ln = rnd(xh * scale + bias)
         dyk = rnd(dys * sb[b0:b0 + n].view(-1, 1, 1, 1))
         # fc1, then dg2 and its epilogue
-        t1 = rnd(rnd(_mm(ln.reshape(p, c), w1k, split)) + b1k)
+        t1 = rnd(rnd(_mm(ln.reshape(p, c), w1k, split)) + rnd(b1k))
         g1 = rnd(F.gelu(t1)).view(n, h, w, hp)
         t1 = t1.view(n, h, w, hp)
         dg2 = _mm(dyk.reshape(p, c), w2k.t(), split).view(n, h, w, hp)
         t2 = torch.zeros(n, h, w, hp)
         for k in range(9):
             t2 = t2 + taps[k] * shifted(g1, k // 3 - 1, k % 3 - 1)
-        t2 = rnd(rnd(t2) + bdwk)
+        t2 = rnd(rnd(t2) + rnd(bdwk))
         dt2 = dg2 * _gelu_grad(t2)
         g2 = rnd(F.gelu(t2))
         # the depthwise pass: a row of shares an image row

@@ -16,7 +16,12 @@
   hidden width that is not a multiple of 32, the widest AST level), two
   calls bit-equal, a refused launch raising, the LN+LeFF result carrying a
   ``grad_fn`` whose gradients reach every LeFF parameter, and a small AST's
-  train-mode backward reaching every parameter through the kernels.
+  train-mode backward reaching every parameter through the kernels;
+- the staged designs' plans: the LN+LeFF forward and the LN+MDTA backward
+  on both sides of their thresholds (one slice and several, forced by a
+  smaller workspace budget; one and several dA ranges an image; 8, 16 and
+  32 channels a head), each vs the plain version, launch counts as the
+  planners say.
 
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 The file imports no JAX, so it also runs where only the port is installed:
@@ -147,13 +152,39 @@ def test_backward_kernel_matches_plain(cuda, kind, dtype, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["leff", "gdfn"])
+@pytest.mark.parametrize("kind", ["leff", "gdfn", "mdta", "leff-fwd"])
 def test_backward_refuses_a_bad_launch(cuda, kind, monkeypatch):
     """A launch the kernel refuses (here: a weight-gradient split that is
-    not a multiple of the staged k depth, or a tile too wide for the
-    tensor-core steps) raises instead of leaving gradients unwritten."""
+    not a multiple of the staged k depth, a tile too wide for the
+    tensor-core steps, or a hidden width that is no whole number of k16
+    steps) raises instead of leaving its outputs unwritten."""
     rng = np.random.default_rng(23)
-    if kind == "leff":
+    if kind == "mdta":
+        x = torch.from_numpy(rng.standard_normal((1, 16, 8, 8)).astype(
+            np.float32)).to(cuda)
+        w = [torch.from_numpy(a).to(cuda)
+             for a in _weights("mdta", 16, 2, rng)]
+        stats = fused_mdta.forward_with_stats(x, *w, 2)[1]
+        monkeypatch.setattr(fused_mdta, "bwd_split_pixels",
+                            lambda *a: fused_mdta.BWD_K + 1)
+        with pytest.raises(RuntimeError, match="ln_mdta_bwd"):
+            fused_mdta.ln_mdta_bwd(x, x, *w, 2, stats=stats)
+    elif kind == "leff-fwd":
+        c, hid = 8, 36
+        x = torch.from_numpy(rng.standard_normal((1, 8, 8, c)).astype(
+            np.float32)).to(cuda)
+        w = [torch.from_numpy(a).to(cuda) for a in (
+            np.ones(c, np.float32), np.zeros(c, np.float32),
+            rng.standard_normal((c, hid)).astype(np.float32),
+            np.zeros(hid, np.float32),
+            rng.standard_normal((3, 3, hid)).astype(np.float32),
+            np.zeros(hid, np.float32),
+            rng.standard_normal((hid, c)).astype(np.float32),
+            np.zeros(c, np.float32))]
+        monkeypatch.setattr(fused_leff, "HIDDEN_CHUNK", 4)  # 36 stays 36
+        with pytest.raises(RuntimeError, match="ln_leff"):
+            fused_leff.ln_leff(x, *w)
+    elif kind == "leff":
         c, hid = 8, 32
         x = torch.from_numpy(rng.standard_normal((1, 8, 8, c)).astype(
             np.float32)).to(cuda)
@@ -190,12 +221,17 @@ def test_model_gradients_reach_every_parameter(cuda):
                        channels=(16, 32, 64, 128), num_blocks=(1, 1, 1, 1),
                        num_refinement=1)
     fused_gdfn.ln_gdfn_bwd.launches.clear()
+    fused_mdta.ln_mdta.launches.clear()
     fused_mdta.ln_mdta_bwd.launches.clear()
     x = torch.rand(2, 3, 32, 32, device=cuda) * 2 - 1
     model(x).float().square().mean().backward()
     torch.cuda.synchronize()
     assert sum(fused_gdfn.ln_gdfn_bwd.launches.values()) == 2 * 8
-    assert sum(fused_mdta.ln_mdta_bwd.launches.values()) == 3 * 8
+    # a block's backward: BWD_LAUNCHES a slice of the batch (bwd_plan)
+    assert sum(fused_mdta.ln_mdta.launches.values()) == 2 * 8
+    assert fused_mdta.ln_mdta_bwd.launches == {
+        (c, h, w): n // 2 * fused_mdta.bwd_plan(2, h, w, c, 4).launches
+        for (c, h, w), n in fused_mdta.ln_mdta.launches.items()}
     for name, p in model.named_parameters():
         if "q1X1_1" in name:
             assert p.grad is None, name
@@ -226,9 +262,13 @@ def _leff_weights(c, rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape, residual", [((2, 20, 36, 8), True),
-                                             ((2, 16, 16, 64), False)],
-                         ids=["ragged-C8", "C64-branch"])
+                                             ((2, 16, 16, 64), False),
+                                             ((2, 10, 12, 512), False)],
+                         ids=["ragged-C8", "C64-branch", "C512-branch"])
 def test_leff_kernel_matches_plain(cuda, dtype, shape, residual):
+    """The staged forward at a ragged C = 8 shape (hidden 32) and, without
+    the residual, with a per-image scale s (the New* encoders' call) at
+    C = 64 and at the widest AST level, C = 512 (hidden 2048)."""
     rng = np.random.default_rng(13)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
     x = x.to(cuda, dtype)
@@ -355,11 +395,99 @@ def test_window_attn_backward_matches_plain(cuda):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
 
 
+def _leff_fwd_launches(seen, batch, itemsize):
+    """The LN+LeFF forward's launches by (C, H, W) for the shapes in
+    ``seen``: two calls a level (18 in all), fwd_plan's launches each."""
+    assert len(seen) == 9
+    return {(c, h, w): 2 * fused_leff.fwd_plan(batch, h, w, c, 4 * c,
+                                               itemsize).launches
+            for c, h, w in seen}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_leff_forward_slices(cuda, dtype, monkeypatch):
+    """The staged forward over three slices of one image (a budget below
+    two images' workspace) gives the bits of one slice of three: no
+    reduction crosses the slices; both match the plain version, with
+    residual=False and s holding a zero."""
+    rng = np.random.default_rng(29)
+    c = 32
+    x = torch.from_numpy(rng.standard_normal((3, 12, 20, c)).astype(
+        np.float32)).to(cuda, dtype)
+    w = [torch.from_numpy(a).to(cuda) for a in _leff_weights(c, rng)]
+    s = torch.tensor([1.25, 0.0, 0.5], device=cuda)
+    one = fused_leff.fwd_plan(3, 12, 20, c, 4 * c, x.element_size())
+    assert one.slices == 1
+    whole = fused_leff.ln_leff(x, *w, s=s, residual=False)
+    monkeypatch.setattr(fused_leff, "FWD_WORKSPACE_BYTES",
+                        fused_leff.fwd_workspace_bytes(
+                            1, 12, 20, c, 4 * c, x.element_size()))
+    assert fused_leff.fwd_plan(3, 12, 20, c, 4 * c,
+                               x.element_size()).slices == 3
+    fused_leff.ln_leff.launches.clear()
+    sliced = fused_leff.ln_leff(x, *w, s=s, residual=False)
+    want = fused_leff.ln_leff_plain(x, *w, s=s, residual=False)
+    torch.cuda.synchronize()
+    assert fused_leff.ln_leff.launches[(c, 12, 20)] == \
+        3 * fused_leff.FWD_LAUNCHES
+    assert torch.equal(sliced, whole) and not sliced[1].any()
+    err = (sliced.float() - want.float()).abs().max().item()
+    assert err <= AST_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, c, h, w, nh, slices", [
+    (3, 32, 48, 64, 1, 1), (3, 16, 21, 70, 2, 3), (2, 64, 12, 20, 8, 2)],
+    ids=["cph32-two-dA-ranges", "cph8-ragged-3-slices", "cph8-C64-2-slices"])
+def test_mdta_backward_plan_thresholds(cuda, dtype, b, c, h, w, nh, slices,
+                                       monkeypatch):
+    """The LN+MDTA backward on both sides of its plan's thresholds: 32
+    channels a head with 3072 pixels an image (two dA ranges), and 8 a head
+    over ragged images (21 x 70: a second column segment in the taps
+    passes) walked in several slices (a workspace budget of one or two
+    images forces them); every gradient vs autograd through the
+    plain version, two calls bit-equal, BWD_LAUNCHES a slice and one a
+    call."""
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(
+        np.float32)).to(cuda, dtype)
+    dy = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(
+        np.float32)).to(cuda, dtype)
+    ws = [torch.from_numpy(a).to(cuda) for a in _weights("mdta", c, nh, rng)]
+    if slices > 1:
+        imgs = -(-b // slices)
+        ks = fused_mdta.bwd_split_pixels(imgs * h * w, c, 132)
+        monkeypatch.setattr(fused_mdta, "BWD_WORKSPACE_BYTES",
+                            fused_mdta.bwd_workspace_bytes(
+                                imgs, h, w, c, x.element_size(), ks,
+                                fused_mdta.bwd_image_split_pixels(h * w)))
+    plan = fused_mdta.bwd_plan(b, h, w, c, x.element_size())
+    assert plan.slices == slices
+    assert (-(-h * w // plan.image_split_pixels) > 1) == (h * w > 2048)
+    stats = fused_mdta.forward_with_stats(x, *ws, nh)[1]
+    fused_mdta.ln_mdta_bwd.launches.clear()
+    got = fused_mdta.ln_mdta_bwd(x, dy, *ws, nh, stats=stats)
+    again = fused_mdta.ln_mdta_bwd(x, dy, *ws, nh, stats=stats)
+    want = fused_mdta.ln_mdta_bwd_plain(x, dy, *ws, nh)
+    torch.cuda.synchronize()
+    assert fused_mdta.ln_mdta_bwd.launches[(c, h, w)] == \
+        2 * (fused_mdta.BWD_LAUNCHES * slices + 1) == 2 * plan.launches
+    for i, (g, r) in enumerate(zip(got, want)):
+        assert g.shape == r.shape and torch.isfinite(g).all(), i
+        scale = r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * scale, (i, err, scale)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
 @pytest.mark.cuda
 def test_ast_forward_goes_through_the_kernels(cuda):
-    """A small AST on the card: 18 LN+LeFF and 10 window-attention
-    launches (3 masked at 32x32 with window 4: the levels at 8x8 and up),
-    output close to the plain versions' in f32."""
+    """A small AST on the card: 18 LN+LeFF calls (FWD_LAUNCHES a slice of
+    the batch each, fwd_plan) and 10 window-attention launches (3 masked at
+    32x32 with window 4: the levels at 8x8 and up), output close to the
+    plain versions' in f32."""
     model = init_model("AST", device=cuda, seed=3, img_size=32, embed_dim=8,
                        win_size=4)
     fused_leff.ln_leff.launches.clear()
@@ -369,7 +497,8 @@ def test_ast_forward_goes_through_the_kernels(cuda):
         got = model(x)
         want = model(x, use_kernels=False)
     torch.cuda.synchronize()
-    assert sum(fused_leff.ln_leff.launches.values()) == 18
+    assert fused_leff.ln_leff.launches == _leff_fwd_launches(
+        fused_leff.ln_leff.launches, 2, 4)
     assert sum(window_attention.launches.values()) == 10
     assert sum(n for k, n in window_attention.launches.items() if k[4]) == 3
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
@@ -378,9 +507,10 @@ def test_ast_forward_goes_through_the_kernels(cuda):
 @pytest.mark.cuda
 def test_ast_gradients_reach_every_parameter(cuda):
     """A small AST's train-mode backward on the card (DropPath at rate 0, so
-    every branch counts): 18 LN+LeFF forward and 18 backward calls (one
-    slice of BWD_LAUNCHES launches each), 10 window attentions, every
-    parameter's gradient finite and non-zero."""
+    every branch counts): 18 LN+LeFF forward calls (one slice of
+    FWD_LAUNCHES launches each) and 18 backward calls (one slice of
+    BWD_LAUNCHES each), 10 window attentions, every parameter's gradient
+    finite and non-zero."""
     model = init_model("AST", device=cuda, seed=4, img_size=32, embed_dim=8,
                        win_size=4, drop_path_rate=0.0).train()
     fused_leff.ln_leff.launches.clear()
@@ -389,7 +519,8 @@ def test_ast_gradients_reach_every_parameter(cuda):
     x = torch.rand(2, 3, 32, 32, device=cuda) * 2 - 1
     model(x).square().mean().backward()
     torch.cuda.synchronize()
-    assert sum(fused_leff.ln_leff.launches.values()) == 18
+    assert fused_leff.ln_leff.launches == _leff_fwd_launches(
+        fused_leff.ln_leff.launches, 2, 4)
     assert sum(fused_leff.ln_leff_bwd.launches.values()) == \
         fused_leff.BWD_LAUNCHES * 18
     assert sum(window_attention.launches.values()) == 10

@@ -1,7 +1,6 @@
-// Shared device helpers of the port's backward kernels: tile-pixel
-// indexing, the transposed 3x3 depthwise tap sum, the tiles' shares of
-// weight gradients, the channel-LayerNorm backward of a tile, and the
-// ordered reduction of per-block partial rows.
+// Shared device helpers of the tile-local backward kernel
+// (csrc/ln_gdfn_bwd.cu): tile-pixel indexing, the channel-LayerNorm backward
+// of a tile, and the ordered reduction of per-block partial rows.
 //
 // A tile is TH x TW pixels whose top-left image position is (r0, c0); TW
 // divides 32 (tile_ok).
@@ -21,35 +20,7 @@ __device__ __forceinline__ bool in_image(int r, int c, int H, int W) {
   return r >= 0 && r < H && c >= 0 && c < W;
 }
 
-// out[c][p] = sum_k taps[c][k] * d[c][p - d_k] for every tile pixel p, the
-// transposed (adjoint) depthwise 3x3 with zero padding: d is channel-major
-// on the tile's 1-pixel halo (zero outside the image), d_k = (k / 3 - 1,
-// k % 3 - 1).  Pixels of the tile outside the image get 0.
-template <typename TD>
-__device__ void tap9_t(float* out, const TD* d, const float* __restrict__ taps,
-                       int NC, int TH, int TW, int r0, int c0, int H, int W) {
-  const int P = TH * TW, PW2 = TW + 2, NP2 = PW2 * (TH + 2);
-  for (int it = threadIdx.x; it < NC * P; it += blockDim.x) {
-    const int p = it % P, c = it / P;
-    const int py = p / TW, px = p % TW;
-    float s = 0.f;
-    if (in_image(r0 + py, c0 + px, H, W)) {
-      const TD* dc = d + (size_t)c * NP2 + (py + 2) * PW2 + px + 2;
-      const float* tc = taps + (size_t)c * 9;
-#pragma unroll
-      for (int k = 0; k < 9; ++k)
-        s = fmaf(__ldg(tc + k), to_f(dc[-(k / 3) * PW2 - k % 3]), s);
-    }
-    out[(size_t)c * P + p] = s;
-  }
-}
-
-// The weight-gradient products below are sums over the tile's pixels, one
-// warp an output block: lane l takes pixels l, l + 32, ... (TW divides 32,
-// so its column is fixed and its row steps by 32 / TW), and the block is
-// summed over the lanes by shuffles.  Neighbouring lanes read neighbouring
-// pixels of one channel plane, so shared-memory reads do not conflict
-// whatever the planes' strides.
+// the sum over a warp's lanes (a fixed shuffle tree)
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -57,75 +28,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// dst[c * 9 + k] += sum over tile pixels p of d[c][p] * u[c][p + d_k]: the
-// tile's share of a depthwise tap gradient.  d is on a halo of hd pixels, u
-// on a halo of hu >= 1 pixels (zero outside the image).
-template <typename TD>
-__device__ void tap_grad_acc(float* dst, const TD* d, int hd, const float* u,
-                             int hu, int NC, int TH, int TW) {
-  const int PWd = TW + 2 * hd, NPd = PWd * (TH + 2 * hd);
-  const int PWu = TW + 2 * hu, NPu = PWu * (TH + 2 * hu);
-  const int lane = threadIdx.x & 31, px = lane % TW;
-  for (int c = threadIdx.x >> 5; c < NC; c += blockDim.x >> 5) {
-    const TD* dc = d + (size_t)c * NPd + hd * PWd + hd + px;
-    const float* uc = u + (size_t)c * NPu + (hu - 1) * PWu + hu - 1 + px;
-    float s[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int py = lane / TW; py < TH; py += 32 / TW) {
-      const float dv = to_f(dc[py * PWd]);
-      const float* up = uc + py * PWu;
-#pragma unroll
-      for (int k = 0; k < 9; ++k)
-        s[k] = fmaf(dv, up[(k / 3) * PWu + k % 3], s[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const float t = warp_sum(s[k]);
-      if (lane == k) dst[c * 9 + k] += t;
-    }
-  }
-}
-
-// dst[i * ldd + o] += sum over tile pixels p of a[i][p] * b[o][p] for i < NI
-// and o < NO (both multiples of 4): the tile's share of a 1x1 conv's weight
-// gradient, 4 x 4 outputs a warp.  a is on a halo of ha pixels, b on a halo
-// of hb.
-template <typename TA, typename TB>
-__device__ void outer_acc(float* dst, int ldd, const TA* a, int ha, int NI,
-                          const TB* b, int hb, int NO, int TH, int TW) {
-  const int PWa = TW + 2 * ha, NPa = PWa * (TH + 2 * ha);
-  const int PWb = TW + 2 * hb, NPb = PWb * (TH + 2 * hb);
-  const int lane = threadIdx.x & 31, px = lane % TW;
-  const int nbi = NI / 4;
-  for (int it = threadIdx.x >> 5; it < nbi * (NO / 4);
-       it += blockDim.x >> 5) {
-    const int i0 = 4 * (it % nbi), o0 = 4 * (it / nbi);
-    const TA* ai = a + (size_t)i0 * NPa + ha * PWa + ha + px;
-    const TB* bo = b + (size_t)o0 * NPb + hb * PWb + hb + px;
-    float s[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) s[e] = 0.f;
-    for (int py = lane / TW; py < TH; py += 32 / TW) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        av[u] = to_f(ai[u * NPa + py * PWa]);
-        bv[u] = to_f(bo[u * NPb + py * PWb]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          s[4 * u + v] = fmaf(av[u], bv[v], s[4 * u + v]);
-    }
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const float t = warp_sum(s[e]);
-      if (lane == e) dst[(size_t)(i0 + e / 4) * ldd + o0 + e % 4] += t;
-    }
-  }
-}
-
-// launch check of a backward tile: TW divides 32 (the products above
+// launch check of a backward tile: TW divides 32 (ln_gdfn_bwd's products
 // assume it)
 inline bool tile_ok(int TH, int TW) {
   return TH > 0 && TW > 0 && 32 % TW == 0;

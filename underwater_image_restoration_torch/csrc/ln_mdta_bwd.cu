@@ -9,592 +9,926 @@
 // ops/fused_attn.py:560 _bwd_call (_bwd_kernel:219), which compute one
 // function (split on the TPU to fit its VMEM).
 //
-// Design.  The softmax couples every pixel of an image: dA, summed over all
-// pixels, is needed before any dq or dk.  So three launches:
-//   (a) v pass, over TH x TW tiles: recompute A from the forward's saved
-//       per-image stats (gram G, row sums of squares Sq, Sk) and the
-//       temperature; with LN on a 2-pixel halo, v and out on the 1-pixel
-//       halo, vf and outf on the tile (as the apply kernel).  Then the
-//       cotangents: d_outf = round(W_pof dy) on the 1-pixel halo, dvf =
-//       A^T d_outf, d(u_vf) by the transposed taps, d_out = round(W_kvf
-//       d(u_vf)), d_outs = round(W_po d_out), dv = A^T d_outs (to global
-//       memory, f32), and the tile's partial dA = sum d_outf vf^T + d_outs
-//       v^T.  The tile's shares of dW_pof, dW_kvf, dtaps_vf and dW_po go to
-//       the block's partial row.  The last tile of each image to finish
-//       (atomic ticket) sums that image's dA partials in tile order and does
-//       the per-image softmax and l2-normalize backward: dS = A (dA -
-//       rowsum(dA A)), dtemp = sum dS Ghat with Ghat = G rq rk, dP = temp dS,
-//       and writes M = rq dP rk^T, alpha_q = rq^3 sum_j dP G rk and alpha_k
-//       = rk^3 sum_i dP G rq, each zero where the row's S < 1e-24 (the
-//       rsqrt(max(S, 1e-24)) gate, fused_attn.py:92).
-//   (b) q/k pass, over tiles: recompute round(q), round(k) on the 1-pixel
-//       halo; dq = round(M k - alpha_q q), dk = round(M^T q - alpha_k k);
-//       read dv on the halo; the transposed taps of [dq; dk; dv] give
-//       d(u_qkv) on the tile, then dLN = W_qkv d(u_qkv), the tile's shares
-//       of dW_qkv and dtaps_qkv, and the LayerNorm backward (grad.cuh): dx
-//       and the shares of dscale and dbias.
-//   (c) the ordered sum of the blocks' partial rows (grad.cuh).
-// Each block of (a) and (b) walks over tiles blockIdx.x, blockIdx.x +
-// gridDim.x, ... and owns one partial row (the first Ea floats written by
-// (a), the rest by (b)); no float atomics, and no result depends on block
-// scheduling.  Cotangents round to the compute type where autograd through
-// the plain version rounds them; weight-gradient sums are f32.  The chains
-// stay unfolded (1x1, then the taps), so dW and dtaps come out directly; the
-// TPU kernels' composed dK and its decomposition are not needed.  Plain FMA,
-// no tensor cores yet.
-//
 // What bounds it on an H100.  Per pixel it recomputes the forward (about
-// 2 * (4C^2 + 36C + 3C^2 + 4C * CPH) flops) and runs the backward chains
-// (about twice that) against x, dy and dx (3 * C * itemsize bytes) plus dv
-// (written and read once, f32): above the card's bf16 ridge at every level,
-// so bound by operations at peak rates.  This version runs them on the f32
-// FMA pipe (67 TFLOP/s).
+// 2 (4C^2 + 36C + 3C^2 + 4C CPH) flops) and runs the backward chains (about
+// twice that) against x, dy and dx (3 C itemsize bytes): at peak rates it
+// is bound by the tensor cores' operations at C >= 64 and by bytes below.
+// A tile-local design (each block recomputing LN on a 2-pixel halo, as
+// this kernel once did) cannot feed the tensor cores: its ten channel-major
+// planes shrink the tile to 4 x 4 pixels at C = 128, too small an M, with
+// the halo recomputed 4x, and its per-tile shares went to global memory a
+// tile at a time.
+//
+// Design.  The backward runs as a sequence of launches over the batch in
+// image slices whose intermediates live pixel-major ([pixel][channel]) in
+// one workspace (ops/fused_mdta.py bwd_plan keeps it within
+// BWD_WORKSPACE_BYTES).  Every 1x1 and every per-head product is a
+// tensor-core product through gemm.cuh (mma.sync m16n8k16, M = pixels, or
+// K = pixels for the weight gradients and dA), its elementwise work in the
+// epilogue; the depthwise taps, LN and the per-image softmax backward run
+// on the FMA pipe.  Once a call, the weights' bf16 planes go into the
+// workspace; then per slice:
+//   1. prep: LN statistics, LN = round(LN x) and dy as bf16 planes, x and
+//      dy read through a shared tile of 32 pixels (coalesced in NCHW);
+//   2. A = softmax(temp G rq rk^T) of each image from the forward's saved
+//      stats (gram G, row sums of squares Sq, Sk), block-diagonal [C][C];
+//   3. u = LN W_qkv (f32), then 4. the taps: round(q), round(k) and v;
+//   5. outs = round(A v) (per image, block-diagonal: an n tile takes only
+//      the k of its heads), 6. out = round(outs W_po), 7. u_vf = out W_kvf,
+//      8. vf by the taps, 9. outf = round(A vf);
+//   10. d_outf = round(dy W_pof^T), 11. dvf = A^T d_outf, 12. d(u_vf) by
+//      the transposed taps with the rows of dtaps_vf, 13. d_out =
+//      round(d(u_vf) W_kvf^T), 14. d_outs = round(d_out W_po^T), 15. dv =
+//      A^T d_outs;
+//   16. dA = sum_p d_outf vf^T + d_outs v^T over the diagonal (head)
+//      tiles, each image's pixels split into at most 32 ranges, a row each;
+//   17. a block an image sums its dA rows in order and runs the softmax
+//      and l2-normalize backward: dS = A (dA - rowsum(dA A)), dtemp = sum
+//      dS G rq rk, dP = temp dS, M = rq dP rk^T, alpha_q = rq^3 sum_j dP G
+//      rk and alpha_k = rk^3 sum_i dP G rq (zero where S < 1e-24: the
+//      rsqrt(max(S, 1e-24)) gate, fused_attn.py:92);
+//   18. dq = round(M k - alpha_q q), dk = round(M^T q - alpha_k k), one
+//      launch of two products;
+//   19. d(u_qkv) by the transposed taps of [dq; dk; dv], with the rows of
+//      dtaps_qkv;
+//   20-21. dW_pof, dW_po, dW_kvf and dW_qkv (K = pixels), split over pixel
+//      ranges, a row a split;
+//   22. dLN = d(u_qkv) W_qkv^T, a block owning 32 pixels and every channel,
+//      its epilogue running the LayerNorm backward (dx = dy + round(dx_ln)
+//      in NCHW) and its shares of dscale and dbias;
+//   23. the rows summed in a fixed order into the gradients, added to the
+//      earlier slices' sums in slice order.
+// Every weight is read from its parameter as stored (f32, planes made once
+// a call), with ldmatrix or ldmatrix.trans as the product needs, and the
+// taps in their (3, 3, ch) layout: no transposed copies.  In bf16 the
+// activations rounded to T are exactly bf16 (one plane) and the f32 values
+// (the weights, A and M, v, vf and the f32 cotangents) hi/lo pairs, so a
+// product takes 1 or 2 passes.  In f32 every operand is carried as three
+// planes (mma.cuh) and a product takes 6 passes: with hi/lo pairs (about
+// 2^-17 of each value) dtemp, a sum of dS G over each head's entries that
+// cancels to a few percent of its terms, read 2.3e-4 of its max|ref|
+// against the limit of 1e-4; three planes hold every value to f32's
+// precision.  No float atomics and no ticket: two runs give the same bits.
+//
+// Rounding points (the TPU kernels', as autograd through the plain version
+// rounds): LN, q, k, outs, out, outf, d_outf, d_out, d_outs, dq, dk and dLN
+// round to T; v, vf, u, u_vf, dvf, dv, d(u) and every weight-gradient sum
+// stay f32; dx = round(dy + round(dx_ln)).
+//
+// What bounds this design.  Its pixel-major planes (bwd_workspace_bytes
+// counts them: 56 C bytes a pixel in bf16) each make one to three trips
+// through device memory, far more traffic than the function's own bound
+// (x, dy and dx once); the taps passes and the short-K products are bound
+// by their loads' latency rather than by the tensor cores.
 #include <cstdint>
+#include <type_traits>
 
-#include "grad.cuh"
+#include "gemm.cuh"
 
 namespace {
 
+namespace mm = uir::mma;
+namespace gm = uir::gemm;
+using bf16 = __nv_bfloat16;
+using gm::kThreads;
+using gm::Opnd;
+using gm::Tile;
+using gm::warp_sum;
 using uir::from_f;
 using uir::round_to;
 using uir::to_f;
 
-constexpr int kThreads = 256;
-constexpr int CH = 16;  // channels a chunk of a 1x1 -> 3x3 chain
+constexpr int PT = 32;      // pixels a block of the prep and dLN launches
+constexpr int DW_T = 128;   // threads (channels) a block of the taps passes
+constexpr int DW_W = 64;    // columns a thread of the taps passes walks
+constexpr int MAX_C = 256;  // widest C the dLN launch holds in one block
+constexpr int MAX_SPLITS_A = 32;  // pixel ranges an image of the dA product
 
-// 1x1 of in (channel-major, np pixels a channel) to the 16 output channels
-// [16m, 16m + 16) of w ([C][ld]) at every pixel: out [16][np] f32.
+// bf16 planes of a value rounded to T (NPT) and of an f32 value (NFT)
 template <typename T>
-__device__ void project_chunk(float* out, const T* in, int np,
-                              const float* __restrict__ w, int ld, int C,
-                              int m) {
-  for (int it = threadIdx.x; it < np * (CH / 8); it += blockDim.x) {
-    const int q = it % np, c8 = 8 * (it / np);
-    float s[8];
-    uir::project8<T>(s, in, np, q, w + CH * m + c8, ld, C);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[(c8 + i) * np + q] = s[i];
+constexpr int NPT = std::is_same<T, float>::value ? 3 : 1;
+template <typename T>
+constexpr int NFT = std::is_same<T, float>::value ? 3 : 2;
+
+// ---- 1. prep
+
+template <typename T, int NP>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_bwd_prep_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ bias,
+                            float2* __restrict__ stats, bf16* __restrict__ ln,
+                            bf16* __restrict__ dyp, int P, int HW, int C,
+                            float eps) {
+  extern __shared__ float tile[];  // [PT][C + 1]
+  const int m0 = blockIdx.x * PT, CS = C + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t lo = (size_t)P * C;
+  // a warp a channel, lanes over pixels: coalesced in (B, C, H, W)
+  auto load = [&](const T* src) {
+    const int m = m0 + lane;
+    const size_t at = m < P ? (size_t)(m / HW) * C * HW + m % HW : 0;
+    for (int c = warp; c < C; c += kThreads / 32)
+      tile[lane * CS + c] = m < P ? to_f(src[at + (size_t)c * HW]) : 0.f;
+  };
+  load(x);
+  __syncthreads();
+  // a warp a pixel, lanes over channels
+  for (int r = warp; r < PT && m0 + r < P; r += kThreads / 32) {
+    const float* xp = tile + r * CS;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += xp[c];
+    const float mean = warp_sum(s) / C;
+    float v = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = xp[c] - mean;
+      v += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(v) / C + eps);
+    if (lane == 0) stats[m0 + r] = make_float2(mean, rstd);
+    for (int c = lane; c < C; c += 32)
+      mm::put<NP>(ln, lo, (size_t)(m0 + r) * C + c,
+                  round_to<T>((xp[c] - mean) * rstd * __ldg(scale + c) +
+                              __ldg(bias + c)));
   }
+  __syncthreads();
+  load(dy);
+  __syncthreads();
+  for (int r = warp; r < PT && m0 + r < P; r += kThreads / 32)
+    for (int c = lane; c < C; c += 32)
+      mm::put<NP>(dyp, lo, (size_t)(m0 + r) * C + c, tile[r * CS + c]);
 }
 
-// out[c][q] = f(sum_i in[i][q] * w[i][c]) for every channel c < C and pixel
-// q < np of channel-major buffers: a 1x1 conv, w [C][C]; f rounds to T when
-// `round` is set.
-template <typename TI, typename TO, typename T>
-__device__ void project_all(TO* out, const TI* in, int np,
-                            const float* __restrict__ w, int C, bool round) {
-  for (int it = threadIdx.x; it < np * (C / 8); it += blockDim.x) {
-    const int q = it % np, c8 = 8 * (it / np);
-    float s[8];
-    uir::project8<TI>(s, in, np, q, w + c8, C, C);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      out[(c8 + i) * np + q] = from_f<TO>(round ? round_to<T>(s[i]) : s[i]);
-  }
+// ---- 0. the weights' planes, once a call
+
+// The NF bf16 planes of four f32 weights (w_qkv, w_po, w_kv, w_pof) into the
+// workspace: plane k of weight i at out + off[i] + k * n[i].
+struct WeightSet {
+  const float* w[4];
+  int n[4];
+  size_t off[4];
+};
+
+template <int NF>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_bwd_weights_kernel(WeightSet ws, bf16* __restrict__ out) {
+  const int i = blockIdx.y;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < ws.n[i];
+       e += gridDim.x * blockDim.x)
+    mm::put<NF>(out + ws.off[i], ws.n[i], e, __ldg(ws.w[i] + e));
 }
 
-// A = softmax_head(temp * G * rq * rk^T) of one image, [C][CPH]
-template <int CPH>
-__device__ void attention_matrix(float* A, const float* st,
-                                 const float* __restrict__ temp, int C) {
+// ---- 2. the attention matrix of each image
+
+// A [C][C], block-diagonal (zero outside the heads), f32 and as NF planes
+// (plane stride lo).  st: the image's stats, gram [C][CPH], Sq [C], Sk [C].
+template <int CPH, int NF>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_bwd_attn_kernel(const float* __restrict__ stats,
+                            const float* __restrict__ temp,
+                            float* __restrict__ a32, bf16* __restrict__ ap,
+                            size_t lo, int C) {
+  const int CC = C * CPH;
+  const float* st = stats + (size_t)blockIdx.x * (CC + 2 * C);
+  const size_t base = (size_t)blockIdx.x * C * C;
   for (int i = threadIdx.x; i < C; i += blockDim.x) {
     const int h = i / CPH;
-    const float rq = rsqrtf(fmaxf(st[C * CPH + i], 1e-24f));
+    const float rq = rsqrtf(fmaxf(st[CC + i], 1e-24f));
     const float t = temp[h];
+    float a[CPH];
     float m = -INFINITY;
+#pragma unroll
     for (int jj = 0; jj < CPH; ++jj) {
-      const float rk = rsqrtf(fmaxf(st[C * CPH + C + h * CPH + jj], 1e-24f));
-      const float lg = st[i * CPH + jj] * rq * rk * t;
-      A[i * CPH + jj] = lg;
-      m = fmaxf(m, lg);
+      const float rk = rsqrtf(fmaxf(st[CC + C + h * CPH + jj], 1e-24f));
+      a[jj] = st[i * CPH + jj] * rq * rk * t;
+      m = fmaxf(m, a[jj]);
     }
     float s = 0.f;
+#pragma unroll
     for (int jj = 0; jj < CPH; ++jj) {
-      const float e = expf(A[i * CPH + jj] - m);
-      A[i * CPH + jj] = e;
-      s += e;
+      a[jj] = expf(a[jj] - m);
+      s += a[jj];
     }
-    for (int jj = 0; jj < CPH; ++jj) A[i * CPH + jj] /= s;
+    for (int j = 0; j < C; ++j) {
+      float v = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < CPH; ++jj)
+        if (j == h * CPH + jj) v = a[jj] / s;
+      const size_t q = base + (size_t)i * C + j;
+      a32[q] = v;
+      mm::put<NF>(ap, lo, q, v);
+    }
   }
 }
 
-// dst[i][p] = round(sum_jj A[i][jj] * src[head(i) * CPH + jj][p])
-template <typename T, int CPH>
-__device__ void attend(T* dst, const float* src, const float* A, int C,
-                       int np) {
-  for (int it = threadIdx.x; it < np * C; it += blockDim.x) {
-    const int p = it % np, i = it / np;
-    const float* ar = A + i * CPH;
-    const float* sr = src + (i / CPH) * CPH * np + p;
+// ---- product epilogues
+
+// f32 [row][ld]; row = batch * zrows + m
+struct MdtaBwdF32Epi {
+  float* out;
+  int ld, M, N;
+  long long zrows;
+  __device__ void operator()(const float* o, int l, int bm, int bn, int m0,
+                             int n0, int, int, int batch) const {
+    float* ob = out + batch * zrows * ld;
+    gm::for_pairs(o, l, bm, bn, m0, n0, M, N,
+                  [&](int m, int n, float v0, float v1) {
+                    gm::store2(ob, (size_t)m * ld + n, v0, v1);
+                  });
+  }
+};
+
+// round to T, into NP planes [row][ld]; row = batch * zrows + m
+template <typename T, int NP>
+struct MdtaBwdRoundEpi {
+  bf16* out;
+  size_t lo;
+  int ld, M, N;
+  long long zrows;
+  __device__ void operator()(const float* o, int l, int bm, int bn, int m0,
+                             int n0, int, int, int batch) const {
+    bf16* ob = out + batch * zrows * ld;
+    gm::for_pairs(o, l, bm, bn, m0, n0, M, N,
+                  [&](int m, int n, float v0, float v1) {
+                    mm::put2<NP>(ob, lo, (size_t)m * ld + n, round_to<T>(v0),
+                                 round_to<T>(v1));
+                  });
+  }
+};
+
+// the rows of a split product: problem p's split s of batch b at
+// part[p] + b * bs + s * M * N[p], row-major M x N[p]
+struct MdtaBwdRowsEpi {
+  float* part[2];
+  int M, N[2];
+  long long bs;
+  __device__ void operator()(const float* o, int l, int bm, int bn, int m0,
+                             int n0, int prob, int split, int batch) const {
+    const int n = N[prob];
+    float* row = part[prob] + batch * bs + (size_t)split * M * n;
+    gm::for_pairs(o, l, bm, bn, m0, n0, M, n,
+                  [&](int m, int c, float v0, float v1) {
+                    gm::store2(row, (size_t)m * n + c, v0, v1);
+                  });
+  }
+};
+
+// the value of NP planes (stride lo) at i
+template <int NP>
+__device__ __forceinline__ float plane_at(const bf16* p, size_t lo,
+                                          size_t i) {
+  float v = 0.f;
+#pragma unroll
+  for (int k = NP - 1; k >= 0; --k) v += __bfloat162float(p[i + k * lo]);
+  return v;
+}
+
+// 18. dq = round(M k - alpha_q q) (problem 0) and dk = round(M^T q -
+// alpha_k k) (problem 1) into dqk [pixel][2C] in T, from the product with
+// round(q), round(k) (qk planes [pixel][2C]); per image (batch).
+template <typename T, int NP>
+struct MdtaBwdDqkEpi {
+  const bf16* qk;
+  size_t qk_lo;
+  const float* alpha;  // [images][2C]
+  T* dqk;
+  int M, C;
+  __device__ void operator()(const float* o, int l, int bm, int bn, int m0,
+                             int n0, int prob, int, int batch) const {
+    const float* al = alpha + (size_t)batch * 2 * C + prob * C;
+    const size_t row0 = (size_t)batch * M;
+    gm::for_pairs(o, l, bm, bn, m0, n0, M, C,
+                  [&](int m, int n, float v0, float v1) {
+                    const size_t i = (row0 + m) * 2 * C + prob * C + n;
+                    const float a = v0 - al[n] * plane_at<NP>(qk, qk_lo, i);
+                    const float b =
+                        v1 - al[n + 1] * plane_at<NP>(qk, qk_lo, i + 1);
+                    gm::store2(dqk, i, round_to<T>(a), round_to<T>(b));
+                  });
+  }
+};
+
+// 22. dLN's epilogue: the tile holds dLN (f32) of PT pixels and all C
+// channels.  The LayerNorm backward (dx = round(dy + round(dx_ln)), NCHW)
+// with the prep's statistics, and the block's shares of dscale and dbias
+// (dLN rounded to T first: the LN output is materialized in T) into its row
+// of part [blocks][2C].
+template <typename T>
+struct MdtaBwdDlnEpi {
+  const T* x;
+  const T* dy;
+  T* dx;
+  const float2* stats;
+  const float* scale;
+  float* part;
+  int P, C, HW;
+  __device__ void operator()(const float* o, int l, int, int, int m0, int,
+                             int, int, int) const {
+    __shared__ float2 red[kThreads / 32][PT];
+    __shared__ float2 tot[PT];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int m = m0 + lane;
+    const bool in = m < P;
+    const size_t at = in ? (size_t)(m / HW) * C * HW + m % HW : 0;
+    const float2 st = in ? stats[m] : make_float2(0.f, 0.f);
+    // lanes over pixels, warps over channels: coalesced in NCHW
+    float s1 = 0.f, s2 = 0.f;
+    if (in)
+      for (int c = warp; c < C; c += kThreads / 32) {
+        const float xh = (to_f(x[at + (size_t)c * HW]) - st.x) * st.y;
+        const float g = round_to<T>(o[lane * l + c]) * __ldg(scale + c);
+        s1 += g;
+        s2 = fmaf(g, xh, s2);
+      }
+    red[warp][lane] = make_float2(s1, s2);
+    __syncthreads();
+    if (threadIdx.x < PT) {
+      float a = 0.f, b = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        a += red[w][threadIdx.x].x;
+        b += red[w][threadIdx.x].y;
+      }
+      tot[threadIdx.x] = make_float2(a / C, b / C);
+    }
+    __syncthreads();
+    if (in) {
+      const float2 sm = tot[lane];
+      for (int c = warp; c < C; c += kThreads / 32) {
+        const size_t i = at + (size_t)c * HW;
+        const float xh = (to_f(x[i]) - st.x) * st.y;
+        const float g = round_to<T>(o[lane * l + c]) * __ldg(scale + c);
+        const float dxl = round_to<T>(st.y * (g - sm.x - xh * sm.y));
+        dx[i] = from_f<T>(to_f(dy[i]) + dxl);
+      }
+    }
+    float* row = part + (size_t)blockIdx.x * 2 * C;
+    for (int c = warp; c < C; c += kThreads / 32) {
+      float a = 0.f, b = 0.f;
+      if (in) {
+        const float dl = round_to<T>(o[lane * l + c]);
+        const float xh = (to_f(x[at + (size_t)c * HW]) - st.x) * st.y;
+        a = dl * xh;
+        b = dl;
+      }
+      a = warp_sum(a);
+      b = warp_sum(b);
+      if (lane == 0) {
+        row[c] = a;
+        row[C + c] = b;
+      }
+    }
+  }
+};
+
+// ---- 4, 8. the taps
+
+// A 3x3 window of a channel pair (c, c + 1) of a pixel-major plane
+// [pixel][ld] (f32, or T for dT), rows h - 1 + i and columns w - 1 + j of
+// the image whose pixel (0, 0) is img0 (zero outside the image), sliding
+// along a row: three new loads a pixel.
+template <typename V>
+struct Win {
+  const V* p;
+  int ld, c, H, W;
+  size_t img0;
+  float2 v[3][3];
+  __device__ float2 at(int hh, int ww) const {
+    return hh >= 0 && hh < H && ww >= 0 && ww < W
+               ? gm::load2(p, (img0 + (size_t)hh * W + ww) * ld + c)
+               : make_float2(0.f, 0.f);
+  }
+  __device__ void start(int h, int w) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) v[i][j] = at(h - 1 + i, w - 1 + j);
+  }
+  __device__ void slide(int h, int w) {  // to column w + 1
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      v[i][0] = v[i][1];
+      v[i][1] = v[i][2];
+      v[i][2] = at(h - 1 + i, w + 2);
+    }
+  }
+};
+
+// The row segment s of the taps passes: (image row, segment of DW_W
+// columns), segment-fastest.  A thread of those passes takes channel pair
+// gid % (NC / 2) of segment gid / (NC / 2), so consecutive threads read
+// consecutive channels of a pixel and no thread idles at small C.  (Two
+// image rows a thread, sharing a 4 x 3 window, measured slower.)
+struct Seg {
+  int h, w0, w1;
+  size_t img0;
+  __device__ Seg(int s, int H, int W) {
+    const int ns = (W + DW_W - 1) / DW_W;
+    const int row = s / ns;
+    h = row % H;
+    w0 = (s % ns) * DW_W;
+    w1 = min(W, w0 + DW_W);
+    img0 = (size_t)(row / H) * H * W;
+  }
+};
+
+// out(p) = sum_k tap_k[c] u(p + d_k), d_k = (k / 3 - 1, k % 3 - 1), a
+// thread a channel pair of u [pixel][ldu] (f32, NC channels); the taps as
+// their parameter stores them, tap k of channel c at taps[k * ldk + c].
+// Channels c < NT round to T and go to the planes tq [pixel][ldt]; the
+// others stay f32, split into the planes fq [pixel][ldf] at column c - NT.
+template <typename T>
+__global__ void __launch_bounds__(DW_T)
+    ln_mdta_bwd_taps_kernel(const float* __restrict__ u, int ldu,
+                            const float* __restrict__ taps, int ldk, int NC,
+                            int NT, bf16* __restrict__ tq, size_t tq_lo,
+                            int ldt, bf16* __restrict__ fq, size_t fq_lo,
+                            int ldf, int segs, int H, int W) {
+  const int gid = blockIdx.x * DW_T + threadIdx.x;
+  const int c = 2 * (gid % (NC / 2)), s = gid / (NC / 2);
+  if (s >= segs) return;
+  const Seg sg(s, H, W);
+  float2 tp[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    tp[k] = __ldg(reinterpret_cast<const float2*>(taps + k * ldk + c));
+  Win<float> win{u, ldu, c, H, W, sg.img0};
+  win.start(sg.h, sg.w0);
+  for (int w = sg.w0; w < sg.w1; ++w) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      s0 = fmaf(tp[k].x, win.v[k / 3][k % 3].x, s0);
+      s1 = fmaf(tp[k].y, win.v[k / 3][k % 3].y, s1);
+    }
+    const size_t pix = sg.img0 + (size_t)sg.h * W + w;
+    if (c < NT)
+      mm::put2<NPT<T>>(tq, tq_lo, pix * ldt + c, round_to<T>(s0),
+                       round_to<T>(s1));
+    else
+      mm::put2<NFT<T>>(fq, fq_lo, pix * ldf + c - NT, s0, s1);
+    win.slide(sg.h, w);
+  }
+}
+
+// ---- 12, 19. the transposed taps and the taps' gradient
+
+// du(p) = sum_k tap_k[c] d(p - d_k) into the split planes du [pixel][NC]
+// (taps as above), and the segment's share of dtaps[c][k] = sum_p d(p)
+// u(p + d_k) into its row of part [segments][NC * 9], a thread a channel
+// pair.  d: channels c < NT from dT [pixel][ldT] (in T), the others from
+// dF [pixel][ldF] (f32) at c - NT; u [pixel][ldu] f32.
+template <typename T>
+__global__ void __launch_bounds__(DW_T)
+    ln_mdta_bwd_taps_t_kernel(const T* __restrict__ dT, int ldT,
+                              const float* __restrict__ dF, int ldF,
+                              const float* __restrict__ u, int ldu,
+                              const float* __restrict__ taps, int ldk,
+                              int NC, int NT, bf16* __restrict__ du,
+                              size_t du_lo, float* __restrict__ part,
+                              int segs, int H, int W) {
+  const int gid = blockIdx.x * DW_T + threadIdx.x;
+  const int c = 2 * (gid % (NC / 2)), s = gid / (NC / 2);
+  if (s >= segs) return;
+  const Seg sg(s, H, W);
+  float2 tp[9], gt[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    tp[k] = __ldg(reinterpret_cast<const float2*>(taps + k * ldk + c));
+    gt[k] = make_float2(0.f, 0.f);
+  }
+  // the window of d: T below NT, f32 from there (a pair never straddles it)
+  Win<float> uw{u, ldu, c, H, W, sg.img0};
+  uw.start(sg.h, sg.w0);
+  auto run = [&](auto& dw) {
+    dw.start(sg.h, sg.w0);
+    for (int w = sg.w0; w < sg.w1; ++w) {
+      float s0 = 0.f, s1 = 0.f;  // d(p - d_k) at window (2 - k/3, 2 - k%3)
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        s0 = fmaf(tp[k].x, dw.v[2 - k / 3][2 - k % 3].x, s0);
+        s1 = fmaf(tp[k].y, dw.v[2 - k / 3][2 - k % 3].y, s1);
+      }
+      const size_t pix = sg.img0 + (size_t)sg.h * W + w;
+      mm::put2<NFT<T>>(du, du_lo, pix * NC + c, s0, s1);
+      const float2 dc = dw.v[1][1];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        gt[k].x = fmaf(dc.x, uw.v[k / 3][k % 3].x, gt[k].x);
+        gt[k].y = fmaf(dc.y, uw.v[k / 3][k % 3].y, gt[k].y);
+      }
+      dw.slide(sg.h, w);
+      uw.slide(sg.h, w);
+    }
+  };
+  if (c < NT) {
+    Win<T> dw{dT, ldT, c, H, W, sg.img0};
+    run(dw);
+  } else {
+    Win<float> dw{dF, ldF, c - NT, H, W, sg.img0};
+    run(dw);
+  }
+  float* r = part + (size_t)s * NC * 9 + c * 9;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    r[k] = gt[k].x;
+    r[9 + k] = gt[k].y;
+  }
+}
+
+// ---- 17. the softmax and l2-normalize backward of each image
+
+template <int CPH, int NF>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_bwd_softmax_kernel(const float* __restrict__ stats,
+                               const float* __restrict__ temp,
+                               const float* __restrict__ a32,
+                               const float* __restrict__ rows, int nrows,
+                               bf16* __restrict__ mhi, bf16* __restrict__ mti,
+                               float* __restrict__ alpha,
+                               float* __restrict__ dtemp, int C) {
+  extern __shared__ float sh[];
+  const int CC = C * CPH, b = blockIdx.x, NH = C / CPH;
+  float* dA = sh;          // [C][CPH]
+  float* dP = dA + CC;     // [C][CPH]
+  float* rq = dP + CC;     // [C]
+  float* rk = rq + C;      // [C]
+  float* rowdt = rk + C;   // [C]
+  const float* st = stats + (size_t)b * (CC + 2 * C);
+  const float* A = a32 + (size_t)b * C * C;
+  const float* rw = rows + (size_t)b * nrows * C * C;
+  const size_t mb = (size_t)b * C * C, mlo = (size_t)gridDim.x * C * C;
+  // the image's dA: its rows in order, within the heads
+  for (int e = threadIdx.x; e < CC; e += blockDim.x) {
+    const int i = e / CPH, j = (i / CPH) * CPH + e % CPH;
     float s = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < CPH; ++jj) s = fmaf(ar[jj], sr[jj * np], s);
-    dst[i * np + p] = from_f<T>(s);
+    for (int r = 0; r < nrows; ++r) s += rw[(size_t)r * C * C + i * C + j];
+    dA[e] = s;
   }
-}
-
-// buf[h * CPH + jj][q] <- sum_i A[h * CPH + i][jj] * buf[h * CPH + i][q]:
-// A^T applied per head and pixel, in place
-template <int CPH>
-__device__ void attend_t_inplace(float* buf, const float* A, int C, int np) {
-  for (int it = threadIdx.x; it < np * (C / CPH); it += blockDim.x) {
-    const int q = it % np, h = it / np;
-    float* b = buf + (size_t)h * CPH * np + q;
-    const float* ah = A + h * CPH * CPH;
-    float in[CPH];
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    rq[i] = rsqrtf(fmaxf(st[CC + i], 1e-24f));
+    rk[i] = rsqrtf(fmaxf(st[CC + C + i], 1e-24f));
+  }
+  // M and M^T, zero outside the heads
+  for (size_t e = threadIdx.x; e < (size_t)C * C; e += blockDim.x)
 #pragma unroll
-    for (int i = 0; i < CPH; ++i) in[i] = b[i * np];
-#pragma unroll
+    for (int k = 0; k < NF; ++k)
+      mhi[mb + e + k * mlo] = mti[mb + e + k * mlo] = __float2bfloat16(0.f);
+  __syncthreads();
+  float* al = alpha + (size_t)b * 2 * C;
+  for (int i = threadIdx.x; i < C; i += blockDim.x) {
+    const int h = i / CPH;
+    const float* ar = A + (size_t)i * C + h * CPH;
+    const float* dar = dA + i * CPH;
+    float s = 0.f;
+    for (int jj = 0; jj < CPH; ++jj) s = fmaf(dar[jj], ar[jj], s);
+    float rd = 0.f, cq = 0.f;
     for (int jj = 0; jj < CPH; ++jj) {
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < CPH; ++i) s = fmaf(ah[i * CPH + jj], in[i], s);
-      b[jj * np] = s;
+      const int j = h * CPH + jj;
+      const float g = st[i * CPH + jj];
+      const float ds = ar[jj] * (dar[jj] - s);
+      rd = fmaf(ds, g * rq[i] * rk[j], rd);
+      const float dp = temp[h] * ds;
+      dP[i * CPH + jj] = dp;
+      const float mv = rq[i] * dp * rk[j];
+      mm::put<NF>(mhi, mlo, mb + (size_t)i * C + j, mv);
+      mm::put<NF>(mti, mlo, mb + (size_t)j * C + i, mv);
+      cq = fmaf(dp * g, rk[j], cq);
     }
+    rowdt[i] = rd;
+    al[i] = st[CC + i] >= 1e-24f ? rq[i] * rq[i] * rq[i] * cq : 0.f;
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < C; j += blockDim.x) {
+    const int h = j / CPH, jj = j % CPH;
+    float ck = 0.f;
+    for (int ii = 0; ii < CPH; ++ii) {
+      const int i = h * CPH + ii;
+      ck = fmaf(dP[i * CPH + jj] * st[i * CPH + jj], rq[i], ck);
+    }
+    al[C + j] = st[CC + C + j] >= 1e-24f ? rk[j] * rk[j] * rk[j] * ck : 0.f;
+  }
+  for (int h = threadIdx.x; h < NH; h += blockDim.x) {
+    float s = 0.f;
+    for (int ii = 0; ii < CPH; ++ii) s += rowdt[h * CPH + ii];
+    dtemp[(size_t)b * NH + h] = s;
   }
 }
 
-// (a): see the file comment.  part row: dW_pof [C][C], dW_kvf [C][C],
-// dtaps_vf [C][9], dW_po [C][C] (Ea floats), then (b)'s.  partA: one dA
-// [C][CPH] per (image, tile); bstats: M [C][CPH], alpha_q [C], alpha_k [C]
-// per image; dtemp_img [B][heads].
-template <typename T, int CPH>
-__global__ void __launch_bounds__(kThreads)
-    ln_mdta_bwd_v_kernel(
-        const T* __restrict__ x, const T* __restrict__ dy,
-        const float* __restrict__ scale, const float* __restrict__ bias,
-        const float* __restrict__ wqkv, const float* __restrict__ taps3,
-        const float* __restrict__ wvf, const float* __restrict__ tvf,
-        const float* __restrict__ wpo, const float* __restrict__ wpoT,
-        const float* __restrict__ wpofT, const float* __restrict__ wvfT,
-        const float* __restrict__ temp, const float* __restrict__ stats,
-        float* __restrict__ dv, float* __restrict__ partA,
-        int* __restrict__ counters, float* __restrict__ bstats,
-        float* __restrict__ dtemp_img, float* __restrict__ part, int E,
-        int B, int C, int H, int W, int TH, int TW, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int is_last;
-  const int PW2 = TW + 2, NP2 = PW2 * (TH + 2);
-  const int PW4 = TW + 4, NP4 = PW4 * (TH + 4), P = TH * TW;
-  const int CC = C * CPH, NH = C / CPH;
-  float* A = reinterpret_cast<float*>(smem);  // [C][CPH]
-  float* dA = A + CC;                         // [C][CPH]
-  float* pb = dA + CC;                        // [CH][NP4]
-  float* v = pb + CH * NP4;                   // [C][NP2]
-  float* uvf = v + (size_t)C * NP2;           // [C][NP2]: W_kvf^T out
-  float* dof = uvf + (size_t)C * NP2;         // [C][NP2]: d_outf, then dvf
-  float* vf = dof + (size_t)C * NP2;  // [C][P]: vf, d(u_vf), then d_outs
-  float* ofd = vf + (size_t)C * P;    // [C][P]: outf (as T), then d_out
-  T* r1 = reinterpret_cast<T*>(ofd + (size_t)C * P);  // LN [C][NP4], dy
-  T* os = r1 + (size_t)C * NP4;                        // [C][NP2]: A v
-  T* orr = os + (size_t)C * NP2;                       // [C][NP2]: out
-  T* of = reinterpret_cast<T*>(ofd);
+// ---- the workspace
 
-  const int tid = threadIdx.x;
-  const int tiles_x = (W + TW - 1) / TW;
-  const int per_img = tiles_x * ((H + TH - 1) / TH);
-  const size_t plane = (size_t)H * W;
-  const int ES = CC + 2 * C;  // floats of one image's stats / bstats
-  float* g_pof = part + (size_t)blockIdx.x * E;
-  float* g_kvf = g_pof + C * C;
-  float* g_tvf = g_kvf + C * C;
-  float* g_po = g_tvf + 9 * C;
-  for (int e = tid; e < 3 * C * C + 9 * C; e += blockDim.x) g_pof[e] = 0.f;
+// The workspace of one slice of I images of HW pixels, each piece 256-byte
+// aligned (ops/fused_mdta.py bwd_workspace_bytes mirrors it).  The pieces
+// from UVF on form a region whose values are dead after step 16 (u_vf and
+// dvf after 12); dq, dk and d(u_qkv), written from step 18 on, reuse it.
+enum Piece {
+  WTS,  // the weights' planes, written once a call
+  STATS, LN, DY, U, QK, V, OUTS, OUT, OUTF, DUVF, DOUT, DV, A32, AP, MP, MTP,
+  ALPHA, ROWS_A, ROWS_W1, ROWS_KVF, ROWS_QKV, ROWS_TV, ROWS_TQ, ROWS_LN,
+  UVF, DVF, VF, DOF, DOUTS,  // the region ...
+  DQK, DU,                   // ... and what reuses it
+  NPIECES
+};
 
-  for (int tile = blockIdx.x; tile < B * per_img; tile += gridDim.x) {
-    const int b = tile / per_img, t = tile % per_img;
-    const int r0 = (t / tiles_x) * TH, c0 = (t % tiles_x) * TW;
-    const float* st = stats + (size_t)b * ES;
-    __syncthreads();  // the previous tile is done with every buffer
-    attention_matrix<CPH>(A, st, temp, C);
-    for (int i = tid; i < CC; i += blockDim.x) dA[i] = 0.f;
-    uir::ln_patch<T>(x + (size_t)b * C * plane, r1, scale, bias, C, H, W,
-                     r0 - 2, c0 - 2, TH + 4, PW4, eps);
-    __syncthreads();
-
-    // forward recompute: v on the 1-pixel halo, A v, out (zero outside the
-    // image), u_vf = W_kvf^T out there, vf and outf on the tile
-    for (int m = 0; m < C / CH; ++m) {
-      project_chunk<T>(pb, r1, NP4, wqkv + 2 * C, 3 * C, C, m);
-      __syncthreads();
-      for (int it = tid; it < NP2 * CH; it += blockDim.x) {
-        const int q = it % NP2, ch = it / NP2;
-        v[(CH * m + ch) * NP2 + q] =
-            uir::tap9(pb + ch * NP4 + (q / PW2) * PW4 + q % PW2, PW4,
-                      taps3 + (2 * C + CH * m + ch) * 9);
-      }
-      __syncthreads();
-    }
-    attend<T, CPH>(os, v, A, C, NP2);
-    __syncthreads();
-    for (int it = tid; it < NP2 * (C / 8); it += blockDim.x) {
-      const int q = it % NP2, c8 = 8 * (it / NP2);
-      float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (uir::in_image(r0 - 1 + q / PW2, c0 - 1 + q % PW2, H, W))
-        uir::project8<T>(s, os, NP2, q, wpo + c8, C, C);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) orr[(c8 + i) * NP2 + q] = from_f<T>(s[i]);
-    }
-    __syncthreads();
-    project_all<T, float, T>(uvf, orr, NP2, wvf, C, false);
-    __syncthreads();
-    for (int it = tid; it < P * C; it += blockDim.x) {
-      const int p = it % P, c = it / P;
-      vf[c * P + p] = uir::tap9(uvf + c * NP2 + (p / TW) * PW2 + p % TW, PW2,
-                                tvf + c * 9);
-    }
-    __syncthreads();
-    attend<T, CPH>(of, vf, A, C, P);
-    // dy on the 1-pixel halo (zero outside the image) over the dead LN
-    const T* dyg = dy + (size_t)b * C * plane;
-    for (int i = tid; i < C * NP2; i += blockDim.x) {
-      const int ch = i / NP2, q = i % NP2;
-      const int r = r0 - 1 + q / PW2, cc = c0 - 1 + q % PW2;
-      r1[i] = uir::in_image(r, cc, H, W) ? dyg[ch * plane + (size_t)r * W + cc]
-                                         : from_f<T>(0.f);
-    }
-    __syncthreads();
-
-    // dW_pof share (outf dy^T); d_outf = round(W_pof dy) on the halo
-    uir::outer_acc<T, T>(g_pof, C, of, 0, C, r1, 1, C, TH, TW);
-    project_all<T, float, T>(dof, r1, NP2, wpofT, C, true);
-    __syncthreads();
-    // dA = sum_p d_outf vf^T per head (the d_outs v^T half comes below)
-    for (int h = 0; h < NH; ++h)
-      uir::outer_acc<float, float>(dA + h * CPH * CPH, CPH,
-                                   dof + (size_t)h * CPH * NP2, 1, CPH,
-                                   vf + (size_t)h * CPH * P, 0, CPH, TH, TW);
-    __syncthreads();
-    attend_t_inplace<CPH>(dof, A, C, NP2);  // dvf = A^T d_outf
-    __syncthreads();
-    // d(u_vf) on the tile (into vf); dtaps_vf share
-    uir::tap9_t<float>(vf, dof, tvf, C, TH, TW, r0, c0, H, W);
-    uir::tap_grad_acc<float>(g_tvf, dof, 1, uvf, 1, C, TH, TW);
-    __syncthreads();
-    // dW_kvf share (out d(u_vf)^T); d_out = round(W_kvf d(u_vf))
-    uir::outer_acc<T, float>(g_kvf, C, orr, 1, C, vf, 0, C, TH, TW);
-    project_all<float, float, T>(ofd, vf, P, wvfT, C, true);
-    __syncthreads();
-    // dW_po share (outs d_out^T); d_outs = round(W_po d_out) (into vf)
-    uir::outer_acc<T, float>(g_po, C, os, 1, C, ofd, 0, C, TH, TW);
-    project_all<float, float, T>(vf, ofd, P, wpoT, C, true);
-    __syncthreads();
-    // dA += sum_p d_outs v^T per head, then the tile's partial to global
-    // memory; dv = A^T d_outs
-    for (int h = 0; h < NH; ++h)
-      uir::outer_acc<float, float>(dA + h * CPH * CPH, CPH,
-                                   vf + (size_t)h * CPH * P, 0, CPH,
-                                   v + (size_t)h * CPH * NP2, 1, CPH, TH, TW);
-    for (int it = tid; it < P * NH; it += blockDim.x) {
-      const int p = it % P, h = it / P;
-      const int r = r0 + p / TW, cc = c0 + p % TW;
-      if (!uir::in_image(r, cc, H, W)) continue;
-      const float* ah = A + h * CPH * CPH;
-      float in[CPH];
-#pragma unroll
-      for (int i = 0; i < CPH; ++i) in[i] = vf[(h * CPH + i) * P + p];
-      float* out = dv + ((size_t)b * C + h * CPH) * plane + (size_t)r * W + cc;
-#pragma unroll
-      for (int jj = 0; jj < CPH; ++jj) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < CPH; ++i) s = fmaf(ah[i * CPH + jj], in[i], s);
-        out[jj * plane] = s;
-      }
-    }
-    __syncthreads();
-    float* mine = partA + ((size_t)b * per_img + t) * CC;
-    for (int it = tid; it < CC; it += blockDim.x) mine[it] = dA[it];
-
-    // the last tile of image b to finish does the per-image step
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) is_last = atomicAdd(counters + b, 1) == per_img - 1;
-    __syncthreads();
-    if (!is_last) continue;
-    __threadfence();
-    float* dAt = v;    // [C][CPH]: dA of the image
-    float* dP = uvf;   // [C][CPH]
-    float* rq = pb;    // [C]
-    float* rk = pb + C;
-    float* rowdt = pb + 2 * C;
-    const float* pa = partA + (size_t)b * per_img * CC;
-    for (int e = tid; e < CC; e += blockDim.x) {
-      float s = 0.f;
-      for (int tt = 0; tt < per_img; ++tt)
-        s += __ldcg(pa + (size_t)tt * CC + e);
-      dAt[e] = s;
-    }
-    for (int i = tid; i < C; i += blockDim.x) {
-      rq[i] = rsqrtf(fmaxf(st[CC + i], 1e-24f));
-      rk[i] = rsqrtf(fmaxf(st[CC + C + i], 1e-24f));
-    }
-    __syncthreads();
-    float* bs = bstats + (size_t)b * ES;
-    for (int i = tid; i < C; i += blockDim.x) {
-      const int h = i / CPH;
-      const float* ar = A + i * CPH;
-      const float* dar = dAt + i * CPH;
-      float s = 0.f;
-      for (int jj = 0; jj < CPH; ++jj) s = fmaf(dar[jj], ar[jj], s);
-      float rd = 0.f, cq = 0.f;
-      for (int jj = 0; jj < CPH; ++jj) {
-        const float g = st[i * CPH + jj];
-        const float rkj = rk[h * CPH + jj];
-        const float ds = ar[jj] * (dar[jj] - s);
-        rd = fmaf(ds, g * rq[i] * rkj, rd);
-        const float dp = temp[h] * ds;
-        dP[i * CPH + jj] = dp;
-        bs[i * CPH + jj] = rq[i] * dp * rkj;
-        cq = fmaf(dp * g, rkj, cq);
-      }
-      rowdt[i] = rd;
-      bs[CC + i] = st[CC + i] >= 1e-24f ? rq[i] * rq[i] * rq[i] * cq : 0.f;
-    }
-    __syncthreads();
-    for (int j = tid; j < C; j += blockDim.x) {
-      const int h = j / CPH, jj = j % CPH;
-      float ck = 0.f;
-      for (int ii = 0; ii < CPH; ++ii) {
-        const int i = h * CPH + ii;
-        ck = fmaf(dP[i * CPH + jj] * st[i * CPH + jj], rq[i], ck);
-      }
-      bs[CC + C + j] =
-          st[CC + C + j] >= 1e-24f ? rk[j] * rk[j] * rk[j] * ck : 0.f;
-    }
-    for (int h = tid; h < NH; h += blockDim.x) {
-      float s = 0.f;
-      for (int ii = 0; ii < CPH; ++ii) s += rowdt[h * CPH + ii];
-      dtemp_img[b * NH + h] = s;
-    }
-    if (tid == 0) counters[b] = 0;
+struct Layout {
+  size_t off[NPIECES], total;
+  Layout(int I, int H, int W, int C, int NP, int NF, int item, int Ks,
+         int KsA) {
+    const size_t HW = (size_t)H * W, p = I * HW, c = C;
+    const int splits_w = (int)((p + Ks - 1) / Ks);
+    const int splits_a = (int)((HW + KsA - 1) / KsA);
+    const int segs = I * H * ((W + DW_W - 1) / DW_W);
+    const int blocks = (int)((p + PT - 1) / PT);
+    const size_t pl = (size_t)NP * 2 * p * c;  // planes of T values [P][C]
+    const size_t fs = (size_t)NF * 2 * p * c;  // planes of f32 values
+    const size_t fa = 4 * p * c;               // f32 values
+    const size_t cc = (size_t)I * C * C, ccs = (size_t)NF * 2 * cc;
+    const size_t sz[NPIECES] = {
+        (size_t)NF * 2 * 7 * c * c,               // the weights' planes
+        8 * p, pl, pl, 3 * fa, 2 * pl, fs, pl, pl, pl, fs, pl, fa,
+        4 * cc, ccs, ccs, ccs, 4 * (size_t)I * 2 * c,
+        4 * cc * 2 * splits_a,                    // dA rows
+        4 * (size_t)splits_w * 2 * c * c,         // dW_pof, dW_po rows
+        4 * (size_t)splits_w * c * c,             // dW_kvf rows
+        4 * (size_t)splits_w * 3 * c * c,         // dW_qkv rows
+        4 * (size_t)segs * 9 * c,                 // dtaps_vf rows
+        4 * (size_t)segs * 27 * c,                // dtaps_qkv rows
+        4 * (size_t)blocks * 2 * c,               // dscale, dbias rows
+        fa, fa, fs, pl, pl,                       // UVF, DVF, VF, DOF, DOUTS
+        (size_t)item * p * 2 * c, 3 * fs};        // DQK, DU
+    auto up = [](size_t n) { return (n + 255) / 256 * 256; };
+    size_t at = 0;
+    for (int i = 0; i < UVF; ++i) off[i] = at, at += up(sz[i]);
+    size_t end = at;
+    for (int i = UVF; i < DQK; ++i) off[i] = end, end += up(sz[i]);
+    off[DQK] = at;
+    off[DU] = at + up(sz[DQK]);
+    total = end > off[DU] + up(sz[DU]) ? end : off[DU] + up(sz[DU]);
   }
-}
+};
 
-// (b): see the file comment.  Its part-row slice (after (a)'s Ea floats):
-// dW_qkv [C][3C], dtaps_qkv [3C][9], dscale [C], dbias [C].
-template <typename T, int CPH>
-__global__ void __launch_bounds__(kThreads)
-    ln_mdta_bwd_qk_kernel(
-        const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-        const float* __restrict__ scale, const float* __restrict__ bias,
-        const float* __restrict__ wqkv, const float* __restrict__ taps3,
-        const float* __restrict__ wqkvT, const float* __restrict__ bstats,
-        const float* __restrict__ dv, float* __restrict__ part, int E,
-        int Ea, int B, int C, int H, int W, int TH, int TW, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int PW2 = TW + 2, NP2 = PW2 * (TH + 2);
-  const int PW4 = TW + 4, NP4 = PW4 * (TH + 4), P = TH * TW;
-  const int CC = C * CPH;
-  float* Mb = reinterpret_cast<float*>(smem);  // [C][CPH], alpha_q, alpha_k
-  float* pb = Mb + CC + 2 * C;                 // [CH][NP4]
-  float* dvb = pb + CH * NP4;                  // [C][NP2]
-  float* du = dvb + (size_t)C * NP2;           // [CH][P]
-  float* acc = du + CH * P;                    // [C][P]: dLN, f32
-  T* ln = reinterpret_cast<T*>(acc + (size_t)C * P);  // [C][NP4]
-  T* qk = ln + (size_t)C * NP4;  // [2C][NP2]: round(q), round(k); dq, dk
-
-  const int tid = threadIdx.x;
-  const int tiles_x = (W + TW - 1) / TW;
-  const int per_img = tiles_x * ((H + TH - 1) / TH);
-  const size_t plane = (size_t)H * W;
-  const int nqk = 2 * C / CH;
-  float* g_w = part + (size_t)blockIdx.x * E + Ea;
-  float* g_t = g_w + 3 * C * C;
-  float* g_sc = g_t + 27 * C;
-  float* g_bi = g_sc + C;
-  for (int e = tid; e < 3 * C * C + 29 * C; e += blockDim.x) g_w[e] = 0.f;
-
-  for (int tile = blockIdx.x; tile < B * per_img; tile += gridDim.x) {
-    const int b = tile / per_img, t = tile % per_img;
-    const int r0 = (t / tiles_x) * TH, c0 = (t % tiles_x) * TW;
-    const T* xb = x + (size_t)b * C * plane;
-    __syncthreads();  // the previous tile is done with every buffer
-    const float* bs = bstats + (size_t)b * (CC + 2 * C);
-    for (int i = tid; i < CC + 2 * C; i += blockDim.x) Mb[i] = bs[i];
-    uir::ln_patch<T>(xb, ln, scale, bias, C, H, W, r0 - 2, c0 - 2, TH + 4,
-                     PW4, eps);
-    const float* dvg = dv + (size_t)b * C * plane;
-    for (int i = tid; i < C * NP2; i += blockDim.x) {
-      const int ch = i / NP2, q = i % NP2;
-      const int r = r0 - 1 + q / PW2, cc = c0 - 1 + q % PW2;
-      dvb[i] = uir::in_image(r, cc, H, W)
-                   ? dvg[ch * plane + (size_t)r * W + cc] : 0.f;
-    }
-    for (int i = tid; i < C * P; i += blockDim.x) acc[i] = 0.f;
-    __syncthreads();
-
-    // round(q), round(k) on the 1-pixel halo, zero outside the image
-    for (int m = 0; m < nqk; ++m) {
-      project_chunk<T>(pb, ln, NP4, wqkv, 3 * C, C, m);
-      __syncthreads();
-      for (int it = tid; it < NP2 * CH; it += blockDim.x) {
-        const int q = it % NP2, ch = it / NP2;
-        const int qy = q / PW2, qx = q % PW2;
-        float s = 0.f;
-        if (uir::in_image(r0 - 1 + qy, c0 - 1 + qx, H, W))
-          s = uir::tap9(pb + ch * NP4 + qy * PW4 + qx, PW4,
-                        taps3 + (CH * m + ch) * 9);
-        qk[(CH * m + ch) * NP2 + q] = from_f<T>(s);
-      }
-      __syncthreads();
-    }
-    // dq = round(M k - alpha_q q), dk = round(M^T q - alpha_k k), in place
-    const float* aq = Mb + CC;
-    const float* ak = aq + C;
-    for (int it = tid; it < NP2 * (C / CPH); it += blockDim.x) {
-      const int q = it % NP2, h = it / NP2;
-      T* qh = qk + (size_t)h * CPH * NP2 + q;
-      T* kh = qh + (size_t)C * NP2;
-      const float* mh = Mb + h * CPH * CPH;
-      float qv[CPH], kv[CPH];
-#pragma unroll
-      for (int i = 0; i < CPH; ++i) {
-        qv[i] = to_f(qh[i * NP2]);
-        kv[i] = to_f(kh[i * NP2]);
-      }
-#pragma unroll
-      for (int i = 0; i < CPH; ++i) {
-        float s = -aq[h * CPH + i] * qv[i];
-#pragma unroll
-        for (int j = 0; j < CPH; ++j) s = fmaf(mh[i * CPH + j], kv[j], s);
-        qh[i * NP2] = from_f<T>(s);
-      }
-#pragma unroll
-      for (int j = 0; j < CPH; ++j) {
-        float s = -ak[h * CPH + j] * kv[j];
-#pragma unroll
-        for (int i = 0; i < CPH; ++i) s = fmaf(mh[i * CPH + j], qv[i], s);
-        kh[j * NP2] = from_f<T>(s);
-      }
-    }
-    __syncthreads();
-
-    // chunks of [q; k; v]: u = W^T LN (for the taps' gradient), d(u) by the
-    // transposed taps, the shares of dtaps and dW, dLN += W d(u)
-    for (int m = 0; m < 3 * C / CH; ++m) {
-      project_chunk<T>(pb, ln, NP4, wqkv, 3 * C, C, m);
-      __syncthreads();
-      const float* tm = taps3 + (size_t)CH * m * 9;
-      if (m < nqk) {
-        const T* src = qk + (size_t)CH * m * NP2;
-        uir::tap9_t<T>(du, src, tm, CH, TH, TW, r0, c0, H, W);
-        uir::tap_grad_acc<T>(g_t + CH * m * 9, src, 1, pb, 2, CH, TH, TW);
-      } else {
-        const float* src = dvb + (size_t)CH * (m - nqk) * NP2;
-        uir::tap9_t<float>(du, src, tm, CH, TH, TW, r0, c0, H, W);
-        uir::tap_grad_acc<float>(g_t + CH * m * 9, src, 1, pb, 2, CH, TH, TW);
-      }
-      __syncthreads();
-      uir::outer_acc<T, float>(g_w + CH * m, 3 * C, ln, 2, C, du, 0, CH, TH,
-                               TW);
-      for (int it = tid; it < P * (C / 8); it += blockDim.x) {
-        const int p = it % P, c8 = 8 * (it / P);
-        float s[8];
-        uir::project8<float>(s, du, P, p, wqkvT + (size_t)CH * m * C + c8, C,
-                             CH);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) acc[(c8 + i) * P + p] += s[i];
-      }
-      __syncthreads();
-    }
-
-    uir::ln_backward_tile<T>(xb, dy + (size_t)b * C * plane,
-                             dx + (size_t)b * C * plane, acc, pb, scale, g_sc,
-                             g_bi, C, H, W, r0, c0, TH, TW, eps);
-  }
-}
-
-size_t smem_v(int C, int cph, int TH, int TW, size_t itemsize) {
-  const size_t np2 = (size_t)(TH + 2) * (TW + 2);
-  const size_t np4 = (size_t)(TH + 4) * (TW + 4), p = (size_t)TH * TW;
-  return (2 * (size_t)C * cph + CH * np4 + 3 * C * np2 + 2 * C * p) *
-             sizeof(float) +
-         (C * np4 + 2 * C * np2) * itemsize;
-}
-
-size_t smem_qk(int C, int cph, int TH, int TW, size_t itemsize) {
-  const size_t np2 = (size_t)(TH + 2) * (TW + 2);
-  const size_t np4 = (size_t)(TH + 4) * (TW + 4), p = (size_t)TH * TW;
-  return ((size_t)C * cph + 2 * C + CH * np4 + C * np2 + CH * p + C * p) *
-             sizeof(float) +
-         (C * np4 + 2 * C * np2) * itemsize;
-}
-
-struct Args {
-  const void *x, *dy;
-  void* dx;
-  const float *scale, *bias, *wqkv, *taps3, *wqkvT, *wvf, *tvf, *wpo, *wpoT,
-      *wpofT, *wvfT, *temp, *stats;
-  float *dv, *partA;
-  int* counters;
-  float *bstats, *dtemp, *part, *grads;
-  int B, C, H, W, THa, TWa, THb, TWb, groups;
-  float eps;
-  cudaStream_t stream;
+// the f32 weights, as their parameters store them: w_qkv (C, 3C), w_po
+// (C, C), w_kv (C, 2C), w_pof (C, C), the taps (3, 3, 3C) and (3, 3, 2C)
+struct Weights {
+  const float *qkv, *po, *kv, *pof, *tqkv, *tkv, *temp;
 };
 
 template <typename T, int CPH>
-int launch(const Args& a) {
-  const int C = a.C;
-  if (C % CH || !uir::tile_ok(a.THa, a.TWa) || !uir::tile_ok(a.THb, a.TWb))
-    return (int)cudaErrorInvalidValue;
-  const int Ea = 3 * C * C + 9 * C, E = Ea + 3 * C * C + 29 * C;
-  auto kv = ln_mdta_bwd_v_kernel<T, CPH>;
-  auto kq = ln_mdta_bwd_qk_kernel<T, CPH>;
-  const size_t sv = smem_v(C, CPH, a.THa, a.TWa, sizeof(T));
-  const size_t sq = smem_qk(C, CPH, a.THb, a.TWb, sizeof(T));
-  cudaError_t e = uir::set_smem(kv, sv);
-  if (e != cudaSuccess) return (int)e;
-  e = uir::set_smem(kq, sq);
-  if (e != cudaSuccess) return (int)e;
-  kv<<<a.groups, kThreads, sv, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.dy), a.scale, a.bias,
-      a.wqkv, a.taps3, a.wvf, a.tvf, a.wpo, a.wpoT, a.wpofT, a.wvfT, a.temp,
-      a.stats, a.dv, a.partA, a.counters, a.bstats, a.dtemp, a.part, E, a.B, C,
-      a.H, a.W, a.THa, a.TWa, a.eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  kq<<<a.groups, kThreads, sq, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.dy),
-      static_cast<T*>(a.dx), a.scale, a.bias, a.wqkv, a.taps3, a.wqkvT,
-      a.bstats, a.dv, a.part, E, Ea, a.B, C, a.H, a.W, a.THb, a.TWb, a.eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)uir::reduce_rows(a.part, a.grads, a.groups, E, a.stream);
+int launch(const T* x, const T* dy, T* dx, const float* scale,
+           const float* bias, const Weights& wt, const float* stats,
+           unsigned char* work, float* grads, float* dtemp, int B, int C,
+           int H, int W, int imgs, int Ks, int KsA, float eps,
+           cudaStream_t st) {
+  constexpr int NP = NPT<T>, NF = NFT<T>;
+  const int HW = H * W, C2 = 2 * C, C3 = 3 * C, ES = C * CPH + 2 * C;
+  const Layout L(imgs, H, W, C, NP, NF, sizeof(T), Ks, KsA);
+  const int splits_a = (HW + KsA - 1) / KsA;  // dA rows an image and product
+  auto bfp = [&](Piece i) { return reinterpret_cast<bf16*>(work + L.off[i]); };
+  auto f32p = [&](Piece i) {
+    return reinterpret_cast<float*>(work + L.off[i]);
+  };
+  auto* stat2 = reinterpret_cast<float2*>(work + L.off[STATS]);
+  T* dqk = reinterpret_cast<T*>(work + L.off[DQK]);
+  using TPn = Tile<128, 64, 4, 2, false, false, NP, NF>;  // T x W^T
+  using TPt = Tile<128, 64, 4, 2, false, true, NP, NF>;   // T x W, T x A
+  using TPf = Tile<128, 64, 4, 2, false, false, NF, NF>;  // f32 x W^T, A
+  // K = pixels: a long k loop, four stages, the k tiles' sums added
+  // round-to-nearest (gemm.cuh, Sums): dtemp cancels too far for the
+  // tensor cores' truncating adds over thousands of pixels
+  using TKt = Tile<64, 64, 2, 4, true, true, NP, NP, 4, true>;  // T^T x T
+  using TKf = Tile<64, 64, 2, 4, true, true, NP, NF, 4, true>;  // T^T x f32
+  // the planes of n values from p (plane stride n), unused ones aliased
+  auto planes = [](const bf16* p, size_t n, int np) {
+    return Opnd{{p, np > 1 ? p + n : p, np > 2 ? p + 2 * n : p}, 0, 0};
+  };
+  // 0. the weights' planes: w_qkv, w_po, w_kv, w_pof from WTS on
+  const long long cc = (long long)C * C;
+  bf16* wts = bfp(WTS);
+  const WeightSet ws{{wt.qkv, wt.po, wt.kv, wt.pof},
+                     {3 * C * C, C * C, 2 * C * C, C * C},
+                     {0, (size_t)NF * 3 * cc, (size_t)NF * 4 * cc,
+                      (size_t)NF * 6 * cc}};
+  ln_mdta_bwd_weights_kernel<NF>
+      <<<dim3((3 * C * C + kThreads - 1) / kThreads, 4), kThreads, 0, st>>>(
+          ws, wts);
+  UIR_TRY(cudaGetLastError());
+  auto weight = [&](int i, int cols, int off) {
+    Opnd o = planes(wts + ws.off[i] + off, ws.n[i], NF);
+    o.ld = cols;
+    return o;
+  };
+  const Opnd Wqkv = weight(0, C3, 0), Wpo = weight(1, C, 0);
+  const Opnd Wkvf = weight(2, C2, C), Wpof = weight(3, C, 0);
+  for (int b0 = 0; b0 < B; b0 += imgs) {
+    const int I = min(imgs, B - b0), P = I * HW;
+    // this slice's rows: weight-gradient splits, taps segments, dLN blocks
+    const int splits = (P + Ks - 1) / Ks, blocks = (P + PT - 1) / PT;
+    const size_t pc = (size_t)P * C, base = (size_t)b0 * C * HW;
+    // piece i as np planes [pixel][ld] (plane stride P ld), an image's
+    // pixels zs apart
+    auto pl = [&](Piece i, int np, int ld = 0) {
+      const int l = ld ? ld : C;
+      Opnd o = planes(bfp(i), (size_t)P * l, np);
+      o.ld = l;
+      o.zs = (long long)HW * l;
+      return o;
+    };
+    const size_t mlo = (size_t)I * C * C;  // plane stride of A, M, M^T
+    auto per_image = [&](Piece i) {
+      Opnd o = planes(bfp(i), mlo, NF);
+      o.ld = C;
+      o.zs = cc;
+      return o;
+    };
+    const Opnd Ab = per_image(AP), Mb = per_image(MP), Mt = per_image(MTP);
+    const float* stb = stats + (size_t)b0 * ES;
+
+    // 1, 2
+    ln_mdta_bwd_prep_kernel<T, NP>
+        <<<(P + PT - 1) / PT, kThreads, PT * (C + 1) * sizeof(float), st>>>(
+            x + base, dy + base, scale, bias, stat2, bfp(LN), bfp(DY), P, HW,
+            C, eps);
+    UIR_TRY(cudaGetLastError());
+    ln_mdta_bwd_attn_kernel<CPH, NF><<<I, kThreads, 0, st>>>(
+        stb, wt.temp, f32p(A32), bfp(AP), mlo, C);
+    UIR_TRY(cudaGetLastError());
+    // 3, 4: u, then round(q), round(k) and v
+    UIR_TRY(gm::launch<TPt>(gm::simple(pl(LN, NP), Wqkv, P, C3, C), 1,
+                            MdtaBwdF32Epi{f32p(U), C3, P, C3, 0}, st));
+    const int segs = I * H * ((W + DW_W - 1) / DW_W);
+    const int g3 = (C3 / 2 * segs + DW_T - 1) / DW_T;
+    const int g1 = (C / 2 * segs + DW_T - 1) / DW_T;
+    ln_mdta_bwd_taps_kernel<T><<<g3, DW_T, 0, st>>>(
+        f32p(U), C3, wt.tqkv, C3, C3, C2, bfp(QK), (size_t)P * C2, C2, bfp(V),
+        pc, C, segs, H, W);
+    UIR_TRY(cudaGetLastError());
+    // 5-9: outs, out, u_vf, vf, outf
+    gm::Args a = gm::simple(pl(V, NF), Ab, HW, C, C);
+    a.band = CPH;
+    UIR_TRY(gm::launch<TPf>(
+        a, I, MdtaBwdRoundEpi<T, NP>{bfp(OUTS), pc, C, HW, C, HW}, st));
+    UIR_TRY(gm::launch<TPt>(
+        gm::simple(pl(OUTS, NP), Wpo, P, C, C), 1,
+        MdtaBwdRoundEpi<T, NP>{bfp(OUT), pc, C, P, C, 0}, st));
+    UIR_TRY(gm::launch<TPt>(gm::simple(pl(OUT, NP), Wkvf, P, C, C), 1,
+                            MdtaBwdF32Epi{f32p(UVF), C, P, C, 0}, st));
+    ln_mdta_bwd_taps_kernel<T><<<g1, DW_T, 0, st>>>(
+        f32p(UVF), C, wt.tkv + C, C2, C, 0, nullptr, 0, C, bfp(VF), pc, C,
+        segs, H, W);
+    UIR_TRY(cudaGetLastError());
+    a = gm::simple(pl(VF, NF), Ab, HW, C, C);
+    a.band = CPH;
+    UIR_TRY(gm::launch<TPf>(
+        a, I, MdtaBwdRoundEpi<T, NP>{bfp(OUTF), pc, C, HW, C, HW}, st));
+    // 10-15: d_outf, dvf, d(u_vf) and dtaps_vf, d_out, d_outs, dv
+    UIR_TRY(gm::launch<TPn>(gm::simple(pl(DY, NP), Wpof, P, C, C), 1,
+                            MdtaBwdRoundEpi<T, NP>{bfp(DOF), pc, C, P, C, 0},
+                            st));
+    a = gm::simple(pl(DOF, NP), Ab, HW, C, C);
+    a.band = CPH;
+    UIR_TRY(gm::launch<TPt>(a, I, MdtaBwdF32Epi{f32p(DVF), C, HW, C, HW},
+                            st));
+    ln_mdta_bwd_taps_t_kernel<T><<<g1, DW_T, 0, st>>>(
+        static_cast<const T*>(nullptr), 0, f32p(DVF), C, f32p(UVF), C,
+        wt.tkv + C, C2, C, 0, bfp(DUVF), pc, f32p(ROWS_TV), segs, H, W);
+    UIR_TRY(cudaGetLastError());
+    UIR_TRY(gm::launch<TPf>(gm::simple(pl(DUVF, NF), Wkvf, P, C, C), 1,
+                            MdtaBwdRoundEpi<T, NP>{bfp(DOUT), pc, C, P, C, 0},
+                            st));
+    UIR_TRY(gm::launch<TPn>(
+        gm::simple(pl(DOUT, NP), Wpo, P, C, C), 1,
+        MdtaBwdRoundEpi<T, NP>{bfp(DOUTS), pc, C, P, C, 0}, st));
+    a = gm::simple(pl(DOUTS, NP), Ab, HW, C, C);
+    a.band = CPH;
+    UIR_TRY(gm::launch<TPt>(a, I, MdtaBwdF32Epi{f32p(DV), C, HW, C, HW}, st));
+    // 16, 17: dA over the head tiles, then the per-image softmax backward
+    a = gm::simple(pl(DOF, NP), pl(VF, NF), C, C, HW);
+    a.A[1] = pl(DOUTS, NP);
+    a.B[1] = pl(V, NF);
+    a.Ks = KsA;
+    a.nprob = 2;
+    a.splits = splits_a;
+    a.diag = 1;
+    const long long sa = (long long)splits_a * cc;
+    UIR_TRY(gm::launch<TKf>(
+        a, I,
+        MdtaBwdRowsEpi{{f32p(ROWS_A), f32p(ROWS_A) + sa}, C, {C, C}, 2 * sa},
+        st));
+    const size_t ssm = (2 * (size_t)C * CPH + 3 * C) * sizeof(float);
+    static const cudaError_t es = gm::set_smem(
+        ln_mdta_bwd_softmax_kernel<CPH, NF>,
+        (2 * (size_t)MAX_C * CPH + 3 * MAX_C) * sizeof(float));
+    UIR_TRY(es);
+    ln_mdta_bwd_softmax_kernel<CPH, NF><<<I, kThreads, ssm, st>>>(
+        stb, wt.temp, f32p(A32), f32p(ROWS_A), 2 * splits_a, bfp(MP),
+        bfp(MTP), f32p(ALPHA), dtemp + (size_t)b0 * (C / CPH), C);
+    UIR_TRY(cudaGetLastError());
+    // 18, 19: dq, dk; d(u_qkv) and dtaps_qkv
+    const Opnd qk = pl(QK, NP, C2);
+    const Opnd kk{{qk.pl[0] + C, qk.pl[1] + C, qk.pl[2] + C}, C2, qk.zs};
+    a = gm::simple(kk, Mb, HW, C, C);
+    a.A[1] = qk;
+    a.B[1] = Mt;
+    a.nprob = 2;
+    a.band = CPH;
+    UIR_TRY(gm::launch<TPn>(
+        a, I,
+        MdtaBwdDqkEpi<T, NP>{bfp(QK), (size_t)P * C2, f32p(ALPHA), dqk, HW,
+                             C},
+        st));
+    ln_mdta_bwd_taps_t_kernel<T><<<g3, DW_T, 0, st>>>(
+        dqk, C2, f32p(DV), C, f32p(U), C3, wt.tqkv, C3, C3, C2, bfp(DU),
+        (size_t)P * C3, f32p(ROWS_TQ), segs, H, W);
+    UIR_TRY(cudaGetLastError());
+    // 20, 21: the weight gradients, split over pixel ranges
+    a = gm::simple(pl(OUTF, NP), pl(DY, NP), C, C, P);
+    a.A[1] = pl(OUTS, NP);
+    a.B[1] = pl(DOUT, NP);
+    a.Ks = Ks;
+    a.nprob = 2;
+    a.splits = splits;
+    const long long sw = (long long)splits * cc;
+    UIR_TRY(gm::launch<TKt>(
+        a, 1,
+        MdtaBwdRowsEpi{{f32p(ROWS_W1), f32p(ROWS_W1) + sw}, C, {C, C}, 0},
+        st));
+    a = gm::simple(pl(OUT, NP), pl(DUVF, NF), C, C, P);
+    a.A[1] = pl(LN, NP);
+    a.B[1] = pl(DU, NF, C3);
+    a.N[1] = C3;
+    a.Ks = Ks;
+    a.nprob = 2;
+    a.splits = splits;
+    UIR_TRY(gm::launch<TKf>(
+        a, 1,
+        MdtaBwdRowsEpi{{f32p(ROWS_KVF), f32p(ROWS_QKV)}, C, {C, C3}, 0}, st));
+    // 22: dLN and the LayerNorm backward
+    const MdtaBwdDlnEpi<T> de{x + base, dy + base, dx + base, stat2, scale,
+                              f32p(ROWS_LN), P, C, HW};
+    const gm::Args ad = gm::simple(pl(DU, NF, C3), Wqkv, P, C, C3);
+    if (C <= 128)
+      UIR_TRY((gm::launch<Tile<PT, 128, 1, 8, false, false, NF, NF>>(
+          ad, 1, de, st)));
+    else
+      UIR_TRY((gm::launch<Tile<PT, 256, 1, 8, false, false, NF, NF>>(
+          ad, 1, de, st)));
+    // 23: the rows, in order, into the gradients
+    const int c2 = C * C;
+    UIR_TRY(gm::reduce_rows<7>(
+        {{f32p(ROWS_W1), splits, c2, 0, 0, 0},
+         {f32p(ROWS_KVF), splits, c2, c2, 0, 0},
+         {f32p(ROWS_TV), segs, 9 * C, 2 * c2, 0, 0},
+         {f32p(ROWS_W1) + sw, splits, c2, 2 * c2 + 9 * C, 0, 0},
+         {f32p(ROWS_QKV), splits, 3 * c2, 3 * c2 + 9 * C, 0, 0},
+         {f32p(ROWS_TQ), segs, 27 * C, 6 * c2 + 9 * C, 0, 0},
+         {f32p(ROWS_LN), blocks, 2 * C, 6 * c2 + 36 * C, 0, 0}},
+        grads, b0 > 0, st));
+  }
+  return 0;
 }
 
 }  // namespace
 
-// Three launches: the v pass and the q/k pass (grid `groups` each; block g
-// owns row g of part [groups][E]) and the ordered row sum into grads [E].
-// dv [B][C][H][W], partA [B * tiles of the v pass][C][cph], counters [B]
-// (zero on entry, zero again on exit), bstats [B][C * cph + 2C] and
-// dtemp [B][C / cph] are scratch the wrapper allocates.
+// The backward over the batch in slices of `imgs` images: one launch a call
+// (the weights' planes), then 23 a slice.  The weights in f32 as their
+// parameters store them: w_qkv (C, 3C), w_po (C, C), w_kv (C, 2C) (its vf
+// half read in place), w_pof (C, C), t_qkv (3, 3, 3C), t_kv (3, 3, 2C)
+// (its vf half read in place); stats [B][C cph + 2C] as the forward wrote
+// them.  work:
+// one slice's workspace (Layout); grads [6C^2 + 38C] as ops/fused_mdta.py
+// lays them out; dtemp [B][C / cph].  Ks: pixels a split of the
+// weight-gradient products, KsA of an image's dA product (multiples of 32).
 extern "C" int uir_ln_mdta_bwd(
     const void* x, const void* dy, void* dx, const void* scale,
-    const void* bias, const void* wqkv, const void* taps3, const void* wqkvT,
-    const void* wvf, const void* tvf, const void* wpo, const void* wpoT,
-    const void* wpofT, const void* wvfT, const void* temp, const void* stats,
-    void* dv, void* partA, void* counters, void* bstats, void* dtemp,
-    void* part, void* grads, int B, int C, int H, int W, int cph, int bf16,
-    int THa, int TWa, int THb, int TWb, int groups, float eps, void* stream) {
+    const void* bias, const void* wqkv, const void* tqkv, const void* wpo,
+    const void* wkv, const void* tkv, const void* wpof, const void* temp,
+    const void* stats, void* work, void* grads, void* dtemp, int B, int C,
+    int H, int W, int cph, int bf16, int imgs, int Ks, int KsA, float eps,
+    void* stream) {
+  if (C % 16 || C > MAX_C || C % cph || B < 1 || H < 1 || W < 1 ||
+      imgs < 1 || Ks < gm::BK || Ks % gm::BK || KsA < gm::BK ||
+      KsA % gm::BK || (H * W + KsA - 1) / KsA > MAX_SPLITS_A)
+    return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  Args a{x, dy, dx, f(scale), f(bias), f(wqkv), f(taps3), f(wqkvT), f(wvf),
-         f(tvf), f(wpo), f(wpoT), f(wpofT), f(wvfT), f(temp), f(stats),
-         static_cast<float*>(dv), static_cast<float*>(partA),
-         static_cast<int*>(counters), static_cast<float*>(bstats),
-         static_cast<float*>(dtemp), static_cast<float*>(part),
-         static_cast<float*>(grads), B, C, H, W, THa, TWa, THb, TWb, groups,
-         eps, static_cast<cudaStream_t>(stream)};
+  const Weights wt{f(wqkv), f(wpo), f(wkv), f(wpof), f(tqkv), f(tkv),
+                   f(temp)};
+  auto* wk = static_cast<unsigned char*>(work);
+  auto* gr = static_cast<float*>(grads);
+  auto* dt = static_cast<float*>(dtemp);
+  auto st = static_cast<cudaStream_t>(stream);
+#define UIR_MDTA_BWD(TT, CPH)                                                \
+  return launch<TT, CPH>(static_cast<const TT*>(x),                         \
+                         static_cast<const TT*>(dy), static_cast<TT*>(dx),  \
+                         f(scale), f(bias), wt, f(stats), wk, gr, dt, B, C, \
+                         H, W, imgs, Ks, KsA, eps, st)
   if (bf16) {
-    if (cph == 8) return launch<__nv_bfloat16, 8>(a);
-    if (cph == 16) return launch<__nv_bfloat16, 16>(a);
-    if (cph == 32) return launch<__nv_bfloat16, 32>(a);
+    if (cph == 8) UIR_MDTA_BWD(__nv_bfloat16, 8);
+    if (cph == 16) UIR_MDTA_BWD(__nv_bfloat16, 16);
+    if (cph == 32) UIR_MDTA_BWD(__nv_bfloat16, 32);
   } else {
-    if (cph == 8) return launch<float, 8>(a);
-    if (cph == 16) return launch<float, 16>(a);
-    if (cph == 32) return launch<float, 32>(a);
+    if (cph == 8) UIR_MDTA_BWD(float, 8);
+    if (cph == 16) UIR_MDTA_BWD(float, 16);
+    if (cph == 32) UIR_MDTA_BWD(float, 32);
   }
+#undef UIR_MDTA_BWD
   return (int)cudaErrorInvalidValue;
 }

@@ -1,14 +1,16 @@
-// Tensor-core building blocks of the backward kernels (csrc/ln_leff_bwd.cu,
-// csrc/ln_gdfn_bwd.cu): a warp-level bf16 product on shared-memory
-// operands, asynchronous staging of operand tiles, and the hi/lo split
-// that carries f32 operands through bf16 products.
+// Tensor-core building blocks: a warp-level bf16 product on shared-memory
+// operands, asynchronous staging of operand tiles, and the hi/lo split that
+// carries f32 operands through bf16 products.  csrc/ln_gdfn_bwd.cu uses
+// them inside its tiles; csrc/gemm.cuh builds the staged kernels' product
+// launch (csrc/ln_leff.cu, csrc/ln_leff_bwd.cu, csrc/ln_mdta_bwd.cu) on them.
 //
-// Why.  The 1x1 products of both backward passes (fc1 and fc2's transpose,
-// project_in and project_out, their weight gradients, dLN) are where the
-// work is: at the port's widths they are far above the H100's bf16 ridge,
-// so the f32 FMA pipe (67 TFLOP/s) bounded the kernels before.  Here they
-// run as mma.sync.m16n8k16 (bf16 in, f32 accumulate; HMMA in the SASS)
-// against the 989 TFLOP/s of the tensor cores.
+// Why.  The 1x1 and per-head products of these kernels (fc1 and fc2 and
+// their transposes, project_in and project_out, the attention's, their
+// weight gradients, dLN) are where the work is: at the port's widths they
+// are far above the H100's bf16 ridge, so the f32 FMA pipe (67 TFLOP/s)
+// bounded the kernels before.  Here they run as mma.sync.m16n8k16 (bf16 in,
+// f32 accumulate; HMMA in the SASS) against the 989 TFLOP/s of the tensor
+// cores.
 //
 // The product.  A warp multiplies 16 x 16 A fragments by 16 x 8 B fragments
 // loaded from shared memory with ldmatrix; an operand stored K-major (A as
@@ -21,8 +23,13 @@
 // planes, hi = bf16(v) and lo = bf16(v - hi), which hold v to about 2^-17
 // of |v|.  A product takes a_hi b_hi + a_hi b_lo when only b is split, and
 // adds a_lo b_hi when a is split too (the a_lo b_lo term, about 2^-18 of
-// each product, is dropped).  An operand that is exactly bf16 (every
-// operand of a bf16 LeFF call; LN, dy and the gate output of a bf16 GDFN
+// each product, is dropped).  Where a sum cancels far enough to need full
+// f32 (csrc/ln_mdta_bwd.cu in f32: its dtemp), a value is carried as three
+// planes, hi, mid = bf16(v - hi) and lo = bf16(v - hi - mid), about 2^-24
+// of |v|, and a product takes the passes (i, j) of plane i of a and j of b
+// with i + j <= 2, about 2^-24 of each product.  An operand that is
+// exactly bf16 (every operand of a bf16 LeFF call; LN, dy and the gate
+// output of a bf16 GDFN call; the activations rounded to T of a bf16 MDTA
 // call) has one plane and costs one pass.
 //
 // Staging.  cp_async16 copies 16 bytes from device memory into shared
@@ -73,32 +80,37 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---- the hi/lo split
 
-__device__ __forceinline__ void split(float v, bf16& hi, bf16& lo) {
-  hi = __float2bfloat16(v);
-  lo = __float2bfloat16(v - __bfloat162float(hi));
+// The NP planes of v: plane k the bf16 of what planes 0..k-1 leave.
+template <int NP>
+__device__ __forceinline__ void planes(float v, bf16 (&pl)[NP]) {
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    pl[k] = __float2bfloat16(v);
+    v -= __bfloat162float(pl[k]);
+  }
 }
 
-// Stores v into plane 0 (and its remainder into plane 1 when NP == 2) at
-// index i: hi[i], hi[i + lo_off].
+// Stores v into its NP planes at index i: p[i], p[i + plane], ...
 template <int NP>
-__device__ __forceinline__ void put(bf16* p, size_t lo_off, size_t i,
+__device__ __forceinline__ void put(bf16* p, size_t plane, size_t i,
                                     float v) {
-  bf16 hi, lo;
-  split(v, hi, lo);
-  p[i] = hi;
-  if constexpr (NP == 2) p[i + lo_off] = lo;
+  bf16 pl[NP];
+  planes<NP>(v, pl);
+#pragma unroll
+  for (int k = 0; k < NP; ++k) p[i + k * plane] = pl[k];
 }
 
 // Two consecutive values (i even), as one 32-bit store a plane.
 template <int NP>
-__device__ __forceinline__ void put2(bf16* p, size_t lo_off, size_t i,
+__device__ __forceinline__ void put2(bf16* p, size_t plane, size_t i,
                                      float v0, float v1) {
-  __nv_bfloat162 hi, lo;
-  split(v0, hi.x, lo.x);
-  split(v1, hi.y, lo.y);
-  *reinterpret_cast<__nv_bfloat162*>(p + i) = hi;
-  if constexpr (NP == 2)
-    *reinterpret_cast<__nv_bfloat162*>(p + i + lo_off) = lo;
+  bf16 a[NP], b[NP];
+  planes<NP>(v0, a);
+  planes<NP>(v1, b);
+#pragma unroll
+  for (int k = 0; k < NP; ++k)
+    *reinterpret_cast<__nv_bfloat162*>(p + i + k * plane) =
+        __halves2bfloat162(a[k], b[k]);
 }
 
 // ---- fragments
@@ -162,15 +174,23 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One k16 step of a split product into d: a[0] b[0], then a[0] b[1] when B
-// has a lo plane (NPB == 2), then a[1] b[0] when A has one (NPA == 2).
+// One k16 step of a split product into d: the passes (i, j) of plane i of a
+// and plane j of b with i + j <= max(NPA, NPB) - 1, in the order (0, 0),
+// (0, 1), (1, 0), (0, 2), (2, 0), (1, 1): with two planes a[0] b[0], then
+// a[0] b[1] when B has a lo plane, then a[1] b[0] when A has one.  Written
+// out pass by pass, so every instantiation is straight-line code.
 template <int NPA, int NPB>
 __device__ __forceinline__ void mma_split(float (&d)[4],
                                           const uint32_t (&a)[NPA][4],
                                           const uint32_t (&b)[NPB][2]) {
+  constexpr bool three = NPA > 2 || NPB > 2;
   mma16816(d, a[0], b[0][0], b[0][1]);
-  if constexpr (NPB == 2) mma16816(d, a[0], b[1][0], b[1][1]);
-  if constexpr (NPA == 2) mma16816(d, a[1], b[0][0], b[0][1]);
+  if constexpr (NPB > 1) mma16816(d, a[0], b[1][0], b[1][1]);
+  if constexpr (NPA > 1) mma16816(d, a[1], b[0][0], b[0][1]);
+  if constexpr (NPB > 2) mma16816(d, a[0], b[2][0], b[2][1]);
+  if constexpr (NPA > 2) mma16816(d, a[2], b[0][0], b[0][1]);
+  if constexpr (three && NPA > 1 && NPB > 1)
+    mma16816(d, a[1], b[1][0], b[1][1]);
 }
 
 }  // namespace mma

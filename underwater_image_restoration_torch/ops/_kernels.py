@@ -54,15 +54,16 @@ SIGNATURES = {
         # groups, eps, stream
         [_P] * 12 + [_I] * 10 + [_F, _P],
     ("ln_mdta_bwd", "uir_ln_mdta_bwd"):
-        # x, dy, dx, scale, bias, w_qkv, taps_qkv, w_qkv^T, w_vf, taps_vf,
-        # w_po, w_po^T, w_pof^T, w_vf^T, temp, stats, dv, partA, counters,
-        # bstats, dtemp, part, grads, B, C, H, W, cph, bf16, TH and TW of
-        # the v pass, TH and TW of the q/k pass, groups, eps, stream
-        [_P] * 23 + [_I] * 11 + [_F, _P],
+        # x, dy, dx, scale, bias, w_qkv, t_qkv, w_po, w_kv, t_kv, w_pof,
+        # temp, stats, workspace, grads, dtemp, B, C, H, W, cph, bf16,
+        # images a slice, pixels a split, pixels a split of an image's dA,
+        # eps, stream
+        [_P] * 16 + [_I] * 9 + [_F, _P],
     ("ln_leff", "uir_ln_leff_fwd"):
-        # x, y, scale, bias, w1, b1, taps, bdw, w2, b2, s, B, H, W, C,
-        # hid_pad, chunk, residual, bf16, TH, TW, eps, stream
-        [_P] * 11 + [_I] * 10 + [_F, _P],
+        # x, y, scale, bias, w1 hi, w1 lo, b1, taps, bdw, w2 hi, w2 lo, b2,
+        # s, workspace, B, H, W, C, hid_pad, residual, bf16, images a slice,
+        # eps, stream
+        [_P] * 14 + [_I] * 8 + [_F, _P],
     ("ln_leff_bwd", "uir_ln_leff_bwd"):
         # x, dy, dx, scale, bias, w1 hi, w1 lo, b1, taps, bdw, w2 hi, w2 lo,
         # s, workspace, grads, B, H, W, C, hid_pad, residual, bf16, images a

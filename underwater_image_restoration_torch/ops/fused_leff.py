@@ -10,20 +10,23 @@ per-image DropPath scale), ``residual=False`` returning the scaled branch
 alone.  The TPU kernel took channels-first ``(B, C, H, W)``; the port's AST
 keeps its tokens channels-last, so the kernel reads them as they are.
 
-``ln_leff`` launches ``csrc/ln_leff.cu`` for a CUDA tensor and takes the
-plain version ``ln_leff_plain`` for a CPU one.  The rounding points are the
+``ln_leff`` launches ``csrc/ln_leff.cu`` for a CUDA tensor (four launches
+a slice of the batch: LN, fc1 and fc2 on the tensor cores, g2's 3x3 window
+between them; ``fwd_plan`` sizes the slices) and takes the plain version
+``ln_leff_plain`` for a CPU one.  The rounding points are the
 TPU kernel's: the LN output rounds to x.dtype; fc1, the taps and fc2 sum in
 f32 and round once, before their bias is added in x.dtype; each gelu acts in
 f32 on the rounded value and rounds; the s_b scale acts in f32.  fc1, fc2
 and the biases are cast to x.dtype, the taps stay f32.
 
-On CUDA the forward is ``LnLeffFn``, whose backward launches
+On CUDA the forward is ``LnLeffFn``, which prepares the kernels' operands
+once a call (``kernel_operands``) for both passes and whose backward launches
 ``csrc/ln_leff_bwd.cu`` (the VJP of the JAX package's ``fused_leff.py:337
 _bwd_call``: tensor-core products over pixels x channels, the batch walked
-in image slices, ``bwd_plan``); it saves x, the weights and s, never the
-hidden activations, and gives s no gradient, as the TPU VJP does.  ``ln_leff_bwd`` is that
-backward's wrapper and ``ln_leff_bwd_plain`` its plain version (autograd
-through ``ln_leff_plain``).
+in image slices, ``bwd_plan``); it saves x, the prepared operands and s,
+never the hidden activations, and gives s no gradient, as the TPU VJP
+does.  ``ln_leff_bwd`` is that backward's wrapper and ``ln_leff_bwd_plain``
+its plain version (autograd through ``ln_leff_plain``).
 """
 from __future__ import annotations
 
@@ -56,58 +59,93 @@ def ln_leff_plain(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
     return x + yd if residual else yd
 
 
-# hidden channels a chunk of the kernel; passed with every launch, and
-# csrc/ln_leff.cu refuses any other value than its own G
+# the kernels' products stage k in tiles of this depth (csrc/gemm.cuh BK);
+# the hidden width is zero-padded to a multiple of it
 HIDDEN_CHUNK = 32
+# the forward's launches a slice of images (csrc/ln_leff.cu): LN, fc1, g2's
+# 3x3 window, fc2
+FWD_LAUNCHES = 4
+# a slice's forward workspace (LN, g1, g2) stays within this many bytes
+FWD_WORKSPACE_BYTES = 256 << 20
 
 
-# tiles a block may take, largest first, and the shared memory it may use
-TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2))
-MAX_SHARED = 227 * 1024
-
-
-def shared_bytes(c: int, th: int, tw: int, itemsize: int) -> int:
-    """Shared memory of one block of csrc/ln_leff.cu (its layout, mirrored):
-    f32 accumulators (C, P|1), gelu(fc1) (G, NP), gelu(dw) (G, P), the
-    chunk's fc1 columns and fc2 rows (2 C G, f32), and the LN halo patch
-    (C, NP|1) in the compute dtype; P = TH TW, NP = (TH+2)(TW+2)."""
-    p, np_ = th * tw, (th + 2) * (tw + 2)
-    g = HIDDEN_CHUNK
-    return (4 * (c * (p | 1) + g * np_ + g * p + 2 * c * g)
-            + itemsize * c * (np_ | 1))
-
-
-def tile_shape(c: int, itemsize: int) -> tuple[int, int]:
-    """(TH, TW) of one thread block: 8 x 8, or the largest smaller tile
-    whose accumulators hold at most 16384 values and whose shared memory
-    fits a block (bf16: 8 x 8 up to C = 256, 4 x 4 at 512; f32: 4 x 8 at
-    256, 2 x 4 at 512).  Larger tiles recompute less of the halo but leave
-    fewer blocks on the card."""
-    for th, tw in TILES:
-        if th * tw * c <= 16384 and shared_bytes(c, th, tw, itemsize) <= \
-                MAX_SHARED:
-            return th, tw
-    raise ValueError(f"ln_leff: no tile fits C={c} in shared memory")
+def _pad_last(t, n, dim=-1):
+    """t zero-padded by n along ``dim`` (-1 or 0); t itself when n = 0."""
+    if n == 0:
+        return t
+    return F.pad(t, (0, n) if dim == -1 else (0, 0, 0, n))
 
 
 def kernel_weights(w1, b1, w_dw, b_dw, w2, b2, dtype):
-    """The kernel's operands, contiguous: fc1 ``(C, hid_pad)`` and fc2
+    """The kernels' operands, contiguous: fc1 ``(C, hid_pad)`` and fc2
     ``(hid_pad, C)`` in ``dtype``; fc1's bias, the taps ``(9, hid_pad)``
-    (k = 3 dh + dw), their bias and fc2's bias in f32, the biases rounded to
-    ``dtype`` (the taps are not); the hidden width zero-padded to a multiple
-    of HIDDEN_CHUNK: a zero fc1 column and bias give gelu(0) = 0 through the
-    taps, and a zero fc2 row adds nothing.  Returns them and hid_pad."""
+    (k = 3 dh + dw), their bias and fc2's bias in f32 (the kernels round the
+    biases to ``dtype`` where they add them; the taps stay f32); the hidden
+    width zero-padded to a multiple of HIDDEN_CHUNK (no copy when it is
+    one): a zero fc1 column and bias give gelu(0) = 0 through the taps, and
+    a zero fc2 row adds nothing.  Returns them and hid_pad."""
     hid = w1.shape[1]
     pad = -hid % HIDDEN_CHUNK
-
-    def r(t):
-        return t.to(dtype).float()
-
-    ops = (F.pad(w1.to(dtype), (0, pad)), F.pad(r(b1), (0, pad)),
-           F.pad(w_dw.float().reshape(9, hid), (0, pad)),
-           F.pad(r(b_dw), (0, pad)), F.pad(w2.to(dtype), (0, 0, 0, pad)),
-           r(b2))
+    ops = (_pad_last(w1.to(dtype), pad), _pad_last(b1.float(), pad),
+           _pad_last(w_dw.float().reshape(9, hid), pad),
+           _pad_last(b_dw.float(), pad), _pad_last(w2.to(dtype), pad, 0),
+           b2.float())
     return tuple(t.contiguous() for t in ops) + (hid + pad,)
+
+
+class Operands(collections.namedtuple(
+        "Operands", "w1h w1l b1 taps bdw w2h w2l b2 hid_pad")):
+    """The kernels' weight operands (``kernel_operands``)."""
+
+
+def kernel_operands(w1, b1, w_dw, b_dw, w2, b2, dtype):
+    """``kernel_weights`` with fc1 and fc2 as the bf16 hi/lo planes the
+    tensor-core products read (``_kernels.split_bf16``; in bf16 they are
+    exact and lo is never read): prepared once a call, for the forward and
+    the backward."""
+    w1k, b1k, taps, bdwk, w2k, b2k, hp = kernel_weights(w1, b1, w_dw, b_dw,
+                                                        w2, b2, dtype)
+    return Operands(*_kernels.split_bf16(w1k), b1k, taps, bdwk,
+                    *_kernels.split_bf16(w2k), b2k, hp)
+
+
+def _align256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def fwd_workspace_bytes(imgs: int, h: int, w: int, c: int, hid_pad: int,
+                        itemsize: int) -> int:
+    """Bytes of the forward's workspace for a slice of ``imgs`` images
+    (csrc/ln_leff.cu Layout, mirrored): LN (C a pixel) and g2 (hid) as bf16
+    planes, two in f32 (hi/lo), and g1 (hid, in the compute dtype), each
+    piece 256-byte aligned."""
+    p = imgs * h * w
+    npl = 2 if itemsize == 4 else 1
+    return (_align256(npl * 2 * p * c) + _align256(p * hid_pad * itemsize)
+            + _align256(npl * 2 * p * hid_pad))
+
+
+class FwdPlan(collections.namedtuple(
+        "FwdPlan", "imgs slices workspace launches")):
+    """How the forward walks a batch: images a slice, slices, workspace
+    bytes, launches a call."""
+
+
+def fwd_plan(b: int, h: int, w: int, c: int, hid_pad: int,
+             itemsize: int) -> FwdPlan:
+    """The fewest slices whose workspace stays within FWD_WORKSPACE_BYTES,
+    the batch split evenly between them; an image whose own workspace
+    exceeds it is a slice by itself."""
+    one = fwd_workspace_bytes(1, h, w, c, hid_pad, itemsize)
+    most = max(1, min(b, FWD_WORKSPACE_BYTES // one))
+    while most > 1 and fwd_workspace_bytes(most, h, w, c, hid_pad,
+                                           itemsize) > FWD_WORKSPACE_BYTES:
+        most -= 1
+    slices = -(-b // most)
+    imgs = -(-b // slices)
+    return FwdPlan(imgs, slices,
+                   fwd_workspace_bytes(imgs, h, w, c, hid_pad, itemsize),
+                   FWD_LAUNCHES * slices)
 
 
 def _check(what, x, w1, w2, *weights):
@@ -140,25 +178,25 @@ def _scales(s, b, device):
             else s.float().reshape(b).contiguous())
 
 
-def _forward_cuda(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
-                  residual):
-    _check("ln_leff", x, w1, w2, scale, bias, b1, w_dw, b_dw, b2, s)
+def _forward_cuda(x, scale, bias, ops, s, eps, residual):
+    """The forward's launches over prepared operands (``kernel_operands``)."""
     b, h, w, c = x.shape
     lib = _kernels.library("ln_leff")
-    *ops, hp = kernel_weights(w1, b1, w_dw, b_dw, w2, b2, x.dtype)
     sc = scale.float().contiguous()
     bi = bias.float().contiguous()
-    sb = _scales(s, b, x.device)
+    sb = None if s is None else _scales(s, b, x.device)
+    plan = fwd_plan(b, h, w, c, ops.hid_pad, x.element_size())
+    work = torch.empty(plan.workspace, device=x.device, dtype=torch.uint8)
     y = torch.empty_like(x)
-    th, tw = tile_shape(c, x.element_size())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.uir_ln_leff_fwd(
         x.data_ptr(), y.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-        *(t.data_ptr() for t in ops), sb.data_ptr(), b, h, w, c, hp,
-        HIDDEN_CHUNK, int(residual), int(x.dtype == torch.bfloat16), th, tw,
-        float(eps), stream)
+        *(t.data_ptr() for t in ops[:-1]),
+        0 if sb is None else sb.data_ptr(), work.data_ptr(), b, h, w, c,
+        ops.hid_pad, int(residual), int(x.dtype == torch.bfloat16),
+        plan.imgs, float(eps), stream)
     _kernels.check(lib, err, "ln_leff")
-    ln_leff.launches[(c, h, w)] += 1
+    ln_leff.launches[(c, h, w)] += plan.launches
     return y
 
 
@@ -193,10 +231,6 @@ BWD_MAX_C = 512
 # shares each such patch)
 BWD_DW_ROWS = 2
 BWD_DW_COLS = 64
-
-
-def _align256(n: int) -> int:
-    return -(-n // 256) * 256
 
 
 def bwd_workspace_bytes(imgs: int, h: int, w: int, c: int, hid_pad: int,
@@ -264,23 +298,16 @@ def bwd_row_size(c: int, hid_pad: int) -> int:
     return 2 * c * hid_pad + 11 * hid_pad + 3 * c
 
 
-def ln_leff_bwd(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
-                eps: float = 1e-5, residual: bool = True):
-    """The LN+LeFF backward's CUDA kernels, on CUDA tensors.  Returns (dx,
-    dscale, dbias, dw1, db1, dw_dw, db_dw, dw2, db2): dx in x.dtype, the rest
-    f32 in the arguments' shapes (the hidden padding dropped)."""
-    _check("ln_leff_bwd", x, w1, w2, dy, scale, bias, b1, w_dw, b_dw, b2, s)
+def _backward_cuda(x, dy, scale, bias, ops, hid, s, eps, residual):
+    """The backward's launches over prepared operands (``kernel_operands``):
+    the gradients as ``ln_leff_bwd`` returns them."""
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError("ln_leff_bwd: dy must match x in shape and dtype")
     b, h, w, c = x.shape
     if c > BWD_MAX_C:
         raise ValueError(f"ln_leff_bwd: C={c} is wider than {BWD_MAX_C}")
-    hid = w1.shape[1]
+    hp = ops.hid_pad
     lib = _kernels.library("ln_leff_bwd")
-    w1k, b1k, taps, bdwk, w2k, _, hp = kernel_weights(
-        w1, b1, w_dw, b_dw, w2, b2, x.dtype)
-    w1h, w1l = _kernels.split_bf16(w1k)
-    w2h, w2l = _kernels.split_bf16(w2k)
     sc = scale.float().contiguous()
     bi = bias.float().contiguous()
     sb = _scales(s, b, x.device)
@@ -294,11 +321,12 @@ def ln_leff_bwd(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.uir_ln_leff_bwd(
         x.data_ptr(), dy.data_ptr(), dx.data_ptr(), sc.data_ptr(),
-        bi.data_ptr(), w1h.data_ptr(), w1l.data_ptr(), b1k.data_ptr(),
-        taps.data_ptr(), bdwk.data_ptr(), w2h.data_ptr(), w2l.data_ptr(),
-        sb.data_ptr(), work.data_ptr(), grads.data_ptr(), b, h, w, c, hp,
-        int(residual), int(x.dtype == torch.bfloat16), plan.imgs,
-        plan.split_pixels, float(eps), stream)
+        bi.data_ptr(), ops.w1h.data_ptr(), ops.w1l.data_ptr(),
+        ops.b1.data_ptr(), ops.taps.data_ptr(), ops.bdw.data_ptr(),
+        ops.w2h.data_ptr(), ops.w2l.data_ptr(), sb.data_ptr(),
+        work.data_ptr(), grads.data_ptr(), b, h, w, c, hp, int(residual),
+        int(x.dtype == torch.bfloat16), plan.imgs, plan.split_pixels,
+        float(eps), stream)
     _kernels.check(lib, err, "ln_leff_bwd")
     ln_leff_bwd.launches[(c, h, w)] += plan.launches
     g_w1, g_b1, g_taps, g_bdw, g_w2, g_b2, dsc, dbi = grads.split(
@@ -308,27 +336,44 @@ def ln_leff_bwd(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
             g_w2.view(hp, c)[:hid], g_b2)
 
 
+def ln_leff_bwd(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
+                eps: float = 1e-5, residual: bool = True):
+    """The LN+LeFF backward's CUDA kernels, on CUDA tensors.  Returns (dx,
+    dscale, dbias, dw1, db1, dw_dw, db_dw, dw2, db2): dx in x.dtype, the rest
+    f32 in the arguments' shapes (the hidden padding dropped)."""
+    _check("ln_leff_bwd", x, w1, w2, dy, scale, bias, b1, w_dw, b_dw, b2, s)
+    ops = kernel_operands(w1, b1, w_dw, b_dw, w2, b2, x.dtype)
+    return _backward_cuda(x, dy, scale, bias, ops, w1.shape[1], s, eps,
+                          residual)
+
+
 class LnLeffFn(torch.autograd.Function):
-    """The CUDA forward with the CUDA backward; saves x, the weights and s.
+    """The CUDA forward with the CUDA backward; prepares the kernels'
+    operands once (``kernel_operands``) and saves them with x and s.
     Gradients come back for the Function's own inputs (the views
     ``LeFF.operands()`` passes), f32 for f32 parameters; none for s."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
                 residual):
-        ctx.eps, ctx.residual = eps, residual
-        ctx.save_for_backward(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s)
-        return _forward_cuda(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
-                             eps, residual)
+        _check("ln_leff", x, w1, w2, scale, bias, b1, w_dw, b_dw, b2, s)
+        ops = kernel_operands(w1, b1, w_dw, b_dw, w2, b2, x.dtype)
+        ctx.eps, ctx.residual, ctx.hid = eps, residual, w1.shape[1]
+        ctx.hid_pad = ops.hid_pad
+        ctx.dtypes = tuple(t.dtype for t in (scale, bias, w1, b1, w_dw,
+                                              b_dw, w2, b2))
+        ctx.save_for_backward(x, scale, bias, s, *ops[:-1])
+        return _forward_cuda(x, scale, bias, ops, s, eps, residual)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, *ws, s = ctx.saved_tensors
-        grads = ln_leff_bwd(x, dy, *ws, s=s, eps=ctx.eps,
-                            residual=ctx.residual)
-        return ((grads[0],) + tuple(g.to(t.dtype) for g, t in
-                                    zip(grads[1:], ws)) + (None,) * 3)
+        x, scale, bias, s, *ops = ctx.saved_tensors
+        grads = _backward_cuda(x, dy, scale, bias,
+                               Operands(*ops, ctx.hid_pad), ctx.hid, s,
+                               ctx.eps, ctx.residual)
+        return ((grads[0],) + tuple(g.to(d) for g, d in
+                                    zip(grads[1:], ctx.dtypes)) + (None,) * 3)
 
 
 def ln_leff(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,

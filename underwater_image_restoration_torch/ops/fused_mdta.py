@@ -19,7 +19,8 @@ A·vf and project_outf's output round to x.dtype; v and vf stay f32.
 On CUDA the forward is ``LnMdtaFn``, whose backward launches
 ``csrc/ln_mdta_bwd.cu`` (the VJP of the JAX package's
 ``fused_attn_composed.py:574``, ``fused_attn_banded.py:707`` and
-``fused_attn.py:560`` ``_bwd_call``).  It saves x, the weights and the
+``fused_attn.py:560`` ``_bwd_call``): tensor-core products over the batch in
+image slices, ``bwd_plan`` sizing them.  It saves x, the weights and the
 per-image stats the stats kernel wrote (gram and row sums of squares), as
 the TPU VJP saves (x, G, Sq, Sk).  ``ln_mdta_bwd`` is that backward's wrapper
 and ``ln_mdta_bwd_plain`` its plain version (autograd through
@@ -86,20 +87,6 @@ def tile_shape(c: int) -> tuple[int, int]:
     return 4, 8
 
 
-def bwd_tile_shapes(c: int) -> tuple[tuple[int, int], tuple[int, int]]:
-    """(TH, TW) of the backward's v pass and q/k pass.  The v pass keeps
-    about ten channel-major copies of its tile (LN on a 2-pixel halo, v,
-    out, u_vf and their cotangents on a 1-pixel halo), the q/k pass about
-    six, so both shrink with C to stay under the 227 KB a block may use."""
-    if c <= 16:
-        return (16, 16), (16, 16)
-    if c <= 32:
-        return (8, 16), (8, 16)
-    if c <= 64:
-        return (8, 8), (8, 8)
-    return (4, 4), (4, 8)
-
-
 def _check_heads(c, num_heads):
     cph = c // num_heads
     if c % 16 or c % num_heads or cph not in (8, 16, 32):
@@ -162,56 +149,179 @@ def ln_mdta_bwd_plain(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
         return torch.autograd.grad(y, ins, dy)
 
 
+# the backward's launches a slice of images (csrc/ln_mdta_bwd.cu): prep,
+# A, u, the taps, outs, out, u_vf, the taps, outf, d_outf, dvf, the
+# transposed taps, d_out, d_outs, dv, dA, the softmax backward, dq and dk,
+# the transposed taps, two weight-gradient launches, dLN, the row sums; and
+# once a call, the weights' bf16 planes
+BWD_LAUNCHES = 23
+# a slice's workspace (its pixel-major intermediates and rows) stays within
+# this many bytes; the batch is walked in slices
+BWD_WORKSPACE_BYTES = 512 << 20
+# the kernel's tiles, mirrored: the k depth of a staged operand tile (a
+# split's pixels are a multiple of it), the pixels a block of the prep and
+# dLN launches, the columns of an image row a thread of the taps passes
+# walks, the output tile of the K-over-pixels products, the widest C
+BWD_K = 32
+BWD_PIXELS = 32
+BWD_TAPS_COLS = 64
+BWD_WGRAD_TILE = 64
+BWD_MAX_C = 256
+# an image's dA product is split over at most this many pixel ranges of
+# about BWD_IMAGE_SPLIT pixels each
+BWD_IMAGE_SPLITS = 32
+BWD_IMAGE_SPLIT = 2048
+
+
+def _align256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+def bwd_planes(itemsize: int) -> tuple[int, int]:
+    """bf16 planes a value of the backward's products takes: (rounded to the
+    compute dtype, f32).  bf16: (1, 2), a T value exact, an f32 one a hi/lo
+    pair; f32: (3, 3), every value to f32's precision (dtemp's sum cancels
+    too far for hi/lo pairs)."""
+    return (3, 3) if itemsize == 4 else (1, 2)
+
+
+def _round_k(n: int) -> int:
+    return -(-n // BWD_K) * BWD_K
+
+
+def bwd_image_split_pixels(hw: int) -> int:
+    """Pixels a split of an image's dA product: at most BWD_IMAGE_SPLITS
+    splits of about BWD_IMAGE_SPLIT pixels, a multiple of BWD_K."""
+    splits = min(BWD_IMAGE_SPLITS, -(-hw // BWD_IMAGE_SPLIT))
+    return _round_k(-(-hw // splits))
+
+
+def bwd_split_pixels(pixels: int, c: int, sms: int) -> int:
+    """Pixels a split of the weight-gradient products: enough splits that
+    the widest launch (two products of ceil(C/64) x ceil(3C/64) tiles)
+    reaches four blocks a multiprocessor, a multiple of BWD_K."""
+    t = BWD_WGRAD_TILE
+    tiles = 2 * -(-c // t) * -(-3 * c // t)
+    splits = max(1, -(-4 * sms // tiles))
+    return _round_k(-(-pixels // splits))
+
+
+def bwd_workspace_bytes(imgs: int, h: int, w: int, c: int, itemsize: int,
+                        ks: int, ksa: int) -> int:
+    """Bytes of the backward's workspace for a slice of ``imgs`` images
+    (csrc/ln_mdta_bwd.cu Layout, mirrored): the weights' planes (7 C^2
+    values); LN statistics (2 f32 a pixel); pixel-major planes of C
+    channels, ``bwd_planes`` bf16 planes of a value (in the compute dtype,
+    or f32) or 4 bytes (f32 values): LN, dy, u (3C, f32), round(q),
+    round(k) (2C), v (planes), outs, out, outf, d(u_vf) (planes), d_out, dv
+    (f32); per image A (f32, and planes), M and M^T (planes) and alpha
+    (2C); the rows of dA (two a split), of the weight gradients (a split of
+    ``ks`` pixels), of the taps' gradients (a segment of BWD_TAPS_COLS
+    columns of an image row) and of dscale and dbias (a block of
+    BWD_PIXELS pixels); then a region of values dead before dq and dk are
+    formed (u_vf, dvf (f32), vf (planes), d_outf, d_outs), which dq and dk
+    (2C, in the compute dtype) and d(u_qkv) (3C, planes) reuse.  Each piece
+    256-byte aligned."""
+    hw = h * w
+    p = imgs * hw
+    npt, nf = bwd_planes(itemsize)
+    pl, fs, fa = npt * 2 * p * c, nf * 2 * p * c, 4 * p * c
+    cc = imgs * c * c
+    splits_w = -(-p // ks)
+    splits_a = -(-hw // ksa)
+    segs = imgs * h * -(-w // BWD_TAPS_COLS)
+    blocks = -(-p // BWD_PIXELS)
+    sizes = (nf * 2 * 7 * c * c,
+             8 * p, pl, pl, 3 * fa, 2 * pl, fs, pl, pl, pl, fs, pl, fa,
+             4 * cc, *(nf * 2 * cc,) * 3, 4 * imgs * 2 * c,
+             4 * cc * 2 * splits_a, 4 * splits_w * 2 * c * c,
+             4 * splits_w * c * c, 4 * splits_w * 3 * c * c,
+             4 * segs * 9 * c, 4 * segs * 27 * c, 4 * blocks * 2 * c)
+    region = sum(_align256(n) for n in (fa, fa, fs, pl, pl))
+    reuse = _align256(itemsize * p * 2 * c) + _align256(3 * fs)
+    return sum(_align256(n) for n in sizes) + max(region, reuse)
+
+
+class BwdPlan(collections.namedtuple(
+        "BwdPlan", "imgs slices split_pixels image_split_pixels workspace "
+        "launches")):
+    """How the backward walks a batch: images a slice, slices, pixels a
+    weight-gradient split, pixels a split of an image's dA, workspace
+    bytes, launches a call."""
+
+
+def bwd_plan(b: int, h: int, w: int, c: int, itemsize: int,
+             sms: int = 132) -> BwdPlan:
+    """The fewest slices whose workspace stays within BWD_WORKSPACE_BYTES,
+    the batch split evenly between them (an H100 has 132
+    multiprocessors); an image whose own workspace exceeds it is a slice by
+    itself."""
+    ksa = bwd_image_split_pixels(h * w)
+    for most in range(b, 1, -1):
+        ks = bwd_split_pixels(most * h * w, c, sms)
+        if bwd_workspace_bytes(most, h, w, c, itemsize, ks, ksa) <= \
+                BWD_WORKSPACE_BYTES:
+            break
+    else:
+        most = 1
+    slices = -(-b // most)
+    imgs = -(-b // slices)
+    ks = bwd_split_pixels(imgs * h * w, c, sms)
+    return BwdPlan(imgs, slices, ks, ksa,
+                   bwd_workspace_bytes(imgs, h, w, c, itemsize, ks, ksa),
+                   BWD_LAUNCHES * slices + 1)
+
+
+def bwd_row_size(c: int) -> int:
+    """Floats of the weight gradients the kernel writes: dW_pof, the vf
+    half of dW_kv, the vf taps (C, 9), dW_po, dW_qkv, the qkv taps (3C, 9),
+    dscale, dbias."""
+    return 6 * c * c + 38 * c
+
+
 def ln_mdta_bwd(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
                 w_pof, num_heads: int, stats, eps: float = 1e-5):
     """The LN+MDTA backward's CUDA kernels, on CUDA tensors, with ``stats``
     as ``forward_with_stats`` wrote them.  Returns the gradients in the
-    order of ``ln_mdta_bwd_plain``, dx in x.dtype and the rest f32."""
+    order of ``ln_mdta_bwd_plain``, dx in x.dtype and the rest f32.  The
+    kernels read every weight from its parameter, as it is stored (a launch
+    a call writes their bf16 planes, ``bwd_planes``, into the workspace):
+    nothing is transposed or copied here."""
     b, c, h, w = x.shape
     _kernels.check_input("ln_mdta_bwd", x, dy, scale, bias, w_qkv, t_qkv,
                          temp, w_po, w_kv, t_kv, w_pof, stats)
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError("ln_mdta_bwd: dy must match x in shape and dtype")
     cph = _check_heads(c, num_heads)
+    if c > BWD_MAX_C:
+        raise ValueError(f"ln_mdta_bwd: C={c} is wider than {BWD_MAX_C}")
     lib = _kernels.library("ln_mdta_bwd")
     f32 = dict(device=x.device, dtype=torch.float32)
-    wqkv = w_qkv.float().contiguous()
-    taps3 = t_qkv.float().reshape(9, 3 * c).t().contiguous()
-    wvf = w_kv[:, c:].float().contiguous()
-    tvf = t_kv.float().reshape(9, 2 * c).t()[c:].contiguous()
-    wpo = w_po.float().contiguous()
-    ops = (x, dy.contiguous(), torch.empty_like(x),
-           scale.float().contiguous(), bias.float().contiguous(), wqkv, taps3,
-           wqkv.t().contiguous(), wvf, tvf, wpo, wpo.t().contiguous(),
-           w_pof.float().t().contiguous(), wvf.t().contiguous(),
-           temp.float().reshape(-1).contiguous(), stats)
-    (tha, twa), (thb, twb) = bwd_tile_shapes(c)
-    tiles_a = -(-h // tha) * -(-w // twa)
-    tiles_b = -(-h // thb) * -(-w // twb)
-    groups = _kernels.block_rows(b * max(tiles_a, tiles_b), x.device)
-    sizes = (c * c, c * c, 9 * c, c * c, 3 * c * c, 27 * c, c, c)
-    scratch = (torch.empty(b * c * h * w, **f32),            # dv
-               torch.empty(b * tiles_a * c * cph, **f32),    # dA partials
-               torch.zeros(b, device=x.device, dtype=torch.int32),
-               torch.empty(b * (c * cph + 2 * c), **f32),    # M, alphas
-               torch.empty(b * num_heads, **f32),            # dtemp
-               torch.empty(groups * sum(sizes), **f32),      # partial rows
-               torch.empty(sum(sizes), **f32))               # grads
+    plan = bwd_plan(b, h, w, c, x.element_size(),
+                    _kernels.sm_count(x.device))
+    work = torch.empty(plan.workspace, device=x.device, dtype=torch.uint8)
+    grads = torch.empty(bwd_row_size(c), **f32)
+    dtemp = torch.empty(b * num_heads, **f32)
+    dx = torch.empty_like(x)
+    ops = (x, dy.contiguous(), dx, *(t.float().contiguous() for t in (
+        scale, bias, w_qkv, t_qkv, w_po, w_kv, t_kv, w_pof, temp)), stats,
+        work, grads, dtemp)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.uir_ln_mdta_bwd(
-        *(t.data_ptr() for t in ops + scratch), b, c, h, w, cph,
-        int(x.dtype == torch.bfloat16), tha, twa, thb, twb, groups,
-        float(eps), stream)
+        *(t.data_ptr() for t in ops), b, c, h, w, cph,
+        int(x.dtype == torch.bfloat16), plan.imgs, plan.split_pixels,
+        plan.image_split_pixels, float(eps), stream)
     _kernels.check(lib, err, "ln_mdta_bwd")
-    ln_mdta_bwd.launches[(c, h, w)] += 3  # v pass, q/k pass, row sum
-    g_pof, g_kvf, g_tvf, g_po, g_qkv, g_t3, dsc, dbi = scratch[-1].split(sizes)
+    ln_mdta_bwd.launches[(c, h, w)] += plan.launches
+    sizes = (c * c, c * c, 9 * c, c * c, 3 * c * c, 27 * c, c, c)
+    g_pof, g_kvf, g_tvf, g_po, g_qkv, g_t3, dsc, dbi = grads.split(sizes)
     zero = torch.zeros(c, c, **f32)
     dw_kv = torch.cat([zero, g_kvf.view(c, c)], 1)
     dt_kv = torch.cat([zero[:, :9], g_tvf.view(c, 9)]).t().reshape(3, 3,
                                                                    2 * c)
-    dtemp = scratch[4].view(b, num_heads).sum(0).view(1, num_heads, 1, 1)
-    return (ops[2], dsc, dbi, g_qkv.view(c, 3 * c),
-            g_t3.view(3 * c, 9).t().reshape(3, 3, 3 * c), dtemp,
+    return (dx, dsc, dbi, g_qkv.view(c, 3 * c),
+            g_t3.view(3 * c, 9).t().reshape(3, 3, 3 * c),
+            dtemp.view(b, num_heads).sum(0).view(1, num_heads, 1, 1),
             g_po.view(c, c), dw_kv, dt_kv, g_pof.view(c, c))
 
 

@@ -32,15 +32,22 @@ GROUPS = (
     ("ln_gdfn kernel", ("ln_gdfn_fwd_kernel",)),
     ("ln_mdta stats kernel", ("ln_mdta_stats_kernel",)),
     ("ln_mdta apply kernel", ("ln_mdta_apply_kernel",)),
-    ("ln_leff kernel", ("ln_leff_fwd_kernel",)),
-    ("ln_leff_bwd products", ("ln_leff_bwd_gemm_kernel",)),
+    # the staged kernels' products run in csrc/gemm.cuh's gemm_kernel, told
+    # apart by their epilogues; the first group a name matches takes it
+    ("ln_leff products (fc1, fc2)", ("LeffFwdFc1Epi", "LeffFwdFc2Epi")),
+    ("ln_leff prep and g2 window", ("ln_leff_fwd_prep_kernel",
+                                    "ln_leff_fwd_dw_kernel")),
+    ("ln_leff_bwd products", ("Fc1Epi", "Dg2Epi", "WgradEpi", "::DlnEpi")),
     ("ln_leff_bwd depthwise pass", ("ln_leff_bwd_dw_kernel",)),
     ("ln_leff_bwd prep and row sums", ("ln_leff_bwd_prep_kernel",
-                                       "ln_leff_bwd_reduce_kernel")),
+                                       "reduce_rows_kernel<5>")),
     ("window_attn kernel", ("window_attn_fwd_kernel",)),
     ("ln_gdfn_bwd kernel", ("ln_gdfn_bwd_kernel",)),
-    ("ln_mdta_bwd v-pass kernel", ("ln_mdta_bwd_v_kernel",)),
-    ("ln_mdta_bwd q/k-pass kernel", ("ln_mdta_bwd_qk_kernel",)),
+    ("ln_mdta_bwd products", ("MdtaBwd",)),
+    ("ln_mdta_bwd taps passes", ("ln_mdta_bwd_taps",)),
+    ("ln_mdta_bwd prep, A, softmax and row sums", (
+        "ln_mdta_bwd_prep_kernel", "ln_mdta_bwd_attn_kernel",
+        "ln_mdta_bwd_softmax_kernel", "reduce_rows_kernel<7>")),
     ("backward row sums", ("reduce_rows_kernel",)),
     ("fft", ("fft", "FFT", "regular_fft", "vector_fft")),
     ("conv and matmul (cuDNN/cuBLAS)", ("conv", "Conv", "cudnn",
