@@ -10,8 +10,9 @@ AST, trains both, and checks where the time and the launches went.
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
-   tensor-core (HMMA) instructions in the SASS of ln_leff, ln_leff_bwd,
-   ln_gdfn_bwd and ln_mdta_bwd (``cuobjdump -sass``; none fails), TF32 off;
+   tensor-core (HMMA) instructions in the SASS of ln_gdfn, ln_mdta,
+   ln_leff, ln_leff_bwd, ln_gdfn_bwd and ln_mdta_bwd (``cuobjdump -sass``;
+   none fails), TF32 off;
 2. kernels: ln_gdfn and ln_mdta vs their plain versions at the five block
    shapes and the serving batch (and at two shapes with ragged edge tiles),
    in f32 and in bf16, each against the plain version on the same input, so
@@ -22,7 +23,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    calls between CUDA events, printed as the median of the repeats'
    medians with their spread);
 3. model: ``batched_apply`` on a uint8 batch of 8 at 256x256 in bf16 through
-   the kernels, launch counts read from a run that starts at zero, output
+   the kernels, launch counts read from a run that starts at zero (each
+   block's call as ``fused_mdta.fwd_plan`` and ``fused_gdfn.fwd_launches``
+   say: 11 a slice of the batch and one a call; one, or two where the
+   hidden width is split over blocks), output
    checked against the plain-version model in f32 and in bf16, with limits
    shown to lie below what a model without its MDTA or GDFN branches
    produces; images/s;
@@ -34,8 +38,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    the plain versions' autograd backward;
 5. train step: ``make_train_step`` (L1withColor, Adam lr 3e-4, clip 1.0) on
    the full-width model in bf16 at 256x256, batch 16: (a) launches of every
-   kernel in one step, from zero (ln_mdta_bwd: 23 a slice of the batch and
-   one a call, ``fused_mdta.bwd_plan``); (b) every used parameter has a
+   kernel in one step, from zero (the forwards as in phase 3; ln_mdta_bwd:
+   23 a slice of the batch and one a call, ``fused_mdta.bwd_plan``); (b)
+   every used parameter has a
    finite,
    non-zero gradient and the dead ones exact zeros; (c) one step's
    gradients through the kernels vs the plain versions, f32 (TF32 off) and
@@ -84,6 +89,10 @@ import time
 
 SHAPES = ((16, 256, 256, 1), (32, 128, 128, 2), (64, 64, 64, 4),
           (128, 32, 32, 8), (32, 256, 256, 1))   # (C, H, W, heads)
+# SpectralBlocks of the 256x256 model at each shape (encoder, latent,
+# decoder and refinement levels): 24 in all
+BLOCKS = {(16, 256, 256): 2, (32, 128, 128): 6, (64, 64, 64): 6,
+          (128, 32, 32): 4, (32, 256, 256): 6}
 # ragged tiles at the bottom and right edges; checked, not timed
 EDGE_SHAPES = ((32, 20, 36, 2), (128, 12, 20, 8))
 EXPANSION = 2.66
@@ -208,7 +217,8 @@ REPLACES = {
 # libraries whose 1x1 products run on the tensor cores (csrc/mma.cuh,
 # csrc/gemm.cuh), and the count of HMMA instructions found in each one's
 # SASS by this run
-TENSOR_CORE_LIBS = ("ln_leff", "ln_leff_bwd", "ln_gdfn_bwd", "ln_mdta_bwd")
+TENSOR_CORE_LIBS = ("ln_gdfn", "ln_mdta", "ln_leff", "ln_leff_bwd",
+                    "ln_gdfn_bwd", "ln_mdta_bwd")
 HMMA = {}
 GRAD_NAMES = {
     "ln_gdfn": ("dx", "dscale", "dbias", "dw_in", "dw_dw", "dw_out"),
@@ -1028,8 +1038,8 @@ def main(argv=None):
         ln_mdta,
         ln_mdta_plain,
     )
+    from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
     from underwater_image_restoration_torch.ops.fused_gdfn import ln_gdfn_bwd
-    from underwater_image_restoration_torch.ops import fused_mdta
     from underwater_image_restoration_torch.ops.fused_mdta import (
         forward_with_stats,
         ln_mdta_bwd,
@@ -1051,6 +1061,19 @@ def main(argv=None):
                 "ln_gdfn_bwd": ln_gdfn_bwd.launches,
                 "ln_mdta_bwd": ln_mdta_bwd.launches}
 
+    def fwd_launches(batch):
+        """The forwards' launches in one bf16 model forward at ``batch``, by
+        kernel and (C, H, W), as their planners say for BLOCKS."""
+        sms = _kernels.sm_count(torch.device("cuda"))
+        return {
+            "ln_gdfn": {k: n * fused_gdfn.fwd_launches(
+                batch, k[1], k[2], k[0],
+                fused_gdfn.padded_hidden(int(k[0] * EXPANSION)), 2, sms)
+                for k, n in BLOCKS.items()},
+            "ln_mdta": {k: n * fused_mdta.fwd_plan(
+                batch, k[1], k[2], k[0], 2).launches
+                for k, n in BLOCKS.items()}}
+
     # ---- 1. setup
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1070,8 +1093,8 @@ def main(argv=None):
         print(f"  {name}: {info['path']}", flush=True)
         for ln in regs:
             print(f"    ptxas {ln}", flush=True)
-    # the redesigned backward libraries must run their products on the
-    # tensor cores: HMMA instructions in their SASS (cuobjdump -sass)
+    # the redesigned libraries must run their products on the tensor
+    # cores: HMMA instructions in their SASS (cuobjdump -sass)
     for name in TENSOR_CORE_LIBS:
         if name in built:
             HMMA[name] = _kernels.sass_count(name, "HMMA")
@@ -1162,14 +1185,16 @@ def main(argv=None):
     n_mdta = sum(ln_mdta.launches.values())
     launches = {"ln_gdfn": dict(ln_gdfn.launches),
                 "ln_mdta": dict(ln_mdta.launches)}
+    want_fwd = fwd_launches(SERVE_BATCH)
     print(f"launches in one forward: ln_gdfn {n_gdfn}, ln_mdta {n_mdta} "
-          f"(2 a block: stats + apply)", flush=True)
+          f"(as the planners say for {sum(BLOCKS.values())} blocks: "
+          f"{ {k: sum(v.values()) for k, v in want_fwd.items()} })",
+          flush=True)
     for name in launches:
         for (c, h, w), n in sorted(launches[name].items()):
             print(f"  {name} C={c} {h}x{w}: {n}", flush=True)
-    if n_gdfn != 24 or n_mdta != 48:
-        fail(f"expected 24 ln_gdfn and 48 ln_mdta launches, got {n_gdfn} "
-             f"and {n_mdta}")
+    if launches != want_fwd:
+        fail(f"expected forward launches {want_fwd}, got {launches}")
     if tuple(y.shape) != (SERVE_BATCH, SIZE, SIZE, 3):
         fail(f"output shape {tuple(y.shape)}")
     if not bool(torch.isfinite(y).all()):
@@ -1335,24 +1360,24 @@ def main(argv=None):
     torch.cuda.synchronize()
     train_launches = {k: dict(v) for k, v in counters.items()}
     totals = {k: sum(v.values()) for k, v in train_launches.items()}
-    # ln_mdta_bwd: BWD_LAUNCHES a slice of the batch and one a call
-    # (fused_mdta.bwd_plan) for each block's call; the blocks a shape from
-    # the forward's launches
+    # the forwards as in phase 3; ln_gdfn_bwd 2 a block; ln_mdta_bwd
+    # BWD_LAUNCHES a slice of the batch and one a call (fused_mdta.bwd_plan)
     sms = _kernels.sm_count(torch.device("cuda"))
-    want_mdta_bwd = {key: n // 2 * fused_mdta.bwd_plan(
-        TRAIN_BATCH, key[1], key[2], key[0], 2, sms).launches
-        for key, n in train_launches["ln_mdta"].items()}
-    print(f"(a) launches in one train step: {totals} (ln_mdta 2 a block, "
-          f"ln_gdfn_bwd 2, ln_mdta_bwd {fused_mdta.BWD_LAUNCHES} a slice of "
-          "the batch and one a call)", flush=True)
-    for name in ("ln_gdfn_bwd", "ln_mdta_bwd"):
+    want = {**fwd_launches(TRAIN_BATCH),
+            "ln_gdfn_bwd": {k: 2 * n for k, n in BLOCKS.items()},
+            "ln_mdta_bwd": {k: n * fused_mdta.bwd_plan(
+                TRAIN_BATCH, k[1], k[2], k[0], 2, sms).launches
+                for k, n in BLOCKS.items()}}
+    print(f"(a) launches in one train step: {totals} (the forwards as the "
+          f"planners say, ln_gdfn_bwd 2 a block, ln_mdta_bwd "
+          f"{fused_mdta.BWD_LAUNCHES} a slice of the batch and one a call)",
+          flush=True)
+    for name in counters:
         for (c, h, w), n in sorted(train_launches[name].items()):
             print(f"  {name} C={c} {h}x{w}: {n}", flush=True)
-    want = {"ln_gdfn": 24, "ln_mdta": 48, "ln_gdfn_bwd": 48}
-    if {k: totals[k] for k in want} != want \
-            or train_launches["ln_mdta_bwd"] != want_mdta_bwd:
-        fail(f"expected launches {want} and ln_mdta_bwd {want_mdta_bwd} in "
-             f"one train step, got {totals}")
+    if train_launches != want:
+        fail(f"expected launches {want} in one train step, got "
+             f"{train_launches}")
     loss0 = float(out["loss"])
     print(f"train step loss {loss0:.6f} grad_norm "
           f"{float(out['grad_norm']):.6f}", flush=True)

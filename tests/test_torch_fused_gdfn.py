@@ -16,7 +16,11 @@ kernels, run in interpret mode on the CPU.
   torch over the kernel's operand layout with its tensor-core products'
   bf16 hi/lo split of f32 operands, gives the plain backward's gradients
   (at C = 32 in f32 within the card's limit, 1e-4 of max|ref|), and
-  ``unchunk`` undoes the layout; the backward's tile choice.
+  ``unchunk`` undoes the layout; the backward's tile choice;
+- the CUDA forward kernel's algorithm (csrc/ln_gdfn.cu: its tensor-core
+  products over bf16 hi/lo planes, the hidden width split over blocks and
+  the splits' sums added in order) against the plain version, and its tile
+  and split rule.
 """
 import jax
 import jax.numpy as jnp
@@ -249,6 +253,89 @@ def test_backward_tile_shapes():
             assert -(-c // 16) * 16 * th * tw <= fused_gdfn.BWD_ACC
             assert fused_gdfn.bwd_shared_bytes(c, th, tw, itemsize) <= \
                 fused_gdfn.MAX_SHARED
+
+
+def _emulate_forward(x, scale, bias, w_in, w_dw, w_out, splits=1):
+    """csrc/ln_gdfn.cu's arithmetic over its operands (``kernel_operands``):
+    u = W_in^T LN with the weights' bf16 hi/lo planes (and LN's in f32), the
+    taps, o = round(gelu(t1) t2) in chunk order; project_out over each of
+    ``splits`` ranges of the chunks with the same split products, the
+    ranges' sums added in order; y = x + round(acc)."""
+    g = fused_gdfn.GATE_CHUNK
+    ops = fused_gdfn.kernel_operands(w_in, w_dw, w_out)
+    hp, nch = ops.hid_pad, ops.hid_pad // g
+    win = ops.win_h.float() + ops.win_l.float()
+    wo = ops.wo_h.float() + ops.wo_l.float()
+    ln = layer_norm_channels(x, scale, bias).float()
+    u = _product(fused_gdfn.conv1x1, ln, win, True)
+    t = fused_gdfn.dwconv3x3(u, ops.taps.t().reshape(3, 3, 2 * hp))
+    b, _, h, w = t.shape
+    t = t.view(b, nch, 2, g, h, w)
+    o = (F.gelu(t[:, :, 0]) * t[:, :, 1]).reshape(b, hp, h, w)
+    o = o.to(x.dtype).float()
+    acc = None
+    for s in range(splits):
+        m0, m1 = g * (s * nch // splits), g * ((s + 1) * nch // splits)
+        part = _product(fused_gdfn.conv1x1, o[:, m0:m1], wo[m0:m1], True)
+        acc = part if acc is None else acc + part
+    return x + acc.to(x.dtype)
+
+
+@pytest.mark.parametrize("splits", [1, 3], ids=["whole", "3-splits"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_forward_kernel_algorithm(dtype, splits):
+    """The forward kernel's split products and hidden splits at C = 32
+    (hidden 85 in 6 chunks of 16) on 2 x 8 x 12, against the plain version
+    in the card's limits: f32 5e-5 and bf16 2e-2 of max|branch|, weights
+    scaled to unit variance so the branch is O(1)."""
+    x, w = _case((2, 32, 8, 12), seed=4)
+    w = [a * np.float32(f) for a, f in zip(w, (1, 1, 3 ** 0.5, 3 ** 0.5,
+                                               2 * 3 ** 0.5))]
+    args = [torch.from_numpy(a) for a in (x, *w)]
+    args[0] = args[0].to(dtype)
+    got = _emulate_forward(*args, splits=splits)
+    want = fused_gdfn.ln_gdfn_plain(*args)
+    branch = float((want.float() - args[0].float()).abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    assert branch > 1
+    assert err <= (5e-5 if dtype == torch.float32 else 2e-2) * branch
+
+
+def test_forward_tile_shapes_and_splits():
+    """The forward's tile at every Spectral width, both dtypes: its
+    project_out accumulators fit the registers (C_pad x pixels <= FWD_ACC)
+    and its shared memory a block, two blocks a multiprocessor in bf16; the
+    hidden width split over blocks only where a batch leaves fewer tiles
+    than FWD_BLOCKS_PER_SM a multiprocessor (C = 128 at 32x32, serve batch
+    8: 2 splits), at most one a chunk; the launches as the splits say (the
+    weights' operands, the tiles, and the splits' sum where split)."""
+    for itemsize in (2, 4):
+        tiles = [fused_gdfn.fwd_tile_shape(c, itemsize)
+                 for c in (16, 32, 64, 128)]
+        assert tiles == [(16, 16), (16, 16), (8, 16), (8, 8)]
+        for c, (th, tw) in zip((16, 32, 64, 128), tiles):
+            assert th * tw % 16 == 0
+            assert -(-c // 16) * 16 * th * tw <= fused_gdfn.FWD_ACC
+            smem = fused_gdfn.fwd_shared_bytes(c, th, tw, itemsize)
+            assert smem <= fused_gdfn.MAX_SHARED
+            if itemsize == 2:
+                assert 2 * smem <= 228 * 1024
+    want = {8: [1, 1, 1, 2, 1], 16: [1, 1, 1, 1, 1]}
+    for batch, splits in want.items():
+        got = []
+        for c, side in ((16, 256), (32, 128), (64, 64), (128, 32),
+                        (32, 256)):
+            th, tw = fused_gdfn.fwd_tile_shape(c, 2)
+            hp = fused_gdfn.padded_hidden(int(c * 2.66))
+            n = fused_gdfn.fwd_splits(batch * -(-side // th) * -(-side // tw),
+                                      hp)
+            assert 1 <= n <= hp // fused_gdfn.GATE_CHUNK
+            assert fused_gdfn.fwd_launches(batch, side, side, c, hp, 2) == \
+                (2 if n == 1 else 3)
+            got.append(n)
+        assert got == splits
+    assert fused_gdfn.fwd_splits(1, 48) == 3  # one tile: a block a chunk
 
 
 def test_backward_kernel_refuses_cpu_tensor():

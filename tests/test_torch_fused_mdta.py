@@ -5,9 +5,12 @@ kernels, run in interpret mode on the CPU, with 2 heads.
   ``fused_attn_banded.fused_ln_mdta_banded`` and ``fused_attn.fused_ln_mdta``
   at (1, 8, 16, 128), and vs the composed and banded kernels at (1, 8, 8, 64)
   (fused_attn takes only W % 128 == 0);
-- the CUDA kernels' two-launch algorithm (per-head gram and row norms, then
-  A rebuilt from them and applied) over their own operands gives the same
-  function.
+- the CUDA forward's staged algorithm (csrc/ln_mdta.cu): the batch in image
+  slices, every product as the tensor cores take it (operands as bf16
+  planes), each image's gram in rows over pixel ranges and its Sq, Sk in
+  rows an image row, summed in order, A per image: the plain version's
+  output in f32 and bf16, and the plain version's gram and sums of squares
+  as the stats the backward reads;
 - ``ln_mdta_bwd_plain`` (autograd through the plain version) vs ``jax.vjp``
   of the composed (TPU kernel row 4), banded (row 6) and shift-MAC (row 10)
   kernels at the forward test's shapes: all ten gradients, dtemp included,
@@ -21,9 +24,10 @@ kernels, run in interpret mode on the CPU, with 2 heads.
   the weight gradients in rows over pixel ranges, the taps' gradients in
   rows an image row, every row summed in order: the plain backward's
   gradients in f32 and bf16;
-- the backward's planner (slices within BWD_WORKSPACE_BYTES at every
-  SpectralTransformer@256 shape, train batch 16 and serve batch 8); its
-  wrapper refuses a CPU tensor.
+- the backward's and the forward's planners (slices within
+  BWD_WORKSPACE_BYTES and FWD_WORKSPACE_BYTES at every
+  SpectralTransformer@256 shape, train batch 16 and serve batch 8); the
+  backward's wrapper refuses a CPU tensor.
 """
 import jax
 import jax.numpy as jnp
@@ -91,44 +95,6 @@ def test_cpu_tensor_takes_plain_version():
     got = _port(fused_mdta.ln_mdta, x, w)
     assert torch.equal(got, _port(fused_mdta.ln_mdta_plain, x, w))
     assert sum(fused_mdta.ln_mdta.launches.values()) == before
-
-
-def _emulate_kernels(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
-                     w_pof, nh):
-    """The CUDA kernels' algorithm over their own operands.  Stats launch:
-    q, k as 1x1 then taps, per-head gram G and row sums of squares.  Apply
-    launch: A = softmax(temp * G * rq * rk^T) with rq = rsqrt(max(Sq,
-    1e-24)), then v, A v, project_out, vf, A vf, project_outf, residual."""
-    b, c, h, w = x.shape
-    cph = c // nh
-    wqk, tqk, wv, tv, wvf, tvf = fused_mdta.kernel_weights(w_qkv, t_qkv,
-                                                           w_kv, t_kv)
-
-    def chain(t, w1, taps):
-        return fused_mdta.dwconv3x3(fused_mdta.conv1x1(t, w1),
-                                    taps.t().reshape(3, 3, -1))
-
-    def heads(t):
-        return t.reshape(b, nh, cph, h * w)
-
-    ln = layer_norm_channels(x, scale, bias)
-    qk = chain(ln, wqk, tqk)
-    qh, kh = heads(qk[:, :c]), heads(qk[:, c:])
-    g = torch.einsum("bhil,bhjl->bhij", qh, kh)
-    rq = torch.rsqrt(torch.clamp_min(qh.square().sum(-1), 1e-24))
-    rk = torch.rsqrt(torch.clamp_min(kh.square().sum(-1), 1e-24))
-    a = torch.softmax(g * rq[..., :, None] * rk[..., None, :]
-                      * temp.view(1, nh, 1, 1), dim=-1)
-    outs = torch.einsum("bhij,bhjl->bhil", a, heads(chain(ln, wv, tv)))
-    out = fused_mdta.conv1x1(outs.reshape(b, c, h, w), w_po)
-    outf = torch.einsum("bhij,bhjl->bhil", a, heads(chain(out, wvf, tvf)))
-    return x + fused_mdta.conv1x1(outf.reshape(b, c, h, w), w_pof)
-
-
-def test_kernel_algorithm():
-    x, w = _case((2, C, 8, 12), seed=5)
-    _close(_port(_emulate_kernels, x, w).numpy(),
-           _port(fused_mdta.ln_mdta_plain, x, w).numpy())
 
 
 def _dy(shape, seed=9):
@@ -235,6 +201,121 @@ def _tap_rows(d, u, n, h, w):
     dd = d.reshape(n, h, w, ch).permute(0, 3, 1, 2)
     rows = torch.einsum("bchw,bckhw->bhck", dd, cols)
     return list(rows.reshape(n * h, ch * 9))
+
+
+def _emulate_forward(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
+                     w_pof, nh, imgs=1, ksa=32, eps=1e-5):
+    """csrc/ln_mdta.cu's staged forward in torch: the batch in slices of
+    ``imgs`` images, pixel-major values; per slice LN (rounded), u = LN
+    W_qkv, round(q), round(k) and v by the taps; each image's gram in rows
+    over ``ksa``-pixel ranges summed in order, Sq and Sk in rows an image
+    row (a segment of the kernel's taps pass at W <= BWD_TAPS_COLS) summed
+    in order; A = softmax(temp G rq rk^T); outs, out, u_vf, vf, outf; y = x
+    + round(outf W_pof); every product with the kernel's operand planes
+    (``bwd_planes``) and rounding points.  Returns y and the stats [B][C cph
+    + 2C] (gram within the heads, Sq, Sk) the backward reads."""
+    dt = x.dtype
+    sp, nf = fused_mdta.bwd_planes(x.element_size())
+    b, c, h, w = x.shape
+    cph, hw = c // nh, h * w
+    taps3 = t_qkv.reshape(9, 3 * c).t()
+    wkvf, tvf = w_kv[:, c:], t_kv.reshape(9, 2 * c).t()[c:]
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    y, stats = torch.empty_like(x), []
+    for b0 in range(0, b, imgs):
+        xs = x[b0:b0 + imgs].float()
+        n, p = xs.shape[0], xs.shape[0] * hw
+        xp = xs.permute(0, 2, 3, 1).reshape(p, c)
+        mean = xp.mean(1, keepdim=True)
+        rstd = torch.rsqrt((xp - mean).square().mean(1, keepdim=True) + eps)
+        ln = rnd((xp - mean) * rstd * scale + bias)
+        qkv = _taps_pm(_mm(ln, w_qkv, sp, nf), taps3, n, h, w)
+        q, k, v = rnd(qkv[:, :c]), rnd(qkv[:, c:2 * c]), qkv[:, 2 * c:]
+        abd = []
+        for i in range(n):
+            qi, ki = q[i * hw:(i + 1) * hw], k[i * hw:(i + 1) * hw]
+            g = _in_order([_mm(qi[r:r + ksa].t(), ki[r:r + ksa], sp, sp)
+                           for r in range(0, hw, ksa)])
+            gh = torch.stack([g[j * cph:(j + 1) * cph, j * cph:(j + 1) * cph]
+                              for j in range(nh)])
+            sq, sk = (_in_order(list(t.square().reshape(h, w, c).sum(1)))
+                      for t in (qi, ki))
+            stats.append(torch.cat([gh.reshape(c, cph).reshape(-1), sq, sk]))
+            rq = torch.rsqrt(torch.clamp_min(sq, 1e-24)).reshape(nh, cph)
+            rk = torch.rsqrt(torch.clamp_min(sk, 1e-24)).reshape(nh, cph)
+            a = torch.softmax(gh * rq[..., None] * rk[:, None, :]
+                              * temp.reshape(nh, 1, 1), -1)
+            abd.append(torch.block_diag(*a))
+
+        def att(t):  # A t per image, t [pixel][channel] f32 planes
+            return torch.cat([_mm(t[i * hw:(i + 1) * hw], abd[i].t(), nf, nf)
+                              for i in range(n)])
+
+        outs = rnd(att(v))
+        out = rnd(_mm(outs, w_po, sp, nf))
+        vf = _taps_pm(_mm(out, wkvf, sp, nf), tvf, n, h, w)
+        outf = rnd(att(vf))
+        yp = xp + rnd(_mm(outf, w_pof, sp, nf))
+        y[b0:b0 + n] = yp.reshape(n, h, w, c).permute(0, 3, 1, 2).to(dt)
+    return y, torch.cat(stats)
+
+
+def _plain_stats(x, scale, bias, w_qkv, t_qkv, nh, eps=1e-5):
+    """Each image's gram within the heads, Sq and Sk of round(q) and
+    round(k), from the plain version's own operations."""
+    b, c, h, w = x.shape
+    cph = c // nh
+    ln = layer_norm_channels(x, scale, bias, eps).float()
+    qk = fused_mdta.dwconv3x3(fused_mdta.conv1x1(ln, w_qkv[:, :2 * c]),
+                              t_qkv[:, :, :2 * c]).to(x.dtype).float()
+    q = qk[:, :c].reshape(b, nh, cph, h * w)
+    k = qk[:, c:].reshape(b, nh, cph, h * w)
+    g = torch.einsum("bhil,bhjl->bhij", q, k).reshape(b, c * cph)
+    return torch.cat([g, q.square().sum(-1).reshape(b, c),
+                      k.square().sum(-1).reshape(b, c)], 1).reshape(-1)
+
+
+def _strong(w):
+    """_case's weights scaled so that the branch y - x is O(1) beside x, as
+    the card's checks draw them: unit-variance 1x1s and taps, temperatures
+    of 4-16 (a peaked softmax) and project_outf times 4.  (With _case's own,
+    the branch is about 0.02: a bf16 ulp of y.)"""
+    w = list(w)
+    for i in (2, 3, 5, 6, 7, 8):
+        w[i] = w[i] * np.float32(3 ** 0.5)
+    w[4], w[8] = 8 * w[4], 4 * w[8]
+    return w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_algorithm(dtype):
+    """Three images in two slices, 16 channels in two heads, 8 x 12 (96
+    pixels: gram ranges of 32); y vs the plain version, f32 within TOL of
+    max(1, max|ref|), bf16 within 2e-2 of max|branch| (the card's limit:
+    a sum on the other side of a rounding boundary moves a bf16 ulp); the
+    stats vs the plain version's gram and sums of squares."""
+    x, w = _case((3, 16, 8, 12), seed=5)
+    args = [torch.from_numpy(a) for a in (x, *_strong(w))]
+    args[0] = args[0].to(dtype)
+    got, stats = _emulate_forward(*args, NH, imgs=2)
+    want = fused_mdta.ln_mdta_plain(*args, NH)
+    ref = _plain_stats(args[0], *args[1:5], NH)
+    assert stats.shape == (3 * (16 * 8 + 32),)
+    if dtype == torch.float32:
+        _close(stats.numpy(), ref.numpy())
+        _close(got.numpy(), want.numpy())
+    else:
+        # a q or k value on the other side of a rounding boundary moves its
+        # gram entries by a bf16 ulp of it
+        np.testing.assert_allclose(stats.numpy(), ref.numpy(), rtol=0,
+                                   atol=2e-2 * float(ref.abs().max()))
+        branch = (want.float() - args[0].float()).abs().max()
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 2e-2 * branch
 
 
 def _emulate_backward(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
@@ -433,6 +514,36 @@ def test_backward_plan_within_budget(batch, itemsize):
     big = fused_mdta.bwd_plan(2, 1024, 1024, 32, 2)
     assert big.imgs == 1 and big.slices == 2
     assert big.workspace > fused_mdta.BWD_WORKSPACE_BYTES
+
+
+@pytest.mark.parametrize("batch", [8, 16], ids=["serve-b8", "train-b16"])
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+def test_forward_plan_within_budget(batch, itemsize):
+    """The forward's planner at every SpectralTransformer@256 block shape:
+    the workspace within FWD_WORKSPACE_BYTES and equal to its mirror, the
+    fewest slices that fit, the batch covered evenly, at most
+    BWD_IMAGE_SPLITS gram rows an image on the staged k depth, the launches
+    FWD_LAUNCHES a slice and one a call; an image wider than the budget is
+    a slice by itself."""
+    for c, side in ((16, 256), (32, 128), (64, 64), (128, 32), (32, 256)):
+        plan = fused_mdta.fwd_plan(batch, side, side, c, itemsize)
+        assert plan.workspace <= fused_mdta.FWD_WORKSPACE_BYTES
+        assert plan.workspace == fused_mdta.fwd_workspace_bytes(
+            plan.imgs, side, side, c, itemsize, plan.image_split_pixels)
+        assert plan.imgs * plan.slices >= batch > plan.imgs * (
+            plan.slices - 1)
+        assert plan.launches == fused_mdta.FWD_LAUNCHES * plan.slices + 1
+        assert plan.image_split_pixels % fused_mdta.BWD_K == 0
+        assert -(-side * side // plan.image_split_pixels) <= \
+            fused_mdta.BWD_IMAGE_SPLITS
+        if plan.slices > 1:
+            most = -(-batch // (plan.slices - 1))
+            assert fused_mdta.fwd_workspace_bytes(
+                most, side, side, c, itemsize,
+                plan.image_split_pixels) > fused_mdta.FWD_WORKSPACE_BYTES
+    big = fused_mdta.fwd_plan(2, 1024, 1024, 32, 2)
+    assert big.imgs == 1 and big.slices == 2
+    assert big.workspace > fused_mdta.FWD_WORKSPACE_BYTES
 
 
 def test_backward_kernel_refuses_cpu_tensor():

@@ -17,6 +17,11 @@
   calls bit-equal, a refused launch raising, the LN+LeFF result carrying a
   ``grad_fn`` whose gradients reach every LeFF parameter, and a small AST's
   train-mode backward reaching every parameter through the kernels;
+- the LN+MDTA and LN+GDFN forwards at ragged shapes and every tile shape,
+  the LN+MDTA forward over forced slices (bit-equal to one slice), its
+  stats against the plain version's gram and driving the backward, the
+  LN+GDFN forward with its hidden width split over blocks, two bf16 calls
+  bit-equal;
 - the staged designs' plans: the LN+LeFF forward and the LN+MDTA backward
   on both sides of their thresholds (one slice and several, forced by a
   smaller workspace budget; one and several dA ranges an image; 8, 16 and
@@ -73,26 +78,164 @@ def _weights(kind, c, nh, rng):
                  n(c, c, 2 * c), n(9, 3, 3, 2 * c), 4 * n(c, c, c))
 
 
+FWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
+
+
+def _fwd_case(kind, shape, nh, dtype, cuda, seed=7):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    w = [torch.from_numpy(a).to(cuda)
+         for a in _weights(kind, shape[1], nh, rng)]
+    return x.to(cuda, dtype), w
+
+
+def _fwd(kind, x, w, nh, plain=False):
+    if kind == "gdfn":
+        fn = fused_gdfn.ln_gdfn_plain if plain else fused_gdfn.ln_gdfn
+        return fn(x, *w)
+    fn = fused_mdta.ln_mdta_plain if plain else fused_mdta.ln_mdta
+    return fn(x, *w, nh)
+
+
+def _branch_err(got, want, x):
+    """max abs error over max|branch| (y - x)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err / (want.float() - x.float()).abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["gdfn", "mdta"])
-@pytest.mark.parametrize("dtype, tol", [(torch.float32, 5e-5),
-                                        (torch.bfloat16, 2e-2)])
-def test_kernel_matches_plain(cuda, kind, dtype, tol):
-    rng = np.random.default_rng(7)
-    c, nh = 32, 2
-    x = torch.from_numpy(
-        rng.standard_normal((2, c, 20, 36)).astype(np.float32)).to(cuda)
-    x = x.to(dtype)
-    w = [torch.from_numpy(a).to(cuda) for a in _weights(kind, c, nh, rng)]
-    if kind == "gdfn":
-        got = fused_gdfn.ln_gdfn(x, *w)
-        want = fused_gdfn.ln_gdfn_plain(x, *w)
-    else:
-        got = fused_mdta.ln_mdta(x, *w, nh)
-        want = fused_mdta.ln_mdta_plain(x, *w, nh)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape, nh", [
+    ((2, 32, 20, 36), 2), ((3, 16, 21, 70), 2), ((2, 64, 24, 40), 2),
+    ((2, 128, 12, 20), 8)],
+    ids=["C32-20x36", "C16-21x70", "C64-cph32", "C128-12x20"])
+def test_kernel_matches_plain(cuda, kind, dtype, shape, nh):
+    """Ragged tiles at the bottom and right edges at every tile shape, 8, 16
+    and 32 channels a head, a 70-pixel row (two segments of the MDTA taps
+    passes) and a gram over more than one pixel range (21 x 70)."""
+    x, w = _fwd_case(kind, shape, nh, dtype, cuda)
+    got, want = _fwd(kind, x, w, nh), _fwd(kind, x, w, nh, plain=True)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= tol * (want.float() - x.float()).abs().max().item()
+    assert _branch_err(got, want, x) <= FWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mdta_forward_slices(cuda, dtype, monkeypatch):
+    """The staged forward over three slices of one image (a budget of one
+    image's workspace) gives the bits of one slice of three, y and stats:
+    no reduction crosses the slices; both match the plain version;
+    FWD_LAUNCHES a slice and one a call."""
+    b, c, h, w_, nh = 3, 32, 12, 20, 2
+    x, w = _fwd_case("mdta", (b, c, h, w_), nh, dtype, cuda, seed=41)
+    one = fused_mdta.fwd_plan(b, h, w_, c, x.element_size())
+    assert one.slices == 1
+    whole, st_whole = fused_mdta.forward_with_stats(x, *w, nh)
+    monkeypatch.setattr(fused_mdta, "FWD_WORKSPACE_BYTES",
+                        fused_mdta.fwd_workspace_bytes(
+                            1, h, w_, c, x.element_size(),
+                            one.image_split_pixels))
+    assert fused_mdta.fwd_plan(b, h, w_, c, x.element_size()).slices == 3
+    fused_mdta.ln_mdta.launches.clear()
+    sliced, st_sliced = fused_mdta.forward_with_stats(x, *w, nh)
+    want = fused_mdta.ln_mdta_plain(x, *w, nh)
+    torch.cuda.synchronize()
+    assert fused_mdta.ln_mdta.launches[(c, h, w_)] == \
+        3 * fused_mdta.FWD_LAUNCHES + 1
+    assert torch.equal(sliced, whole) and torch.equal(st_sliced, st_whole)
+    assert _branch_err(sliced, want, x) <= FWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 2, 7])
+def test_gdfn_forward_splits(cuda, dtype, splits, monkeypatch):
+    """The forward with the hidden width (85, padded to 96: 6 chunks) split
+    over 1, 2 and 7 (refused: more than one a chunk) blocks a tile, against
+    the plain version; two launches unsplit (the weights' operands, the
+    tiles), three split (and the splits' sum)."""
+    x, w = _fwd_case("gdfn", (2, 32, 20, 36), 1, dtype, cuda, seed=43)
+    monkeypatch.setattr(fused_gdfn, "fwd_splits", lambda *a: splits)
+    fused_gdfn.ln_gdfn.launches.clear()
+    if splits > 6:
+        with pytest.raises(RuntimeError, match="ln_gdfn"):
+            fused_gdfn.ln_gdfn(x, *w)
+        return
+    got = fused_gdfn.ln_gdfn(x, *w)
+    want = fused_gdfn.ln_gdfn_plain(x, *w)
+    torch.cuda.synchronize()
+    assert fused_gdfn.ln_gdfn.launches[(32, 20, 36)] == (
+        2 if splits == 1 else 3)
+    assert _branch_err(got, want, x) <= FWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_gdfn_weight_operands(cuda):
+    """The forward's weight operands, made on the card, are kernel_operands'
+    (the chunk layout, the zero-padded hidden width, the bf16 hi/lo planes)
+    bit for bit, at hidden widths 42 and 340, from contiguous weights and
+    from transposed views (as the model passes its conv weights: each
+    copy must live until the kernel has read it)."""
+    for c in (16, 128):
+        x, w = _fwd_case("gdfn", (1, c, 8, 8), 1, torch.float32, cuda)
+        views = [t.t().contiguous().t() if t.dim() == 2 else t for t in w]
+        assert not views[2].is_contiguous()
+        want = fused_gdfn.kernel_operands(*w[2:])
+        for ws in (w, views):
+            _, got = fused_gdfn._forward_cuda(x, *ws, 1e-5)
+            assert got.hid_pad == want.hid_pad
+            for a, b in zip(got[:5], want[:5]):
+                assert torch.equal(a.reshape(-1), b.reshape(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gdfn", "mdta"])
+def test_forward_bit_equal(cuda, kind):
+    """Two bf16 forward calls give the same bits (and, for LN+MDTA, the
+    same stats): every sum in a fixed order, no float atomics, no ticket."""
+    x, w = _fwd_case(kind, (3, 64, 21, 70), 4, torch.bfloat16, cuda, 47)
+    if kind == "gdfn":
+        a, b = fused_gdfn.ln_gdfn(x, *w), fused_gdfn.ln_gdfn(x, *w)
+        assert torch.equal(a, b)
+    else:
+        a, b = (fused_mdta.forward_with_stats(x, *w, 4) for _ in range(2))
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mdta_forward_stats(cuda, dtype):
+    """The forward's stats (each image's gram within the heads, Sq and Sk
+    of round(q) and round(k)) against the plain version's own q and k, and
+    the backward fed them against autograd through the plain version,
+    within the backward's limits."""
+    b, c, h, w_, nh = 2, 32, 48, 64, 2  # 3072 pixels: two gram ranges
+    x, w = _fwd_case("mdta", (b, c, h, w_), nh, dtype, cuda, seed=53)
+    _, stats = fused_mdta.forward_with_stats(x, *w, nh)
+    cph = c // nh
+    ln = fused_mdta.layer_norm_channels(x, w[0], w[1]).float()
+    qk = fused_mdta.dwconv3x3(fused_mdta.conv1x1(ln, w[2][:, :2 * c]),
+                              w[3][:, :, :2 * c]).to(dtype).float()
+    q = qk[:, :c].reshape(b, nh, cph, h * w_)
+    k = qk[:, c:].reshape(b, nh, cph, h * w_)
+    ref = torch.cat([torch.einsum("bhil,bhjl->bhij", q, k).reshape(b, -1),
+                     q.square().sum(-1).reshape(b, c),
+                     k.square().sum(-1).reshape(b, c)], 1).reshape(-1)
+    torch.cuda.synchronize()
+    # f32: sums in another order; bf16: a q or k value on the other side of
+    # a rounding boundary moves its entries by a bf16 ulp of it
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (stats - ref).abs().max() <= tol * ref.abs().max()
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(5))
+    dy = dy.to(cuda, dtype)
+    got = fused_mdta.ln_mdta_bwd(x, dy, *w, nh, stats=stats)
+    want = fused_mdta.ln_mdta_bwd_plain(x, dy, *w, nh)
+    torch.cuda.synchronize()
+    for i, (g, r) in enumerate(zip(got, want)):
+        scale = r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * scale, (i, err, scale)
 
 
 @pytest.mark.cuda
@@ -152,14 +295,33 @@ def test_backward_kernel_matches_plain(cuda, kind, dtype, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["leff", "gdfn", "mdta", "leff-fwd"])
+@pytest.mark.parametrize("kind", ["leff", "gdfn", "mdta", "leff-fwd",
+                                  "gdfn-fwd", "mdta-fwd"])
 def test_backward_refuses_a_bad_launch(cuda, kind, monkeypatch):
-    """A launch the kernel refuses (here: a weight-gradient split that is
-    not a multiple of the staged k depth, a tile too wide for the
-    tensor-core steps, or a hidden width that is no whole number of k16
-    steps) raises instead of leaving its outputs unwritten."""
+    """A launch the kernel refuses (here: a weight-gradient split or a gram
+    range that is not a multiple of the staged k depth, a tile too wide for
+    the tensor-core steps or not a whole number of them, or a hidden width
+    that is no whole number of k16 steps) raises instead of leaving its
+    outputs unwritten."""
     rng = np.random.default_rng(23)
-    if kind == "mdta":
+    if kind == "mdta-fwd":
+        x = torch.from_numpy(rng.standard_normal((1, 16, 8, 8)).astype(
+            np.float32)).to(cuda)
+        w = [torch.from_numpy(a).to(cuda)
+             for a in _weights("mdta", 16, 2, rng)]
+        monkeypatch.setattr(fused_mdta, "bwd_image_split_pixels",
+                            lambda *a: fused_mdta.BWD_K + 1)
+        with pytest.raises(RuntimeError, match="ln_mdta"):
+            fused_mdta.ln_mdta(x, *w, 2)
+    elif kind == "gdfn-fwd":
+        x = torch.from_numpy(rng.standard_normal((1, 16, 8, 8)).astype(
+            np.float32)).to(cuda)
+        w = [torch.from_numpy(a).to(cuda)
+             for a in _weights("gdfn", 16, 1, rng)]
+        monkeypatch.setattr(fused_gdfn, "fwd_tile_shape", lambda *a: (4, 6))
+        with pytest.raises(RuntimeError, match="ln_gdfn"):
+            fused_gdfn.ln_gdfn(x, *w)
+    elif kind == "mdta":
         x = torch.from_numpy(rng.standard_normal((1, 16, 8, 8)).astype(
             np.float32)).to(cuda)
         w = [torch.from_numpy(a).to(cuda)
@@ -227,11 +389,17 @@ def test_model_gradients_reach_every_parameter(cuda):
     model(x).float().square().mean().backward()
     torch.cuda.synchronize()
     assert sum(fused_gdfn.ln_gdfn_bwd.launches.values()) == 2 * 8
-    # a block's backward: BWD_LAUNCHES a slice of the batch (bwd_plan)
-    assert sum(fused_mdta.ln_mdta.launches.values()) == 2 * 8
+    # a block's forward and backward: FWD_LAUNCHES and BWD_LAUNCHES a slice
+    # of the batch and one a call (fwd_plan, bwd_plan)
+    blocks = {}
+    for (c, h, w), n in fused_mdta.ln_mdta.launches.items():
+        per = fused_mdta.fwd_plan(2, h, w, c, 4).launches
+        assert n % per == 0
+        blocks[(c, h, w)] = n // per
+    assert sum(blocks.values()) == 8
     assert fused_mdta.ln_mdta_bwd.launches == {
-        (c, h, w): n // 2 * fused_mdta.bwd_plan(2, h, w, c, 4).launches
-        for (c, h, w), n in fused_mdta.ln_mdta.launches.items()}
+        (c, h, w): n * fused_mdta.bwd_plan(2, h, w, c, 4).launches
+        for (c, h, w), n in blocks.items()}
     for name, p in model.named_parameters():
         if "q1X1_1" in name:
             assert p.grad is None, name

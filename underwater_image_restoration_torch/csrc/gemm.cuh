@@ -1,8 +1,9 @@
 // The port's tensor-core product launch, shared by the staged kernels
-// (csrc/ln_leff.cu, csrc/ln_leff_bwd.cu, csrc/ln_mdta_bwd.cu): a block tile
-// of A B on mma.sync (mma.cuh) over operand tiles staged by cp.async, handed
-// as f32 to an epilogue functor; and the ordered sum of the
-// rows that split products and per-block shares leave behind.
+// (csrc/ln_mdta.cu, csrc/ln_mdta_bwd.cu, csrc/ln_leff.cu,
+// csrc/ln_leff_bwd.cu): a block tile of A B on mma.sync (mma.cuh) over
+// operand tiles staged by cp.async, handed as f32 to an epilogue functor;
+// and the ordered sum of the rows that split products and per-block shares
+// leave behind.
 //
 // Operands.  An Opnd is a matrix in device memory as bf16 planes: hi and,
 // for an f32 operand, lo (and mid; mma.cuh's split), rows ld elements

@@ -19,7 +19,9 @@
 //
 // Design.  LN is per pixel, so dx on a TH x TW tile is local: it needs dt on
 // a 1-pixel halo (the transposed 3x3), hence t1, t2 and W_out dy there, hence
-// LN(x) on a 2-pixel halo.  A block walks over tiles (tile = blockIdx.x,
+// LN(x) on a 2-pixel halo.  The tile's forward half (LN planes, the weights'
+// staging, u) is the forward's own (csrc/gdfn.cuh, shared with
+// csrc/ln_gdfn.cu).  A block walks over tiles (tile = blockIdx.x,
 // blockIdx.x + gridDim.x, ...), and per tile:
 //   1. LN of the 2-pixel-halo patch (x staged through shared memory by
 //      coalesced loads, statistics a pixel; the tile's kept) and dy on the
@@ -58,40 +60,26 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "grad.cuh"
-#include "mma.cuh"
+#include "gdfn.cuh"
 
 namespace {
 
 namespace mm = uir::mma;
+namespace gd = uir::gdfn;
 using bf16 = __nv_bfloat16;
+using gd::G;
+using gd::G2;
+using gd::al16;
+using gd::gelu_both;
+using gd::up16;
 using uir::from_f;
 using uir::round_to;
 using uir::to_f;
 
 constexpr int kThreads = 512;
 constexpr int NWARP = kThreads / 32;
-// gate pairs a chunk (ops/fused_gdfn.py GATE_CHUNK; a launch with another
-// value is refused, as in the forward)
-constexpr int G = 16;
-constexpr int G2 = 2 * G;
 // dLN accumulator tiles (16 x 16) a warp: C_pad x P <= 8192
 constexpr int ACC_TILES = 2;
-// global loads a thread keeps in flight while staging a patch
-constexpr int BATCH = 8;
-
-// gelu(t) and d gelu / dt, exact (erf) form: t Phi(t) and Phi(t) + t phi(t),
-// from one erf
-__device__ __forceinline__ void gelu_both(float t, float& g, float& gp) {
-  const float e = erff(t * 0.70710678118654752f);
-  g = 0.5f * t * (1.f + e);
-  gp = 0.5f * (1.f + e) + t * 0.39894228040143268f * expf(-0.5f * t * t);
-}
-
-__host__ __device__ constexpr int up16(int n) { return (n + 15) / 16 * 16; }
-__host__ __device__ constexpr size_t al16(size_t n) {
-  return (n + 15) / 16 * 16;
-}
 
 // Shared-memory layout of one block (ops/fused_gdfn.py bwd_shared_bytes
 // mirrors it).  NA: planes of LN, dy and o (2 in f32).  Planes are
@@ -134,91 +122,6 @@ struct Smem {
     total = stat + al16(4 * 2 * (size_t)P);
   }
 };
-
-// x's raw bits in the LN planes: bf16 in plane 0; f32's upper 16 bits in
-// plane 0 and lower 16 in plane 1 (exact, unlike the hi/lo split).
-template <int NA>
-__device__ __forceinline__ void put_bits(bf16* p, size_t lo, size_t i,
-                                         float v) {
-  const uint32_t u = __float_as_uint(v);
-  reinterpret_cast<uint16_t*>(p)[i] = (uint16_t)(u >> 16);
-  reinterpret_cast<uint16_t*>(p)[i + lo] = (uint16_t)(u & 0xffffu);
-}
-template <>
-__device__ __forceinline__ void put_bits<1>(bf16* p, size_t, size_t i,
-                                            float v) {
-  p[i] = __float2bfloat16(v);  // v is a bf16 value: exact
-}
-template <int NA>
-__device__ __forceinline__ float get_bits(const bf16* p, size_t lo,
-                                          size_t i) {
-  const auto* u = reinterpret_cast<const uint16_t*>(p);
-  return __uint_as_float(((uint32_t)u[i] << 16) | u[i + lo]);
-}
-template <>
-__device__ __forceinline__ float get_bits<1>(const bf16* p, size_t,
-                                             size_t i) {
-  return __bfloat162float(p[i]);
-}
-
-// The tile's LN patch (2-pixel halo) into NA bf16 planes: x staged in the
-// planes as raw bits (coalesced loads, zero outside the image), then a
-// thread a pixel takes the statistics from shared memory (f32, as common.cuh
-// ln_patch: channels in order) and writes round(LN x) over its own column.
-// Keeps the tile pixels' mean and rstd in stat [2][P].  Ends synchronized.
-template <typename T, int NA>
-__device__ void ln_planes(const T* __restrict__ xb, bf16* ln, size_t lo,
-                          int LS, const float* __restrict__ scale,
-                          const float* __restrict__ bias, float* stat, int C,
-                          int H, int W, int r0, int c0, int TH, int TW,
-                          float eps) {
-  const int PW = TW + 4, NPQ = PW * (TH + 4), P = TH * TW;
-  const size_t plane = (size_t)H * W;
-  // BATCH independent loads, then their stores (a shared store between two
-  // global loads would serialize them)
-  for (int i0 = threadIdx.x; i0 < C * NPQ; i0 += BATCH * blockDim.x) {
-    float v[BATCH];
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      const int i = i0 + u * blockDim.x, ch = i / NPQ, q = i % NPQ;
-      const int r = r0 - 2 + q / PW, c = c0 - 2 + q % PW;
-      v[u] = i < C * NPQ && uir::in_image(r, c, H, W)
-                 ? to_f(xb[ch * plane + (size_t)r * W + c])
-                 : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < C * NPQ)
-        put_bits<NA>(ln, lo, (size_t)(i / NPQ) * LS + i % NPQ, v[u]);
-    }
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < NPQ; q += blockDim.x) {
-    const int qy = q / PW, qx = q % PW;
-    if (!uir::in_image(r0 - 2 + qy, c0 - 2 + qx, H, W)) continue;  // 0 bits
-    float s = 0.f;
-    for (int ch = 0; ch < C; ++ch) s += get_bits<NA>(ln, lo, ch * LS + q);
-    const float mean = s / C;
-    float v = 0.f;
-    for (int ch = 0; ch < C; ++ch) {
-      const float d = get_bits<NA>(ln, lo, ch * LS + q) - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(v / C + eps);
-    for (int ch = 0; ch < C; ++ch)
-      mm::put<NA>(ln, lo, ch * LS + q,
-                  round_to<T>((get_bits<NA>(ln, lo, ch * LS + q) - mean) *
-                                  rstd * __ldg(scale + ch) +
-                              __ldg(bias + ch)));
-    if (qy >= 2 && qy < TH + 2 && qx >= 2 && qx < TW + 2) {
-      const int p = (qy - 2) * TW + qx - 2;
-      stat[p] = mean;
-      stat[P + p] = rstd;
-    }
-  }
-  __syncthreads();
-}
 
 // du on the tile (the transposed taps of dt, into du's hi/lo planes, zero
 // outside the image) and the tile's share of dtaps (dt times the shifted
@@ -357,30 +260,6 @@ __device__ void ln_backward(const T* __restrict__ xb,
   __syncthreads();
 }
 
-// cp.async of chunk m's W_in columns [CP][2G] and W_out rows [G][CP] (both
-// planes; rows or columns past C zero-filled) into buffer w.
-__device__ void stage_weights(bf16* w, const bf16* win_h, const bf16* win_l,
-                              const bf16* wo_h, const bf16* wo_l,
-                              const Smem& L, int C, int wcols, int m) {
-  for (int i = threadIdx.x; i < L.CP * (G2 / 8); i += blockDim.x) {
-    const int c = i / (G2 / 8), cc = 8 * (i % (G2 / 8));
-    const bool ok = c < C;
-    const size_t src = (size_t)c * wcols + G2 * m + cc;
-    bf16* d = w + c * L.WLD + cc;
-    mm::cp_async16(d, ok ? win_h + src : win_h, ok);
-    mm::cp_async16(d + L.wi_pl, ok ? win_l + src : win_l, ok);
-  }
-  const int nc = L.CP / 8;
-  for (int i = threadIdx.x; i < G * nc; i += blockDim.x) {
-    const int g = i / nc, cc = 8 * (i % nc);
-    const bool ok = cc < C;
-    const size_t src = (size_t)(G * m + g) * C + cc;
-    bf16* d = w + L.wo + g * L.OLDW + cc;
-    mm::cp_async16(d, ok ? wo_h + src : wo_h, ok);
-    mm::cp_async16(d + L.wo_pl, ok ? wo_l + src : wo_l, ok);
-  }
-}
-
 // win_h/win_l: [C][2 hid_pad] in the forward's chunk layout; taps:
 // [2 hid_pad][9] f32; wo_h/wo_l: W_out [hid_pad][C]; the hi/lo planes of the
 // f32 weights.  part row (E floats): dW_in [C][2 hid_pad], dtaps
@@ -400,6 +279,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int NA = std::is_same<T, float>::value ? 2 : 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem L(C, TH, TW, NA);
+  const gd::ChunkWeights cw(C);
   bf16* ln = reinterpret_cast<bf16*>(smem + L.ln);
   bf16* dyp = reinterpret_cast<bf16*>(smem + L.dy);
   bf16* wts = reinterpret_cast<bf16*>(smem + L.wts);
@@ -443,14 +323,14 @@ __global__ void __launch_bounds__(kThreads)
     const T* xb = x + (size_t)b * C * plane;
     const T* dyg = dy + (size_t)b * C * plane;
     __syncthreads();  // the previous tile is done with every buffer
-    stage_weights(wts, win_h, win_l, wo_h, wo_l, L, C, wcols, 0);
+    gd::stage_weights(wts, win_h, win_l, wo_h, wo_l, cw, C, wcols, 0);
     mm::cp_async_commit();
-    ln_planes<T, NA>(xb, ln, ln_pl, L.LSL, scale, bias, stat, C, H, W, r0,
-                     c0, TH, TW, eps);
-    for (int i0 = tid; i0 < C * NP2; i0 += BATCH * blockDim.x) {
-      float v[BATCH];
+    gd::ln_planes<T, NA, 2>(xb, ln, ln_pl, L.LSL, scale, bias, stat, C, H, W,
+                            r0, c0, TH, TW, eps);
+    for (int i0 = tid; i0 < C * NP2; i0 += gd::BATCH * blockDim.x) {
+      float v[gd::BATCH];
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
+      for (int u = 0; u < gd::BATCH; ++u) {
         const int i = i0 + u * blockDim.x, ch = i / NP2, q = i % NP2;
         const int r = r0 - 1 + q / PW2, cc = c0 - 1 + q % PW2;
         v[u] = i < C * NP2 && uir::in_image(r, cc, H, W)
@@ -458,7 +338,7 @@ __global__ void __launch_bounds__(kThreads)
                    : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < BATCH; ++u) {
+      for (int u = 0; u < gd::BATCH; ++u) {
         const int i = i0 + u * blockDim.x;
         if (i < C * NP2)
           mm::put<NA>(dyp, dy_pl, (size_t)(i / NP2) * L.LSD + i % NP2 + 1,
@@ -475,8 +355,8 @@ __global__ void __launch_bounds__(kThreads)
 
     for (int m = 0; m < nch; ++m) {
       if (m + 1 < nch)
-        stage_weights(wts + ((m + 1) & 1) * L.wbuf, win_h, win_l, wo_h, wo_l,
-                      L, C, wcols, m + 1);
+        gd::stage_weights(wts + ((m + 1) & 1) * L.wbuf, win_h, win_l, wo_h,
+                          wo_l, cw, C, wcols, m + 1);
       mm::cp_async_commit();
       mm::cp_async_wait<1>();
       __syncthreads();
@@ -484,36 +364,7 @@ __global__ void __launch_bounds__(kThreads)
       const bf16* wo = wi + L.wo;
 
       // u = W_in^T LN over the 2-pixel halo: M = halo pixels, N = 2G, K = C
-      for (int mt = warp; mt < L.MQ4 / 16; mt += NWARP) {
-        float a4[4][4] = {};
-        for (int k0 = 0; k0 < L.CP; k0 += 16) {
-          uint32_t a[NA][4], bw[4][2][2];
-#pragma unroll
-          for (int pl = 0; pl < NA; ++pl)
-            mm::frag_a<true>(a[pl], ln + pl * ln_pl + k0 * L.LSL + mt * 16,
-                             L.LSL);
-#pragma unroll
-          for (int np = 0; np < 2; ++np)
-#pragma unroll
-            for (int pl = 0; pl < 2; ++pl) {
-              uint32_t r[4];
-              mm::frag_b2<true>(r, wi + pl * L.wi_pl + k0 * L.WLD + 16 * np,
-                                L.WLD);
-              bw[2 * np][pl][0] = r[0], bw[2 * np][pl][1] = r[1];
-              bw[2 * np + 1][pl][0] = r[2], bw[2 * np + 1][pl][1] = r[3];
-            }
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-            mm::mma_split<NA, 2>(a4[ni], a, bw[ni]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int q = mt * 16 + g8 + 8 * (e >> 1);
-            if (q < NP4) ub[(ni * 8 + 2 * t4 + (e & 1)) * NP4 + q] = a4[ni][e];
-          }
-      }
+      gd::project_in<NA>(ub, NP4, L.MQ4, ln, ln_pl, L.LSL, wi, cw, NWARP);
       __syncthreads();
 
       // W_out dy over the 1-pixel halo (M = dy's plane positions s = q + 1,

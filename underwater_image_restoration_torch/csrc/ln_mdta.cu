@@ -1,388 +1,370 @@
 // LN + MDTA forward: y = x + MDTA(LayerNorm_C(x)) on channels-first
 // (B, C, H, W), the first half of a SpectralBlock, with the reference's
 // dead-code quirks (attnf, kf and q1x1_1 are never computed; vf is the
-// second half of kv / kv_conv).
+// second half of kv / kv_conv); and each image's stats (the head-diagonal
+// gram G = q k^T [C][CPH], Sq [C], Sk [C]) for the backward.
 //
 // Replaces the TPU kernels of the JAX package
-// ops/fused_attn_composed.py:523 _fwd_call (_fwd_kernel:139) and
-// fused_attn_banded.py:648 _fwd_call (_fwd_kernel:183), which compute one
+// ops/fused_attn_composed.py:523 _fwd_call (_fwd_kernel:139),
+// ops/fused_attn_banded.py:648 _fwd_call (_fwd_kernel:183) and
+// ops/fused_attn.py:507 _fwd_call (_fwd_kernel:109), which compute one
 // function and were split on the TPU only to fit its VMEM.
 //
-// Design.  The attention is global over the image, so the forward takes two
-// launches over TH x TW tiles:
-//   1. stats: LayerNorm of the tile with a 1-pixel halo; q and k as a 1x1
-//      over the halo patch then the 3x3 taps, in chunks of 16 channels
-//      (f32 between the two, like the TPU kernel's composed contraction;
-//      q and k rounded to the compute type, like the TPU kernel); the tile's
-//      partial head-diagonal gram G = q k^T and row sums of squares Sq, Sk.
-//      The last block of each image to finish (atomic ticket) sums the
-//      partials in tile order, so the result does not depend on block
-//      scheduling.
-//   2. apply: each block rebuilds A = softmax_head(temp * G * rq * rk^T),
-//      rq = rsqrt(max(Sq, 1e-24)) (fused_attn.py:92 _attn_from_stats), then
-//      with a 2-pixel halo: v = dw(W_v LN) (f32) and out = W_po^T (A v) on
-//      the 1-pixel-halo region (zero outside the image: the zero padding of
-//      kv_conv), vf = dw(W_kvf out) (f32) and y = x + W_pof^T (A vf) on the
-//      tile.  Intermediates stay in shared memory; only x is read (twice)
-//      and y written.
-// The TPU kernels fold each 1x1 -> 3x3 chain into one 9C-deep matrix to fill
-// the systolic array; on the FMA pipe that costs 9C / (C + 9) times the
-// multiply-adds, so the chains stay apart here.  Work items (pixel, channel
-// group) are strided over 256 threads a block; plain FMA, no tensor cores
-// yet.
+// What bounds it on an H100.  Per pixel about 2 (3C^2 + 27C + C CPH + 2C
+// CPH + 3C^2 + 9C) flops against x and y (2 C itemsize bytes): at peak
+// rates the 256x256 levels (C = 16, 32) are bound by bytes and the deep
+// ones by the tensor cores' operations.  The attention couples every pixel
+// of an image, so a tile-local kernel must finish the gram before it applies
+// A: two passes, each recomputing LN and q, k or v on a halo, the second
+// holding about seven channel-major planes of a tile on a 2-pixel halo
+// (4 x 8 pixels at C = 128, v recomputed 3.4x), too small an M for the
+// tensor cores, and the gram summed across blocks.
 //
-// What bounds it on an H100.  Per pixel ~2 * (3C(C + 9) + 3C^2 + 9C +
-// 3C * CPH) flops against x and y (2 * C * itemsize bytes, x read twice
-// here): 150-1000 flop/byte over the levels, so at peak rates the deep
-// levels are bound by operations and the 256x256 ones near the ridge.  This
-// version runs the operations on the f32 FMA pipe (67 TFLOP/s), not the
-// bf16 tensor cores (989 TFLOP/s).
+// Design.  The forward runs as a sequence of launches over the batch in
+// image slices whose intermediates live pixel-major ([pixel][channel]) in
+// one workspace (ops/fused_mdta.py fwd_plan keeps it within
+// FWD_WORKSPACE_BYTES).  Every 1x1 and per-head product is a tensor-core
+// product through gemm.cuh (mma.sync, M = pixels, or K = pixels for the
+// gram), its elementwise work in the epilogue; the depthwise taps and the
+// per-image softmax run on the FMA pipe.  The stages up to outf are the
+// backward's own (csrc/mdta.cuh).  Once a call, the weights' bf16 planes go
+// into the workspace; then per slice:
+//   1. prep: LN = round(LN x) as bf16 planes, x read through a shared tile
+//      of 32 pixels (coalesced in NCHW);
+//   2. u = LN W_qkv (f32), 3. the taps: round(q), round(k) and v as planes,
+//      and each row segment's sums of squares of round(q) and round(k);
+//   4. the gram: G = q^T k over the diagonal (head) tiles, K = pixels, each
+//      image's pixels split into at most 32 ranges, a row each;
+//   5. a block an image sums its gram rows and its segments' Sq and Sk in
+//      order into the stats the backward reads, then A = softmax(temp G rq
+//      rk^T) (f32 and planes);
+//   6-10. outs = round(A v), out = round(outs W_po), u_vf = out W_kvf, vf
+//      by the taps, outf = round(A vf) (csrc/mdta.cuh);
+//   11. y = x + round(outf W_pof), taken transposed (M = channels) so the
+//      epilogue writes NCHW with consecutive threads on consecutive pixels.
+// No float atomics and no ticket: every sum runs in a fixed order, so two
+// runs give the same bits.  Operands as csrc/mdta.cuh says: in bf16 a
+// product takes 1 or 2 passes, in f32 6 (three planes a value: the gram
+// sums up to 65536 pixels).
+//
+// Rounding points (the TPU kernels'): LN, q, k, A v, project_out's output,
+// A vf and project_outf's output round to T; v, vf and the gram stay f32;
+// y = round(x + round(project_outf)).
 #include <cstdint>
 
-#include "common.cuh"
+#include "mdta.cuh"
 
 namespace {
 
+namespace mm = uir::mma;
+namespace gm = uir::gemm;
+namespace md = uir::mdta;
+using bf16 = __nv_bfloat16;
+using gm::kThreads;
+using gm::Opnd;
+using md::DW_T;
+using md::NFT;
+using md::NPT;
+using md::PT;
 using uir::from_f;
+using uir::round_to;
 using uir::to_f;
 
-constexpr int kThreads = 256;
-constexpr int CH = 16;  // channels a chunk of a 1x1 -> 3x3 chain
+// ---- 1. prep (csrc/mdta.cuh): LN as bf16 planes
 
-// 1x1 of in (channel-major, np pixels a channel) to the 16 output channels
-// [16m, 16m + 16) of w ([C][ld]) at every pixel: out [16][np] f32.
-template <typename T>
-__device__ void project_chunk(float* out, const T* in, int np,
-                              const float* __restrict__ w, int ld, int C,
-                              int m) {
-  for (int it = threadIdx.x; it < np * (CH / 8); it += blockDim.x) {
-    const int q = it % np, c8 = 8 * (it / np);
-    float s[8];
-    uir::project8<T>(s, in, np, q, w + CH * m + c8, ld, C);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[(c8 + i) * np + q] = s[i];
-  }
-}
-
-template <typename T, int CPH>
+template <typename T, int NP>
 __global__ void __launch_bounds__(kThreads)
-    ln_mdta_stats_kernel(const T* __restrict__ x,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ wqk,
-                         const float* __restrict__ tqk,
-                         float* __restrict__ part, int* __restrict__ counters,
-                         float* __restrict__ stats, int C, int H, int W,
-                         int TH, int TW, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int is_last;
-  const int PW = TW + 2, NP = PW * (TH + 2), P = TH * TW;
-  const int QS = 2 * C + 1;  // padded pixel-major row: q[0..C), k[C..2C)
-  float* pb = reinterpret_cast<float*>(smem);  // [CH][NP]
-  T* ln = reinterpret_cast<T*>(pb + CH * NP);  // [C][NP]
-  T* qk = ln + (size_t)C * NP;                 // [P][QS]
-
-  const int b = blockIdx.z;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int ntiles = gridDim.x * gridDim.y;
-  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
-  const int tid = threadIdx.x;
-  const size_t plane = (size_t)H * W;
-
-  uir::ln_patch<T>(x + (size_t)b * C * plane, ln, scale, bias, C, H, W,
-                   r0 - 1, c0 - 1, TH + 2, PW, eps);
-  __syncthreads();
-
-  // q (channels [0, C)) and k ([C, 2C)) in chunks: 1x1 over the halo patch,
-  // then the taps at the tile's pixels
-  for (int m = 0; m < 2 * C / CH; ++m) {
-    project_chunk<T>(pb, ln, NP, wqk, 2 * C, C, m);
-    __syncthreads();
-    for (int it = tid; it < P * CH; it += blockDim.x) {
-      const int p = it % P, ch = it / P;
-      const int ty = p / TW, tx = p % TW;
-      float t = 0.f;  // pixels past the image edge add nothing to the gram
-      if (r0 + ty < H && c0 + tx < W)
-        t = uir::tap9(pb + ch * NP + ty * PW + tx, PW,
-                      tqk + (CH * m + ch) * 9);
-      qk[(size_t)p * QS + CH * m + ch] = from_f<T>(t);
-    }
-    __syncthreads();
-  }
-
-  // this tile's partial stats: G[i][jj] (head-diagonal), then Sq, Sk
-  const int E = C * CPH + 2 * C;
-  float* mine = part + ((size_t)b * ntiles + tile) * E;
-  for (int e = tid; e < E; e += blockDim.x) {
-    int i, j;
-    if (e < C * CPH) {
-      i = e / CPH;
-      j = C + (i / CPH) * CPH + e % CPH;
-    } else if (e < C * CPH + C) {
-      i = j = e - C * CPH;
-    } else {
-      i = j = C + e - C * CPH - C;
-    }
-    float s = 0.f;
-    for (int p = 0; p < P; ++p)
-      s = fmaf(to_f(qk[p * QS + i]), to_f(qk[p * QS + j]), s);
-    mine[e] = s;
-  }
-
-  // the last block of this image to finish sums the partials in tile order
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(counters + b, 1) == ntiles - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  const float* pp = part + (size_t)b * ntiles * E;
-  for (int e = tid; e < E; e += blockDim.x) {
-    float s = 0.f;
-    for (int t = 0; t < ntiles; ++t) s += __ldcg(pp + (size_t)t * E + e);
-    stats[(size_t)b * E + e] = s;
-  }
-  if (tid == 0) counters[b] = 0;
+    ln_mdta_fwd_prep_kernel(const T* __restrict__ x,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ bias,
+                            bf16* __restrict__ ln, int P, int HW, int C,
+                            float eps) {
+  md::prep<T, NP>(x, static_cast<const T*>(nullptr), scale, bias, nullptr,
+                  ln, nullptr, P, HW, C, eps);
 }
 
-// dst[i][p] = round(sum_jj A[i][jj] * src[head(i) * CPH + jj][p]) for every
-// channel i and pixel p < np: the head-diagonal attention product.
-template <typename T, int CPH>
-__device__ void attend(T* dst, const float* src, const float* A, int C,
-                       int np) {
-  for (int it = threadIdx.x; it < np * C; it += blockDim.x) {
-    const int p = it % np, i = it / np;
-    const float* ar = A + i * CPH;
-    const float* sr = src + (i / CPH) * CPH * np + p;
-    float s = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < CPH; ++jj) s = fmaf(ar[jj], sr[jj * np], s);
-    dst[i * np + p] = from_f<T>(s);
-  }
-}
+// ---- the weights' planes, once a call (csrc/mdta.cuh)
 
-// u[0..4) = sum_i w[i][o..o+4) * in[i][p]: four output channels of a 1x1
-template <typename T>
-__device__ __forceinline__ float4 project4(const T* in, int np, int p,
-                                           const float* __restrict__ w,
-                                           int C, int o) {
-  float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = 0; i < C; ++i) {
-    const float v = to_f(in[i * np + p]);
-    const float4 w4 =
-        __ldg(reinterpret_cast<const float4*>(w + (size_t)i * C + o));
-    u.x = fmaf(v, w4.x, u.x);
-    u.y = fmaf(v, w4.y, u.y);
-    u.z = fmaf(v, w4.z, u.z);
-    u.w = fmaf(v, w4.w, u.w);
-  }
-  return u;
-}
-
-template <typename T, int CPH>
+template <int NF>
 __global__ void __launch_bounds__(kThreads)
-    ln_mdta_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ wv,
-                         const float* __restrict__ tv,
-                         const float* __restrict__ wkvf,
-                         const float* __restrict__ tvf,
-                         const float* __restrict__ wpo,
-                         const float* __restrict__ wpof,
-                         const float* __restrict__ temp,
-                         const float* __restrict__ stats, int C, int H, int W,
-                         int TH, int TW, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int PW2 = TW + 2, NP2 = PW2 * (TH + 2);
-  const int PW4 = TW + 4, NP4 = PW4 * (TH + 4), P = TH * TW;
-  float* A = reinterpret_cast<float*>(smem);  // [C][CPH]
-  float* pb = A + C * CPH;                    // [CH][NP4]: a 1x1 chunk
-  float* v = pb + CH * NP4;                   // [C][NP2]: v, later vf [C][P]
-  T* ln = reinterpret_cast<T*>(v + (size_t)C * NP2);  // [C][NP4]
-  T* os = ln + (size_t)C * NP4;  // [C][NP2]: A v, later A vf [C][P]
-  T* ob = os + (size_t)C * NP2;  // [C][NP2]: out
+    ln_mdta_fwd_weights_kernel(md::WeightSet ws, bf16* __restrict__ out) {
+  md::weight_planes<NF>(ws, out);
+}
 
-  const int b = blockIdx.z;
-  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
-  const int tid = threadIdx.x;
-  const size_t plane = (size_t)H * W;
+// ---- 3, 9. the taps (csrc/mdta.cuh)
 
-  // A from the image's stats: l2-normalize, temperature, per-head softmax
-  const float* st = stats + (size_t)b * (C * CPH + 2 * C);
-  for (int i = tid; i < C; i += blockDim.x) {
-    const int h = i / CPH;
-    const float rq = rsqrtf(fmaxf(st[C * CPH + i], 1e-24f));
-    const float t = temp[h];
-    float m = -INFINITY;
-    for (int jj = 0; jj < CPH; ++jj) {
-      const float rk = rsqrtf(fmaxf(st[C * CPH + C + h * CPH + jj], 1e-24f));
-      const float lg = st[i * CPH + jj] * rq * rk * t;
-      A[i * CPH + jj] = lg;
-      m = fmaxf(m, lg);
-    }
-    float s = 0.f;
-    for (int jj = 0; jj < CPH; ++jj) {
-      const float e = expf(A[i * CPH + jj] - m);
-      A[i * CPH + jj] = e;
-      s += e;
-    }
-    for (int jj = 0; jj < CPH; ++jj) A[i * CPH + jj] /= s;
-  }
-  uir::ln_patch<T>(x + (size_t)b * C * plane, ln, scale, bias, C, H, W,
-                   r0 - 2, c0 - 2, TH + 4, PW4, eps);
-  __syncthreads();
+template <typename T>
+__global__ void __launch_bounds__(DW_T)
+    ln_mdta_fwd_taps_kernel(const float* __restrict__ u, int ldu,
+                            const float* __restrict__ taps, int ldk, int NC,
+                            int NT, bf16* __restrict__ tq, size_t tq_lo,
+                            int ldt, bf16* __restrict__ fq, size_t fq_lo,
+                            int ldf, float* __restrict__ ssq, int segs, int H,
+                            int W) {
+  md::taps<T>(u, ldu, taps, ldk, NC, NT, tq, tq_lo, ldt, fq, fq_lo, ldf, ssq,
+              segs, H, W);
+}
 
-  // v on the 1-pixel-halo region, in chunks: 1x1 over the 2-pixel-halo
-  // patch, then the taps
-  for (int m = 0; m < C / CH; ++m) {
-    project_chunk<T>(pb, ln, NP4, wv, C, C, m);
-    __syncthreads();
-    for (int it = tid; it < NP2 * CH; it += blockDim.x) {
-      const int q = it % NP2, ch = it / NP2;
-      v[(CH * m + ch) * NP2 + q] =
-          uir::tap9(pb + ch * NP4 + (q / PW2) * PW4 + q % PW2, PW4,
-                    tv + (CH * m + ch) * 9);
-    }
-    __syncthreads();
-  }
-  attend<T, CPH>(os, v, A, C, NP2);
-  __syncthreads();
+// ---- product epilogues (csrc/mdta.cuh), named for this library
 
-  // out = W_po^T (A v), zero outside the image (kv_conv's zero padding)
-  for (int it = tid; it < NP2 * (C / 4); it += blockDim.x) {
-    const int q = it % NP2, o = 4 * (it / NP2);
-    const int r = r0 - 1 + q / PW2, cc = c0 - 1 + q % PW2;
-    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r >= 0 && r < H && cc >= 0 && cc < W)
-      u = project4<T>(os, NP2, q, wpo, C, o);
-    ob[o * NP2 + q] = from_f<T>(u.x);
-    ob[(o + 1) * NP2 + q] = from_f<T>(u.y);
-    ob[(o + 2) * NP2 + q] = from_f<T>(u.z);
-    ob[(o + 3) * NP2 + q] = from_f<T>(u.w);
-  }
-  __syncthreads();
+struct MdtaFwdF32Epi : md::F32Out {};
+template <typename T, int NP>
+struct MdtaFwdRoundEpi : md::RoundOut<T, NP> {};
+struct MdtaFwdGramEpi : md::RowsOut {};
 
-  // vf on the tile, in chunks: 1x1 over the 1-pixel-halo region, then taps
-  float* vf = v;  // [C][P]; v is dead after attend
-  for (int m = 0; m < C / CH; ++m) {
-    project_chunk<T>(pb, ob, NP2, wkvf, C, C, m);
-    __syncthreads();
-    for (int it = tid; it < P * CH; it += blockDim.x) {
-      const int p = it % P, ch = it / P;
-      vf[(CH * m + ch) * P + p] =
-          uir::tap9(pb + ch * NP2 + (p / TW) * PW2 + p % TW, PW2,
-                    tvf + (CH * m + ch) * 9);
-    }
-    __syncthreads();
-  }
-  T* of = os;  // [C][P]; os is dead after out
-  attend<T, CPH>(of, vf, A, C, P);
-  __syncthreads();
-
-  // y = x + W_pof^T (A vf)
-  for (int it = tid; it < P * (C / 4); it += blockDim.x) {
-    const int p = it % P, o = 4 * (it / P);
-    const int r = r0 + p / TW, cc = c0 + p % TW;
-    if (r >= H || cc >= W) continue;
-    const float4 u = project4<T>(of, P, p, wpof, C, o);
-    const float uo[4] = {u.x, u.y, u.z, u.w};
-    const size_t pix = (size_t)b * C * plane + (size_t)r * W + cc;
+// 11. y = x + round(W_pof^T outf^T) into NCHW: the product is taken
+// transposed (M = channels, N = pixels of the slice), so the tile's rows
+// are channels and consecutive threads take consecutive pixels of a
+// channel: the loads of x, the stores of y and the tile's reads coalesce.
+// A thread keeps one pixel (bn divides the block) and loads its UNR values
+// of x before it stores any y.
+template <typename T>
+struct MdtaFwdOutEpi {
+  static constexpr int UNR = 4;
+  const T* x;
+  T* y;
+  int P, C, HW;
+  __device__ void operator()(const float* o, int l, int bm, int bn, int m0,
+                             int n0, int, int, int) const {
+    const int c = threadIdx.x % bn, rs = blockDim.x / bn, n = n0 + c;
+    if (n >= P) return;
+    const int mb = min(bm, C - m0);
+    const size_t pix = (size_t)(n / HW) * C * HW + n % HW;
+    for (int r0 = threadIdx.x / bn; r0 < mb; r0 += UNR * rs) {
+      float xv[UNR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const size_t idx = pix + (size_t)(o + i) * plane;
-      y[idx] = from_f<T>(to_f(x[idx]) + uir::round_to<T>(uo[i]));
+      for (int u = 0; u < UNR; ++u) {
+        const int r = r0 + u * rs;
+        xv[u] = r < mb ? to_f(x[pix + (size_t)(m0 + r) * HW]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < UNR; ++u) {
+        const int r = r0 + u * rs;
+        if (r >= mb) break;
+        y[pix + (size_t)(m0 + r) * HW] =
+            from_f<T>(xv[u] + round_to<T>(o[r * l + c]));
+      }
     }
   }
+};
+
+// the last product's tile: BN channels (the products' width) by 128
+// pixels, A = W_pof read as [k][m], B = outf [pixel][channel]
+template <int NP, int NF, int BN>
+using TOut = gm::Tile<BN, 128, BN / 16, 128 / BN, true, false, NF, NP>;
+
+// ---- 5. each image's stats and attention matrix
+
+// Block b (an image of the slice): the gram [C][CPH] (within the heads) as
+// the sum of its nrows rows [C][C] in order, Sq and Sk as the sums of its
+// segs segments' rows [2C] (kThreads / 2C threads a value when 2C <
+// kThreads, each over a run of consecutive rows, their sums added in run
+// order), into stats [C CPH + 2C]; then A from them (csrc/mdta.cuh).
+template <int CPH, int NF>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_fwd_attn_kernel(const float* __restrict__ rows, int nrows,
+                            const float* __restrict__ ssq, int segs,
+                            const float* __restrict__ temp,
+                            float* __restrict__ stats, float* __restrict__ a32,
+                            bf16* __restrict__ ap, size_t lo, int C) {
+  __shared__ float part[2 * md::MAX_C > kThreads ? 2 * md::MAX_C : kThreads];
+  const int CC = C * CPH, b = blockIdx.x, C2 = 2 * C;
+  float* st = stats + (size_t)b * (CC + C2);
+  const float* rw = rows + (size_t)b * nrows * C * C;
+  for (int e = threadIdx.x; e < CC; e += blockDim.x) {
+    const int i = e / CPH, j = (i / CPH) * CPH + e % CPH;
+    float s = 0.f;
+    for (int r = 0; r < nrows; ++r) s += rw[(size_t)r * C * C + i * C + j];
+    st[e] = s;
+  }
+  const int runs = max(1, kThreads / C2), len = (segs + runs - 1) / runs;
+  const float* sq = ssq + (size_t)b * segs * C2;
+  for (int t = threadIdx.x; t < runs * C2; t += blockDim.x) {
+    const int e = t % C2, run = t / C2;
+    float s = 0.f;
+    const int r1 = min(segs, (run + 1) * len);
+#pragma unroll 8
+    for (int r = run * len; r < r1; ++r) s += sq[(size_t)r * C2 + e];
+    part[t] = s;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < C2; e += blockDim.x) {
+    float s = 0.f;
+    for (int r = 0; r < runs; ++r) s += part[r * C2 + e];
+    st[CC + e] = s;
+  }
+  __syncthreads();  // the image's stats, written by this block, are read
+  md::attention<CPH, NF>(st, temp, a32, ap, lo, (size_t)b * C * C, C);
 }
 
-template <typename K>
-cudaError_t set_smem(K kern, size_t smem) {
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---- the workspace
+
+// The workspace of one slice of I images of HW pixels (ops/fused_mdta.py
+// fwd_workspace_bytes mirrors it), each piece 256-byte aligned.  Two
+// regions alternate: R1 holds LN, then u; once the taps have read u, outs,
+// then u_vf, then outf, each written after the last read of what it
+// overwrites.  R2 holds round(q), round(k) and v; then out, then vf.
+enum Piece { WTS, A32, AP, ROWS_G, ROWS_S, R1, R2, NPIECES };
+
+struct Layout {
+  size_t off[NPIECES], total, u, v;  // u: U's offset in R1, v: V's in R2
+  Layout(int I, int H, int W, int C, int NP, int NF, int KsA) {
+    const size_t HW = (size_t)H * W, p = I * HW, c = C;
+    const int splits_a = (int)((HW + KsA - 1) / KsA);
+    const size_t pl = (size_t)NP * 2 * p * c;  // planes of T values [P][C]
+    const size_t fs = (size_t)NF * 2 * p * c;  // planes of f32 values
+    const size_t fa = 4 * p * c;               // f32 values
+    const size_t cc = (size_t)I * C * C;
+    auto up = [](size_t n) { return (n + 255) / 256 * 256; };
+    u = up(pl);
+    v = up(2 * pl);
+    const size_t sz[NPIECES] = {
+        (size_t)NF * 2 * 7 * c * c,                // the weights' planes
+        4 * cc, (size_t)NF * 2 * cc,               // A: f32, planes
+        4 * cc * splits_a,                         // the gram's rows
+        4 * (size_t)md::segments(I, H, W) * 2 * c, // Sq, Sk rows
+        u + 3 * fa,                                // R1: LN, U
+        v + fs};                                   // R2: QK, V
+    size_t at = 0;
+    for (int i = 0; i < NPIECES; ++i) off[i] = at, at += up(sz[i]);
+    total = at;
+  }
+};
+
+// BN: the products' output tile width (C for C = 16, 32; else 64)
+template <typename T, int CPH, int BN>
+int launch(const T* x, T* y, const float* scale, const float* bias,
+           const md::Weights& wt, float* stats, unsigned char* work, int B,
+           int C, int H, int W, int imgs, int KsA, float eps,
+           cudaStream_t st) {
+  constexpr int NP = NPT<T>, NF = NFT<T>;
+  const int HW = H * W, C2 = 2 * C, C3 = 3 * C, ES = C * CPH + 2 * C;
+  const Layout L(imgs, H, W, C, NP, NF, KsA);
+  const int splits_a = (HW + KsA - 1) / KsA;  // gram rows an image
+  auto at = [&](Piece i, size_t off = 0) { return work + L.off[i] + off; };
+  auto bfp = [&](Piece i, size_t off = 0) {
+    return reinterpret_cast<bf16*>(at(i, off));
+  };
+  auto f32p = [&](Piece i, size_t off = 0) {
+    return reinterpret_cast<float*>(at(i, off));
+  };
+  const long long cc = (long long)C * C;
+  bf16* wts = bfp(WTS);
+  const md::WeightSet ws = md::weight_set(wt, C, NF);
+  ln_mdta_fwd_weights_kernel<NF>
+      <<<dim3((3 * C * C + kThreads - 1) / kThreads, 4), kThreads, 0, st>>>(
+          ws, wts);
+  UIR_TRY(cudaGetLastError());
+  const Opnd Wqkv = md::weight(wts, ws, 0, C3, 0, NF);
+  const Opnd Wpo = md::weight(wts, ws, 1, C, 0, NF);
+  const Opnd Wkvf = md::weight(wts, ws, 2, C2, C, NF);
+  const Opnd Wpof = md::weight(wts, ws, 3, C, 0, NF);
+  for (int b0 = 0; b0 < B; b0 += imgs) {
+    const int I = min(imgs, B - b0), P = I * HW;
+    const size_t base = (size_t)b0 * C * HW;
+    auto pl = [&](bf16* p, int np, int ld = 0) {
+      return md::pixel_planes(p, np, P, ld ? ld : C, HW);
+    };
+    const size_t mlo = (size_t)I * C * C;  // plane stride of A
+    Opnd Ab = md::planes(bfp(AP), mlo, NF);
+    Ab.ld = C;
+    Ab.zs = cc;
+    bf16* qk = bfp(R2);
+    bf16* v = bfp(R2, L.v);
+
+    // 1-3: LN; u, round(q), round(k), v and the Sq, Sk rows
+    ln_mdta_fwd_prep_kernel<T, NP>
+        <<<(P + PT - 1) / PT, kThreads, md::prep_smem(C), st>>>(
+            x + base, scale, bias, bfp(R1), P, HW, C, eps);
+    UIR_TRY(cudaGetLastError());
+    UIR_TRY((md::qkv_stage<T, MdtaFwdF32Epi, BN>(
+        ln_mdta_fwd_taps_kernel<T>, pl(bfp(R1), NP), Wqkv, wt.tqkv,
+        f32p(R1, L.u), qk, v, f32p(ROWS_S), I, H, W, C, st)));
+    // 4: the gram over the head tiles, a row a pixel range of an image
+    const Opnd q = pl(qk, NP, C2);
+    const Opnd k{{q.pl[0] + C, q.pl[1] + C, q.pl[2] + C}, C2, q.zs};
+    gm::Args a = gm::simple(q, k, C, C, HW);
+    a.Ks = KsA;
+    a.splits = splits_a;
+    a.diag = 1;
+    const long long sa = (long long)splits_a * cc;
+    UIR_TRY((gm::launch<md::TK<NP, NP>>(
+        a, I, MdtaFwdGramEpi{{{f32p(ROWS_G), f32p(ROWS_G)}, C, {C, C}, sa}},
+        st)));
+    // 5: the stats, then A
+    ln_mdta_fwd_attn_kernel<CPH, NF><<<I, kThreads, 0, st>>>(
+        f32p(ROWS_G), splits_a, f32p(ROWS_S), md::segments(1, H, W), wt.temp,
+        stats + (size_t)b0 * ES, f32p(A32), bfp(AP), mlo, C);
+    UIR_TRY(cudaGetLastError());
+    // 6-10: outs, out, u_vf, vf, outf (each over what is dead: Layout)
+    UIR_TRY((md::apply_stage<T, MdtaFwdRoundEpi, MdtaFwdF32Epi, BN>(
+        ln_mdta_fwd_taps_kernel<T>, pl(v, NF), Ab, Wpo, Wkvf, wt.tkv + C, C2,
+        bfp(R1), bfp(R2), f32p(R1), bfp(R2), bfp(R1), I, H, W, C, CPH, st)));
+    // 11: y = x + round(W_pof^T outf^T), M = channels, N = pixels
+    UIR_TRY((gm::launch<TOut<NP, NF, BN>>(
+        gm::simple(Wpof, pl(bfp(R1), NP), C, P, C), 1,
+        MdtaFwdOutEpi<T>{x + base, y + base, P, C, HW}, st)));
+  }
+  return 0;
 }
 
+// the products' tile width by C: 16 and 32 wide at C = 16 and 32 (a 64-wide
+// tile would leave 3/4 or 1/2 of its outputs idle), 64 from C = 64
 template <typename T, int CPH>
-int stats(const void* x, const float* scale, const float* bias,
-          const float* wqk, const float* tqk, float* part, int* counters,
-          float* st, int B, int C, int H, int W, int TH, int TW, float eps,
-          cudaStream_t stream) {
-  const size_t np = (size_t)(TH + 2) * (TW + 2);
-  const size_t smem = CH * np * sizeof(float) +
-                      (C * np + (size_t)TH * TW * (2 * C + 1)) * sizeof(T);
-  auto kern = ln_mdta_stats_kernel<T, CPH>;
-  cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), scale,
-                                         bias, wqk, tqk, part, counters, st,
-                                         C, H, W, TH, TW, eps);
-  return (int)cudaGetLastError();
+int launch_c(const T* x, T* y, const float* scale, const float* bias,
+             const md::Weights& wt, float* stats, unsigned char* work, int B,
+             int C, int H, int W, int imgs, int KsA, float eps,
+             cudaStream_t st) {
+  if constexpr (CPH <= 16)
+    if (C <= 16)
+      return launch<T, CPH, 16>(x, y, scale, bias, wt, stats, work, B, C, H,
+                                W, imgs, KsA, eps, st);
+  if (C <= 32)
+    return launch<T, CPH, 32>(x, y, scale, bias, wt, stats, work, B, C, H, W,
+                              imgs, KsA, eps, st);
+  return launch<T, CPH, 64>(x, y, scale, bias, wt, stats, work, B, C, H, W,
+                            imgs, KsA, eps, st);
 }
-
-template <typename T, int CPH>
-int apply(const void* x, void* y, const float* scale, const float* bias,
-          const float* wv, const float* tv, const float* wkvf,
-          const float* tvf, const float* wpo, const float* wpof,
-          const float* temp, const float* st, int B, int C, int H, int W,
-          int TH, int TW, float eps, cudaStream_t stream) {
-  const size_t np2 = (size_t)(TH + 2) * (TW + 2);
-  const size_t np4 = (size_t)(TH + 4) * (TW + 4);
-  const size_t smem = (C * CPH + CH * np4 + C * np2) * sizeof(float) +
-                      (C * np4 + 2 * C * np2) * sizeof(T);
-  auto kern = ln_mdta_apply_kernel<T, CPH>;
-  cudaError_t e = set_smem(kern, smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), scale, bias, wv, tv,
-      wkvf, tvf, wpo, wpof, temp, st, C, H, W, TH, TW, eps);
-  return (int)cudaGetLastError();
-}
-
-#define UIR_DISPATCH(FN, ...)                                          \
-  do {                                                                 \
-    if (C % CH) return (int)cudaErrorInvalidValue;                     \
-    if (bf16) {                                                        \
-      if (cph == 8) return FN<__nv_bfloat16, 8>(__VA_ARGS__);          \
-      if (cph == 16) return FN<__nv_bfloat16, 16>(__VA_ARGS__);        \
-      if (cph == 32) return FN<__nv_bfloat16, 32>(__VA_ARGS__);        \
-    } else {                                                           \
-      if (cph == 8) return FN<float, 8>(__VA_ARGS__);                  \
-      if (cph == 16) return FN<float, 16>(__VA_ARGS__);                \
-      if (cph == 32) return FN<float, 32>(__VA_ARGS__);                \
-    }                                                                  \
-    return (int)cudaErrorInvalidValue;                                 \
-  } while (0)
 
 }  // namespace
 
-extern "C" int uir_ln_mdta_stats(const void* x, const void* scale,
-                                 const void* bias, const void* wqk,
-                                 const void* tqk, void* part, void* counters,
-                                 void* st, int B, int C, int H, int W,
-                                 int cph, int bf16, int TH, int TW, float eps,
-                                 void* stream) {
-  UIR_DISPATCH(stats, x, static_cast<const float*>(scale),
-               static_cast<const float*>(bias), static_cast<const float*>(wqk),
-               static_cast<const float*>(tqk), static_cast<float*>(part),
-               static_cast<int*>(counters), static_cast<float*>(st), B, C, H,
-               W, TH, TW, eps, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int uir_ln_mdta_apply(const void* x, void* y, const void* scale,
-                                 const void* bias, const void* wv,
-                                 const void* tv, const void* wkvf,
-                                 const void* tvf, const void* wpo,
-                                 const void* wpof, const void* temp,
-                                 const void* st, int B, int C, int H, int W,
-                                 int cph, int bf16, int TH, int TW, float eps,
-                                 void* stream) {
-  UIR_DISPATCH(apply, x, y, static_cast<const float*>(scale),
-               static_cast<const float*>(bias), static_cast<const float*>(wv),
-               static_cast<const float*>(tv), static_cast<const float*>(wkvf),
-               static_cast<const float*>(tvf), static_cast<const float*>(wpo),
-               static_cast<const float*>(wpof),
-               static_cast<const float*>(temp), static_cast<const float*>(st),
-               B, C, H, W, TH, TW, eps, static_cast<cudaStream_t>(stream));
+// The forward over the batch in slices of `imgs` images: one launch a call
+// (the weights' planes), then 11 a slice.  The weights in f32 as their
+// parameters store them (csrc/mdta.cuh Weights); stats [B][C cph + 2C]
+// (each image's gram [C][cph], Sq [C], Sk [C], as ln_mdta_bwd reads them);
+// work: one slice's workspace (Layout); KsA: pixels a range of an image's
+// gram (a multiple of 32).
+extern "C" int uir_ln_mdta_fwd(const void* x, void* y, const void* scale,
+                               const void* bias, const void* wqkv,
+                               const void* tqkv, const void* wpo,
+                               const void* wkv, const void* tkv,
+                               const void* wpof, const void* temp,
+                               void* stats, void* work, int B, int C, int H,
+                               int W, int cph, int bf16, int imgs, int KsA,
+                               float eps, void* stream) {
+  if (C % 16 || C > md::MAX_C || C % cph || B < 1 || H < 1 || W < 1 ||
+      imgs < 1 || KsA < gm::BK || KsA % gm::BK ||
+      (H * W + KsA - 1) / KsA > md::MAX_SPLITS_A)
+    return (int)cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const md::Weights wt{f(wqkv), f(wpo), f(wkv), f(wpof), f(tqkv), f(tkv),
+                       f(temp)};
+  auto* sts = static_cast<float*>(stats);
+  auto* wk = static_cast<unsigned char*>(work);
+  auto st = static_cast<cudaStream_t>(stream);
+#define UIR_MDTA_FWD(TT, CPH)                                            \
+  return launch_c<TT, CPH>(static_cast<const TT*>(x), static_cast<TT*>(y), \
+                           f(scale), f(bias), wt, sts, wk, B, C, H, W,    \
+                           imgs, KsA, eps, st)
+  if (bf16) {
+    if (cph == 8) UIR_MDTA_FWD(__nv_bfloat16, 8);
+    if (cph == 16) UIR_MDTA_FWD(__nv_bfloat16, 16);
+    if (cph == 32) UIR_MDTA_FWD(__nv_bfloat16, 32);
+  } else {
+    if (cph == 8) UIR_MDTA_FWD(float, 8);
+    if (cph == 16) UIR_MDTA_FWD(float, 16);
+    if (cph == 32) UIR_MDTA_FWD(float, 32);
+  }
+#undef UIR_MDTA_FWD
+  return (int)cudaErrorInvalidValue;
 }

@@ -26,8 +26,9 @@
 // tensor-core product through gemm.cuh (mma.sync m16n8k16, M = pixels, or
 // K = pixels for the weight gradients and dA), its elementwise work in the
 // epilogue; the depthwise taps, LN and the per-image softmax backward run
-// on the FMA pipe.  Once a call, the weights' bf16 planes go into the
-// workspace; then per slice:
+// on the FMA pipe.  Steps 1-9 recompute the forward with the forward's own
+// stages (csrc/mdta.cuh, shared with csrc/ln_mdta.cu).  Once a call, the
+// weights' bf16 planes go into the workspace; then per slice:
 //   1. prep: LN statistics, LN = round(LN x) and dy as bf16 planes, x and
 //      dy read through a shared tile of 32 pixels (coalesced in NCHW);
 //   2. A = softmax(temp G rq rk^T) of each image from the forward's saved
@@ -81,36 +82,29 @@
 // (x, dy and dx once); the taps passes and the short-K products are bound
 // by their loads' latency rather than by the tensor cores.
 #include <cstdint>
-#include <type_traits>
 
-#include "gemm.cuh"
+#include "mdta.cuh"
 
 namespace {
 
 namespace mm = uir::mma;
 namespace gm = uir::gemm;
+namespace md = uir::mdta;
 using bf16 = __nv_bfloat16;
 using gm::kThreads;
 using gm::Opnd;
 using gm::Tile;
 using gm::warp_sum;
+using md::DW_T;
+using md::MAX_C;
+using md::NFT;
+using md::NPT;
+using md::PT;
 using uir::from_f;
 using uir::round_to;
 using uir::to_f;
 
-constexpr int PT = 32;      // pixels a block of the prep and dLN launches
-constexpr int DW_T = 128;   // threads (channels) a block of the taps passes
-constexpr int DW_W = 64;    // columns a thread of the taps passes walks
-constexpr int MAX_C = 256;  // widest C the dLN launch holds in one block
-constexpr int MAX_SPLITS_A = 32;  // pixel ranges an image of the dA product
-
-// bf16 planes of a value rounded to T (NPT) and of an f32 value (NFT)
-template <typename T>
-constexpr int NPT = std::is_same<T, float>::value ? 3 : 1;
-template <typename T>
-constexpr int NFT = std::is_same<T, float>::value ? 3 : 2;
-
-// ---- 1. prep
+// ---- 1. prep (csrc/mdta.cuh): LN statistics, LN and dy as bf16 planes
 
 template <typename T, int NP>
 __global__ void __launch_bounds__(kThreads)
@@ -120,158 +114,36 @@ __global__ void __launch_bounds__(kThreads)
                             float2* __restrict__ stats, bf16* __restrict__ ln,
                             bf16* __restrict__ dyp, int P, int HW, int C,
                             float eps) {
-  extern __shared__ float tile[];  // [PT][C + 1]
-  const int m0 = blockIdx.x * PT, CS = C + 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t lo = (size_t)P * C;
-  // a warp a channel, lanes over pixels: coalesced in (B, C, H, W)
-  auto load = [&](const T* src) {
-    const int m = m0 + lane;
-    const size_t at = m < P ? (size_t)(m / HW) * C * HW + m % HW : 0;
-    for (int c = warp; c < C; c += kThreads / 32)
-      tile[lane * CS + c] = m < P ? to_f(src[at + (size_t)c * HW]) : 0.f;
-  };
-  load(x);
-  __syncthreads();
-  // a warp a pixel, lanes over channels
-  for (int r = warp; r < PT && m0 + r < P; r += kThreads / 32) {
-    const float* xp = tile + r * CS;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += xp[c];
-    const float mean = warp_sum(s) / C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = xp[c] - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / C + eps);
-    if (lane == 0) stats[m0 + r] = make_float2(mean, rstd);
-    for (int c = lane; c < C; c += 32)
-      mm::put<NP>(ln, lo, (size_t)(m0 + r) * C + c,
-                  round_to<T>((xp[c] - mean) * rstd * __ldg(scale + c) +
-                              __ldg(bias + c)));
-  }
-  __syncthreads();
-  load(dy);
-  __syncthreads();
-  for (int r = warp; r < PT && m0 + r < P; r += kThreads / 32)
-    for (int c = lane; c < C; c += 32)
-      mm::put<NP>(dyp, lo, (size_t)(m0 + r) * C + c, tile[r * CS + c]);
+  md::prep<T, NP>(x, dy, scale, bias, stats, ln, dyp, P, HW, C, eps);
 }
 
-// ---- 0. the weights' planes, once a call
-
-// The NF bf16 planes of four f32 weights (w_qkv, w_po, w_kv, w_pof) into the
-// workspace: plane k of weight i at out + off[i] + k * n[i].
-struct WeightSet {
-  const float* w[4];
-  int n[4];
-  size_t off[4];
-};
+// ---- 0. the weights' planes, once a call (csrc/mdta.cuh)
 
 template <int NF>
 __global__ void __launch_bounds__(kThreads)
-    ln_mdta_bwd_weights_kernel(WeightSet ws, bf16* __restrict__ out) {
-  const int i = blockIdx.y;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < ws.n[i];
-       e += gridDim.x * blockDim.x)
-    mm::put<NF>(out + ws.off[i], ws.n[i], e, __ldg(ws.w[i] + e));
+    ln_mdta_bwd_weights_kernel(md::WeightSet ws, bf16* __restrict__ out) {
+  md::weight_planes<NF>(ws, out);
 }
 
-// ---- 2. the attention matrix of each image
+// ---- 2. the attention matrix of each image (csrc/mdta.cuh), from the
+// forward's saved stats: gram [C][CPH], Sq [C], Sk [C] an image
 
-// A [C][C], block-diagonal (zero outside the heads), f32 and as NF planes
-// (plane stride lo).  st: the image's stats, gram [C][CPH], Sq [C], Sk [C].
 template <int CPH, int NF>
 __global__ void __launch_bounds__(kThreads)
     ln_mdta_bwd_attn_kernel(const float* __restrict__ stats,
                             const float* __restrict__ temp,
                             float* __restrict__ a32, bf16* __restrict__ ap,
                             size_t lo, int C) {
-  const int CC = C * CPH;
-  const float* st = stats + (size_t)blockIdx.x * (CC + 2 * C);
-  const size_t base = (size_t)blockIdx.x * C * C;
-  for (int i = threadIdx.x; i < C; i += blockDim.x) {
-    const int h = i / CPH;
-    const float rq = rsqrtf(fmaxf(st[CC + i], 1e-24f));
-    const float t = temp[h];
-    float a[CPH];
-    float m = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < CPH; ++jj) {
-      const float rk = rsqrtf(fmaxf(st[CC + C + h * CPH + jj], 1e-24f));
-      a[jj] = st[i * CPH + jj] * rq * rk * t;
-      m = fmaxf(m, a[jj]);
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < CPH; ++jj) {
-      a[jj] = expf(a[jj] - m);
-      s += a[jj];
-    }
-    for (int j = 0; j < C; ++j) {
-      float v = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < CPH; ++jj)
-        if (j == h * CPH + jj) v = a[jj] / s;
-      const size_t q = base + (size_t)i * C + j;
-      a32[q] = v;
-      mm::put<NF>(ap, lo, q, v);
-    }
-  }
+  md::attention<CPH, NF>(stats + (size_t)blockIdx.x * (C * CPH + 2 * C),
+                         temp, a32, ap, lo, (size_t)blockIdx.x * C * C, C);
 }
 
-// ---- product epilogues
+// ---- product epilogues (csrc/mdta.cuh), named for this library
 
-// f32 [row][ld]; row = batch * zrows + m
-struct MdtaBwdF32Epi {
-  float* out;
-  int ld, M, N;
-  long long zrows;
-  __device__ void operator()(const float* o, int l, int bm, int bn, int m0,
-                             int n0, int, int, int batch) const {
-    float* ob = out + batch * zrows * ld;
-    gm::for_pairs(o, l, bm, bn, m0, n0, M, N,
-                  [&](int m, int n, float v0, float v1) {
-                    gm::store2(ob, (size_t)m * ld + n, v0, v1);
-                  });
-  }
-};
-
-// round to T, into NP planes [row][ld]; row = batch * zrows + m
+struct MdtaBwdF32Epi : md::F32Out {};
 template <typename T, int NP>
-struct MdtaBwdRoundEpi {
-  bf16* out;
-  size_t lo;
-  int ld, M, N;
-  long long zrows;
-  __device__ void operator()(const float* o, int l, int bm, int bn, int m0,
-                             int n0, int, int, int batch) const {
-    bf16* ob = out + batch * zrows * ld;
-    gm::for_pairs(o, l, bm, bn, m0, n0, M, N,
-                  [&](int m, int n, float v0, float v1) {
-                    mm::put2<NP>(ob, lo, (size_t)m * ld + n, round_to<T>(v0),
-                                 round_to<T>(v1));
-                  });
-  }
-};
-
-// the rows of a split product: problem p's split s of batch b at
-// part[p] + b * bs + s * M * N[p], row-major M x N[p]
-struct MdtaBwdRowsEpi {
-  float* part[2];
-  int M, N[2];
-  long long bs;
-  __device__ void operator()(const float* o, int l, int bm, int bn, int m0,
-                             int n0, int prob, int split, int batch) const {
-    const int n = N[prob];
-    float* row = part[prob] + batch * bs + (size_t)split * M * n;
-    gm::for_pairs(o, l, bm, bn, m0, n0, M, n,
-                  [&](int m, int c, float v0, float v1) {
-                    gm::store2(row, (size_t)m * n + c, v0, v1);
-                  });
-  }
-};
+struct MdtaBwdRoundEpi : md::RoundOut<T, NP> {};
+struct MdtaBwdRowsEpi : md::RowsOut {};
 
 // the value of NP planes (stride lo) at i
 template <int NP>
@@ -380,94 +252,18 @@ struct MdtaBwdDlnEpi {
   }
 };
 
-// ---- 4, 8. the taps
+// ---- 4, 8. the taps (csrc/mdta.cuh)
 
-// A 3x3 window of a channel pair (c, c + 1) of a pixel-major plane
-// [pixel][ld] (f32, or T for dT), rows h - 1 + i and columns w - 1 + j of
-// the image whose pixel (0, 0) is img0 (zero outside the image), sliding
-// along a row: three new loads a pixel.
-template <typename V>
-struct Win {
-  const V* p;
-  int ld, c, H, W;
-  size_t img0;
-  float2 v[3][3];
-  __device__ float2 at(int hh, int ww) const {
-    return hh >= 0 && hh < H && ww >= 0 && ww < W
-               ? gm::load2(p, (img0 + (size_t)hh * W + ww) * ld + c)
-               : make_float2(0.f, 0.f);
-  }
-  __device__ void start(int h, int w) {
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) v[i][j] = at(h - 1 + i, w - 1 + j);
-  }
-  __device__ void slide(int h, int w) {  // to column w + 1
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      v[i][0] = v[i][1];
-      v[i][1] = v[i][2];
-      v[i][2] = at(h - 1 + i, w + 2);
-    }
-  }
-};
-
-// The row segment s of the taps passes: (image row, segment of DW_W
-// columns), segment-fastest.  A thread of those passes takes channel pair
-// gid % (NC / 2) of segment gid / (NC / 2), so consecutive threads read
-// consecutive channels of a pixel and no thread idles at small C.  (Two
-// image rows a thread, sharing a 4 x 3 window, measured slower.)
-struct Seg {
-  int h, w0, w1;
-  size_t img0;
-  __device__ Seg(int s, int H, int W) {
-    const int ns = (W + DW_W - 1) / DW_W;
-    const int row = s / ns;
-    h = row % H;
-    w0 = (s % ns) * DW_W;
-    w1 = min(W, w0 + DW_W);
-    img0 = (size_t)(row / H) * H * W;
-  }
-};
-
-// out(p) = sum_k tap_k[c] u(p + d_k), d_k = (k / 3 - 1, k % 3 - 1), a
-// thread a channel pair of u [pixel][ldu] (f32, NC channels); the taps as
-// their parameter stores them, tap k of channel c at taps[k * ldk + c].
-// Channels c < NT round to T and go to the planes tq [pixel][ldt]; the
-// others stay f32, split into the planes fq [pixel][ldf] at column c - NT.
 template <typename T>
 __global__ void __launch_bounds__(DW_T)
     ln_mdta_bwd_taps_kernel(const float* __restrict__ u, int ldu,
                             const float* __restrict__ taps, int ldk, int NC,
                             int NT, bf16* __restrict__ tq, size_t tq_lo,
                             int ldt, bf16* __restrict__ fq, size_t fq_lo,
-                            int ldf, int segs, int H, int W) {
-  const int gid = blockIdx.x * DW_T + threadIdx.x;
-  const int c = 2 * (gid % (NC / 2)), s = gid / (NC / 2);
-  if (s >= segs) return;
-  const Seg sg(s, H, W);
-  float2 tp[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k)
-    tp[k] = __ldg(reinterpret_cast<const float2*>(taps + k * ldk + c));
-  Win<float> win{u, ldu, c, H, W, sg.img0};
-  win.start(sg.h, sg.w0);
-  for (int w = sg.w0; w < sg.w1; ++w) {
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      s0 = fmaf(tp[k].x, win.v[k / 3][k % 3].x, s0);
-      s1 = fmaf(tp[k].y, win.v[k / 3][k % 3].y, s1);
-    }
-    const size_t pix = sg.img0 + (size_t)sg.h * W + w;
-    if (c < NT)
-      mm::put2<NPT<T>>(tq, tq_lo, pix * ldt + c, round_to<T>(s0),
-                       round_to<T>(s1));
-    else
-      mm::put2<NFT<T>>(fq, fq_lo, pix * ldf + c - NT, s0, s1);
-    win.slide(sg.h, w);
-  }
+                            int ldf, float* __restrict__ ssq, int segs, int H,
+                            int W) {
+  md::taps<T>(u, ldu, taps, ldk, NC, NT, tq, tq_lo, ldt, fq, fq_lo, ldf, ssq,
+              segs, H, W);
 }
 
 // ---- 12, 19. the transposed taps and the taps' gradient
@@ -489,7 +285,7 @@ __global__ void __launch_bounds__(DW_T)
   const int gid = blockIdx.x * DW_T + threadIdx.x;
   const int c = 2 * (gid % (NC / 2)), s = gid / (NC / 2);
   if (s >= segs) return;
-  const Seg sg(s, H, W);
+  const md::RowSeg sg(s, H, W);
   float2 tp[9], gt[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
@@ -497,7 +293,7 @@ __global__ void __launch_bounds__(DW_T)
     gt[k] = make_float2(0.f, 0.f);
   }
   // the window of d: T below NT, f32 from there (a pair never straddles it)
-  Win<float> uw{u, ldu, c, H, W, sg.img0};
+  md::Win<float> uw{u, ldu, c, H, W, sg.img0};
   uw.start(sg.h, sg.w0);
   auto run = [&](auto& dw) {
     dw.start(sg.h, sg.w0);
@@ -521,10 +317,10 @@ __global__ void __launch_bounds__(DW_T)
     }
   };
   if (c < NT) {
-    Win<T> dw{dT, ldT, c, H, W, sg.img0};
+    md::Win<T> dw{dT, ldT, c, H, W, sg.img0};
     run(dw);
   } else {
-    Win<float> dw{dF, ldF, c - NT, H, W, sg.img0};
+    md::Win<float> dw{dF, ldF, c - NT, H, W, sg.img0};
     run(dw);
   }
   float* r = part + (size_t)s * NC * 9 + c * 9;
@@ -636,7 +432,7 @@ struct Layout {
     const size_t HW = (size_t)H * W, p = I * HW, c = C;
     const int splits_w = (int)((p + Ks - 1) / Ks);
     const int splits_a = (int)((HW + KsA - 1) / KsA);
-    const int segs = I * H * ((W + DW_W - 1) / DW_W);
+    const int segs = md::segments(I, H, W);
     const int blocks = (int)((p + PT - 1) / PT);
     const size_t pl = (size_t)NP * 2 * p * c;  // planes of T values [P][C]
     const size_t fs = (size_t)NF * 2 * p * c;  // planes of f32 values
@@ -666,15 +462,9 @@ struct Layout {
   }
 };
 
-// the f32 weights, as their parameters store them: w_qkv (C, 3C), w_po
-// (C, C), w_kv (C, 2C), w_pof (C, C), the taps (3, 3, 3C) and (3, 3, 2C)
-struct Weights {
-  const float *qkv, *po, *kv, *pof, *tqkv, *tkv, *temp;
-};
-
 template <typename T, int CPH>
 int launch(const T* x, const T* dy, T* dx, const float* scale,
-           const float* bias, const Weights& wt, const float* stats,
+           const float* bias, const md::Weights& wt, const float* stats,
            unsigned char* work, float* grads, float* dtemp, int B, int C,
            int H, int W, int imgs, int Ks, int KsA, float eps,
            cudaStream_t st) {
@@ -688,36 +478,26 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
   };
   auto* stat2 = reinterpret_cast<float2*>(work + L.off[STATS]);
   T* dqk = reinterpret_cast<T*>(work + L.off[DQK]);
-  using TPn = Tile<128, 64, 4, 2, false, false, NP, NF>;  // T x W^T
-  using TPt = Tile<128, 64, 4, 2, false, true, NP, NF>;   // T x W, T x A
-  using TPf = Tile<128, 64, 4, 2, false, false, NF, NF>;  // f32 x W^T, A
+  using TPn = md::TPn<NP, NF>;  // T x W^T
+  using TPt = md::TPt<NP, NF>;  // T x W, T x A
+  using TPf = md::TPf<NF>;      // f32 x W^T, A
   // K = pixels: a long k loop, four stages, the k tiles' sums added
   // round-to-nearest (gemm.cuh, Sums): dtemp cancels too far for the
   // tensor cores' truncating adds over thousands of pixels
-  using TKt = Tile<64, 64, 2, 4, true, true, NP, NP, 4, true>;  // T^T x T
-  using TKf = Tile<64, 64, 2, 4, true, true, NP, NF, 4, true>;  // T^T x f32
-  // the planes of n values from p (plane stride n), unused ones aliased
-  auto planes = [](const bf16* p, size_t n, int np) {
-    return Opnd{{p, np > 1 ? p + n : p, np > 2 ? p + 2 * n : p}, 0, 0};
-  };
+  using TKt = md::TK<NP, NP>;  // T^T x T
+  using TKf = md::TK<NP, NF>;  // T^T x f32
   // 0. the weights' planes: w_qkv, w_po, w_kv, w_pof from WTS on
   const long long cc = (long long)C * C;
   bf16* wts = bfp(WTS);
-  const WeightSet ws{{wt.qkv, wt.po, wt.kv, wt.pof},
-                     {3 * C * C, C * C, 2 * C * C, C * C},
-                     {0, (size_t)NF * 3 * cc, (size_t)NF * 4 * cc,
-                      (size_t)NF * 6 * cc}};
+  const md::WeightSet ws = md::weight_set(wt, C, NF);
   ln_mdta_bwd_weights_kernel<NF>
       <<<dim3((3 * C * C + kThreads - 1) / kThreads, 4), kThreads, 0, st>>>(
           ws, wts);
   UIR_TRY(cudaGetLastError());
-  auto weight = [&](int i, int cols, int off) {
-    Opnd o = planes(wts + ws.off[i] + off, ws.n[i], NF);
-    o.ld = cols;
-    return o;
-  };
-  const Opnd Wqkv = weight(0, C3, 0), Wpo = weight(1, C, 0);
-  const Opnd Wkvf = weight(2, C2, C), Wpof = weight(3, C, 0);
+  const Opnd Wqkv = md::weight(wts, ws, 0, C3, 0, NF);
+  const Opnd Wpo = md::weight(wts, ws, 1, C, 0, NF);
+  const Opnd Wkvf = md::weight(wts, ws, 2, C2, C, NF);
+  const Opnd Wpof = md::weight(wts, ws, 3, C, 0, NF);
   for (int b0 = 0; b0 < B; b0 += imgs) {
     const int I = min(imgs, B - b0), P = I * HW;
     // this slice's rows: weight-gradient splits, taps segments, dLN blocks
@@ -726,15 +506,11 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
     // piece i as np planes [pixel][ld] (plane stride P ld), an image's
     // pixels zs apart
     auto pl = [&](Piece i, int np, int ld = 0) {
-      const int l = ld ? ld : C;
-      Opnd o = planes(bfp(i), (size_t)P * l, np);
-      o.ld = l;
-      o.zs = (long long)HW * l;
-      return o;
+      return md::pixel_planes(bfp(i), np, P, ld ? ld : C, HW);
     };
     const size_t mlo = (size_t)I * C * C;  // plane stride of A, M, M^T
     auto per_image = [&](Piece i) {
-      Opnd o = planes(bfp(i), mlo, NF);
+      Opnd o = md::planes(bfp(i), mlo, NF);
       o.ld = C;
       o.zs = cc;
       return o;
@@ -744,62 +520,46 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
 
     // 1, 2
     ln_mdta_bwd_prep_kernel<T, NP>
-        <<<(P + PT - 1) / PT, kThreads, PT * (C + 1) * sizeof(float), st>>>(
+        <<<(P + PT - 1) / PT, kThreads, md::prep_smem(C), st>>>(
             x + base, dy + base, scale, bias, stat2, bfp(LN), bfp(DY), P, HW,
             C, eps);
     UIR_TRY(cudaGetLastError());
     ln_mdta_bwd_attn_kernel<CPH, NF><<<I, kThreads, 0, st>>>(
         stb, wt.temp, f32p(A32), bfp(AP), mlo, C);
     UIR_TRY(cudaGetLastError());
-    // 3, 4: u, then round(q), round(k) and v
-    UIR_TRY(gm::launch<TPt>(gm::simple(pl(LN, NP), Wqkv, P, C3, C), 1,
-                            MdtaBwdF32Epi{f32p(U), C3, P, C3, 0}, st));
-    const int segs = I * H * ((W + DW_W - 1) / DW_W);
-    const int g3 = (C3 / 2 * segs + DW_T - 1) / DW_T;
-    const int g1 = (C / 2 * segs + DW_T - 1) / DW_T;
-    ln_mdta_bwd_taps_kernel<T><<<g3, DW_T, 0, st>>>(
-        f32p(U), C3, wt.tqkv, C3, C3, C2, bfp(QK), (size_t)P * C2, C2, bfp(V),
-        pc, C, segs, H, W);
-    UIR_TRY(cudaGetLastError());
-    // 5-9: outs, out, u_vf, vf, outf
-    gm::Args a = gm::simple(pl(V, NF), Ab, HW, C, C);
-    a.band = CPH;
-    UIR_TRY(gm::launch<TPf>(
-        a, I, MdtaBwdRoundEpi<T, NP>{bfp(OUTS), pc, C, HW, C, HW}, st));
-    UIR_TRY(gm::launch<TPt>(
-        gm::simple(pl(OUTS, NP), Wpo, P, C, C), 1,
-        MdtaBwdRoundEpi<T, NP>{bfp(OUT), pc, C, P, C, 0}, st));
-    UIR_TRY(gm::launch<TPt>(gm::simple(pl(OUT, NP), Wkvf, P, C, C), 1,
-                            MdtaBwdF32Epi{f32p(UVF), C, P, C, 0}, st));
-    ln_mdta_bwd_taps_kernel<T><<<g1, DW_T, 0, st>>>(
-        f32p(UVF), C, wt.tkv + C, C2, C, 0, nullptr, 0, C, bfp(VF), pc, C,
-        segs, H, W);
-    UIR_TRY(cudaGetLastError());
-    a = gm::simple(pl(VF, NF), Ab, HW, C, C);
-    a.band = CPH;
-    UIR_TRY(gm::launch<TPf>(
-        a, I, MdtaBwdRoundEpi<T, NP>{bfp(OUTF), pc, C, HW, C, HW}, st));
+    // 3, 4: u, then round(q), round(k) and v; 5-9: outs, out, u_vf, vf,
+    // outf (csrc/mdta.cuh)
+    UIR_TRY((md::qkv_stage<T, MdtaBwdF32Epi>(
+        ln_mdta_bwd_taps_kernel<T>, pl(LN, NP), Wqkv, wt.tqkv, f32p(U),
+        bfp(QK), bfp(V), nullptr, I, H, W, C, st)));
+    UIR_TRY((md::apply_stage<T, MdtaBwdRoundEpi, MdtaBwdF32Epi>(
+        ln_mdta_bwd_taps_kernel<T>, pl(V, NF), Ab, Wpo, Wkvf, wt.tkv + C, C2,
+        bfp(OUTS), bfp(OUT), f32p(UVF), bfp(VF), bfp(OUTF), I, H, W, C, CPH,
+        st)));
+    const int segs = md::segments(I, H, W);
+    const int g3 = md::taps_grid(C3, segs), g1 = md::taps_grid(C, segs);
     // 10-15: d_outf, dvf, d(u_vf) and dtaps_vf, d_out, d_outs, dv
-    UIR_TRY(gm::launch<TPn>(gm::simple(pl(DY, NP), Wpof, P, C, C), 1,
-                            MdtaBwdRoundEpi<T, NP>{bfp(DOF), pc, C, P, C, 0},
-                            st));
-    a = gm::simple(pl(DOF, NP), Ab, HW, C, C);
+    UIR_TRY(gm::launch<TPn>(
+        gm::simple(pl(DY, NP), Wpof, P, C, C), 1,
+        MdtaBwdRoundEpi<T, NP>{{bfp(DOF), pc, C, P, C, 0}}, st));
+    gm::Args a = gm::simple(pl(DOF, NP), Ab, HW, C, C);
     a.band = CPH;
-    UIR_TRY(gm::launch<TPt>(a, I, MdtaBwdF32Epi{f32p(DVF), C, HW, C, HW},
+    UIR_TRY(gm::launch<TPt>(a, I, MdtaBwdF32Epi{{f32p(DVF), C, HW, C, HW}},
                             st));
     ln_mdta_bwd_taps_t_kernel<T><<<g1, DW_T, 0, st>>>(
         static_cast<const T*>(nullptr), 0, f32p(DVF), C, f32p(UVF), C,
         wt.tkv + C, C2, C, 0, bfp(DUVF), pc, f32p(ROWS_TV), segs, H, W);
     UIR_TRY(cudaGetLastError());
-    UIR_TRY(gm::launch<TPf>(gm::simple(pl(DUVF, NF), Wkvf, P, C, C), 1,
-                            MdtaBwdRoundEpi<T, NP>{bfp(DOUT), pc, C, P, C, 0},
-                            st));
+    UIR_TRY(gm::launch<TPf>(
+        gm::simple(pl(DUVF, NF), Wkvf, P, C, C), 1,
+        MdtaBwdRoundEpi<T, NP>{{bfp(DOUT), pc, C, P, C, 0}}, st));
     UIR_TRY(gm::launch<TPn>(
         gm::simple(pl(DOUT, NP), Wpo, P, C, C), 1,
-        MdtaBwdRoundEpi<T, NP>{bfp(DOUTS), pc, C, P, C, 0}, st));
+        MdtaBwdRoundEpi<T, NP>{{bfp(DOUTS), pc, C, P, C, 0}}, st));
     a = gm::simple(pl(DOUTS, NP), Ab, HW, C, C);
     a.band = CPH;
-    UIR_TRY(gm::launch<TPt>(a, I, MdtaBwdF32Epi{f32p(DV), C, HW, C, HW}, st));
+    UIR_TRY(
+        gm::launch<TPt>(a, I, MdtaBwdF32Epi{{f32p(DV), C, HW, C, HW}}, st));
     // 16, 17: dA over the head tiles, then the per-image softmax backward
     a = gm::simple(pl(DOF, NP), pl(VF, NF), C, C, HW);
     a.A[1] = pl(DOUTS, NP);
@@ -811,7 +571,8 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
     const long long sa = (long long)splits_a * cc;
     UIR_TRY(gm::launch<TKf>(
         a, I,
-        MdtaBwdRowsEpi{{f32p(ROWS_A), f32p(ROWS_A) + sa}, C, {C, C}, 2 * sa},
+        MdtaBwdRowsEpi{
+            {{f32p(ROWS_A), f32p(ROWS_A) + sa}, C, {C, C}, 2 * sa}},
         st));
     const size_t ssm = (2 * (size_t)C * CPH + 3 * C) * sizeof(float);
     static const cudaError_t es = gm::set_smem(
@@ -849,7 +610,7 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
     const long long sw = (long long)splits * cc;
     UIR_TRY(gm::launch<TKt>(
         a, 1,
-        MdtaBwdRowsEpi{{f32p(ROWS_W1), f32p(ROWS_W1) + sw}, C, {C, C}, 0},
+        MdtaBwdRowsEpi{{{f32p(ROWS_W1), f32p(ROWS_W1) + sw}, C, {C, C}, 0}},
         st));
     a = gm::simple(pl(OUT, NP), pl(DUVF, NF), C, C, P);
     a.A[1] = pl(LN, NP);
@@ -860,7 +621,8 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
     a.splits = splits;
     UIR_TRY(gm::launch<TKf>(
         a, 1,
-        MdtaBwdRowsEpi{{f32p(ROWS_KVF), f32p(ROWS_QKV)}, C, {C, C3}, 0}, st));
+        MdtaBwdRowsEpi{{{f32p(ROWS_KVF), f32p(ROWS_QKV)}, C, {C, C3}, 0}},
+        st));
     // 22: dLN and the LayerNorm backward
     const MdtaBwdDlnEpi<T> de{x + base, dy + base, dx + base, stat2, scale,
                               f32p(ROWS_LN), P, C, HW};
@@ -906,10 +668,10 @@ extern "C" int uir_ln_mdta_bwd(
     void* stream) {
   if (C % 16 || C > MAX_C || C % cph || B < 1 || H < 1 || W < 1 ||
       imgs < 1 || Ks < gm::BK || Ks % gm::BK || KsA < gm::BK ||
-      KsA % gm::BK || (H * W + KsA - 1) / KsA > MAX_SPLITS_A)
+      KsA % gm::BK || (H * W + KsA - 1) / KsA > md::MAX_SPLITS_A)
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const Weights wt{f(wqkv), f(wpo), f(wkv), f(wpof), f(tqkv), f(tkv),
+  const md::Weights wt{f(wqkv), f(wpo), f(wkv), f(wpof), f(tqkv), f(tkv),
                    f(temp)};
   auto* wk = static_cast<unsigned char*>(work);
   auto* gr = static_cast<float*>(grads);

@@ -1,8 +1,9 @@
 // Tensor-core building blocks: a warp-level bf16 product on shared-memory
 // operands, asynchronous staging of operand tiles, and the hi/lo split that
-// carries f32 operands through bf16 products.  csrc/ln_gdfn_bwd.cu uses
-// them inside its tiles; csrc/gemm.cuh builds the staged kernels' product
-// launch (csrc/ln_leff.cu, csrc/ln_leff_bwd.cu, csrc/ln_mdta_bwd.cu) on them.
+// carries f32 operands through bf16 products.  csrc/ln_gdfn.cu and
+// csrc/ln_gdfn_bwd.cu use them inside their tiles (csrc/gdfn.cuh);
+// csrc/gemm.cuh builds the staged kernels' product launch (csrc/ln_mdta.cu,
+// csrc/ln_mdta_bwd.cu, csrc/ln_leff.cu, csrc/ln_leff_bwd.cu) on them.
 //
 // Why.  The 1x1 and per-head products of these kernels (fc1 and fc2 and
 // their transposes, project_in and project_out, the attention's, their

@@ -34,20 +34,19 @@ _LL = ctypes.POINTER(ctypes.c_longlong)
 # C signature of every exported function: (library, symbol) -> argtypes
 SIGNATURES = {
     ("ln_gdfn", "uir_ln_gdfn_fwd"):
-        # x, y, scale, bias, w_in, taps, w_out, B, C, H, W, hid_pad,
-        # gate_chunk, bf16, TH, TW, eps, stream
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-         _P],
-    ("ln_mdta", "uir_ln_mdta_stats"):
-        # x, scale, bias, w_qk, taps_qk, partials, counters, stats, B, C, H,
-        # W, cph, bf16, TH, TW, eps, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-         _P],
-    ("ln_mdta", "uir_ln_mdta_apply"):
-        # x, y, scale, bias, w_v, taps_v, w_vf, taps_vf, w_po, w_pof, temp,
-        # stats, B, C, H, W, cph, bf16, TH, TW, eps, stream
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-         _I, _I, _I, _F, _P],
+        # x, y, part, scale, bias, w_in hi, w_in lo, taps, w_out hi, w_out
+        # lo, B, C, H, W, hid_pad, gate_chunk, bf16, TH, TW, splits, eps,
+        # stream
+        [_P] * 10 + [_I] * 10 + [_F, _P],
+    ("ln_gdfn", "uir_ln_gdfn_weights"):
+        # w_in, w_dw, w_out, w_in hi, w_in lo, taps, w_out hi, w_out lo, C,
+        # hid, hid_pad, stream
+        [_P] * 8 + [_I] * 3 + [_P],
+    ("ln_mdta", "uir_ln_mdta_fwd"):
+        # x, y, scale, bias, w_qkv, t_qkv, w_po, w_kv, t_kv, w_pof, temp,
+        # stats, workspace, B, C, H, W, cph, bf16, images a slice, pixels a
+        # range of an image's gram, eps, stream
+        [_P] * 13 + [_I] * 8 + [_F, _P],
     ("ln_gdfn_bwd", "uir_ln_gdfn_bwd"):
         # x, dy, dx, scale, bias, w_in hi, w_in lo, taps, w_out hi, w_out
         # lo, part, grads, B, C, H, W, hid_pad, gate_chunk, bf16, TH, TW,

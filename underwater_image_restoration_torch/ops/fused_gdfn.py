@@ -11,17 +11,24 @@ follow the TPU kernel: the LN output, the gated product and project_out's
 output round to x.dtype; project_in and the taps act in f32 on the rounded
 LN output (the composed contraction) and weights stay f32.
 
-On CUDA the forward is ``LnGdfnFn``, whose backward launches
-``csrc/ln_gdfn_bwd.cu`` (the VJP of the JAX package's
-``fused_gdfn_banded.py:517 _bwd_call`` and ``fused_block.py:663``; its 1x1
-products on the tensor cores, the f32 weights as bf16 hi/lo planes); it saves
-only x and the weights, as the TPU VJP does.  ``ln_gdfn_bwd`` is that
-backward's wrapper and ``ln_gdfn_bwd_plain`` its plain version (autograd
-through ``ln_gdfn_plain``).
+The forward kernel is tile-local (a block owns a pixel tile, its 1-pixel
+halo and a range of the hidden chunks) with its 1x1 products on the tensor
+cores; ``fwd_tile_shape`` and ``fwd_splits`` choose its tile and how many
+blocks share a tile's hidden width.  On CUDA the forward is ``LnGdfnFn``,
+whose backward launches ``csrc/ln_gdfn_bwd.cu`` (the VJP of the JAX
+package's ``fused_gdfn_banded.py:517 _bwd_call`` and ``fused_block.py:663``;
+tile-local too, the forward's half of its tile shared through
+``csrc/gdfn.cuh``).  Both read the f32 weights as bf16 hi/lo planes in
+``kernel_operands``' layout, which the forward makes on the card once a call
+and saves for the backward with x, as the TPU VJP saves x and the
+weights.  ``ln_gdfn_bwd`` is that backward's
+wrapper and ``ln_gdfn_bwd_plain`` its plain version (autograd through
+``ln_gdfn_plain``).
 """
 from __future__ import annotations
 
 import collections
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -53,20 +60,15 @@ def ln_gdfn_plain(x, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
     return x + conv1x1(o.float(), w_out.float()).to(x.dtype)
 
 
-def tile_shape(c: int) -> tuple[int, int]:
-    """(TH, TW) of one thread block: 256 pixels up to C = 32, fewer above so
-    the block's shared memory (LN patch and f32 accumulators, ~100-130 KB)
-    stays under the 227 KB a block may use."""
-    if c <= 32:
-        return 16, 16
-    if c <= 64:
-        return 8, 16
-    return 8, 8
-
-
 # gate pairs a chunk of the kernel's weight layout; passed with every launch,
 # and csrc/ln_gdfn.cu refuses any other value than its own G
 GATE_CHUNK = 16
+
+
+def padded_hidden(hid: int) -> int:
+    """The hidden width zero-padded to a multiple of GATE_CHUNK (the
+    kernels' hid_pad)."""
+    return -(-hid // GATE_CHUNK) * GATE_CHUNK
 
 
 def kernel_weights(w_in, w_dw, w_out):
@@ -76,7 +78,7 @@ def kernel_weights(w_in, w_dw, w_out):
     k = 3 * dh + dw, W_out (hid_pad, C).  Returns them and hid_pad."""
     c, g2 = w_in.shape
     hid = g2 // 2
-    hp = -(-hid // GATE_CHUNK) * GATE_CHUNK
+    hp = padded_hidden(hid)
     n = hp // GATE_CHUNK
 
     def chunked(t, dim):
@@ -94,6 +96,20 @@ def kernel_weights(w_in, w_dw, w_out):
     return win.contiguous(), taps.contiguous(), wo.contiguous(), hp
 
 
+class Operands(collections.namedtuple(
+        "Operands", "win_h win_l taps wo_h wo_l hid_pad")):
+    """The kernels' weight operands (``kernel_operands``)."""
+
+
+def kernel_operands(w_in, w_dw, w_out):
+    """``kernel_weights`` with W_in and W_out as the bf16 hi/lo planes the
+    tensor-core products read (``_kernels.split_bf16``): prepared once a
+    call, for the forward and the backward."""
+    win, taps, wo, hp = kernel_weights(w_in, w_dw, w_out)
+    return Operands(*_kernels.split_bf16(win), taps,
+                    *_kernels.split_bf16(wo), hp)
+
+
 def unchunk(t, hid, dim):
     """Inverse of ``kernel_weights``'s layout along ``dim``: drop the
     zero-padded hidden channels and put the t1 and t2 halves back in order
@@ -107,10 +123,17 @@ def unchunk(t, hid, dim):
     return torch.cat([a, b], dim)
 
 
-# tiles the backward kernel may take, largest first, and the shared memory
-# a block may use
+# tiles the kernels may take, largest first, and the shared memory a block
+# may use
 BWD_TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
+FWD_TILES = ((16, 16), (8, 16), (8, 8), (4, 8))
 MAX_SHARED = 227 * 1024
+# the forward's project_out accumulators stay in registers: C (padded to
+# 16) x tile pixels at most this many (32 a thread of its 256)
+FWD_ACC = 8192
+# blocks of the forward kernel a multiprocessor holds (its shared memory,
+# about 70-105 KB in bf16, and its registers): fwd_splits fills this many
+FWD_BLOCKS_PER_SM = 2
 # dLN's f32 accumulators stay in registers: C (padded to 16) x tile pixels
 # at most this many (16 a thread of the kernel's BWD_THREADS)
 BWD_ACC = 8192
@@ -166,24 +189,101 @@ def bwd_tile_shape(c: int, itemsize: int) -> tuple[int, int]:
     raise ValueError(f"ln_gdfn_bwd: no tile fits C={c} in shared memory")
 
 
+def fwd_shared_bytes(c: int, th: int, tw: int, itemsize: int) -> int:
+    """Shared memory of one block of csrc/ln_gdfn.cu (its Smem layout,
+    mirrored; each region 16-byte aligned): the LN patch on the 1-pixel halo
+    as bf16 planes (two in f32: hi/lo), C padded to 16, rows padded for the
+    tensor-core loads; f32 u of a chunk on the halo (with LN, the room of
+    the f32 output tile [C][P] after the chunks); the chunk's W_in columns
+    and W_out rows (hi and lo) in two buffers; the gate output (planes as
+    LN)."""
+    npl = 2 if itemsize == 4 else 1
+    cp = _up16(c)
+    np2, p = (th + 2) * (tw + 2), th * tw
+    g = GATE_CHUNK
+
+    def al(n):
+        return -(-n // 16) * 16
+
+    ln = al(npl * cp * _pad_ld(_up16(np2)) * 2)
+    ub, acc = 4 * 2 * g * np2, 4 * c * p
+    wts = al(2 * (2 * cp * _pad_ld(2 * g) + 2 * g * _pad_ld(cp)) * 2)
+    return ln + al(max(ub, acc - ln)) + wts + al(npl * g * _pad_ld(p) * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_tile_shape(c: int, itemsize: int) -> tuple[int, int]:
+    """(TH, TW) of the forward kernel: the largest tile (least halo
+    recompute) whose project_out accumulators fit the registers and whose
+    shared memory fits a block (16 x 16 up to C = 32, 8 x 16 at 64, 8 x 8
+    at 128, both dtypes)."""
+    for th, tw in FWD_TILES:
+        if _up16(c) * th * tw <= FWD_ACC and \
+                fwd_shared_bytes(c, th, tw, itemsize) <= MAX_SHARED:
+            return th, tw
+    raise ValueError(f"ln_gdfn: no tile fits C={c} in shared memory")
+
+
+def fwd_splits(tiles: int, hid_pad: int, sms: int = 132) -> int:
+    """Blocks that share a tile's hidden chunks: as many as fit
+    FWD_BLOCKS_PER_SM blocks a multiprocessor over ``tiles`` tiles in one
+    wave (an H100 has 132), at least 1 and at most one a chunk.  Only the
+    deep levels at small batch have so few tiles (C = 128 at 32x32, batch
+    8: 128 tiles, 2 splits)."""
+    return max(1, min(hid_pad // GATE_CHUNK,
+                      FWD_BLOCKS_PER_SM * sms // tiles))
+
+
 def _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps):
+    """The forward's launches: the weights' operands (``kernel_operands``'
+    layout, made on the card), the tile kernel, then, when the hidden width
+    is split, the ordered sum of the splits' rows.  Returns y and the
+    operands (the backward's too)."""
     b, c, h, w = x.shape
-    _kernels.check_input("ln_gdfn", x, scale, bias, w_in, w_dw, w_out)
     lib = _kernels.library("ln_gdfn")
-    win, taps, wo, hp = kernel_weights(w_in, w_dw, w_out)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    hid = w_out.shape[0]
+    hp = padded_hidden(hid)
+    n_in, n_out = c * 2 * hp, hp * c
+    planes = torch.empty(2 * (n_in + n_out), device=x.device,
+                         dtype=torch.bfloat16)
+    taps = torch.empty(2 * hp * 9, device=x.device, dtype=torch.float32)
+    win_h, win_l, wo_h, wo_l = planes.split((n_in, n_in, n_out, n_out))
+    ops = Operands(win_h, win_l, taps, wo_h, wo_l, hp)
+    # held until the launch: a copy freed earlier could be handed to the
+    # next copy (the model's weights are views) before the kernel reads it
+    src = [t.float().contiguous() for t in (w_in, w_dw, w_out)]
+    err = lib.uir_ln_gdfn_weights(
+        *(t.data_ptr() for t in src), *(t.data_ptr() for t in ops[:5]), c,
+        hid, hp, stream)
+    _kernels.check(lib, err, "ln_gdfn weights")
     sc = scale.float().contiguous()
     bi = bias.float().contiguous()
     y = torch.empty_like(x)
-    th, tw = tile_shape(c)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    th, tw = fwd_tile_shape(c, x.element_size())
+    tiles = b * -(-h // th) * -(-w // tw)
+    splits = fwd_splits(tiles, ops.hid_pad, _kernels.sm_count(x.device))
+    part = (torch.empty(splits * x.numel(), device=x.device,
+                        dtype=torch.float32) if splits > 1 else None)
     err = lib.uir_ln_gdfn_fwd(
-        x.data_ptr(), y.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-        win.data_ptr(), taps.data_ptr(), wo.data_ptr(), b, c, h, w, hp,
-        GATE_CHUNK, int(x.dtype == torch.bfloat16), th, tw, float(eps),
-        stream)
+        x.data_ptr(), y.data_ptr(), 0 if part is None else part.data_ptr(),
+        sc.data_ptr(), bi.data_ptr(), *(t.data_ptr() for t in ops[:5]), b,
+        c, h, w, ops.hid_pad, GATE_CHUNK, int(x.dtype == torch.bfloat16), th,
+        tw, splits, float(eps), stream)
     _kernels.check(lib, err, "ln_gdfn")
-    ln_gdfn.launches[(c, h, w)] += 1
-    return y
+    ln_gdfn.launches[(c, h, w)] += 2 if splits == 1 else 3  # fwd_launches
+    return y, ops
+
+
+def fwd_launches(b: int, h: int, w: int, c: int, hid_pad: int,
+                 itemsize: int, sms: int = 132) -> int:
+    """Launches of one forward call: the weights' operands, the tile
+    kernel, and the sum of the splits' rows when ``fwd_splits`` splits the
+    hidden width."""
+    th, tw = fwd_tile_shape(c, itemsize)
+    tiles = b * -(-h // th) * -(-w // tw)
+    return 2 if fwd_splits(tiles, hid_pad, sms) == 1 else 3
+
 
 
 def ln_gdfn_bwd_plain(x, dy, scale, bias, w_in, w_dw, w_out,
@@ -207,11 +307,17 @@ def ln_gdfn_bwd(x, dy, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
         raise ValueError("ln_gdfn_bwd: dy must match x in shape and dtype")
     if c % 8:
         raise ValueError(f"ln_gdfn_bwd: C={c} must be a multiple of 8")
+    return _backward_cuda(x, dy, scale, bias,
+                          kernel_operands(w_in, w_dw, w_out), w_out.shape[0],
+                          eps)
+
+
+def _backward_cuda(x, dy, scale, bias, ops, hid, eps):
+    """The backward's launches over prepared operands (``kernel_operands``):
+    the tile kernel, then the ordered sum of the blocks' rows."""
+    b, c, h, w = x.shape
     lib = _kernels.library("ln_gdfn_bwd")
-    hid = w_out.shape[0]
-    win, taps, wo, hp = kernel_weights(w_in, w_dw, w_out)
-    win_h, win_l = _kernels.split_bf16(win)
-    wo_h, wo_l = _kernels.split_bf16(wo)
+    hp = ops.hid_pad
     sc = scale.float().contiguous()
     bi = bias.float().contiguous()
     dy = dy.contiguous()
@@ -225,10 +331,9 @@ def ln_gdfn_bwd(x, dy, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.uir_ln_gdfn_bwd(
         x.data_ptr(), dy.data_ptr(), dx.data_ptr(), sc.data_ptr(),
-        bi.data_ptr(), win_h.data_ptr(), win_l.data_ptr(), taps.data_ptr(),
-        wo_h.data_ptr(), wo_l.data_ptr(), part.data_ptr(), grads.data_ptr(),
-        b, c, h, w, hp, GATE_CHUNK, int(x.dtype == torch.bfloat16), th, tw,
-        groups, float(eps), stream)
+        bi.data_ptr(), *(t.data_ptr() for t in ops[:5]), part.data_ptr(),
+        grads.data_ptr(), b, c, h, w, hp, GATE_CHUNK,
+        int(x.dtype == torch.bfloat16), th, tw, groups, float(eps), stream)
     _kernels.check(lib, err, "ln_gdfn_bwd")
     ln_gdfn_bwd.launches[(c, h, w)] += 2  # tiles, then the row sum
     g_win, g_taps, g_wo, dsc, dbi = grads.split(sizes)
@@ -239,29 +344,42 @@ def ln_gdfn_bwd(x, dy, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
 
 
 class LnGdfnFn(torch.autograd.Function):
-    """The CUDA forward with the CUDA backward; saves x and the weights."""
+    """The CUDA forward with the CUDA backward; saves x, the LayerNorm's
+    affine and the weights' operands (made once a call for both)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w_in, w_dw, w_out, eps):
-        ctx.eps = eps
-        ctx.save_for_backward(x, scale, bias, w_in, w_dw, w_out)
-        return _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps)
+        _kernels.check_input("ln_gdfn", x, scale, bias, w_in, w_dw, w_out)
+        y, ops = _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps)
+        ctx.eps, ctx.hid, ctx.hid_pad = eps, w_out.shape[0], ops.hid_pad
+        ctx.dtypes = tuple(t.dtype for t in (scale, bias, w_in, w_dw, w_out))
+        ctx.save_for_backward(x, scale, bias, *ops[:5])
+        return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, *ws = ctx.saved_tensors
-        grads = ln_gdfn_bwd(x, dy, *ws, eps=ctx.eps)
-        return (grads[0],) + tuple(g.to(t.dtype) for g, t in
-                                   zip(grads[1:], ws)) + (None,)
+        x, scale, bias, *ops = ctx.saved_tensors
+        if dy.shape != x.shape or dy.dtype != x.dtype:
+            raise ValueError("ln_gdfn_bwd: dy must match x in shape and "
+                             "dtype")
+        grads = _backward_cuda(x, dy, scale, bias,
+                               Operands(*ops, ctx.hid_pad), ctx.hid, ctx.eps)
+        return (grads[0],) + tuple(g.to(dt) for g, dt in
+                                   zip(grads[1:], ctx.dtypes)) + (None,)
 
 
 def ln_gdfn(x, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
     """``x + GDFN(LayerNorm(x))``: the CUDA kernels (forward and backward)
-    for a CUDA tensor, the plain version for a CPU tensor."""
+    for a CUDA tensor, the plain version for a CPU tensor; without a
+    gradient to take, the forward alone (no autograd Function)."""
+    args = (x, scale, bias, w_in, w_dw, w_out)
     if x.device.type == "cpu":
-        return ln_gdfn_plain(x, scale, bias, w_in, w_dw, w_out, eps)
-    return LnGdfnFn.apply(x, scale, bias, w_in, w_dw, w_out, eps)
+        return ln_gdfn_plain(*args, eps)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return LnGdfnFn.apply(*args, eps)
+    _kernels.check_input("ln_gdfn", *args)
+    return _forward_cuda(*args, eps)[0]  # no backward
 
 
 # launches of the CUDA kernel(s), by (C, H, W); the CPU path adds none

@@ -11,18 +11,20 @@ The reference's dead code stays dead: the frequency-q chain (``q1x1_1``), the
 ``kf`` half of kv and ``attnf`` never change the output and are not computed;
 the spatial attention is applied to ``vf``, the second half of kv.
 
-``ln_mdta`` launches the two CUDA kernels of ``csrc/ln_mdta.cu`` (stats, then
-apply) for a CUDA tensor and takes ``ln_mdta_plain`` for a CPU one.  Rounding
-points follow the TPU kernels: LN output, q and k, A·v, project_out's output,
-A·vf and project_outf's output round to x.dtype; v and vf stay f32.
+``ln_mdta`` launches the CUDA kernels of ``csrc/ln_mdta.cu`` for a CUDA
+tensor and takes ``ln_mdta_plain`` for a CPU one: tensor-core products over
+the batch in image slices (``fwd_plan`` sizing them), the per-image gram in
+rows over pixel ranges summed in order.  Rounding points follow the TPU
+kernels: LN output, q and k, A·v, project_out's output, A·vf and
+project_outf's output round to x.dtype; v and vf stay f32.
 
 On CUDA the forward is ``LnMdtaFn``, whose backward launches
 ``csrc/ln_mdta_bwd.cu`` (the VJP of the JAX package's
 ``fused_attn_composed.py:574``, ``fused_attn_banded.py:707`` and
-``fused_attn.py:560`` ``_bwd_call``): tensor-core products over the batch in
-image slices, ``bwd_plan`` sizing them.  It saves x, the weights and the
-per-image stats the stats kernel wrote (gram and row sums of squares), as
-the TPU VJP saves (x, G, Sq, Sk).  ``ln_mdta_bwd`` is that backward's wrapper
+``fused_attn.py:560`` ``_bwd_call``): staged like the forward, whose stages
+it shares (``csrc/mdta.cuh``), ``bwd_plan`` sizing its slices.  It saves x,
+the weights and the per-image stats the forward wrote (gram and row sums of
+squares), as the TPU VJP saves (x, G, Sq, Sk).  ``ln_mdta_bwd`` is that backward's wrapper
 and ``ln_mdta_bwd_plain`` its plain version (autograd through
 ``ln_mdta_plain``); the dead ``kf`` half of w_kv / t_kv gets zeros.
 """
@@ -63,30 +65,6 @@ def ln_mdta_plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
     return x + yf.to(dt)
 
 
-def kernel_weights(w_qkv, t_qkv, w_kv, t_kv):
-    """The kernels' operands, f32 and contiguous: the q/k 1x1 (C, 2C) and
-    taps (2C, 9), the v 1x1 (C, C) and taps (C, 9), and the live vf half of
-    the kv chain, 1x1 (C, C) and taps (C, 9); taps index k = 3 * dh + dw."""
-    c = w_qkv.shape[0]
-    taps = t_qkv.float().reshape(9, 3 * c).t()
-    taps2 = t_kv.float().reshape(9, 2 * c).t()
-    wq = w_qkv.float()
-    return tuple(t.contiguous() for t in (
-        wq[:, :2 * c], taps[:2 * c], wq[:, 2 * c:], taps[2 * c:],
-        w_kv[:, c:].float(), taps2[c:]))
-
-
-def tile_shape(c: int) -> tuple[int, int]:
-    """(TH, TW) of one thread block: the apply kernel keeps ~7 channel-major
-    copies of its tile with a 2-pixel halo in shared memory, so the tile
-    shrinks as C grows to stay under the 227 KB a block may use."""
-    if c <= 32:
-        return 16, 16
-    if c <= 64:
-        return 8, 16
-    return 4, 8
-
-
 def _check_heads(c, num_heads):
     cph = c // num_heads
     if c % 16 or c % num_heads or cph not in (8, 16, 32):
@@ -94,47 +72,6 @@ def _check_heads(c, num_heads):
                          "kernels take C a multiple of 16 and 8, 16 or 32 "
                          "channels a head")
     return cph
-
-
-def forward_with_stats(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
-                       t_kv, w_pof, num_heads, eps: float = 1e-5):
-    """The CUDA forward of a CUDA tensor: (y, stats), stats holding each
-    image's gram, Sq and Sk (what the backward needs besides x)."""
-    b, c, h, w = x.shape
-    _kernels.check_input("ln_mdta", x, scale, bias, w_qkv, t_qkv, temp, w_po,
-                         w_kv, t_kv, w_pof)
-    cph = _check_heads(c, num_heads)
-    lib = _kernels.library("ln_mdta")
-    wqk, tqk, wv, tv, wvf, tvf = kernel_weights(w_qkv, t_qkv, w_kv, t_kv)
-    sc = scale.float().contiguous()
-    bi = bias.float().contiguous()
-    tp = temp.float().reshape(-1).contiguous()
-    wpo = w_po.float().contiguous()
-    wpof = w_pof.float().contiguous()
-    th, tw = tile_shape(c)
-    ntiles = -(-h // th) * -(-w // tw)
-    e = c * cph + 2 * c
-    part = torch.empty(b * ntiles * e, device=x.device, dtype=torch.float32)
-    counters = torch.zeros(b, device=x.device, dtype=torch.int32)
-    stats = torch.empty(b * e, device=x.device, dtype=torch.float32)
-    y = torch.empty_like(x)
-    bf16 = int(x.dtype == torch.bfloat16)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.uir_ln_mdta_stats(
-        x.data_ptr(), sc.data_ptr(), bi.data_ptr(), wqk.data_ptr(),
-        tqk.data_ptr(), part.data_ptr(), counters.data_ptr(),
-        stats.data_ptr(), b, c, h, w, cph, bf16, th, tw, float(eps), stream)
-    _kernels.check(lib, err, "ln_mdta stats")
-    ln_mdta.launches[(c, h, w)] += 1
-    err = lib.uir_ln_mdta_apply(
-        x.data_ptr(), y.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-        wv.data_ptr(), tv.data_ptr(), wvf.data_ptr(), tvf.data_ptr(),
-        wpo.data_ptr(), wpof.data_ptr(),
-        tp.data_ptr(), stats.data_ptr(), b, c, h, w, cph, bf16, th, tw,
-        float(eps), stream)
-    _kernels.check(lib, err, "ln_mdta apply")
-    ln_mdta.launches[(c, h, w)] += 1
-    return y, stats
 
 
 def ln_mdta_bwd_plain(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
@@ -167,8 +104,8 @@ BWD_PIXELS = 32
 BWD_TAPS_COLS = 64
 BWD_WGRAD_TILE = 64
 BWD_MAX_C = 256
-# an image's dA product is split over at most this many pixel ranges of
-# about BWD_IMAGE_SPLIT pixels each
+# an image's dA product (and the forward's gram) is split over at most this
+# many pixel ranges of about BWD_IMAGE_SPLIT pixels each
 BWD_IMAGE_SPLITS = 32
 BWD_IMAGE_SPLIT = 2048
 
@@ -178,8 +115,8 @@ def _align256(n: int) -> int:
 
 
 def bwd_planes(itemsize: int) -> tuple[int, int]:
-    """bf16 planes a value of the backward's products takes: (rounded to the
-    compute dtype, f32).  bf16: (1, 2), a T value exact, an f32 one a hi/lo
+    """bf16 planes a value of the kernels' products takes (the forward's
+    and the backward's): (rounded to the compute dtype, f32).  bf16: (1, 2), a T value exact, an f32 one a hi/lo
     pair; f32: (3, 3), every value to f32's precision (dtemp's sum cancels
     too far for hi/lo pairs)."""
     return (3, 3) if itemsize == 4 else (1, 2)
@@ -190,8 +127,9 @@ def _round_k(n: int) -> int:
 
 
 def bwd_image_split_pixels(hw: int) -> int:
-    """Pixels a split of an image's dA product: at most BWD_IMAGE_SPLITS
-    splits of about BWD_IMAGE_SPLIT pixels, a multiple of BWD_K."""
+    """Pixels a split of an image's dA product (and of the forward's gram):
+    at most BWD_IMAGE_SPLITS splits of about BWD_IMAGE_SPLIT pixels, a
+    multiple of BWD_K."""
     splits = min(BWD_IMAGE_SPLITS, -(-hw // BWD_IMAGE_SPLIT))
     return _round_k(-(-hw // splits))
 
@@ -279,6 +217,104 @@ def bwd_row_size(c: int) -> int:
     return 6 * c * c + 38 * c
 
 
+# the forward's launches a slice of images (csrc/ln_mdta.cu): prep, u, the
+# taps, the gram, the stats and A, outs, out, u_vf, the taps, outf, y; and
+# once a call, the weights' bf16 planes
+FWD_LAUNCHES = 11
+# a slice's forward workspace stays within this many bytes
+FWD_WORKSPACE_BYTES = 256 << 20
+
+
+def fwd_workspace_bytes(imgs: int, h: int, w: int, c: int, itemsize: int,
+                        ksa: int) -> int:
+    """Bytes of the forward's workspace for a slice of ``imgs`` images
+    (csrc/ln_mdta.cu Layout, mirrored): the weights' planes (7 C^2 values),
+    per image A (f32 and planes), the gram's rows (a range of ``ksa``
+    pixels of an image), the Sq and Sk rows (a segment of BWD_TAPS_COLS
+    columns of an image row); then two regions of pixel-major values that
+    the stages alternate between: LN (C, planes of a value in the compute
+    dtype) and u (3C, f32), later outs, u_vf and outf; round(q), round(k)
+    (2C) and v (C, planes of an f32 value), later out and vf.  Each piece
+    256-byte aligned."""
+    hw = h * w
+    p = imgs * hw
+    npt, nf = bwd_planes(itemsize)
+    pl, fs, fa = npt * 2 * p * c, nf * 2 * p * c, 4 * p * c
+    cc = imgs * c * c
+    segs = imgs * h * -(-w // BWD_TAPS_COLS)
+    sizes = (nf * 2 * 7 * c * c, 4 * cc, nf * 2 * cc,
+             4 * cc * -(-hw // ksa), 4 * segs * 2 * c,
+             _align256(pl) + 3 * fa, _align256(2 * pl) + fs)
+    return sum(_align256(n) for n in sizes)
+
+
+class FwdPlan(collections.namedtuple(
+        "FwdPlan", "imgs slices image_split_pixels workspace launches")):
+    """How the forward walks a batch: images a slice, slices, pixels a
+    range of an image's gram, workspace bytes, launches a call."""
+
+
+def fwd_plan(b: int, h: int, w: int, c: int, itemsize: int) -> FwdPlan:
+    """The fewest slices whose workspace stays within FWD_WORKSPACE_BYTES,
+    the batch split evenly between them; an image whose own workspace
+    exceeds it is a slice by itself.  The gram's pixel ranges are the
+    backward's dA ranges (``bwd_image_split_pixels``).  Remembered by its
+    arguments and the budget (a model calls it for the same few shapes)."""
+    key = (b, h, w, c, itemsize, FWD_WORKSPACE_BYTES, bwd_image_split_pixels)
+    plan = _fwd_plans.get(key)
+    if plan is None:
+        plan = _fwd_plans[key] = _fwd_plan(b, h, w, c, itemsize)
+    return plan
+
+
+_fwd_plans: dict = {}
+
+
+def _fwd_plan(b, h, w, c, itemsize):
+    ksa = bwd_image_split_pixels(h * w)
+    one = fwd_workspace_bytes(1, h, w, c, itemsize, ksa)
+    most = max(1, min(b, FWD_WORKSPACE_BYTES // one))
+    while most > 1 and fwd_workspace_bytes(most, h, w, c, itemsize,
+                                           ksa) > FWD_WORKSPACE_BYTES:
+        most -= 1
+    slices = -(-b // most)
+    imgs = -(-b // slices)
+    return FwdPlan(imgs, slices, ksa,
+                   fwd_workspace_bytes(imgs, h, w, c, itemsize, ksa),
+                   FWD_LAUNCHES * slices + 1)
+
+
+def forward_with_stats(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
+                       t_kv, w_pof, num_heads, eps: float = 1e-5):
+    """The CUDA forward of a CUDA tensor: (y, stats), stats holding each
+    image's gram [C][C / heads], Sq [C] and Sk [C] (what the backward needs
+    besides x).  The kernels read every weight from its parameter, as it is
+    stored (a launch a call writes their bf16 planes into the workspace)."""
+    b, c, h, w = x.shape
+    _kernels.check_input("ln_mdta", x, scale, bias, w_qkv, t_qkv, temp, w_po,
+                         w_kv, t_kv, w_pof)
+    cph = _check_heads(c, num_heads)
+    if c > BWD_MAX_C:
+        raise ValueError(f"ln_mdta: C={c} is wider than {BWD_MAX_C}")
+    lib = _kernels.library("ln_mdta")
+    plan = fwd_plan(b, h, w, c, x.element_size())
+    work = torch.empty(plan.workspace, device=x.device, dtype=torch.uint8)
+    stats = torch.empty(b * (c * cph + 2 * c), device=x.device,
+                        dtype=torch.float32)
+    y = torch.empty_like(x)
+    ops = (x, y, *(t.float().contiguous() for t in (
+        scale, bias, w_qkv, t_qkv, w_po, w_kv, t_kv, w_pof, temp)), stats,
+        work)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.uir_ln_mdta_fwd(
+        *(t.data_ptr() for t in ops), b, c, h, w, cph,
+        int(x.dtype == torch.bfloat16), plan.imgs, plan.image_split_pixels,
+        float(eps), stream)
+    _kernels.check(lib, err, "ln_mdta")
+    ln_mdta.launches[(c, h, w)] += plan.launches
+    return y, stats
+
+
 def ln_mdta_bwd(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
                 w_pof, num_heads: int, stats, eps: float = 1e-5):
     """The LN+MDTA backward's CUDA kernels, on CUDA tensors, with ``stats``
@@ -351,12 +387,14 @@ class LnMdtaFn(torch.autograd.Function):
 def ln_mdta(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
             num_heads: int, eps: float = 1e-5):
     """``x + MDTA(LayerNorm(x))``: the CUDA kernels (forward and backward)
-    for a CUDA tensor, the plain version for a CPU tensor."""
+    for a CUDA tensor, the plain version for a CPU tensor; without a
+    gradient to take, the forward alone (no autograd Function)."""
+    args = (x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof)
     if x.device.type == "cpu":
-        return ln_mdta_plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
-                             t_kv, w_pof, num_heads, eps)
-    return LnMdtaFn.apply(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
-                          t_kv, w_pof, num_heads, eps)
+        return ln_mdta_plain(*args, num_heads, eps)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return LnMdtaFn.apply(*args, num_heads, eps)
+    return forward_with_stats(*args, num_heads, eps)[0]  # no backward
 
 
 # launches of the CUDA kernel(s), by (C, H, W); the CPU path adds none

@@ -29,11 +29,14 @@ SIZE = 256
 ITERS = 5
 
 GROUPS = (
-    ("ln_gdfn kernel", ("ln_gdfn_fwd_kernel",)),
-    ("ln_mdta stats kernel", ("ln_mdta_stats_kernel",)),
-    ("ln_mdta apply kernel", ("ln_mdta_apply_kernel",)),
+    ("ln_gdfn kernel", ("ln_gdfn_fwd_kernel", "ln_gdfn_fwd_sum_kernel")),
     # the staged kernels' products run in csrc/gemm.cuh's gemm_kernel, told
     # apart by their epilogues; the first group a name matches takes it
+    ("ln_mdta products", ("MdtaFwd",)),
+    ("ln_mdta taps passes", ("ln_mdta_fwd_taps",)),
+    ("ln_mdta prep, weights, stats and A", (
+        "ln_mdta_fwd_prep_kernel", "ln_mdta_fwd_weights_kernel",
+        "ln_mdta_fwd_attn_kernel")),
     ("ln_leff products (fc1, fc2)", ("LeffFwdFc1Epi", "LeffFwdFc2Epi")),
     ("ln_leff prep and g2 window", ("ln_leff_fwd_prep_kernel",
                                     "ln_leff_fwd_dw_kernel")),
