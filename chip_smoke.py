@@ -11,8 +11,8 @@ AST, trains both, and checks where the time and the launches went.
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
    tensor-core (HMMA) instructions in the SASS of ln_gdfn, ln_mdta,
-   ln_leff, ln_leff_bwd, ln_gdfn_bwd and ln_mdta_bwd (``cuobjdump -sass``;
-   none fails), TF32 off;
+   ln_leff, ln_leff_bwd, ln_gdfn_bwd, ln_mdta_bwd, window_attn and
+   window_attn_bwd (``cuobjdump -sass``; none fails), TF32 off;
 2. kernels: ln_gdfn and ln_mdta vs their plain versions at the five block
    shapes and the serving batch (and at two shapes with ragged edge tiles),
    in f32 and in bf16, each against the plain version on the same input, so
@@ -52,9 +52,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (a) ln_leff and window_attn vs their plain versions at every AST@256
    shape, batch 8, f32 and bf16, and at ragged and small shapes, the error
    over max|branch| (ln_leff's y - x, window_attn's whole output), then
-   times; (b) launches in one forward of the full-width AST at 256x256
-   batch 8 bf16 (18 ln_leff calls of four launches a slice of the batch,
-   ``fused_leff.fwd_plan``; 10 window_attn of which 5 masked), from zero;
+   times, and window_attn's dense variant beside one
+   ``scaled_dot_product_attention`` call (the library yardstick; the
+   sparse mix has none); (b) launches in one forward of the full-width AST
+   at 256x256 batch 8 bf16 (18 ln_leff calls of four launches a slice of
+   the batch, ``fused_leff.fwd_plan``; 10 window_attn of which 5 masked),
+   from zero;
    (c) the model's output, kernels vs plain model, in f32 (TF32
    off) and bf16, with limits shown to lie below a quarter of what dropping
    every LeFF (or attention) branch moves, q projections scaled by 8 so the
@@ -64,12 +67,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    DropPath from a seeded generator, bf16, batch 16): (a) ln_leff_bwd vs
    autograd through the plain version at every AST@256 shape (batch 16) and
    at edge shapes (ragged tiles, C = 8, a hidden width that is not a
-   multiple of 32, no residual, s with zeros and 1.25), f32 and bf16, every
-   gradient's max abs error over its max|ref|, then times; (b) launches
-   in one step (18 ln_leff calls of four launches a slice of the batch,
-   18 ln_leff_bwd calls of seven, ``fused_leff.fwd_plan`` and
-   ``bwd_plan``, 10 window_attn of which 5 masked), every gradient finite
-   and non-zero;
+   multiple of 32, no residual, s with zeros and 1.25), and window_attn_bwd
+   vs the plain recompute (``window_attention_bwd``) at every AST@256
+   attention shape (batch 16, masked and not) and at the edge shapes, f32
+   and bf16, every gradient's max abs error over its max|ref|, then times;
+   (b) launches in one step (18 ln_leff calls of four launches a slice of
+   the batch, 18 ln_leff_bwd calls of seven, ``fused_leff.fwd_plan`` and
+   ``bwd_plan``, 10 window_attn of which 5 masked, 10 window_attn_bwd
+   calls of three launches, the plain recompute never called), every
+   gradient finite and non-zero;
    (c) one step's gradients through the kernels vs the plain versions with
    the same DropPath draws, f32 and bf16, with limits shown to lie below a
    quarter of what dropping every LeFF branch moves; (d) three f32 steps'
@@ -213,12 +219,14 @@ REPLACES = {
     "ln_leff": "underwater_image_restoration_tpu/ops/fused_leff.py:301",
     "ln_leff_bwd": "underwater_image_restoration_tpu/ops/fused_leff.py:337",
     "window_attn": "underwater_image_restoration_tpu/ops/pallas.py:110",
+    "window_attn_bwd": "underwater_image_restoration_tpu/ops/pallas.py:191",
 }
-# libraries whose 1x1 products run on the tensor cores (csrc/mma.cuh,
-# csrc/gemm.cuh), and the count of HMMA instructions found in each one's
-# SASS by this run
+# libraries whose products run on the tensor cores (csrc/mma.cuh,
+# csrc/gemm.cuh, csrc/wattn.cuh), and the count of HMMA instructions found
+# in each one's SASS by this run
 TENSOR_CORE_LIBS = ("ln_gdfn", "ln_mdta", "ln_leff", "ln_leff_bwd",
-                    "ln_gdfn_bwd", "ln_mdta_bwd")
+                    "ln_gdfn_bwd", "ln_mdta_bwd", "window_attn",
+                    "window_attn_bwd")
 HMMA = {}
 GRAD_NAMES = {
     "ln_gdfn": ("dx", "dscale", "dbias", "dw_in", "dw_dw", "dw_out"),
@@ -370,6 +378,64 @@ def work_ast(name, shape, batch, itemsize):
     return nbytes, bq * heads * 4 * n * n * d
 
 
+def work_attn_bwd(shape, batch, itemsize):
+    """(bytes, flops) the window attention's backward needs at least: q, k,
+    v and dO read once, dq, dk and dv written once, the f32 bias (and mask)
+    read once, dbias written once, w and dw; the multiply-adds of its five
+    N x N x d products (S, dP, dV, dq, dk): 10 N^2 d a (window, head)."""
+    nw, heads, masked = shape
+    n, d, bq = AST_WIN ** 2, AST_HEAD_DIM, batch * nw
+    nbytes = (7 * bq * heads * n * d * itemsize + 2 * 4 * heads * n * n
+              + (4 * nw * n * n if masked else 0) + 16)
+    return nbytes, bq * heads * 10 * n * n * d
+
+
+def attn_inputs(nw, heads, ws, d, b, masked, sparse, seed, dt):
+    """q and kv in the projections' (B', N, heads * d) layout, heads as
+    views (the model's layout); bias N(0, 1), mix weights (0.3, -0.4):
+    the softmax far from flat."""
+    import torch
+
+    from underwater_image_restoration_torch.ops import shift_mask, split_heads
+
+    g = torch.Generator().manual_seed(seed)
+    n, bq, c = ws * ws, b * nw, heads * d
+    q = torch.randn(bq, n, c, generator=g).cuda().to(dt)
+    kv = torch.randn(bq, n, 2 * c, generator=g).cuda().to(dt)
+    bias = torch.randn(heads, n, n, generator=g).cuda()
+    side = ws * math.isqrt(nw)
+    mask = shift_mask(side, side, ws, ws // 2, "cuda") if masked else None
+    w = torch.tensor([0.3, -0.4]).cuda() if sparse else None
+    return ((split_heads(q, heads), split_heads(kv[..., :c], heads),
+             split_heads(kv[..., c:], heads), bias),
+            dict(scale=d ** -0.5, sparse_w=w, mask=mask))
+
+
+def sdpa_dense(args, kw):
+    """The dense window attention (``sparse_w`` None) as one
+    ``scaled_dot_product_attention`` call, the library yardstick: q, k, v
+    laid out as (B' / nW, nW heads, N, d) and attn_mask = bias (+ mask) as
+    (1, nW heads, N, N) in q's dtype (made here, outside the timed call).
+    Returns the call and a function mapping its result to (B', heads, N,
+    d)."""
+    import torch
+
+    q, k, v, bias = args
+    mask = kw["mask"]
+    bq, h, n, d = q.shape
+    nw = 1 if mask is None else mask.shape[0]
+    add = bias[None] if mask is None else bias[None] + mask[:, None]
+    am = add.reshape(1, nw * h, n, n).to(q.dtype)
+    qq, kk, vv = (t.reshape(bq // nw, nw * h, n, d).contiguous()
+                  for t in (q, k, v))
+
+    def call():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, attn_mask=am, scale=kw["scale"])
+
+    return call, lambda out: out.reshape(bq, h, n, d)
+
+
 def work_leff_bwd(c, h, batch, itemsize):
     """(bytes, flops) the LN+LeFF backward needs at least: x and dy read
     once, dx written once, the f32 weights read and their gradients written
@@ -481,8 +547,6 @@ def ast_phase(card, batch, size):
     from underwater_image_restoration_torch.ops import (
         ln_leff,
         ln_leff_plain,
-        shift_mask,
-        split_heads,
         window_attention,
         window_attention_plain,
     )
@@ -534,22 +598,6 @@ def ast_phase(card, batch, size):
             worst = max(worst, err)
         return x.to(bf16), ws, worst
 
-    def attn_inputs(nw, heads, ws, d, b, masked, sparse, seed, dt):
-        """q and kv in the projections' (B', N, heads * d) layout, heads as
-        views (the model's layout); bias N(0, 1), mix weights (0.3, -0.4):
-        the softmax far from flat."""
-        g = torch.Generator().manual_seed(seed)
-        n, bq, c = ws * ws, b * nw, heads * d
-        q = torch.randn(bq, n, c, generator=g).cuda().to(dt)
-        kv = torch.randn(bq, n, 2 * c, generator=g).cuda().to(dt)
-        bias = torch.randn(heads, n, n, generator=g).cuda()
-        side = ws * math.isqrt(nw)
-        mask = shift_mask(side, side, ws, ws // 2, "cuda") if masked else None
-        w = torch.tensor([0.3, -0.4]).cuda() if sparse else None
-        return ((split_heads(q, heads), split_heads(kv[..., :c], heads),
-                 split_heads(kv[..., c:], heads), bias),
-                dict(scale=d ** -0.5, sparse_w=w, mask=mask))
-
     def check_attn(nw, heads, ws, d, b, masked, modes, seed):
         """Kernel vs plain version, f32 and bf16, sparse and/or dense
         (``modes``): the dense softmax alone shows a fault that the sparse
@@ -599,12 +647,27 @@ def ast_phase(card, batch, size):
                                 reps=5)
                 bms, by = bound(*work_ast("window_attn", (nw, heads, masked),
                                           batch, 2))
-                rows[("window_attn", batch * nw, heads, masked)] = \
-                    timing_row(ms, pms, bms, by, err)
+                row = timing_row(ms, pms, bms, by, err)
+                # the dense variant beside the library's one call
+                args, kw = attn_inputs(nw, heads, AST_WIN, AST_HEAD_DIM,
+                                       batch, masked, False, nw + heads, bf16)
+                dms = median_ms(lambda: window_attention(*args, **kw))
+                sdpa, back = sdpa_dense(args, kw)
+                lms = median_ms(sdpa)
+                ref = window_attention_plain(*args, **kw).float()
+                lerr = (back(sdpa()).float() - ref).abs().max().item()
+                row.update(dense_ms=dms.ms, dense_ms_spread=[dms.lo, dms.hi],
+                           dense_library_ms=lms.ms,
+                           dense_library_ms_spread=[lms.lo, lms.hi])
+                rows[("window_attn", batch * nw, heads, masked)] = row
                 print(f"window_attn B'={batch * nw} heads={heads} N=64 d=32 "
                       f"masked={masked} bf16: kernel {ms}, plain {pms}, "
-                      f"bound {bms:.4f} ms ({by}) on {card}", flush=True)
-                del args, kw
+                      f"bound {bms:.4f} ms ({by}); dense: kernel {dms}, "
+                      "scaled_dot_product_attention (bias and mask in bf16) "
+                      f"{lms}, its max_abs vs the plain dense version "
+                      f"{lerr:.3e} over max|ref| {ref.abs().max().item():.3f}"
+                      f" on {card}", flush=True)
+                del args, kw, sdpa, back, ref
     torch.cuda.empty_cache()
     print(f"phase 6(a) took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -738,12 +801,16 @@ def ast_phase(card, batch, size):
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": None,
+            **{k: v for k, v in row.items() if k.startswith("dense_")},
         })
     return kernels
 
 
 def ast_train_phase(card, batch, size, check_batch):
-    """7. the AST train step; returns ln_leff_bwd's JSON rows."""
+    """7. the AST train step; returns ln_leff_bwd's and window_attn_bwd's
+    JSON rows."""
+    import importlib
+
     import torch
 
     from underwater_image_restoration_torch.data import synthetic_pair_batch
@@ -768,6 +835,9 @@ def ast_train_phase(card, batch, size, check_batch):
         normalize_u8,
     )
 
+    # the module (``ops.window_attention`` is also its function's name)
+    wa = importlib.import_module(
+        "underwater_image_restoration_torch.ops.window_attention")
     t_phase = time.perf_counter()
     f32, bf16 = torch.float32, torch.bfloat16
 
@@ -835,12 +905,75 @@ def ast_train_phase(card, batch, size, check_batch):
         row["max_abs_err"] = worst
         return row
 
+    def check_attn_bwd(nw, heads, ws, d, b, masked, sparse, seed,
+                       timed=False):
+        """window_attn_bwd vs the plain recompute (autograd through the
+        plain version) on the same inputs and cotangent, f32, then bf16:
+        every gradient's max abs error over its max|ref| (GRAD_TOL); with
+        ``timed``, bf16 times of both."""
+        worst, row = 0.0, {}
+        for dt in (f32, bf16):
+            tag = str(dt).split(".")[1]
+            args, kw = attn_inputs(nw, heads, ws, d, b, masked, sparse, seed,
+                                   dt)
+            g = torch.randn(args[0].shape, generator=torch.Generator()
+                            .manual_seed(seed + 1)).cuda().to(dt)
+            got = wa.window_attn_bwd(g, *args, **kw)
+            ref = wa.window_attention_bwd(g, *args, **kw)
+            torch.cuda.synchronize()
+            rels = []
+            for gname, a, r in zip(("dq", "dk", "dv", "dbias", "dw"), got,
+                                   ref):
+                if r is None:
+                    continue
+                a, r = a.float(), r.float()
+                if a.shape != r.shape or not bool(torch.isfinite(a).all()):
+                    fail(f"window_attn_bwd {gname} at N={ws * ws} d={d} "
+                         f"{tag}: shape {tuple(a.shape)} vs "
+                         f"{tuple(r.shape)} or not finite")
+                err = (a - r).abs().max().item()
+                rels.append((err / max(r.abs().max().item(), 1e-30), gname))
+                worst = max(worst, err)
+            rel, gname = max(rels)
+            tol = GRAD_TOL[tag]
+            print(f"window_attn_bwd N={ws * ws} d={d} B'={b * nw} "
+                  f"heads={heads} masked={masked} sparse={sparse} {tag}: "
+                  "max_abs/max|ref| " +
+                  " ".join(f"{nm} {v:.2e}" for v, nm in rels) +
+                  f"; worst {gname} {rel:.3e} tol {tol:.0e} "
+                  f"{'ok' if rel <= tol else 'FAIL'}", flush=True)
+            if rel > tol:
+                fail(f"window_attn_bwd {gname} disagrees with the plain "
+                     f"recompute at N={ws * ws} d={d} B'={b * nw} {tag}")
+            if timed and dt == bf16:
+                ms = median_ms(lambda: wa.window_attn_bwd(g, *args, **kw),
+                               reps=10)
+                pms = median_ms(lambda: wa.window_attention_bwd(
+                    g, *args, **kw), reps=5)
+                bms, by = bound(*work_attn_bwd((nw, heads, masked), b, 2))
+                row = timing_row(ms, pms, bms, by, 0.0)
+                print(f"window_attn_bwd B'={b * nw} heads={heads} N=64 d=32 "
+                      f"masked={masked} bf16: kernel {ms}, plain recompute "
+                      f"{pms}, bound {bms:.4f} ms ({by}) on {card}",
+                      flush=True)
+            del got, ref, args, kw, g
+        torch.cuda.empty_cache()
+        row["max_abs_err"] = worst
+        return row
+
     for i, (c, h, w, hid, residual, s) in enumerate(LEFF_BWD_EDGE):
         check_bwd(c, h, w, hid, 2, seed=20 + i, s=s, residual=residual)
+    for i, (nw, heads, ws, d, masked, sparse) in enumerate(ATTN_EDGE):
+        check_attn_bwd(nw, heads, ws, d, 2, masked, sparse, seed=30 + i)
     rows = {}
     for c, h in LEFF_SHAPES:
         rows[("ln_leff_bwd", c, h, h)] = check_bwd(
             c, h, h, 4 * c, batch, seed=c + h + 1, timed=True)
+    for nw, heads in ATTN_SHAPES:
+        for masked in (False, True):
+            rows[("window_attn_bwd", batch * nw, heads, masked)] = \
+                check_attn_bwd(nw, heads, AST_WIN, AST_HEAD_DIM, batch,
+                               masked, True, seed=nw + heads + 2, timed=True)
     print(f"phase 7(a) took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
@@ -864,14 +997,31 @@ def ast_train_phase(card, batch, size, check_batch):
     torch.cuda.synchronize()
     counters = {"ln_leff": ln_leff.launches,
                 "ln_leff_bwd": ln_leff_bwd.launches,
-                "window_attn": window_attention.launches}
+                "window_attn": window_attention.launches,
+                "window_attn_bwd": wa.window_attn_bwd.launches}
     for cnt in counters.values():
         cnt.clear()
-    out = step(raw, ref)
-    torch.cuda.synchronize()
+    # count calls of the plain recompute: none on the kernels' path
+    plain_bwd, recompute_calls = wa.window_attention_bwd, []
+
+    def counted(*a, **k):
+        recompute_calls.append(1)
+        return plain_bwd(*a, **k)
+
+    wa.window_attention_bwd = counted
+    try:
+        out = step(raw, ref)
+        torch.cuda.synchronize()
+    finally:
+        wa.window_attention_bwd = plain_bwd
     launches = {k: dict(v) for k, v in counters.items()}
     totals = {k: sum(v.values()) for k, v in launches.items()}
     n_masked = sum(v for k, v in launches["window_attn"].items() if k[4])
+    bwd_masked = sum(v for k, v in launches["window_attn_bwd"].items()
+                     if k[4])
+    # one kernel backward a window attention, each wanting dbias and dw:
+    # the kernel, reduce_rows and the dw step
+    bwd_each = wa.bwd_plan(batch * 4, 16, 64).launches
     # two ln_leff and ln_leff_bwd calls a level, each FWD_LAUNCHES or
     # BWD_LAUNCHES a slice of the batch
     sms = _kernels.sm_count(torch.device("cuda"))
@@ -885,17 +1035,25 @@ def ast_train_phase(card, batch, size, check_batch):
           f"masked; ln_leff {fused_leff.FWD_LAUNCHES} a slice of the batch: "
           f"prep, fc1, g2, fc2; ln_leff_bwd {fused_leff.BWD_LAUNCHES} a "
           "slice: prep, fc1, dg2, depthwise, weight gradients, dLN, row "
-          "sums)", flush=True)
+          f"sums; window_attn_bwd {bwd_each} a call: the kernel, "
+          f"reduce_rows, dw), {bwd_masked} window_attn_bwd launches masked, "
+          f"{len(recompute_calls)} calls of the plain recompute", flush=True)
     for name in ("ln_leff", "ln_leff_bwd"):
         for (c, h, w), n in sorted(launches[name].items()):
             print(f"  {name} C={c} {h}x{w}: {n} (2 calls of "
                   f"{want[name].get((c, h, w), 0) // 2})", flush=True)
+    for key, n in sorted(launches["window_attn_bwd"].items()):
+        print(f"  window_attn_bwd {key}: {n}", flush=True)
     if (totals["window_attn"], n_masked) != (10, 5) \
             or launches["ln_leff"] != want["ln_leff"] \
-            or launches["ln_leff_bwd"] != want["ln_leff_bwd"]:
+            or launches["ln_leff_bwd"] != want["ln_leff_bwd"] \
+            or (totals["window_attn_bwd"], bwd_masked) != (10 * bwd_each,
+                                                          5 * bwd_each) \
+            or recompute_calls:
         fail(f"expected ln_leff {want['ln_leff']}, ln_leff_bwd "
-             f"{want['ln_leff_bwd']} (18 calls each) and 10 window_attn (5 "
-             "masked) launches in one train step")
+             f"{want['ln_leff_bwd']} (18 calls each), 10 window_attn (5 "
+             f"masked) and 10 window_attn_bwd calls of {bwd_each} launches "
+             "(5 masked) in one train step, and no plain recompute")
     loss0 = float(out["loss"])
     print(f"AST train step loss {loss0:.6f} grad_norm "
           f"{float(out['grad_norm']):.6f}", flush=True)
@@ -983,6 +1141,8 @@ def ast_train_phase(card, batch, size, check_batch):
 
     kernels = []
     for key, row in rows.items():
+        if key[0] != "ln_leff_bwd":
+            continue
         n = launches["ln_leff_bwd"].get(key[1:], 0)
         if n == 0:
             fail(f"{key} was not launched on the AST train path")
@@ -1001,6 +1161,31 @@ def ast_train_phase(card, batch, size, check_batch):
             "bound_by": row["bound_by"],
             "library_ms": None,
             "hmma": HMMA["ln_leff_bwd"],
+        })
+    for key, row in rows.items():
+        if key[0] != "window_attn_bwd":
+            continue
+        n = launches["window_attn_bwd"].get(
+            (key[1], key[2], AST_WIN ** 2, AST_HEAD_DIM, key[3]), 0)
+        if n == 0:
+            fail(f"{key} was not launched on the AST train path")
+        kernels.append({
+            "name": (f"window_attn_bwd[B'={key[1]},heads={key[2]},N=64,d=32,"
+                     f"{'masked' if key[3] else 'unmasked'}]"),
+            "route": "cuda",
+            "source": ("underwater_image_restoration_torch/csrc/"
+                       "window_attn_bwd.cu"),
+            "replaces": REPLACES["window_attn_bwd"],
+            "launches": n,
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "ms_spread": row["ms_spread"],
+            "plain_ms": row["plain_ms"],
+            "plain_ms_spread": row["plain_ms_spread"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+            "hmma": HMMA["window_attn_bwd"],
         })
     return kernels
 
@@ -1085,7 +1270,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = _kernels.build_all(
         None if args.phase == "all" else ["ln_leff", "ln_leff_bwd",
-                                          "window_attn"])
+                                          "window_attn", "window_attn_bwd"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()

@@ -11,7 +11,7 @@ CPU.
 - the CUDA forward's staged algorithm (csrc/ln_leff.cu), written in torch
   over the operands ``kernel_weights`` lays out (the width 48 zero-padded
   to 64): the batch in image slices, LN, fc1 and fc2 as the tensor-core
-  products take them (f32 operands as bf16 hi/lo planes), g2 from g1's 3x3
+  products take them (f32 operands as three bf16 planes), g2 from g1's 3x3
   window, the biases rounded where the kernels add them; the forward's
   planner (slices within FWD_WORKSPACE_BYTES at every AST@256 shape, serve
   batch 8 and train batch 16);
@@ -142,7 +142,7 @@ def _kernel_algorithm(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
     ``imgs`` images, per slice LN (rounded), fc1 with g1 in its epilogue, g2
     from g1's 3x3 window (zero outside the image), fc2 with y in its
     epilogue; the products as the tensor cores take them (f32 operands
-    split into bf16 hi/lo planes), the biases rounded to the compute dtype
+    split into three bf16 planes), the biases rounded to the compute dtype
     where they are added."""
     dt = x.dtype
     split = dt == torch.float32
@@ -164,12 +164,12 @@ def _kernel_algorithm(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
         mean = xs.mean(-1, keepdim=True)
         rstd = torch.rsqrt((xs - mean).square().mean(-1, keepdim=True) + eps)
         ln = rnd((xs - mean) * rstd * scale + bias).reshape(p, c)
-        t1 = rnd(rnd(_mm(ln, w1k, split)) + rnd(b1k))
+        t1 = rnd(rnd(_mm(ln, w1k, split, 3)) + rnd(b1k))
         g1 = rnd(gelu(t1)).view(n, h, w, hp)
         t2 = sum(taps[k] * _shifted(g1, k // 3 - 1, k % 3 - 1)
                  for k in range(9))
         g2 = rnd(gelu(rnd(rnd(t2) + rnd(bdwk)))).reshape(p, hp)
-        yd = rnd(rnd(_mm(g2, w2k, split)) + rnd(b2k))
+        yd = rnd(rnd(_mm(g2, w2k, split, 3)) + rnd(b2k))
         yd = rnd(yd * sb[b0:b0 + n].repeat_interleave(h * w)[:, None])
         out = xs.reshape(p, c) + yd if residual else yd
         y[b0:b0 + n] = out.view(n, h, w, c).to(dt)
@@ -301,21 +301,27 @@ def _gelu_grad(t):
             + t * torch.exp(-0.5 * t * t) / (2 * np.pi) ** 0.5)
 
 
-def _split(t):
+def _split(t, planes=2):
     """csrc/mma.cuh's planes of an f32 operand, as f32: hi = bf16(t), lo =
-    bf16(t - hi)."""
-    hi = t.bfloat16().float()
-    return hi, (t - hi).bfloat16().float()
+    bf16(t - hi); with three, hi, mid = bf16(t - hi), lo = bf16(t - hi -
+    mid)."""
+    out = []
+    for _ in range(planes):
+        out.append(t.bfloat16().float())
+        t = t - out[-1]
+    return out
 
 
-def _mm(a, b, split):
+def _mm(a, b, split, planes=2):
     """a @ b as the kernel's tensor-core products take it: bf16 operands,
-    f32 sums; with ``split`` (an f32 call) each operand as its hi/lo planes,
-    a_hi b_hi + a_hi b_lo + a_lo b_hi."""
+    f32 sums; with ``split`` (an f32 call) each operand as its planes, the
+    passes (i, j) with i + j < planes: a_hi b_hi + a_hi b_lo + a_lo b_hi
+    with two (the backward), six passes with three (the forward)."""
     if not split:
         return a @ b
-    (ah, al), (bh, bl) = _split(a), _split(b)
-    return ah @ bh + ah @ bl + al @ bh
+    pa, pb = _split(a, planes), _split(b, planes)
+    return sum(pa[i] @ pb[j] for i in range(planes)
+               for j in range(planes - i))
 
 
 def _in_order(rows):

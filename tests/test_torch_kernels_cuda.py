@@ -9,8 +9,10 @@
 - the AST's kernels: LN+LeFF on channels-last tokens (with and without the
   residual, a per-image scale, ragged tiles) and window attention (dense
   and sparse, masked, N = 64/16/4) vs their plain versions, the window
-  attention's recompute backward vs autograd through the plain version, a
-  window of more than 64 tokens refused;
+  attention's kernel backward vs autograd through the plain version at
+  the same four shapes (f32 and bf16, every gradient), two backward calls
+  bit-equal and launching what their plan says, a bad backward launch and
+  a window of more than 64 tokens refused;
 - the LN+LeFF backward kernel vs autograd through the plain version (f32
   and bf16, with and without the residual, s with a zero, ragged edges, a
   hidden width that is not a multiple of 32, the widest AST level), two
@@ -41,12 +43,15 @@ the error is scaled by max|branch|: f32 5e-5, bf16 2e-2.  A kernel that
 dropped the branch would score 1.  TF32 is off, or the plain version's f32
 convolutions would round their inputs to 10 mantissa bits.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 from underwater_image_restoration_torch.models import init_model
 from underwater_image_restoration_torch.ops import (
+    _kernels,
     fused_gdfn,
     fused_leff,
     fused_mdta,
@@ -54,6 +59,10 @@ from underwater_image_restoration_torch.ops import (
     window_attention_plain,
 )
 from underwater_image_restoration_torch.ops.windows import shift_mask
+
+# the module (``ops.window_attention`` is also the name of its function)
+wa = importlib.import_module(
+    "underwater_image_restoration_torch.ops.window_attention")
 
 
 @pytest.fixture
@@ -549,18 +558,82 @@ def test_window_attn_kernel_matches_plain(cuda, dtype, nw, heads, ws, d,
     assert err <= AST_TOL[dtype] * want.float().abs().max().item()
 
 
+ATTN_SHAPES = [(4, 4, 8, 32, True, True), (4, 2, 4, 8, False, True),
+               (1, 16, 2, 8, False, False), (16, 2, 4, 64, True, False)]
+ATTN_IDS = ["N64-masked-sparse", "N16-sparse", "N4-dense", "N16-d64-masked"]
+
+
 @pytest.mark.cuda
-def test_window_attn_backward_matches_plain(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nw, heads, ws, d, masked, sparse", ATTN_SHAPES,
+                         ids=ATTN_IDS)
+def test_window_attn_backward_matches_plain(cuda, dtype, nw, heads, ws, d,
+                                            masked, sparse):
+    """dq, dk, dv, dbias (and dw when sparse) through WindowAttnFn, whose
+    backward is csrc/window_attn_bwd.cu, vs autograd through the plain
+    version, each gradient's max abs error over its max|ref|: f32 1e-4,
+    bf16 2e-2 (BWD_TOL); the kernel backward launched, the plain recompute
+    not called."""
     q, k, v, bias, w, mask, scale = _attn_inputs(
-        cuda, torch.float32, 4, 4, 8, 32, True, True, 16)
-    ins = [t.detach().requires_grad_() for t in (q, k, v, bias, w)]
+        cuda, dtype, nw, heads, ws, d, masked, sparse, 16)
+    ins = [t.detach().requires_grad_() for t in (q, k, v, bias, w)
+           if t is not None]
     g = torch.randn_like(q)
-    got = torch.autograd.grad(window_attention(
-        *ins[:4], scale=scale, sparse_w=ins[4], mask=mask), ins, g)
-    want = torch.autograd.grad(window_attention_plain(
-        *ins[:4], scale=scale, sparse_w=ins[4], mask=mask), ins, g)
-    for a, b in zip(got, want):
-        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    wa.window_attn_bwd.launches.clear()
+    kw = dict(scale=scale, sparse_w=ins[4] if sparse else None, mask=mask)
+    got = torch.autograd.grad(window_attention(*ins[:4], **kw), ins, g)
+    want = torch.autograd.grad(window_attention_plain(*ins[:4], **kw), ins, g)
+    torch.cuda.synchronize()
+    assert sum(wa.window_attn_bwd.launches.values()) == 2 + sparse
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        assert torch.isfinite(a).all(), i
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), (i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attn_backward_bit_equal_and_planned(cuda, dtype):
+    """Two backward calls give the same bits (dbias and dw summed in block
+    order, no float atomics), and a call launches what its plan says: the
+    kernel, reduce_rows for dbias and the dw step, or fewer when fewer
+    gradients are wanted."""
+    q, k, v, bias, w, mask, scale = _attn_inputs(
+        cuda, dtype, 16, 2, 8, 32, True, True, 18)
+    g = torch.randn_like(q)
+    kw = dict(scale=scale, sparse_w=w, mask=mask)
+    wa.window_attn_bwd.launches.clear()
+    one = wa.window_attn_bwd(g, q, k, v, bias, **kw)
+    two = wa.window_attn_bwd(g, q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    plan = wa.bwd_plan(q.shape[0], 2, 64, _kernels.sm_count(q.device))
+    assert plan.blocks_per_head > 1
+    assert wa.window_attn_bwd.launches == {(32, 2, 64, 32, True):
+                                           2 * plan.launches}
+    part = wa.window_attn_bwd(g, q, k, v, bias, **kw,
+                              need=(True, False, True, False, False))
+    assert part[1] is None and part[3] is None and part[4] is None
+    assert torch.equal(part[0], one[0]) and torch.equal(part[2], one[2])
+    assert wa.window_attn_bwd.launches[(32, 2, 64, 32, True)] == \
+        2 * plan.launches + 1
+
+
+@pytest.mark.cuda
+def test_window_attn_backward_refuses_bad_launch(cuda, monkeypatch):
+    """A cotangent of another shape raises before the launch; a launch the
+    kernel refuses (no windows a block) raises with the CUDA error."""
+    q, k, v, bias, w, mask, scale = _attn_inputs(
+        cuda, torch.float32, 4, 2, 4, 8, True, True, 19)
+    with pytest.raises(ValueError, match="g must match q"):
+        wa.window_attn_bwd(q[:1], q, k, v, bias, scale=scale, sparse_w=w,
+                           mask=mask)
+    monkeypatch.setattr(wa, "bwd_plan",
+                        lambda *a: wa.Plan(1, 0, 0, 3))
+    with pytest.raises(RuntimeError, match="window_attn_bwd: CUDA error"):
+        wa.window_attn_bwd(q, q, k, v, bias, scale=scale, sparse_w=w,
+                           mask=mask)
 
 
 def _leff_fwd_launches(seen, batch, itemsize):
@@ -677,13 +750,15 @@ def test_ast_gradients_reach_every_parameter(cuda):
     """A small AST's train-mode backward on the card (DropPath at rate 0, so
     every branch counts): 18 LN+LeFF forward calls (one slice of
     FWD_LAUNCHES launches each) and 18 backward calls (one slice of
-    BWD_LAUNCHES each), 10 window attentions, every parameter's gradient
-    finite and non-zero."""
+    BWD_LAUNCHES each), 10 window attentions forward and 10 kernel
+    backwards (3 masked; dbias and dw wanted, so three launches each),
+    every parameter's gradient finite and non-zero."""
     model = init_model("AST", device=cuda, seed=4, img_size=32, embed_dim=8,
                        win_size=4, drop_path_rate=0.0).train()
     fused_leff.ln_leff.launches.clear()
     fused_leff.ln_leff_bwd.launches.clear()
     window_attention.launches.clear()
+    wa.window_attn_bwd.launches.clear()
     x = torch.rand(2, 3, 32, 32, device=cuda) * 2 - 1
     model(x).square().mean().backward()
     torch.cuda.synchronize()
@@ -692,6 +767,9 @@ def test_ast_gradients_reach_every_parameter(cuda):
     assert sum(fused_leff.ln_leff_bwd.launches.values()) == \
         fused_leff.BWD_LAUNCHES * 18
     assert sum(window_attention.launches.values()) == 10
+    bwd = wa.window_attn_bwd.launches
+    assert sum(bwd.values()) == 10 * 3
+    assert sum(n for k, n in bwd.items() if k[4]) == 3 * 3
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
         assert torch.count_nonzero(p.grad) > 0, name

@@ -8,7 +8,10 @@ against the JAX package, on the CPU.
 - ``window_attention_bwd`` (the CUDA route's recompute backward) vs
   ``jax.vjp`` of the Pallas function: dq, dk, dv, dbias and dw;
 - the CPU route takes the plain version and counts no launch;
-- ``split_heads``/``merge_heads``/``sparse_mix_weights`` vs the JAX ones.
+- ``split_heads``/``merge_heads``/``sparse_mix_weights`` vs the JAX ones;
+- the CUDA kernels' algorithms, emulated in torch at their rounding points
+  (``_emulate_forward``, ``_emulate_backward``), vs the Pallas function and
+  ``jax.vjp`` of it, and the planner that splits the windows over blocks.
 
 Inputs are drawn so the attention is far from uniform: q, k ~ N(0, 1)
 with head width 8 (scores O(1)), a bias table of std 1 and mix weights
@@ -144,3 +147,198 @@ def test_head_helpers_match_jax():
     want = jax_attention.sparse_mix_weights(jnp.asarray(w))
     np.testing.assert_allclose([float(t) for t in got],
                                [float(t) for t in want], rtol=1e-6)
+
+
+# ---- the CUDA kernels' algorithms, emulated on the CPU
+#
+# csrc/window_attn.cu and csrc/window_attn_bwd.cu run every product on the
+# tensor cores with bf16 operand planes (csrc/mma.cuh, csrc/wattn.cuh): a
+# bf16 operand is one plane; an f32 one three, hi = bf16(t), mid =
+# bf16(t - hi) and lo = bf16(t - hi - mid), a product taking the six passes
+# (i, j) with i + j <= 2 (two planes leave too little room under the
+# limit for the backward's dw, a difference of sums that cancel); the
+# passes accumulate in f32 (emulated here exactly in f64, then rounded
+# once).  P (and dS in the backward) are built in f32 registers and
+# split the same way: one bf16 plane in a bf16 call, three in an f32 call.
+# The scale multiplies the f32 products (q is never rounded after
+# scaling), added to bias + mask staged as one f32 tile.  The backward's
+# dbias sums each block's windows in f32 in its walk order
+# (``block_windows``), then the blocks' rows in block order; its dP sm and
+# dP relu(S)^2 sums go through f64.
+#
+# Tolerances, the card's (chip_smoke.py AST_KERNEL_TOL, GRAD_TOL): forward
+# max abs error over max|ref|, f32 5e-5 (the planes hold about 2^-24 of
+# each product), bf16 2e-2 (P as one bf16 plane moves out by at most a
+# bf16 ulp of P's sum, and both round out to bf16); gradients, each over
+# its max|ref|, f32 1e-4, bf16 2e-2.  A copy that scaled its output or dq
+# by 1.05 would read about 5e-2.
+
+EMU_TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+EMU_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _planes(t, dtype):
+    """The bf16 planes of an operand, as f64: one in a bf16 call, three in
+    an f32 one (plane i the bf16 of what planes 0 .. i - 1 leave)."""
+    rest, out = t.float(), []
+    for _ in range(1 if dtype == torch.bfloat16 else 3):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return [p.double() for p in out]
+
+
+def _prod(eq, a, b):
+    """A tensor-core product of plane lists a and b of one length: the
+    passes (i, j) with i + j < len(a), summed exactly and rounded to f32
+    once."""
+    return sum(torch.einsum(eq, a[i], b[j]) for i in range(len(a))
+               for j in range(len(a) - i)).float()
+
+
+def _recompute(q, k, bias, w, mask, scale):
+    """The kernels' scores S, softmax sm, relu(S) and P in f32, and (w1,
+    w2)."""
+    dt = q.dtype
+    bq, h, n, _ = q.shape
+    bm = bias.float()[None].expand(bq, h, n, n)
+    if mask is not None:
+        nw = mask.shape[0]
+        bm = (bias.float()[None, None] + mask.float()[None, :, None]).expand(
+            bq // nw, nw, h, n, n).reshape(bq, h, n, n)
+    prod = _prod("bhnd,bhmd->bhnm", _planes(q, dt), _planes(k, dt))
+    s = (prod.double() * scale + bm.double()).float()  # one fma a score
+    sm = torch.softmax(s, dim=-1)
+    r = torch.relu(s)
+    w1, w2 = ((1.0, 0.0) if w is None
+              else tuple(float(x) for x in attention.sparse_mix_weights(w)))
+    return s, sm, r, sm * w1 + r * r * w2, w1, w2
+
+
+def _emulate_forward(q, k, v, bias, w, mask, scale):
+    """csrc/window_attn.cu's output, in q's dtype."""
+    p = _recompute(q, k, bias, w, mask, scale)[3]
+    return _prod("bhnm,bhmd->bhnd", _planes(p, q.dtype),
+                 _planes(v, q.dtype)).to(q.dtype)
+
+
+def _emulate_backward(g, q, k, v, bias, w, mask, scale, sms):
+    """csrc/window_attn_bwd.cu's (dq, dk, dv, dbias, dw): the products on
+    the operand planes, dbias and the dw sums in the kernel's block split
+    (``bwd_plan`` for ``sms`` multiprocessors) and order."""
+    dt = q.dtype
+    bq, h, n, _ = q.shape
+    _, sm, r, p, w1, w2 = _recompute(q, k, bias, w, mask, scale)
+
+    def pl(t):
+        return _planes(t, dt)
+
+    dv = _prod("bhnm,bhnd->bhmd", pl(p), pl(g))
+    dp = _prod("bhnd,bhmd->bhnm", pl(g), pl(v))
+    rs = (dp * sm).sum(-1, keepdim=True)
+    ds = w1 * sm * (dp - rs) + 2 * w2 * r * dp
+    dq = _prod("bhnm,bhmd->bhnd", pl(ds), pl(k)) * scale
+    dk = _prod("bhnm,bhnd->bhmd", pl(ds), pl(q)) * scale
+    t1 = (dp * sm).sum((-2, -1))          # (B', H) f32 window sums
+    t2 = (dp * r * r).sum((-2, -1))
+    plan = wa.bwd_plan(bq, h, n, sms)
+    nw = 1 if mask is None else mask.shape[0]
+    dbias = torch.zeros(h, n, n)
+    s1 = s2 = 0.0
+    for hh in range(h):
+        for blk in range(plan.blocks_per_head):
+            tile = torch.zeros(n, n)
+            for b in wa.block_windows(bq, nw, plan.windows_per_block, blk):
+                tile = tile + ds[b, hh]
+                s1 += float(t1[b, hh])
+                s2 += float(t2[b, hh])
+            dbias[hh] = dbias[hh] + tile
+    dw = (None if w is None
+          else torch.tensor([w1 * w2 * (s1 - s2), -w1 * w2 * (s1 - s2)]))
+    return dq.to(dt), dk.to(dt), dv.to(dt), dbias, dw
+
+
+@pytest.mark.parametrize("heads, ws, masked, sparse", CASES, ids=IDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_emulated_forward_matches_pallas(heads, ws, masked, sparse, dtype):
+    q, k, v, bias, w, mask, scale = _case(heads, ws, masked, sparse, seed=6)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    got = _emulate_forward(*(_t(a, tdt) for a in (q, k, v)), _t(bias),
+                           _t(w), _t(mask), scale)
+    assert got.dtype == tdt
+    want = np.asarray(pallas.window_attention(
+        *(_j(a, jdt) for a in (q, k, v)), _j(bias), scale=scale,
+        sparse_w=_j(w), mask=_j(mask), interpret=True)).astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=EMU_TOL[dtype] * np.abs(want).max())
+
+
+@pytest.mark.parametrize("heads, ws, masked, sparse", CASES, ids=IDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_emulated_backward_matches_pallas_vjp(heads, ws, masked, sparse,
+                                              dtype):
+    q, k, v, bias, w, mask, scale = _case(heads, ws, masked, sparse, seed=7)
+    g = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    # an SM count that gives every head three blocks
+    sms = -(-3 * heads // wa.BWD_BLOCKS_PER_SM)
+    got = _emulate_backward(_t(g, tdt), *(_t(a, tdt) for a in (q, k, v)),
+                            _t(bias), _t(w), _t(mask), scale, sms=sms)
+    args = [_j(a, jdt) for a in (q, k, v)] + [_j(bias)] + (
+        [_j(w)] if sparse else [])
+
+    def f(*a):
+        return pallas.window_attention(*a[:4], scale=scale,
+                                       sparse_w=a[4] if sparse else None,
+                                       mask=_j(mask), interpret=True)
+
+    want = jax.vjp(f, *args)[1](jnp.asarray(g).astype(jdt))
+    assert (got[4] is None) == (not sparse)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias", "dw"), got, want):
+        b = np.asarray(b).astype(np.float32)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(
+            a.float().numpy(), b, rtol=0,
+            atol=EMU_GRAD_TOL[dtype] * np.abs(b).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("bq, heads, n, nw, sms", [
+    (8192, 2, 64, 1024, 132), (16384, 2, 64, 1, 132), (32, 16, 64, 4, 132),
+    (8, 2, 16, 4, 1), (21, 3, 4, 7, 5)])
+def test_plans_cover_every_window_once(bq, heads, n, nw, sms):
+    """Every window is walked exactly once a head, by blocks of at most
+    windows_per_block, and the backward's rows fit their budget."""
+    for plan in (wa.fwd_plan(bq, heads, sms), wa.bwd_plan(bq, heads, n, sms)):
+        seen = []
+        for blk in range(plan.blocks_per_head):
+            run = wa.block_windows(bq, nw, plan.windows_per_block, blk)
+            assert 1 <= len(run) <= plan.windows_per_block
+            seen += run
+        assert sorted(seen) == list(range(bq))
+    plan = wa.bwd_plan(bq, heads, n, sms)
+    assert plan.workspace == plan.blocks_per_head * heads * \
+        wa.bwd_row_bytes(n) <= wa.BWD_WORKSPACE_BYTES
+    assert plan.blocks_per_head <= -(-wa.BWD_BLOCKS_PER_SM * sms // heads)
+
+
+def test_backward_plan_keeps_its_budget(monkeypatch):
+    """A smaller workspace budget gives fewer, longer blocks a head, and
+    they still cover every window."""
+    monkeypatch.setattr(wa, "BWD_WORKSPACE_BYTES", 10 * wa.bwd_row_bytes(64))
+    plan = wa.bwd_plan(8192, 2, 64, 132)
+    assert plan.blocks_per_head == 5 and plan.windows_per_block == 1639
+    assert plan.workspace <= wa.BWD_WORKSPACE_BYTES
+    seen = sorted(b for blk in range(5)
+                  for b in wa.block_windows(8192, 1024, 1639, blk))
+    assert seen == list(range(8192))
+
+
+def test_cpu_backward_takes_plain_version():
+    q, k, v, bias, w, mask, scale = _case(2, 4, True, True, seed=9)
+    before = sum(wa.window_attn_bwd.launches.values())
+    args = [_t(a) for a in (q, k, v, bias)]
+    got = wa.window_attn_bwd(_t(q), *args, scale=scale, sparse_w=_t(w),
+                             mask=_t(mask))
+    want = wa.window_attention_bwd(_t(q), *args, scale=scale,
+                                   sparse_w=_t(w), mask=_t(mask))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert sum(wa.window_attn_bwd.launches.values()) == before

@@ -14,8 +14,8 @@
 // rounded, bias added in T; gelu, rounded; fc2 summed in f32 over the whole
 // hidden width, rounded, bias added in T; times s_b in f32, rounded; x + that
 // in T.  The wrapper passes fc1 and fc2 as bf16 planes of their values in T
-// and the three biases in f32; the kernel rounds them to T, as the TPU
-// kernel casts them.
+// (three in f32) and the three biases in f32; the kernel rounds them to T,
+// as the TPU kernel casts them.
 //
 // What bounds it on an H100.  Per pixel it does 4 C hid + 18 hid flops
 // against 2 C itemsize bytes of x and y: about 4 C flops a byte at hid = 4C
@@ -43,8 +43,12 @@
 // itemsize bytes a pixel, 4 hid in f32); the slices keep that workspace
 // within ops/fused_leff.py FWD_WORKSPACE_BYTES (fwd_plan).  In bf16 every
 // product operand (LN, W1, g2, W2) is exactly bf16, one pass; in f32 each
-// is a bf16 hi/lo pair (mma.cuh), three passes.  No float atomics: two
-// runs give the same bits.
+// is three bf16 planes, hi, mid and lo (mma.cuh), six passes, about 2^-24
+// of a product, and each k tile's sum is added round-to-nearest (gemm.cuh
+// RN): with hi/lo pairs (about 2^-17) and truncating sums over the hidden
+// width, an f32 AST train step's losses drifted past the limit of
+// chip_smoke.py phase 7(d) (three Adam steps against the plain model).
+// No float atomics: two runs give the same bits.
 #include <cstdint>
 #include <type_traits>
 
@@ -152,26 +156,38 @@ struct Layout {
   }
 };
 
+// bf16 planes an operand: three in f32 (hi, mid, lo), one in bf16
+template <typename T>
+constexpr int planes() {
+  return std::is_same<T, float>::value ? 3 : 1;
+}
+
+// a product's tile: f32 calls add each k tile round-to-nearest
+template <typename T, int BN, int WM, int WN>
+using FwdTile = Tile<128, BN, WM, WN, false, true, planes<T>(), planes<T>(),
+                     2, (planes<T>() > 1)>;
+
 template <typename T, class TF2>
 int launch(const T* x, T* y, const float* scale, const float* bias,
-           const bf16* w1h, const bf16* w1l, const float* b1,
-           const float* taps, const float* bdw, const bf16* w2h,
-           const bf16* w2l, const float* b2, const float* s,
-           unsigned char* work, int B, int H, int W, int C, int hid, int imgs,
-           int residual, float eps, cudaStream_t st) {
-  constexpr int NP = std::is_same<T, float>::value ? 2 : 1;
+           const bf16* w1h, const bf16* w1l, const bf16* w1x,
+           const float* b1, const float* taps, const float* bdw,
+           const bf16* w2h, const bf16* w2l, const bf16* w2x,
+           const float* b2, const float* s, unsigned char* work, int B, int H,
+           int W, int C, int hid, int imgs, int residual, float eps,
+           cudaStream_t st) {
+  constexpr int NP = planes<T>();
   const int HW = H * W;
   const Layout L(imgs * HW, C, hid, NP, sizeof(T));
   auto* ln = reinterpret_cast<bf16*>(work + L.off[0]);
   auto* g1 = reinterpret_cast<T*>(work + L.off[1]);
   auto* g2 = reinterpret_cast<bf16*>(work + L.off[2]);
-  const Opnd W1{{w1h, w1l, w1l}, hid, 0}, W2{{w2h, w2l, w2l}, C, 0};
-  using TA = Tile<128, 128, 2, 4, false, true, NP>;  // fc1: B = W1 [C][hid]
+  const Opnd W1{{w1h, w1l, w1x}, hid, 0}, W2{{w2h, w2l, w2x}, C, 0};
+  using TA = FwdTile<T, 128, 2, 4>;  // fc1: B = W1 [C][hid]
   for (int b0 = 0; b0 < B; b0 += imgs) {
     const int nb = min(imgs, B - b0), P = nb * HW;
     const size_t px0 = (size_t)b0 * HW;
-    const Opnd LN{{ln, ln + (size_t)P * C, ln + (size_t)P * C}, C, 0};
-    const Opnd G2{{g2, g2 + (size_t)P * hid, g2 + (size_t)P * hid},
+    const Opnd LN{{ln, ln + (size_t)P * C, ln + 2 * (size_t)P * C}, C, 0};
+    const Opnd G2{{g2, g2 + (size_t)P * hid, g2 + 2 * (size_t)P * hid},
                   hid, 0};
     ln_leff_fwd_prep_kernel<T, NP><<<(P + 7) / 8, kThreads, 0, st>>>(
         x + px0 * C, scale, bias, ln, P, HW, C, eps);
@@ -195,33 +211,35 @@ int launch(const T* x, T* y, const float* scale, const float* bias,
 
 template <typename T>
 int launch_c(const T* x, T* y, const float* scale, const float* bias,
-             const bf16* w1h, const bf16* w1l, const float* b1,
-             const float* taps, const float* bdw, const bf16* w2h,
-             const bf16* w2l, const float* b2, const float* s,
-             unsigned char* work, int B, int H, int W, int C, int hid,
-             int imgs, int residual, float eps, cudaStream_t st) {
-  constexpr int NP = std::is_same<T, float>::value ? 2 : 1;
+             const bf16* w1h, const bf16* w1l, const bf16* w1x,
+             const float* b1, const float* taps, const float* bdw,
+             const bf16* w2h, const bf16* w2l, const bf16* w2x,
+             const float* b2, const float* s, unsigned char* work, int B,
+             int H, int W, int C, int hid, int imgs, int residual, float eps,
+             cudaStream_t st) {
   // fc2: B = W2 [hid][C]; a narrower n tile at C <= 64
   if (C <= 64)
-    return launch<T, Tile<128, 64, 4, 2, false, true, NP>>(
-        x, y, scale, bias, w1h, w1l, b1, taps, bdw, w2h, w2l, b2, s, work, B,
-        H, W, C, hid, imgs, residual, eps, st);
-  return launch<T, Tile<128, 128, 2, 4, false, true, NP>>(
-      x, y, scale, bias, w1h, w1l, b1, taps, bdw, w2h, w2l, b2, s, work, B, H,
-      W, C, hid, imgs, residual, eps, st);
+    return launch<T, FwdTile<T, 64, 4, 2>>(
+        x, y, scale, bias, w1h, w1l, w1x, b1, taps, bdw, w2h, w2l, w2x, b2,
+        s, work, B, H, W, C, hid, imgs, residual, eps, st);
+  return launch<T, FwdTile<T, 128, 2, 4>>(
+      x, y, scale, bias, w1h, w1l, w1x, b1, taps, bdw, w2h, w2l, w2x, b2, s,
+      work, B, H, W, C, hid, imgs, residual, eps, st);
 }
 
 }  // namespace
 
 // The forward over the batch in slices of `imgs` images, four launches a
 // slice (prep, fc1, g2, fc2).  work: the workspace of one slice (Layout).
-// w1l and w2l (the lo planes) are read only in f32; s may be null (ones).
+// w1l, w1x, w2l and w2x (the mid and lo planes) are read only in f32; s
+// may be null (ones).
 extern "C" int uir_ln_leff_fwd(const void* x, void* y, const void* scale,
                                const void* bias, const void* w1h,
                                const void* w1l, const void* b1,
                                const void* taps, const void* bdw,
                                const void* w2h, const void* w2l,
-                               const void* b2, const void* s, void* work,
+                               const void* b2, const void* w1x,
+                               const void* w2x, const void* s, void* work,
                                int B, int H, int W, int C, int hid_pad,
                                int residual, int bf16, int imgs, float eps,
                                void* stream) {
@@ -237,10 +255,10 @@ extern "C" int uir_ln_leff_fwd(const void* x, void* y, const void* scale,
   if (bf16)
     return launch_c<__nv_bfloat16>(
         h(x), static_cast<__nv_bfloat16*>(y), f(scale), f(bias), h(w1h),
-        h(w1l), f(b1), f(taps), f(bdw), h(w2h), h(w2l), f(b2), f(s), wk, B,
-        H, W, C, hid_pad, imgs, residual, eps, st);
+        h(w1l), h(w1x), f(b1), f(taps), f(bdw), h(w2h), h(w2l), h(w2x),
+        f(b2), f(s), wk, B, H, W, C, hid_pad, imgs, residual, eps, st);
   return launch_c<float>(f(x), static_cast<float*>(y), f(scale), f(bias),
-                         h(w1h), h(w1l), f(b1), f(taps), f(bdw), h(w2h),
-                         h(w2l), f(b2), f(s), wk, B, H, W, C, hid_pad, imgs,
-                         residual, eps, st);
+                         h(w1h), h(w1l), h(w1x), f(b1), f(taps), f(bdw),
+                         h(w2h), h(w2l), h(w2x), f(b2), f(s), wk, B, H, W, C,
+                         hid_pad, imgs, residual, eps, st);
 }

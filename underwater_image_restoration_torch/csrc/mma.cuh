@@ -1,7 +1,8 @@
 // Tensor-core building blocks: a warp-level bf16 product on shared-memory
 // operands, asynchronous staging of operand tiles, and the hi/lo split that
 // carries f32 operands through bf16 products.  csrc/ln_gdfn.cu and
-// csrc/ln_gdfn_bwd.cu use them inside their tiles (csrc/gdfn.cuh);
+// csrc/ln_gdfn_bwd.cu use them inside their tiles (csrc/gdfn.cuh), and the
+// window attention's kernels inside their warps (csrc/wattn.cuh);
 // csrc/gemm.cuh builds the staged kernels' product launch (csrc/ln_mdta.cu,
 // csrc/ln_mdta_bwd.cu, csrc/ln_leff.cu, csrc/ln_leff_bwd.cu) on them.
 //
@@ -25,10 +26,12 @@
 // of |v|.  A product takes a_hi b_hi + a_hi b_lo when only b is split, and
 // adds a_lo b_hi when a is split too (the a_lo b_lo term, about 2^-18 of
 // each product, is dropped).  Where a sum cancels far enough to need full
-// f32 (csrc/ln_mdta_bwd.cu in f32: its dtemp), a value is carried as three
-// planes, hi, mid = bf16(v - hi) and lo = bf16(v - hi - mid), about 2^-24
-// of |v|, and a product takes the passes (i, j) of plane i of a and j of b
-// with i + j <= 2, about 2^-24 of each product.  An operand that is
+// f32 (csrc/ln_mdta_bwd.cu in f32: its dtemp; the window attention's dw),
+// or an f32 check runs close to its limit (the LN+LeFF forward, the window
+// attention's forward), a value is carried as three planes, hi, mid =
+// bf16(v - hi) and lo = bf16(v - hi - mid), about 2^-24 of |v|, and a
+// product takes the passes (i, j) of plane i of a and j of b with i + j <=
+// 2, about 2^-24 of each product.  An operand that is
 // exactly bf16 (every operand of a bf16 LeFF call; LN, dy and the gate
 // output of a bf16 GDFN call; the activations rounded to T of a bf16 MDTA
 // call) has one plane and costs one pass.

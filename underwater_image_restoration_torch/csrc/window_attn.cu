@@ -1,188 +1,210 @@
 // Window attention forward: for every window and head,
-//   S = (q * scale) k^T + bias[head] (+ mask[window % nW])        (f32)
+//   S = scale (q k^T) + bias[head] (+ mask[window % nW])          (f32)
 //   P = softmax_row(S), or, when sparse,
 //   P = softmax_row(S) * w1 + relu(S)^2 * w2,  (w1, w2) = softmax(w)
 //   out = P v, rounded to q's dtype.
 //
 // Replaces the TPU kernel of the JAX package ops/pallas.py:110 _fwd_pallas
 // (_kernel_nomask:75, _kernel_masked:92).  Its backward there is a plain
-// recompute, not a kernel; the port's is the same (ops/window_attention.py).
-//
-// Design.  One block of 128 threads owns one (window, head): it stages q
-// (pre-scaled, as the TPU kernel scales q in f32 before the product), k and
-// v of its N <= 64 tokens and d <= 64 channels in shared memory as f32,
-// computes the N x N scores with the bias and the mask, takes each row's
-// softmax (max subtracted) with a warp a row, mixes in relu(S)^2 when
-// sparse, and writes P v.  The mix weights are computed on the card from w,
-// so the host never waits for them.  q, k, v and out are addressed through
-// their (window, head, token) strides with unit channel stride, so the
-// heads can be views of the projections' (B', N, heads * d) outputs and the
-// result lands in the (B', N, heads * d) layout that the output projection
-// reads: no head split or merge is copied.  k rows and P rows are padded
-// by one word so that the column-wise reads are free of bank conflicts.
+// recompute; the port's is csrc/window_attn_bwd.cu.
 //
 // What bounds it on an H100.  Per (window, head) it moves 4 N d elements
 // and does 4 N^2 d flops, N / itemsize flops a byte (32 in bf16 at N = 64),
 // far below the bf16 tensor-core ridge (~295): at peak rates it is bound by
-// bytes.  This version runs the products on the f32 FMA pipe from shared
-// memory (two shared loads a multiply-add), far from either bound.
-#include <cmath>
+// bytes.  The design keeps every intermediate on chip and the loads in
+// flight behind the products.
+//
+// Design (the stages in csrc/wattn.cuh).  A block of four warps owns one
+// head and walks a run of windows (ops/window_attention.py fwd_plan): the
+// head's bias plus the window's shift mask is staged once in shared memory
+// as an f32 tile and restaged only when the run reaches the next mask
+// index (a run holds a mask index's windows of every image, so the f32
+// mask is read once a head and mask index, not once a window).  q, k and v
+// of the next window copy into shared memory by cp.async while the current
+// one computes.  A warp owns 16 query rows: S = q k^T on mma.sync m16n8k16
+// (ldmatrix fragments, f32 accumulators in registers), the scale applied to
+// the f32 accumulators (q is never rounded after scaling: 1/sqrt(d) is not
+// a power of two), the bias and mask added from shared memory, the row
+// softmax in registers (a quad of lanes a row), the relu(S)^2 mix, then P v
+// with P's A fragments built from the registers (P is never stored).  The
+// output goes through the warp's staging rows to the (B', N, heads * d)
+// layout in 16-byte stores.  Operands: bf16 calls take P as one bf16 plane;
+// f32 calls carry q, k, v and P as three bf16 planes, six passes a product
+// (about 2^-24 of each product, wattn.cuh planes; TF32 stays off).  N <= 64
+// and d <= 64 run on zero-padded 64 x 16 ceil(d / 16) tiles.
 #include <cstdint>
 
-#include "common.cuh"
+#include "wattn.cuh"
 
 namespace {
 
-using uir::from_f;
-using uir::to_f;
+namespace mm = uir::mma;
+namespace wa = uir::wattn;
+using bf16 = __nv_bfloat16;
+using wa::kThreads;
+using wa::Strides;
+using wa::Walk;
 
-constexpr int kThreads = 128;
-constexpr int kMaxN = 64;
-constexpr int kMaxD = 64;
+template <typename T, int DK>
+constexpr size_t smem_bytes() {
+  constexpr int NP = wa::planes<T>(), NBUF = NP == 1 ? 2 : 1;
+  return wa::kBiasFloats * sizeof(float) +
+         (size_t)NBUF * 3 * NP * wa::kMaxN * mm::pad_ld(16 * DK) *
+             sizeof(bf16) +
+         (size_t)4 * 16 * wa::stage_ld<T, DK>() * sizeof(T);
+}
 
-struct Strides {
-  long long b, h, n;  // window, head and token strides; channel stride 1
-};
-
-template <typename T>
+template <typename T, int DK>
 __global__ void __launch_bounds__(kThreads)
     window_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            Strides sq, Strides sk, Strides sv, Strides so,
                            const float* __restrict__ bias,
                            const float* __restrict__ mask,
-                           const float* __restrict__ w, int H, int N, int D,
-                           int nW, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  const int KD = D + 1, PN = N + 1;
-  float* qs = sm;            // [N][D], pre-scaled
-  float* ks = qs + N * D;    // [N][D + 1]
-  float* vs = ks + N * KD;   // [N][D]
-  float* ps = vs + N * D;    // [N][N + 1]: scores, then probabilities
+                           const float* __restrict__ w, Walk wk, float scale,
+                           unsigned vec) {
+  constexpr int NP = wa::planes<T>();  // bf16 planes an operand
+  constexpr int NBUF = NP == 1 ? 2 : 1;  // cp.async double buffer
+  constexpr int LD = mm::pad_ld(16 * DK);
+  constexpr size_t PLANE = (size_t)wa::kMaxN * LD;
+  constexpr size_t OPND = NP * PLANE;
+  constexpr int SLD = wa::stage_ld<T, DK>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* bm = reinterpret_cast<float*>(smem);
+  bf16* tiles = reinterpret_cast<bf16*>(bm + wa::kBiasFloats);
+  T* stg = reinterpret_cast<T*>(tiles + NBUF * 3 * OPND) +
+           (threadIdx.x >> 5) * 16 * SLD;
 
-  const int bw = blockIdx.x / H, hh = blockIdx.x % H;
-  const int tid = threadIdx.x;
-  const T* qb = q + bw * sq.b + hh * sq.h;
-  const T* kb = k + bw * sk.b + hh * sk.h;
-  const T* vb = v + bw * sv.b + hh * sv.h;
-  for (int e = tid; e < N * D; e += blockDim.x) {
-    const int i = e / D, t = e % D;
-    qs[e] = to_f(qb[i * sq.n + t]) * scale;
-    ks[i * KD + t] = to_f(kb[i * sk.n + t]);
-    vs[e] = to_f(vb[i * sv.n + t]);
-  }
-  __syncthreads();
+  const int h = blockIdx.x / wk.G, g = blockIdx.x % wk.G;
+  const int i0 = g * wk.per, i1 = min(wk.BQ, i0 + wk.per);
+  const int warp = threadIdx.x >> 5;
+  const bool rows = 16 * warp < wk.N;  // the warp holds a query row
+  float w1, w2;
+  wa::mix_weights(w, w1, w2);
 
-  const float* bh = bias + (size_t)hh * N * N;
-  const float* mw = mask ? mask + (size_t)(bw % nW) * N * N : nullptr;
-  for (int e = tid; e < N * N; e += blockDim.x) {
-    const int i = e / N, j = e % N;
-    const float* qi = qs + i * D;
-    const float* kj = ks + j * KD;
-    float s = 0.f;
-    for (int t = 0; t < D; ++t) s = fmaf(qi[t], kj[t], s);
-    s += __ldg(bh + e);
-    if (mw) s += __ldg(mw + e);
-    ps[i * PN + j] = s;
-  }
-  __syncthreads();
+  auto load_window = [&](int i, int buf) {
+    const long long b = (long long)(i % wk.T) * wk.nW + i / wk.T;
+    bf16* t = tiles + buf * 3 * OPND;
+    wa::stage<T, NP>(t, PLANE, LD, 16 * DK, q + b * sq.b + h * sq.h, sq.n,
+                     wk.N, wk.D, vec & 1);
+    wa::stage<T, NP>(t + OPND, PLANE, LD, 16 * DK, k + b * sk.b + h * sk.h,
+                     sk.n, wk.N, wk.D, vec & 2);
+    wa::stage<T, NP>(t + 2 * OPND, PLANE, LD, 16 * DK,
+                     v + b * sv.b + h * sv.h, sv.n, wk.N, wk.D, vec & 4);
+    mm::cp_async_commit();
+  };
 
-  // row softmax, a warp a row; N <= 64, so a lane holds two entries
-  float w1 = 1.f, w2 = 0.f;
-  if (w) {
-    const float e0 = expf(__ldg(w)), e1 = expf(__ldg(w + 1));
-    const float sw = e0 + e1;
-    w1 = e0 / sw;
-    w2 = e1 / sw;
-  }
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int i = warp; i < N; i += blockDim.x >> 5) {
-    float* row = ps + i * PN;
-    const bool has0 = lane < N, has1 = lane + 32 < N;
-    const float s0 = has0 ? row[lane] : -INFINITY;
-    const float s1 = has1 ? row[lane + 32] : -INFINITY;
-    float m = fmaxf(s0, s1);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    const float e0 = has0 ? expf(s0 - m) : 0.f;
-    const float e1 = has1 ? expf(s1 - m) : 0.f;
-    float sum = e0 + e1;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (has0) {
-      float p = e0 / sum;
-      if (w) {
-        const float r = fmaxf(s0, 0.f);
-        p = p * w1 + r * r * w2;
-      }
-      row[lane] = p;
+  int jcur = -1;
+  if (NBUF == 2 && i0 < i1) load_window(i0, 0);
+  for (int i = i0; i < i1; ++i) {
+    const int buf = NBUF == 2 ? (i - i0) & 1 : 0;
+    if (NBUF == 1) {
+      load_window(i, 0);
+    } else if (i + 1 < i1) {
+      load_window(i + 1, buf ^ 1);
+      mm::cp_async_wait<1>();
+    } else {
+      mm::cp_async_wait<0>();
     }
-    if (has1) {
-      float p = e1 / sum;
-      if (w) {
-        const float r = fmaxf(s1, 0.f);
-        p = p * w1 + r * r * w2;
-      }
-      row[lane + 32] = p;
+    const int j = i / wk.T;
+    if (j != jcur) {
+      wa::stage_bias(bm, bias + (size_t)h * wk.N * wk.N,
+                     mask ? mask + (size_t)j * wk.N * wk.N : nullptr, wk.N);
+      jcur = j;
     }
-  }
-  __syncthreads();
-
-  T* ob = out + bw * so.b + hh * so.h;
-  for (int e = tid; e < N * D; e += blockDim.x) {
-    const int i = e / D, t = e % D;
-    const float* pi = ps + i * PN;
-    float o = 0.f;
-    for (int j = 0; j < N; ++j) o = fmaf(pi[j], vs[j * D + t], o);
-    ob[i * so.n + t] = from_f<T>(o);
+    __syncthreads();
+    if (rows) {
+      const bf16* t = tiles + buf * 3 * OPND;
+      float s[8][4], p[8][4];
+      wa::scores<NP, DK>(s, t, t + OPND, LD, PLANE, bm, scale);
+      wa::softmax_rows(p, s);
+      if (w) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float r = fmaxf(s[jj][e], 0.f);
+            p[jj][e] = p[jj][e] * w1 + r * r * w2;
+          }
+      }
+      float o[2 * DK][4];
+      wa::regs_times_tile<NP, DK>(o, p, t + 2 * OPND, LD, PLANE);
+      const long long b = (long long)(i % wk.T) * wk.nW + j;
+      wa::store_tile<T, DK>(o, 1.f, stg, SLD, out + b * so.b + h * so.h,
+                            so.n, 16 * warp, wk.N, wk.D, vec & 8);
+    }
+    __syncthreads();
   }
 }
 
-template <typename T>
+template <typename T, int DK>
 int launch(const void* q, const void* k, const void* v, void* out,
            Strides sq, Strides sk, Strides sv, Strides so, const float* bias,
-           const float* mask, const float* w, int BQ, int H, int N, int D,
-           int nW, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * N * D + N * (D + 1) + N * (N + 1)) *
-                      sizeof(float);
-  auto kern = window_attn_fwd_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
+           const float* mask, const float* w, Walk wk, float scale,
+           unsigned vec, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<T, DK>();
+  auto kern = window_attn_fwd_kernel<T, DK>;
+  static const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<BQ * H, kThreads, smem, stream>>>(
+  kern<<<wk.H * wk.G, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, sv, so, bias,
-      mask, w, H, N, D, nW, scale);
+      mask, w, wk, scale, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int DK, const void* q, const void* k, const void* v, void* out,
+             Strides sq, Strides sk, Strides sv, Strides so,
+             const float* bias, const float* mask, const float* w, Walk wk,
+             float scale, unsigned vec, cudaStream_t st) {
+  switch (DK) {
+    case 1:
+      return launch<T, 1>(q, k, v, out, sq, sk, sv, so, bias, mask, w, wk,
+                          scale, vec, st);
+    case 2:
+      return launch<T, 2>(q, k, v, out, sq, sk, sv, so, bias, mask, w, wk,
+                          scale, vec, st);
+    case 3:
+      return launch<T, 3>(q, k, v, out, sq, sk, sv, so, bias, mask, w, wk,
+                          scale, vec, st);
+    default:
+      return launch<T, 4>(q, k, v, out, sq, sk, sv, so, bias, mask, w, wk,
+                          scale, vec, st);
+  }
 }
 
 }  // namespace
 
 // strides: 12 values, (window, head, token) of q, k, v and out, in
 // elements; mask and w may be null (no shift mask; the dense softmax).
+// per: windows a block walks (ops/window_attention.py fwd_plan); vec: bit t
+// set where tensor t of (q, k, v, out) has 16-byte aligned rows.
 extern "C" int uir_window_attn_fwd(const void* q, const void* k,
                                    const void* v, void* out,
                                    const long long* strides,
                                    const void* bias, const void* mask,
                                    const void* w, int BQ, int H, int N,
-                                   int D, int nW, float scale, int bf16,
-                                   void* stream) {
-  if (N < 1 || N > kMaxN || D < 1 || D > kMaxD || BQ < 1 || H < 1 ||
-      (mask && (nW < 1 || BQ % nW)))
+                                   int D, int nW, int per, float scale,
+                                   int bf16, int vec, void* stream) {
+  if (N < 1 || N > wa::kMaxN || D < 1 || D > wa::kMaxD || BQ < 1 || H < 1 ||
+      per < 1 || (mask && (nW < 1 || BQ % nW)))
     return (int)cudaErrorInvalidValue;
+  if (!mask) nW = 1;
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
   const Strides so{strides[9], strides[10], strides[11]};
+  const Walk wk{BQ, H, N, D, nW, BQ / nW, per, (BQ + per - 1) / per};
   const auto* bi = static_cast<const float*>(bias);
   const auto* mk = static_cast<const float*>(mask);
   const auto* ww = static_cast<const float*>(w);
   auto st = static_cast<cudaStream_t>(stream);
+  const int DK = (D + 15) / 16;
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, out, sq, sk, sv, so, bi, mk, ww,
-                                 BQ, H, N, D, nW, scale, st);
-  return launch<float>(q, k, v, out, sq, sk, sv, so, bi, mk, ww, BQ, H, N,
-                       D, nW, scale, st);
+    return dispatch<__nv_bfloat16>(DK, q, k, v, out, sq, sk, sv, so, bi, mk,
+                                   ww, wk, scale, (unsigned)vec, st);
+  return dispatch<float>(DK, q, k, v, out, sq, sk, sv, so, bi, mk, ww, wk,
+                         scale, (unsigned)vec, st);
 }

@@ -59,10 +59,10 @@ SIGNATURES = {
         # eps, stream
         [_P] * 16 + [_I] * 9 + [_F, _P],
     ("ln_leff", "uir_ln_leff_fwd"):
-        # x, y, scale, bias, w1 hi, w1 lo, b1, taps, bdw, w2 hi, w2 lo, b2,
-        # s, workspace, B, H, W, C, hid_pad, residual, bf16, images a slice,
-        # eps, stream
-        [_P] * 14 + [_I] * 8 + [_F, _P],
+        # x, y, scale, bias, w1 hi, w1 mid, b1, taps, bdw, w2 hi, w2 mid,
+        # b2, w1 lo, w2 lo, s, workspace, B, H, W, C, hid_pad, residual,
+        # bf16, images a slice, eps, stream
+        [_P] * 16 + [_I] * 8 + [_F, _P],
     ("ln_leff_bwd", "uir_ln_leff_bwd"):
         # x, dy, dx, scale, bias, w1 hi, w1 lo, b1, taps, bdw, w2 hi, w2 lo,
         # s, workspace, grads, B, H, W, C, hid_pad, residual, bf16, images a
@@ -70,8 +70,13 @@ SIGNATURES = {
         [_P] * 15 + [_I] * 9 + [_F, _P],
     ("window_attn", "uir_window_attn_fwd"):
         # q, k, v, out, strides (12 int64, host), bias, mask, w, BQ, H, N,
-        # D, nW, scale, bf16, stream
-        [_P] * 4 + [_LL] + [_P] * 3 + [_I] * 5 + [_F, _I, _P],
+        # D, nW, windows a block, scale, bf16, aligned-row bits, stream
+        [_P] * 4 + [_LL] + [_P] * 3 + [_I] * 6 + [_F, _I, _I, _P],
+    ("window_attn_bwd", "uir_window_attn_bwd"):
+        # q, k, v, dO, dq, dk, dv, strides (21 int64, host), bias, mask, w,
+        # part, sums, dbias, dw, BQ, H, N, D, nW, windows a block, scale,
+        # bf16, aligned-row bits, stream
+        [_P] * 7 + [_LL] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -203,16 +208,22 @@ def block_rows(tiles: int, device) -> int:
     return max(1, min(tiles, 2 * sm_count(device)))
 
 
-def split_bf16(t):
-    """The bf16 hi and lo planes of a tensor-core operand (csrc/mma.cuh):
-    hi = bf16(t), lo = bf16(t - hi), which carry an f32 t to about 2^-17 of
-    |t|.  A bf16 t is its own hi plane, and lo (never read) is t again."""
+def split_bf16(t, planes: int = 2):
+    """The bf16 planes of a tensor-core operand (csrc/mma.cuh): hi =
+    bf16(t), lo = bf16(t - hi), which carry an f32 t to about 2^-17 of |t|;
+    with three planes, hi, mid = bf16(t - hi) and lo = bf16(t - hi - mid),
+    about 2^-24.  A bf16 t is its own hi plane, and the others (never read)
+    are t again."""
     import torch
 
     hi = t.to(torch.bfloat16).contiguous()
     if t.dtype == torch.bfloat16:
-        return hi, hi
-    return hi, (t.float() - hi.float()).to(torch.bfloat16).contiguous()
+        return (hi,) * planes
+    out, rest = [hi], t.float() - hi.float()
+    for _ in range(planes - 1):
+        out.append(rest.to(torch.bfloat16).contiguous())
+        rest = rest - out[-1].float()
+    return tuple(out)
 
 
 def sass_count(name: str, opcode: str = "HMMA") -> int:

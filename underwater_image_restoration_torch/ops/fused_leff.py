@@ -94,19 +94,22 @@ def kernel_weights(w1, b1, w_dw, b_dw, w2, b2, dtype):
 
 
 class Operands(collections.namedtuple(
-        "Operands", "w1h w1l b1 taps bdw w2h w2l b2 hid_pad")):
-    """The kernels' weight operands (``kernel_operands``)."""
+        "Operands", "w1h w1l b1 taps bdw w2h w2l b2 w1x w2x hid_pad")):
+    """The kernels' weight operands (``kernel_operands``): fc1 and fc2 as
+    bf16 planes (hi, mid as w1l/w2l, lo as w1x/w2x), then hid_pad."""
 
 
 def kernel_operands(w1, b1, w_dw, b_dw, w2, b2, dtype):
-    """``kernel_weights`` with fc1 and fc2 as the bf16 hi/lo planes the
-    tensor-core products read (``_kernels.split_bf16``; in bf16 they are
-    exact and lo is never read): prepared once a call, for the forward and
-    the backward."""
+    """``kernel_weights`` with fc1 and fc2 as the bf16 planes the
+    tensor-core products read (``_kernels.split_bf16``, three planes: the
+    forward reads all three in f32, the backward hi and mid as its hi/lo
+    pair; in bf16 they are exact and only hi is read): prepared once a
+    call, for the forward and the backward."""
     w1k, b1k, taps, bdwk, w2k, b2k, hp = kernel_weights(w1, b1, w_dw, b_dw,
                                                         w2, b2, dtype)
-    return Operands(*_kernels.split_bf16(w1k), b1k, taps, bdwk,
-                    *_kernels.split_bf16(w2k), b2k, hp)
+    w1h, w1l, w1x = _kernels.split_bf16(w1k, 3)
+    w2h, w2l, w2x = _kernels.split_bf16(w2k, 3)
+    return Operands(w1h, w1l, b1k, taps, bdwk, w2h, w2l, b2k, w1x, w2x, hp)
 
 
 def _align256(n: int) -> int:
@@ -117,10 +120,10 @@ def fwd_workspace_bytes(imgs: int, h: int, w: int, c: int, hid_pad: int,
                         itemsize: int) -> int:
     """Bytes of the forward's workspace for a slice of ``imgs`` images
     (csrc/ln_leff.cu Layout, mirrored): LN (C a pixel) and g2 (hid) as bf16
-    planes, two in f32 (hi/lo), and g1 (hid, in the compute dtype), each
-    piece 256-byte aligned."""
+    planes, three in f32 (hi, mid, lo), and g1 (hid, in the compute dtype),
+    each piece 256-byte aligned."""
     p = imgs * h * w
-    npl = 2 if itemsize == 4 else 1
+    npl = 3 if itemsize == 4 else 1
     return (_align256(npl * 2 * p * c) + _align256(p * hid_pad * itemsize)
             + _align256(npl * 2 * p * hid_pad))
 

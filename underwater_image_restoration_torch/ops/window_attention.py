@@ -7,14 +7,22 @@ Counterpart of the JAX package's ``ops/pallas.py:217 window_attention``
 ``sparse_w`` the (2,) mix vector or None, mask ``(nW, N, N)`` or None.
 
 ``window_attention`` launches ``csrc/window_attn.cu`` for CUDA tensors
-through ``WindowAttnFn``, whose backward recomputes through the plain
-version, as the TPU kernel's custom VJP does (``pallas.py:191``); it takes
-the plain version ``window_attention_plain`` for CPU tensors.  The kernel
-takes N <= 64 and d <= 64 (a window of at most 8 x 8 tokens); any other
-shape raises.  q, k, v may be strided views with a unit channel stride
-(``attention.split_heads`` of the projections), and the result is a view
-of a (B', N, heads * d) tensor, so ``attention.merge_heads`` of it copies
-nothing.
+through ``WindowAttnFn``, whose backward launches ``csrc/window_attn_bwd.cu``
+(``window_attn_bwd``): the same recompute from the inputs as the TPU
+kernel's custom VJP (``pallas.py:191``), as one kernel.  CPU tensors take
+the plain versions, ``window_attention_plain`` and ``window_attention_bwd``
+(autograd through the plain version).  The kernels take N <= 64 and d <= 64
+(a window of at most 8 x 8 tokens); any other shape raises.  q, k, v may be
+strided views with a unit channel stride (``attention.split_heads`` of the
+projections), and the result is a view of a (B', N, heads * d) tensor, so
+``attention.merge_heads`` of it copies nothing.
+
+Both kernels walk the windows in blocks of one head each (``fwd_plan``,
+``bwd_plan``): a block takes a run of windows in (mask index, image) order,
+so that it stages the head's bias and a mask index's mask once for the run.
+The backward's blocks each write one row of dbias and dw partials, summed
+in block order (no float atomics), so its block count is fixed by the shape
+and the SM count alone and two calls give the same bits.
 """
 from __future__ import annotations
 
@@ -28,6 +36,64 @@ from .attention import window_attention_core
 
 MAX_N = 64
 MAX_D = 64
+# blocks a call aims at, per streaming multiprocessor: one wave of the
+# kernels' residency at N = 64, d = 32 in bf16 (the forward's blocks take
+# 54 KiB of shared memory, four an SM; the backward's 101 KiB, two), each
+# block walking a long run of windows over one bias tile (probed on an
+# H100 against 2 to 16 a multiprocessor)
+FWD_BLOCKS_PER_SM = 4
+BWD_BLOCKS_PER_SM = 2
+# the backward's rows of dbias and dw partials: (N * N f32, two f64) a
+# block
+BWD_WORKSPACE_BYTES = 64 << 20
+
+
+class Plan(collections.namedtuple(
+        "Plan", "blocks_per_head windows_per_block workspace launches")):
+    """How a kernel walks B' windows: ``blocks_per_head`` blocks a head,
+    each taking ``windows_per_block`` consecutive windows of the
+    (mask index, image) order (the last block fewer); the backward's
+    workspace bytes (its rows of partials) and its launches for a call
+    that wants dbias and dw (the kernel, reduce_rows, the dw step)."""
+
+
+def _walk(bq: int, heads: int, blocks: int) -> tuple[int, int]:
+    g = max(1, min(bq, -(-blocks // heads)))
+    per = -(-bq // g)
+    return -(-bq // per), per
+
+
+def fwd_plan(bq: int, heads: int, sms: int = 132) -> Plan:
+    """The forward's walk: about FWD_BLOCKS_PER_SM blocks a multiprocessor
+    (an H100 has 132), at least one window a block."""
+    g, per = _walk(bq, heads, FWD_BLOCKS_PER_SM * sms)
+    return Plan(g, per, 0, 1)
+
+
+def bwd_row_bytes(n: int) -> int:
+    """Workspace bytes of one block's row: its dbias tile (N * N f32) and
+    its two f64 sums."""
+    return 4 * n * n + 16
+
+
+def bwd_plan(bq: int, heads: int, n: int, sms: int = 132) -> Plan:
+    """The backward's walk: about BWD_BLOCKS_PER_SM blocks a multiprocessor,
+    fewer where the rows would exceed BWD_WORKSPACE_BYTES.  The count
+    depends on the shape and the SM count alone, so the rows' sums are the
+    same from call to call."""
+    most = max(1, BWD_WORKSPACE_BYTES // (heads * bwd_row_bytes(n)))
+    g, per = _walk(bq, heads, min(BWD_BLOCKS_PER_SM * sms, most * heads))
+    return Plan(g, per, g * heads * bwd_row_bytes(n), 3)
+
+
+def block_windows(bq: int, nw: int, per: int, g: int) -> list[int]:
+    """The windows block g of a head takes, in its order: run positions
+    [g per, (g + 1) per), position i = j T + t (T = B' / nW images) being
+    window t nW + j, so that a mask index's windows are consecutive (nW = 1
+    without a mask)."""
+    t_img = bq // nw
+    return [(i % t_img) * nw + i // t_img
+            for i in range(g * per, min(bq, (g + 1) * per))]
 
 
 def window_attention_plain(q, k, v, bias, *, scale: float, sparse_w=None,
@@ -73,6 +139,31 @@ def _check(q, k, v, bias, sparse_w, mask):
         raise ValueError("window_attn: q, k, v need a unit channel stride")
 
 
+def _vec_bits(*ts) -> int:
+    """Bit i set where tensor i (or None) has 16-byte aligned rows: its
+    address and its window, head and token strides multiples of 16 bytes,
+    so the kernels move it in 16-byte pieces."""
+    bits = 0
+    for i, t in enumerate(ts):
+        if t is not None:
+            e = t.element_size()
+            sb, sh, sn = t.stride()[:3]
+            if (t.data_ptr() | sb * e | sh * e | sn * e) % 16 == 0:
+                bits |= 1 << i
+    return bits
+
+
+def _operands(bias, sparse_w, mask):
+    bi = bias.float().contiguous()
+    mk = None if mask is None else mask.float().contiguous()
+    w = None if sparse_w is None else sparse_w.float().contiguous()
+    return bi, mk, w
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _forward_cuda(q, k, v, bias, scale, sparse_w, mask):
     _check(q, k, v, bias, sparse_w, mask)
     bq, h, n, d = q.shape
@@ -81,16 +172,15 @@ def _forward_cuda(q, k, v, bias, scale, sparse_w, mask):
                       dtype=q.dtype).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
-    bi = bias.float().contiguous()
-    mk = None if mask is None else mask.float().contiguous()
-    w = None if sparse_w is None else sparse_w.float().contiguous()
+    bi, mk, w = _operands(bias, sparse_w, mask)
+    plan = fwd_plan(bq, h, _kernels.sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.uir_window_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        bi.data_ptr(), None if mk is None else mk.data_ptr(),
-        None if w is None else w.data_ptr(), bq, h, n, d,
-        1 if mk is None else mk.shape[0], float(scale),
-        int(q.dtype == torch.bfloat16), stream)
+        bi.data_ptr(), _ptr(mk), _ptr(w), bq, h, n, d,
+        1 if mk is None else mk.shape[0], plan.windows_per_block,
+        float(scale), int(q.dtype == torch.bfloat16),
+        _vec_bits(q, k, v, out), stream)
     _kernels.check(lib, err, "window_attn")
     window_attention.launches[(bq, h, n, d, mask is not None)] += 1
     return out
@@ -113,9 +203,62 @@ def window_attention_bwd(g, q, k, v, bias, *, scale: float, sparse_w=None,
     return tuple(next(got) if nd else None for nd in need)
 
 
+def window_attn_bwd(g, q, k, v, bias, *, scale: float, sparse_w=None,
+                    mask=None, need=(True,) * 5):
+    """(dq, dk, dv, dbias, dw) for the cotangent g, as
+    ``window_attention_bwd`` returns them: ``csrc/window_attn_bwd.cu`` for
+    CUDA tensors (dq, dk, dv in q's dtype and, where q's layout is dense,
+    its strides; dbias and dw in f32, then the dtypes of bias and sparse_w),
+    the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return window_attention_bwd(g, q, k, v, bias, scale=scale,
+                                    sparse_w=sparse_w, mask=mask, need=need)
+    _check(q, k, v, bias, sparse_w, mask)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"window_attn_bwd: g must match q, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    bq, h, n, d = q.shape
+    need = [t is not None and nd
+            for t, nd in zip((q, k, v, bias, sparse_w), need)]
+    lib = _kernels.library("window_attn_bwd")
+    dq, dk, dv = (torch.empty_like(t) if nd else None
+                  for t, nd in zip((q, k, v), need))
+    strides = (ctypes.c_longlong * 21)(*(
+        s for t in (q, k, v, g, dq, dk, dv)
+        for s in (t.stride()[:3] if t is not None else (0, 0, 0))))
+    bi, mk, w = _operands(bias, sparse_w, mask)
+    plan = bwd_plan(bq, h, n, _kernels.sm_count(q.device))
+    rows = plan.blocks_per_head * h
+    f32 = dict(device=q.device, dtype=torch.float32)
+    part = torch.empty(rows * n * n, **f32) if need[3] else None
+    dbias = torch.empty((h, n, n), **f32) if need[3] else None
+    sums = (torch.empty(2 * rows, device=q.device, dtype=torch.float64)
+            if need[4] else None)
+    dw = torch.empty(2, **f32) if need[4] else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.uir_window_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), _ptr(dq),
+        _ptr(dk), _ptr(dv), strides, bi.data_ptr(), _ptr(mk), _ptr(w),
+        _ptr(part), _ptr(sums), _ptr(dbias), _ptr(dw), bq, h, n, d,
+        1 if mk is None else mk.shape[0], plan.windows_per_block,
+        float(scale), int(q.dtype == torch.bfloat16),
+        _vec_bits(q, k, v, g, dq, dk, dv), stream)
+    _kernels.check(lib, err, "window_attn_bwd")
+    window_attn_bwd.launches[(bq, h, n, d, mask is not None)] += \
+        1 + need[3] + need[4]
+    if dbias is not None:
+        dbias = dbias.to(bias.dtype)
+    if dw is not None:
+        dw = dw.to(sparse_w.dtype)
+    return dq, dk, dv, dbias, dw
+
+
 class WindowAttnFn(torch.autograd.Function):
-    """The CUDA forward; the backward recomputes through the plain version
-    (the attention matrices are never stored)."""
+    """The CUDA forward; the backward recomputes from the inputs in
+    ``csrc/window_attn_bwd.cu`` (the attention matrices are never
+    stored)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, sparse_w, mask, scale):
@@ -126,21 +269,29 @@ class WindowAttnFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, sparse_w, mask = ctx.saved_tensors
-        return window_attention_bwd(
+        return window_attn_bwd(
             g, q, k, v, bias, scale=ctx.scale, sparse_w=sparse_w, mask=mask,
             need=ctx.needs_input_grad[:5]) + (None, None)
 
 
 def window_attention(q, k, v, bias, *, scale: float, sparse_w=None,
                      mask=None):
-    """The CUDA kernel (with the recompute backward) for CUDA tensors, the
-    plain version for CPU tensors."""
+    """The CUDA kernel (with the kernel backward) for CUDA tensors, the
+    plain version for CPU tensors.  Without a gradient to take, the forward
+    is launched directly, without the autograd Function (a fifth of a
+    small call's host time)."""
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, scale=scale,
                                       sparse_w=sparse_w, mask=mask)
+    if not torch.is_grad_enabled() or not any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, bias, sparse_w)):
+        return _forward_cuda(q, k, v, bias, float(scale), sparse_w, mask)
     return WindowAttnFn.apply(q, k, v, bias, sparse_w, mask, float(scale))
 
 
-# launches of the CUDA kernel, by (B', heads, N, d, masked); the CPU path
-# adds none
+# launches of the CUDA kernels, by (B', heads, N, d, masked): one a forward
+# call; the backward's kernel, reduce_rows where dbias is wanted and the dw
+# step where dw is; the CPU path adds none
 window_attention.launches = collections.Counter()
+window_attn_bwd.launches = collections.Counter()

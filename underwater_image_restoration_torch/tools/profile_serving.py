@@ -45,6 +45,8 @@ GROUPS = (
     ("ln_leff_bwd prep and row sums", ("ln_leff_bwd_prep_kernel",
                                        "reduce_rows_kernel<5>")),
     ("window_attn kernel", ("window_attn_fwd_kernel",)),
+    ("window_attn_bwd kernel and dw step", ("window_attn_bwd_kernel",
+                                            "window_attn_dw_kernel")),
     ("ln_gdfn_bwd kernel", ("ln_gdfn_bwd_kernel",)),
     ("ln_mdta_bwd products", ("MdtaBwd",)),
     ("ln_mdta_bwd taps passes", ("ln_mdta_bwd_taps",)),
@@ -74,10 +76,16 @@ def card() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def profile(fn, iters: int, what: str) -> int:
+def profile(fn, iters: int, what: str, ranges=None) -> int:
     """Trace ``iters`` calls of ``fn`` (warmed up by the caller) and print
     wall time a call, device busy and idle shares, device time by group and
-    the top kernels.  Returns 1 if the profiler saw no device time."""
+    the top kernels.  ``ranges`` maps the name of a
+    ``torch.profiler.record_function`` range to the groups whose kernels
+    run only inside it: the range's device time is the kernels the profiler
+    ties to it (those of torch operators) plus those groups (the port's
+    kernels, launched through ctypes, which it does not tie to a range).
+    Returns 1 if the profiler saw no device time."""
+    ranges = ranges or {}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -87,8 +95,15 @@ def profile(fn, iters: int, what: str) -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     by_group: dict[str, float] = {}
+    in_range = dict.fromkeys(ranges, 0.0)
     kernels = []
     for ev in prof.key_averages():
+        if ev.key in in_range:
+            # the range's host event sums its kernels; its device-side
+            # annotation would count them twice
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                in_range[ev.key] += ev.device_time_total
+            continue
         # device-side events only: an aten op's row repeats its kernels' time
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -100,6 +115,8 @@ def profile(fn, iters: int, what: str) -> int:
         kernels.append((dev_us, ev.key, ev.count))
         g = group_of(ev.key)
         by_group[g] = by_group.get(g, 0.0) + dev_us
+    for name, groups in ranges.items():
+        in_range[name] += sum(by_group.get(g, 0.0) for g in groups)
     total_ms = sum(by_group.values()) / 1e3 / iters
     print(f"{what}: wall {wall_ms:.3f} ms a call under the profiler, device "
           f"busy {total_ms:.3f} ms ({100 * total_ms / wall_ms:.1f}%), idle "
@@ -111,6 +128,10 @@ def profile(fn, iters: int, what: str) -> int:
         ms = us / 1e3 / iters
         print(f"  {g}: {ms:.3f} ms a call ({100 * ms / total_ms:.1f}% of "
               "device time)")
+    for name, us in in_range.items():
+        ms = us / 1e3 / iters
+        print(f"  of which inside '{name}': {ms:.3f} ms a call "
+              f"({100 * ms / total_ms:.1f}% of device time)")
     print("top kernels (device ms a call, launches a call):")
     for us, name, count in sorted(kernels, reverse=True)[:15]:
         print(f"  {us / 1e3 / iters:8.3f}  {count // iters:4d}  "

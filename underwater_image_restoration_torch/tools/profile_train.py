@@ -8,14 +8,21 @@ or AST with ``--arch AST``, its DropPath drawing from a seeded generator)
 with ``torch.profiler`` and prints device time by kernel group (the port's
 forward and backward kernels, cuDNN convolutions and cuBLAS products and
 their gradients, FFTs, the optimizer, the rest) beside the wall time, so the
-device's idle share shows.  Needs a CUDA GPU:
+device's idle share shows.  For AST it also prints the device time inside
+the window attentions' backwards (a ``record_function`` range around
+``WindowAttnFn.backward``), whichever groups their kernels fall in; with
+``--plain-attn-bwd`` that backward recomputes through the plain version
+(autograd over (B', heads, N, N) f32 tensors) instead of
+``csrc/window_attn_bwd.cu``, so the two shares can be read side by side.
+Needs a CUDA GPU:
 
     python -m underwater_image_restoration_torch.tools.profile_train \
-        [--arch AST]
+        [--arch AST [--plain-attn-bwd]]
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 
 import torch
 
@@ -25,22 +32,52 @@ from ..models import init_model
 from ..train import get_optimizer, make_train_step
 from .profile_serving import card, profile
 
+_wa = importlib.import_module("underwater_image_restoration_torch.ops."
+                              "window_attention")
+
 # the train cells' shape (``chip_smoke.py`` trains the same) and the number
 # of traced steps
 BATCH = 16
 SIZE = 256
 STEPS = 5
 LR = 3e-4
+# the record_function range around each window attention's backward
+ATTN_BWD_RANGE = "window attention backward"
+
+
+def _annotate_attn_backward(plain: bool) -> None:
+    """Wrap ``WindowAttnFn.backward`` in ATTN_BWD_RANGE; with ``plain``, its
+    kernel is swapped for the plain recompute (a profiling comparison, for
+    this process only)."""
+    inner = _wa.WindowAttnFn.backward
+    if plain:
+        _wa.window_attn_bwd = _wa.window_attention_bwd
+
+    def backward(ctx, g):
+        with torch.profiler.record_function(ATTN_BWD_RANGE):
+            return inner(ctx, g)
+
+    _wa.WindowAttnFn.backward = staticmethod(backward)
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="SpectralTransformer",
                    choices=("SpectralTransformer", "AST"))
+    p.add_argument("--plain-attn-bwd", action="store_true",
+                   help="AST: the window attentions' backward through the "
+                        "plain recompute instead of its kernel")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     print(card())
+    ranges = {}
+    if args.arch == "AST":
+        _annotate_attn_backward(args.plain_attn_bwd)
+        # the kernel backward's launches: the kernel and the dw step, and
+        # reduce_rows (the AST step's only plain reduce_rows_kernel)
+        ranges = {ATTN_BWD_RANGE: ("window_attn_bwd kernel and dw step",
+                                   "backward row sums")}
     model = init_model(args.arch, seed=0, compute_dtype=torch.bfloat16,
                        img_size=SIZE)
     opt = get_optimizer("adam", model.parameters(), LR)
@@ -53,7 +90,9 @@ def main(argv=None):
     torch.cuda.synchronize()
     return profile(lambda: step(raw, ref), STEPS,
                    f"{args.arch} train step, batch {BATCH} at {SIZE}x{SIZE} "
-                   "bf16")
+                   "bf16" + (", window attention backward through the plain "
+                             "recompute" if args.plain_attn_bwd else ""),
+                   ranges)
 
 
 if __name__ == "__main__":
