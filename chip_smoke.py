@@ -7,6 +7,8 @@ AST, trains both, and checks where the time and the launches went.
     python3 chip_smoke.py            # needs one CUDA GPU; no arguments
     python3 chip_smoke.py --phase ast    # phases 1 (AST kernels only) and 6
     python3 chip_smoke.py --phase ast-train    # phases 1 (the same) and 7
+    python3 chip_smoke.py --phase new    # phases 1 (the same) and 8
+    python3 chip_smoke.py --phase new-train    # phases 1 (the same) and 9
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
@@ -80,6 +82,34 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    the same DropPath draws, f32 and bf16, with limits shown to lie below a
    quarter of what dropping every LeFF branch moves; (d) three f32 steps'
    losses, kernels vs plain; (e) two bf16 backward passes bit-equal; (f)
+   images/s and peak memory, kernels vs plain, in turns;
+8. New* serving (NewModel@256, embed 32, window 8, 4 heads; the JAX
+   bench's NewModel-Wavelet@256 cell and the CLI's default Fourier mode):
+   (a) window_attn vs its plain version at every NewModel@256 attention
+   shape (batch 8; N = 64, d = 16, 32, 64, 128, 128; f32 and bf16, sparse
+   and dense) and at a ragged N = 16, d = 128 window, ln_leff with
+   residual=False at the four encoder shapes, then times, the dense
+   variant beside one ``scaled_dot_product_attention`` call; (b) launches
+   in one bf16 forward of NewModel-Wavelet at batch 8, from zero (9 ln_leff
+   calls as ``fused_leff.fwd_plan`` says, 10 window_attn, none masked);
+   (c) the model's output, kernels vs plain model, f32 (TF32 off) and bf16
+   (within twice the bf16 plain model's own distance from the f32 one),
+   Wavelet and Fourier, relative L2, each limit at most a quarter of what
+   dropping every token MLP (or attention) branch moves, q projections
+   scaled by 2, LayerNorm affines perturbed; (d) images/s and peak memory,
+   kernels vs plain, in turns (Wavelet); (e) one forward of
+   NewBigModel-Wavelet@512 (batch 2) and of NewBigFRFNModel-Fourier@512
+   (batch 1) against the plain model, f32 and bf16 as in (c) (q at the
+   reference init's scale; the quarter rule on the f32 check alone), with
+   their launch counts;
+9. the NewModel-Wavelet@256 train step (bf16, batch 16, DropPath from a
+   seeded generator): (a) window_attn_bwd vs the plain recompute at the
+   8(a) shapes and the ragged window, ln_leff_bwd with residual=False at
+   the encoder shapes, f32 and bf16, then times; (b) launches in one step
+   as the planners say, the plain recompute never called, every gradient
+   finite and non-zero; (c) one step's gradients, kernels vs plain, same
+   DropPath draws, limits below a quarter of what dropping a branch moves;
+   (d) three f32 losses; (e) two bf16 backward passes bit-equal; (f)
    images/s and peak memory, kernels vs plain, in turns.
 The last line is the JSON device record; the line before it the kernels'.
 """
@@ -197,6 +227,52 @@ LEFF_BWD_EDGE = ((8, 20, 36, 40, True, (1.25, 0.0)),
 LEFF_GRADS = ("dx", "dscale", "dbias", "dw1", "db1", "dw_dw", "db_dw", "dw2",
               "db2")
 AST_PARAMS = 19_919_507  # AST@256 at the default kwargs
+# NewModel@256 (embed 32, one block a level, window 8, 4 heads, no shift,
+# LeFF): window attention (N = 64) at (windows an image, head width) of
+# decoders 0-3 and the bottleneck, a self- and a cross-attention each; its
+# LN+LeFF calls at (C, H = W), the encoders' without the residual, the
+# decoders' and the bottleneck's with it
+NEW_ATTN_SHAPES = ((1024, 16), (256, 32), (64, 64), (16, 128), (4, 128))
+NEW_HEADS = 4
+NEW_ENC_LEFF = ((32, 256), (64, 128), (128, 64), (256, 32))
+NEW_DEC_LEFF = ((64, 256), (128, 128), (256, 64), (512, 32), (512, 16))
+# checked, not timed: a ragged window (N = 16) at d = 128, masked, sparse:
+# (windows an image, heads, ws, d, masked, sparse)
+NEW_ATTN_EDGE = (4, 2, 4, 128, True, True)
+NEW_PARAMS = 23_307_647  # NewModel@256 at the default kwargs
+# to_q scale in the New* model phases: the reference init (torch's default
+# Linears) leaves scores of std about 0.33, a nearly flat softmax; scaled by
+# 2 they have std about 0.67 (by 4, the sparse mix's unnormalised relu²
+# term sends NewModel's outputs past 1e3 and its bf16 forward 8e-2 to 1.1
+# from its f32 one, the big models' past 1).  The LayerNorm affines are
+# perturbed too (1 + 0.1 N(0, 1), 0.1 N(0, 1)): at ones and zeros the
+# Wavelet branch's channel sum of a LayerNorm output cancels to roundoff
+NEW_Q_SCALE = 2.0
+# the big models (512x512, two blocks a level) at q scale 2 are chaotic on
+# the synthetic images: their bf16 plain forward sits 0.5 from the f32 one
+# and their f32 forwards agree only to 7e-5; 8(e) runs them at the
+# reference init's scale
+NEW_BIG_Q_SCALE = 1.0
+# New* models, ||out - ref|| / ||ref|| of the output, kernels vs plain
+# model in one dtype; each limit at most a quarter of how far dropping every
+# token MLP (or every window attention) branch moves the output.  f32: sums
+# in another order (1.0e-6 and 4.0e-6 read on an H100).  bf16: both round
+# at their own points and the model carries a flip on (a bf16 LayerNorm
+# output moves the Wavelet branch's channel sum, the Fourier branch rounds
+# the (L, C)-token FFT's large values), so the kernels' output must stay
+# within NEW_BF16_FLOOR times the bf16 plain model's own distance from the
+# f32 plain model: the kernels add no more than the model's bf16
+# arithmetic does (readings there, kernels vs bf16 plain and bf16 plain vs
+# f32 plain: Wavelet 6.5e-3 and 7.8e-3, Fourier 2.7e-2 and 4.2e-2)
+NEW_MODEL_TOL = 1e-4
+NEW_BF16_FLOOR = 2.0
+# NewModel train step, one step's gradients through the kernels vs the
+# plain versions with the same DropPath draws, ||g - g_ref|| / ||g_ref||;
+# each at most a quarter of how far the gradients move without the LeFF
+# (or attention) branches (at least 0.99 on an H100).  Readings there: f32
+# 2.2e-6; bf16 2.2e-2 (the LayerNorm biases' gradients, sums of cotangents
+# that cancel, lead), the bf16 plain model itself 9.1e-2 from the f32 one
+NEW_TRAIN_GRAD_TOL = {"float32": 3e-4, "bfloat16": 8e-2}
 HBM_BYTES_PER_S = 3.35e12
 # every per-call time: TIMER_WARMUP untimed calls (build, autotune, caches),
 # then TIMER_REPEATS repeats of the timed calls; the median of the repeats'
@@ -360,11 +436,11 @@ def work_bwd(name, c, h, w, nh, batch, itemsize):
     return act + wbytes, flops
 
 
-def work_ast(name, shape, batch, itemsize):
+def work_ast(name, shape, batch, itemsize, d=AST_HEAD_DIM):
     """(bytes, flops) the AST kernels' functions need at least: activations
     read once and written once, f32 weights (ln_leff) or bias and mask
     (window_attn) read once; the multiply-adds of fc1, the taps and fc2, or
-    of q kᵀ and P v."""
+    of q kᵀ and P v (heads of d channels)."""
     if name == "ln_leff":
         c, h = shape
         hid, px = 4 * c, batch * h * h
@@ -372,19 +448,19 @@ def work_ast(name, shape, batch, itemsize):
         return (2 * px * c * itemsize + wbytes,
                 px * (2 * c * hid + 2 * 9 * hid + 2 * hid * c))
     nw, heads, masked = shape
-    n, d, bq = AST_WIN ** 2, AST_HEAD_DIM, batch * nw
+    n, bq = AST_WIN ** 2, batch * nw
     nbytes = (4 * bq * heads * n * d * itemsize + 4 * heads * n * n
               + (4 * nw * n * n if masked else 0) + 8)
     return nbytes, bq * heads * 4 * n * n * d
 
 
-def work_attn_bwd(shape, batch, itemsize):
+def work_attn_bwd(shape, batch, itemsize, d=AST_HEAD_DIM):
     """(bytes, flops) the window attention's backward needs at least: q, k,
     v and dO read once, dq, dk and dv written once, the f32 bias (and mask)
     read once, dbias written once, w and dw; the multiply-adds of its five
     N x N x d products (S, dP, dV, dq, dk): 10 N^2 d a (window, head)."""
     nw, heads, masked = shape
-    n, d, bq = AST_WIN ** 2, AST_HEAD_DIM, batch * nw
+    n, bq = AST_WIN ** 2, batch * nw
     nbytes = (7 * bq * heads * n * d * itemsize + 2 * 4 * heads * n * n
               + (4 * nw * n * n if masked else 0) + 16)
     return nbytes, bq * heads * 10 * n * n * d
@@ -457,17 +533,20 @@ def grad_dist(g, r):
     return (d / nr) ** 0.5, mx / top
 
 
-def ast_without(model, branch):
-    """A copy of the AST with every block's LeFF fc2 (or attention output
-    projection) zeroed: what kernels that skipped the branch give."""
+def model_without(model, branch):
+    """A copy of an AST or New* model with every token MLP's last Linear
+    (LeFF's fc2, FRFN's linear2: branch "LeFF") or every window attention's
+    output projection zeroed: what kernels that skipped the branch give."""
     from underwater_image_restoration_torch.models.blocks import (
+        FRFN,
         LeFF,
         WindowAttentionSparse,
     )
 
     m = copy.deepcopy(model)
     for mod in m.modules():
-        lin = (mod.linear2[0] if branch == "LeFF" and isinstance(mod, LeFF)
+        lin = (mod.linear2[0] if branch == "LeFF"
+               and isinstance(mod, (LeFF, FRFN))
                else mod.proj if branch == "attention"
                and isinstance(mod, WindowAttentionSparse) else None)
         if lin is not None:
@@ -524,10 +603,296 @@ def train_turns(model, lossfn, raw, ref, generator=None, steps=5):
     return rates, mem
 
 
+def kernel_row(label, name, n, row):
+    """A kernel's entry of the JSON line: ``row`` (``timing_row``'s, with
+    its error) under ``label``, with ``n`` launches on the main path run;
+    none fails."""
+    if n == 0:
+        fail(f"{label} was not launched on its path")
+    keys = ("max_abs_err", "ms", "ms_spread", "plain_ms", "plain_ms_spread",
+            "bound_ms", "bound_by")
+    return {"name": label, "route": "cuda",
+            **({"hmma": HMMA[name]} if name in HMMA else {}),
+            "source": f"underwater_image_restoration_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": n,
+            **{k: row[k] for k in keys}, "library_ms": None,
+            **{k: v for k, v in row.items() if k.startswith("dense_")}}
+
+
+def serve_turns(fns, raw, batch, iters=10):
+    """Serving images/s and peak GiB of ``fns[use_kernels](raw)`` over
+    ``iters`` batches after a warm-up, in turns (kernels, plain, plain,
+    kernels): ({use_kernels: [rate, rate]}, {use_kernels: GiB})."""
+    import torch
+
+    rates, mem = {True: [], False: []}, {}
+    for use in (True, False, False, True):
+        fns[use](raw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fns[use](raw)
+        torch.cuda.synchronize()
+        rates[use].append(iters * batch / (time.perf_counter() - t))
+        mem[use] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rates, mem
+
+
 def bound(nbytes, flops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / BF16_PEAK_FLOPS * 1e3
     return max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
+def kernel_verdict(what, err, scale, dt):
+    """Fail unless a kernel's max abs error over max|branch| is within
+    AST_KERNEL_TOL for its dtype."""
+    tag = str(dt).split(".")[1]
+    rel, tol = err / scale, AST_KERNEL_TOL[tag]
+    ok = rel <= tol
+    print(f"{what} {tag}: max_abs {err:.3e} max|branch| {scale:.3f} "
+          f"max_abs/max|branch| {rel:.3e} tol {tol:.0e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{what} {tag} disagrees with its plain version")
+
+
+def leff_inputs(c, h, w, b, seed):
+    """x ~ N(0, 1) tokens; fc1 N(0, 1/C), taps N(0, 1/9), fc2 N(0, 1/hid),
+    biases of std 0.1, LN affine perturbed: an O(1) branch."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    hid = 4 * c
+
+    def n(*shape, fan_in=1):
+        return torch.randn(shape, generator=g) / fan_in ** 0.5
+
+    ws = (1 + 0.1 * n(c), 0.1 * n(c), n(c, hid, fan_in=c), 0.1 * n(hid),
+          n(3, 3, hid, fan_in=9), 0.1 * n(hid), n(hid, c, fan_in=hid),
+          0.1 * n(c))
+    return n(b, h, w, c).cuda(), [t.cuda() for t in ws]
+
+
+def check_leff(c, h, w, b, seed, s=None, residual=True):
+    """ln_leff vs its plain version, f32 then bf16; returns the bf16 input,
+    the weights and the worst error."""
+    import torch
+
+    from underwater_image_restoration_torch.ops import ln_leff, ln_leff_plain
+
+    x, ws = leff_inputs(c, h, w, b, seed)
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        xin = x.to(dt)
+        got = ln_leff(xin, *ws, s=s, residual=residual).float()
+        ref = ln_leff_plain(xin, *ws, s=s, residual=residual).float()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"ln_leff C={c} {h}x{w}: non-finite output")
+        err = (got - ref).abs().max().item()
+        branch = (ref - xin.float() if residual else ref).abs().max()
+        kernel_verdict(f"ln_leff C={c} {h}x{w} batch {b} residual={residual}"
+                       f" s={None if s is None else s.tolist()}", err,
+                       branch.item(), dt)
+        worst = max(worst, err)
+    return x.to(torch.bfloat16), ws, worst
+
+
+def check_attn(nw, heads, ws, d, b, masked, modes, seed):
+    """window_attn vs its plain version, f32 and bf16, sparse and/or dense
+    (``modes``): the dense softmax alone shows a fault that the sparse
+    mix's relu² term would outweigh.  Returns the worst error."""
+    import torch
+
+    from underwater_image_restoration_torch.ops import (
+        window_attention,
+        window_attention_plain,
+    )
+
+    worst = 0.0
+    for dt, sparse in ((dt, sp) for dt in (torch.float32, torch.bfloat16)
+                       for sp in modes):
+        args, kw = attn_inputs(nw, heads, ws, d, b, masked, sparse, seed, dt)
+        got = window_attention(*args, **kw).float()
+        ref = window_attention_plain(*args, **kw).float()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"window_attn N={ws * ws} d={d}: non-finite output")
+        err = (got - ref).abs().max().item()
+        kernel_verdict(f"window_attn N={ws * ws} d={d} B'={b * nw} "
+                       f"heads={heads} masked={masked} sparse={sparse}", err,
+                       ref.abs().max().item(), dt)
+        worst = max(worst, err)
+    return worst
+
+
+def time_attn(card, nw, heads, d, batch, masked, err, seed):
+    """bf16 times of window_attn (sparse) and its plain version at
+    (nw windows an image, heads, d), and of the dense variant beside one
+    ``scaled_dot_product_attention`` call: the kernel's JSON row."""
+    from underwater_image_restoration_torch.ops import (
+        window_attention,
+        window_attention_plain,
+    )
+
+    import torch
+
+    bf16 = torch.bfloat16
+    args, kw = attn_inputs(nw, heads, AST_WIN, d, batch, masked, True, seed,
+                           bf16)
+    ms = median_ms(lambda: window_attention(*args, **kw))
+    pms = median_ms(lambda: window_attention_plain(*args, **kw), reps=5)
+    bms, by = bound(*work_ast("window_attn", (nw, heads, masked), batch, 2,
+                              d))
+    row = timing_row(ms, pms, bms, by, err)
+    # the dense variant beside the library's one call
+    args, kw = attn_inputs(nw, heads, AST_WIN, d, batch, masked, False, seed,
+                           bf16)
+    dms = median_ms(lambda: window_attention(*args, **kw))
+    sdpa, back = sdpa_dense(args, kw)
+    lms = median_ms(sdpa)
+    ref = window_attention_plain(*args, **kw).float()
+    lerr = (back(sdpa()).float() - ref).abs().max().item()
+    row.update(dense_ms=dms.ms, dense_ms_spread=[dms.lo, dms.hi],
+               dense_library_ms=lms.ms,
+               dense_library_ms_spread=[lms.lo, lms.hi])
+    print(f"window_attn B'={batch * nw} heads={heads} N=64 d={d} "
+          f"masked={masked} bf16: kernel {ms}, plain {pms}, bound "
+          f"{bms:.4f} ms ({by}); dense: kernel {dms}, "
+          "scaled_dot_product_attention (bias and mask in bf16) "
+          f"{lms}, its max_abs vs the plain dense version {lerr:.3e} over "
+          f"max|ref| {ref.abs().max().item():.3f} on {card}", flush=True)
+    return row
+
+
+def check_leff_bwd(card, c, h, w, hid, b, seed, s=None, residual=True,
+                   timed=False):
+    """Every gradient of ln_leff_bwd vs autograd through the plain version
+    on the same x, dy, weights and dtype (f32, then bf16); with ``timed``,
+    bf16 times of the kernel and of the plain autograd backward (s = None:
+    the work does not depend on it, residual as given)."""
+    import torch
+
+    from underwater_image_restoration_torch.ops import ln_leff_plain
+    from underwater_image_restoration_torch.ops.fused_leff import (
+        ln_leff_bwd,
+        ln_leff_bwd_plain,
+    )
+
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape, fan_in=1):
+        return (torch.randn(shape, generator=g) / fan_in ** 0.5).cuda()
+
+    x, dy32 = n(b, h, w, c), n(b, h, w, c)
+    ws = (1 + 0.1 * n(c), 0.1 * n(c), n(c, hid, fan_in=c), 0.1 * n(hid),
+          n(3, 3, hid, fan_in=9), 0.1 * n(hid), n(hid, c, fan_in=hid),
+          0.1 * n(c))
+    sv = None if s is None else torch.tensor(s).cuda()
+    worst, row = 0.0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).split(".")[1]
+        xin, dy = x.to(dt), dy32.to(dt)
+        got = ln_leff_bwd(xin, dy, *ws, s=sv, residual=residual)
+        ref = ln_leff_bwd_plain(xin, dy, *ws, s=sv, residual=residual)
+        torch.cuda.synchronize()
+        rels = []
+        for gname, a, r in zip(LEFF_GRADS, got, ref):
+            a, r = a.float(), r.float()
+            if a.shape != r.shape or not bool(torch.isfinite(a).all()):
+                fail(f"ln_leff_bwd {gname} at C={c} {h}x{w} {tag}: shape "
+                     f"{tuple(a.shape)} vs {tuple(r.shape)} or not finite")
+            err = (a - r).abs().max().item()
+            rels.append((err / max(r.abs().max().item(), 1e-30), gname))
+            worst = max(worst, err)
+        rel, gname = max(rels)
+        tol = GRAD_TOL[tag]
+        print(f"ln_leff_bwd C={c} {h}x{w} hidden {hid} batch {b} "
+              f"residual={residual} s={s} {tag}: max_abs/max|ref| " +
+              " ".join(f"{nm} {v:.2e}" for v, nm in rels) +
+              f"; worst {gname} {rel:.3e} tol {tol:.0e} "
+              f"{'ok' if rel <= tol else 'FAIL'}", flush=True)
+        if rel > tol:
+            fail(f"ln_leff_bwd {gname} disagrees with the plain backward at "
+                 f"C={c} {h}x{w} {tag}")
+        if timed and dt == torch.bfloat16:
+            ms = median_ms(lambda: ln_leff_bwd(xin, dy, *ws,
+                                               residual=residual), reps=10)
+            ins = [t.detach().requires_grad_() for t in (xin, *ws)]
+            y_ref = ln_leff_plain(*ins, residual=residual)
+            pms = median_ms(lambda: torch.autograd.grad(
+                y_ref, ins, dy, retain_graph=True), reps=5)
+            del y_ref, ins
+            bms, by = bound(*work_leff_bwd(c, h, b, 2))
+            row = timing_row(ms, pms, bms, by, 0.0)
+            print(f"ln_leff_bwd C={c} {h}x{w} bf16 batch {b} residual="
+                  f"{residual}: kernel {ms}, plain autograd {pms}, bound "
+                  f"{bms:.4f} ms ({by}) on {card}", flush=True)
+        del got, ref
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+    return row
+
+
+def check_attn_bwd(card, nw, heads, ws, d, b, masked, sparse, seed,
+                   timed=False):
+    """window_attn_bwd vs the plain recompute (autograd through the plain
+    version) on the same inputs and cotangent, f32, then bf16: every
+    gradient's max abs error over its max|ref| (GRAD_TOL); with ``timed``,
+    bf16 times of both."""
+    import importlib
+
+    import torch
+
+    wa = importlib.import_module(
+        "underwater_image_restoration_torch.ops.window_attention")
+    worst, row = 0.0, {}
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).split(".")[1]
+        args, kw = attn_inputs(nw, heads, ws, d, b, masked, sparse, seed, dt)
+        g = torch.randn(args[0].shape, generator=torch.Generator()
+                        .manual_seed(seed + 1)).cuda().to(dt)
+        got = wa.window_attn_bwd(g, *args, **kw)
+        ref = wa.window_attention_bwd(g, *args, **kw)
+        torch.cuda.synchronize()
+        rels = []
+        for gname, a, r in zip(("dq", "dk", "dv", "dbias", "dw"), got, ref):
+            if r is None:
+                continue
+            a, r = a.float(), r.float()
+            if a.shape != r.shape or not bool(torch.isfinite(a).all()):
+                fail(f"window_attn_bwd {gname} at N={ws * ws} d={d} {tag}: "
+                     f"shape {tuple(a.shape)} vs {tuple(r.shape)} or not "
+                     "finite")
+            err = (a - r).abs().max().item()
+            rels.append((err / max(r.abs().max().item(), 1e-30), gname))
+            worst = max(worst, err)
+        rel, gname = max(rels)
+        tol = GRAD_TOL[tag]
+        print(f"window_attn_bwd N={ws * ws} d={d} B'={b * nw} heads={heads} "
+              f"masked={masked} sparse={sparse} {tag}: max_abs/max|ref| " +
+              " ".join(f"{nm} {v:.2e}" for v, nm in rels) +
+              f"; worst {gname} {rel:.3e} tol {tol:.0e} "
+              f"{'ok' if rel <= tol else 'FAIL'}", flush=True)
+        if rel > tol:
+            fail(f"window_attn_bwd {gname} disagrees with the plain "
+                 f"recompute at N={ws * ws} d={d} B'={b * nw} {tag}")
+        if timed and dt == torch.bfloat16:
+            ms = median_ms(lambda: wa.window_attn_bwd(g, *args, **kw),
+                           reps=10)
+            pms = median_ms(lambda: wa.window_attention_bwd(g, *args, **kw),
+                            reps=5)
+            bms, by = bound(*work_attn_bwd((nw, heads, masked), b, 2, d))
+            row = timing_row(ms, pms, bms, by, 0.0)
+            print(f"window_attn_bwd B'={b * nw} heads={heads} N={ws * ws} "
+                  f"d={d} masked={masked} bf16: kernel {ms}, plain recompute "
+                  f"{pms}, bound {bms:.4f} ms ({by}) on {card}", flush=True)
+        del got, ref, args, kw, g
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+    return row
 
 
 def ast_phase(card, batch, size):
@@ -548,76 +913,12 @@ def ast_phase(card, batch, size):
         ln_leff,
         ln_leff_plain,
         window_attention,
-        window_attention_plain,
     )
 
     t_phase = time.perf_counter()
     f32, bf16 = torch.float32, torch.bfloat16
 
-    def verdict(what, err, scale, dt):
-        tag = str(dt).split(".")[1]
-        rel, tol = err / scale, AST_KERNEL_TOL[tag]
-        ok = rel <= tol
-        print(f"{what} {tag}: max_abs {err:.3e} max|branch| {scale:.3f} "
-              f"max_abs/max|branch| {rel:.3e} tol {tol:.0e} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"{what} {tag} disagrees with its plain version")
-
     # ---- (a) kernels vs plain versions
-    def leff_inputs(c, h, w, b, seed):
-        """x ~ N(0, 1) tokens; fc1 N(0, 1/C), taps N(0, 1/9), fc2
-        N(0, 1/hid), biases of std 0.1, LN affine perturbed: an O(1)
-        branch."""
-        g = torch.Generator().manual_seed(seed)
-        hid = 4 * c
-
-        def n(*shape, fan_in=1):
-            return torch.randn(shape, generator=g) / fan_in ** 0.5
-
-        ws = (1 + 0.1 * n(c), 0.1 * n(c), n(c, hid, fan_in=c),
-              0.1 * n(hid), n(3, 3, hid, fan_in=9), 0.1 * n(hid),
-              n(hid, c, fan_in=hid), 0.1 * n(c))
-        return n(b, h, w, c).cuda(), [t.cuda() for t in ws]
-
-    def check_leff(c, h, w, b, seed, s=None, residual=True):
-        x, ws = leff_inputs(c, h, w, b, seed)
-        worst = 0.0
-        for dt in (f32, bf16):
-            xin = x.to(dt)
-            got = ln_leff(xin, *ws, s=s, residual=residual).float()
-            ref = ln_leff_plain(xin, *ws, s=s, residual=residual).float()
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                fail(f"ln_leff C={c} {h}x{w}: non-finite output")
-            err = (got - ref).abs().max().item()
-            branch = (ref - xin.float() if residual else ref).abs().max()
-            verdict(f"ln_leff C={c} {h}x{w} batch {b} residual={residual} "
-                    f"s={None if s is None else s.tolist()}", err,
-                    branch.item(), dt)
-            worst = max(worst, err)
-        return x.to(bf16), ws, worst
-
-    def check_attn(nw, heads, ws, d, b, masked, modes, seed):
-        """Kernel vs plain version, f32 and bf16, sparse and/or dense
-        (``modes``): the dense softmax alone shows a fault that the sparse
-        mix's relu² term would outweigh."""
-        worst = 0.0
-        for dt, sparse in ((dt, sp) for dt in (f32, bf16) for sp in modes):
-            args, kw = attn_inputs(nw, heads, ws, d, b, masked, sparse, seed,
-                                   dt)
-            got = window_attention(*args, **kw).float()
-            ref = window_attention_plain(*args, **kw).float()
-            torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
-                fail(f"window_attn N={ws * ws}: non-finite output")
-            err = (got - ref).abs().max().item()
-            verdict(f"window_attn N={ws * ws} d={d} B'={b * nw} "
-                    f"heads={heads} masked={masked} sparse={sparse}", err,
-                    ref.abs().max().item(), dt)
-            worst = max(worst, err)
-        return worst
-
     with torch.no_grad():
         c, h, w = LEFF_EDGE
         check_leff(c, h, w, 2, seed=1)
@@ -640,34 +941,9 @@ def ast_phase(card, batch, size):
             for masked in (False, True):
                 err = check_attn(nw, heads, AST_WIN, AST_HEAD_DIM, batch,
                                  masked, (True, False), seed=nw + heads)
-                args, kw = attn_inputs(nw, heads, AST_WIN, AST_HEAD_DIM,
-                                       batch, masked, True, nw + heads, bf16)
-                ms = median_ms(lambda: window_attention(*args, **kw))
-                pms = median_ms(lambda: window_attention_plain(*args, **kw),
-                                reps=5)
-                bms, by = bound(*work_ast("window_attn", (nw, heads, masked),
-                                          batch, 2))
-                row = timing_row(ms, pms, bms, by, err)
-                # the dense variant beside the library's one call
-                args, kw = attn_inputs(nw, heads, AST_WIN, AST_HEAD_DIM,
-                                       batch, masked, False, nw + heads, bf16)
-                dms = median_ms(lambda: window_attention(*args, **kw))
-                sdpa, back = sdpa_dense(args, kw)
-                lms = median_ms(sdpa)
-                ref = window_attention_plain(*args, **kw).float()
-                lerr = (back(sdpa()).float() - ref).abs().max().item()
-                row.update(dense_ms=dms.ms, dense_ms_spread=[dms.lo, dms.hi],
-                           dense_library_ms=lms.ms,
-                           dense_library_ms_spread=[lms.lo, lms.hi])
-                rows[("window_attn", batch * nw, heads, masked)] = row
-                print(f"window_attn B'={batch * nw} heads={heads} N=64 d=32 "
-                      f"masked={masked} bf16: kernel {ms}, plain {pms}, "
-                      f"bound {bms:.4f} ms ({by}); dense: kernel {dms}, "
-                      "scaled_dot_product_attention (bias and mask in bf16) "
-                      f"{lms}, its max_abs vs the plain dense version "
-                      f"{lerr:.3e} over max|ref| {ref.abs().max().item():.3f}"
-                      f" on {card}", flush=True)
-                del args, kw, sdpa, back, ref
+                rows[("window_attn", batch * nw, heads, masked)] = time_attn(
+                    card, nw, heads, AST_HEAD_DIM, batch, masked, err,
+                    nw + heads)
     torch.cuda.empty_cache()
     print(f"phase 6(a) took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -730,7 +1006,7 @@ def ast_phase(card, batch, size):
         refs[tag] = ref = outputs(model, dt, False)
         out = y if dt == bf16 else outputs(model, dt, True)
         err = (out - ref).abs().max().item()
-        gone = {b: (outputs(ast_without(model, b), dt, False) - ref)
+        gone = {b: (outputs(model_without(model, b), dt, False) - ref)
                 .abs().max().item() for b in ("LeFF", "attention")}
         tol = AST_MODEL_TOL[tag]
         print(f"(c) AST {tag} kernels vs {tag} plain model: max_abs {err:.3e}"
@@ -752,22 +1028,7 @@ def ast_phase(card, batch, size):
     # ---- (d) serving: images/s and peak memory, in turns
     model.compute_dtype = bf16
     fns = {True: apply_b, False: batched_apply(model, batch, False)[0]}
-
-    def serve(use_kernels, iters=10):
-        fns[use_kernels](raw)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        for _ in range(iters):
-            fns[use_kernels](raw)
-        torch.cuda.synchronize()
-        return (iters * batch / (time.perf_counter() - t),
-                torch.cuda.max_memory_allocated() / 2 ** 30)
-
-    rates, mem = {True: [], False: []}, {}
-    for use in (True, False, False, True):
-        r, mem[use] = serve(use)
-        rates[use].append(r)
+    rates, mem = serve_turns(fns, raw, batch)
     print(f"(d) serving AST {size}x{size} bf16 batch {batch}: "
           f"{sum(rates[True]) / 2:.2f} images/s with the kernels "
           f"{rates[True]}, {sum(rates[False]) / 2:.2f} with the plain "
@@ -777,32 +1038,12 @@ def ast_phase(card, batch, size):
 
     kernels = []
     for key, row in rows.items():
-        n = counts[key]
-        if n == 0:
-            fail(f"{key} was not launched on the AST path")
         if key[0] == "ln_leff":
             label = f"ln_leff[C={key[1]},{key[2]}x{key[3]}]"
         else:
             label = (f"window_attn[B'={key[1]},heads={key[2]},N=64,d=32,"
                      f"{'masked' if key[3] else 'unmasked'}]")
-        kernels.append({
-            "name": label,
-            "route": "cuda",
-            **({"hmma": HMMA[key[0]]} if key[0] in HMMA else {}),
-            "source": ("underwater_image_restoration_torch/csrc/"
-                       f"{key[0]}.cu"),
-            "replaces": REPLACES[key[0]],
-            "launches": n,
-            "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"],
-            "ms_spread": row["ms_spread"],
-            "plain_ms": row["plain_ms"],
-            "plain_ms_spread": row["plain_ms_spread"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": None,
-            **{k: v for k, v in row.items() if k.startswith("dense_")},
-        })
+        kernels.append(kernel_row(label, key[0], counts[key], row))
     return kernels
 
 
@@ -821,14 +1062,10 @@ def ast_train_phase(card, batch, size, check_batch):
     )
     from underwater_image_restoration_torch.ops import (
         ln_leff,
-        ln_leff_plain,
         window_attention,
     )
     from underwater_image_restoration_torch.ops import _kernels, fused_leff
-    from underwater_image_restoration_torch.ops.fused_leff import (
-        ln_leff_bwd,
-        ln_leff_bwd_plain,
-    )
+    from underwater_image_restoration_torch.ops.fused_leff import ln_leff_bwd
     from underwater_image_restoration_torch.train import (
         get_optimizer,
         make_train_step,
@@ -845,134 +1082,20 @@ def ast_train_phase(card, batch, size, check_batch):
         return torch.Generator(device="cuda").manual_seed(seed)
 
     # ---- (a) ln_leff_bwd vs autograd through the plain version
-    def check_bwd(c, h, w, hid, b, seed, s=None, residual=True,
-                  timed=False):
-        """Every gradient of the kernel vs autograd through the plain
-        version on the same x, dy, weights and dtype (f32, then bf16); with
-        ``timed``, bf16 times of the kernel and of the plain autograd
-        backward (s = None: the work does not depend on it)."""
-        g = torch.Generator().manual_seed(seed)
-
-        def n(*shape, fan_in=1):
-            return (torch.randn(shape, generator=g) / fan_in ** 0.5).cuda()
-
-        x, dy32 = n(b, h, w, c), n(b, h, w, c)
-        ws = (1 + 0.1 * n(c), 0.1 * n(c), n(c, hid, fan_in=c),
-              0.1 * n(hid), n(3, 3, hid, fan_in=9), 0.1 * n(hid),
-              n(hid, c, fan_in=hid), 0.1 * n(c))
-        sv = None if s is None else torch.tensor(s).cuda()
-        worst, row = 0.0, {}
-        for dt in (f32, bf16):
-            tag = str(dt).split(".")[1]
-            xin, dy = x.to(dt), dy32.to(dt)
-            got = ln_leff_bwd(xin, dy, *ws, s=sv, residual=residual)
-            ref = ln_leff_bwd_plain(xin, dy, *ws, s=sv, residual=residual)
-            torch.cuda.synchronize()
-            rels = []
-            for gname, a, r in zip(LEFF_GRADS, got, ref):
-                a, r = a.float(), r.float()
-                if a.shape != r.shape or not bool(torch.isfinite(a).all()):
-                    fail(f"ln_leff_bwd {gname} at C={c} {h}x{w} {tag}: "
-                         f"shape {tuple(a.shape)} vs {tuple(r.shape)} or "
-                         "not finite")
-                err = (a - r).abs().max().item()
-                rels.append((err / max(r.abs().max().item(), 1e-30), gname))
-                worst = max(worst, err)
-            rel, gname = max(rels)
-            tol = GRAD_TOL[tag]
-            print(f"ln_leff_bwd C={c} {h}x{w} hidden {hid} batch {b} "
-                  f"residual={residual} s={s} {tag}: max_abs/max|ref| " +
-                  " ".join(f"{nm} {v:.2e}" for v, nm in rels) +
-                  f"; worst {gname} {rel:.3e} tol {tol:.0e} "
-                  f"{'ok' if rel <= tol else 'FAIL'}", flush=True)
-            if rel > tol:
-                fail(f"ln_leff_bwd {gname} disagrees with the plain backward "
-                     f"at C={c} {h}x{w} {tag}")
-            if timed and dt == bf16:
-                ms = median_ms(lambda: ln_leff_bwd(xin, dy, *ws), reps=10)
-                ins = [t.detach().requires_grad_() for t in (xin, *ws)]
-                y_ref = ln_leff_plain(*ins)
-                pms = median_ms(lambda: torch.autograd.grad(
-                    y_ref, ins, dy, retain_graph=True), reps=5)
-                del y_ref, ins
-                bms, by = bound(*work_leff_bwd(c, h, b, 2))
-                row = timing_row(ms, pms, bms, by, 0.0)
-                print(f"ln_leff_bwd C={c} {h}x{w} bf16 batch {b}: kernel "
-                      f"{ms}, plain autograd {pms}, bound {bms:.4f} ms "
-                      f"({by}) on {card}", flush=True)
-            del got, ref
-        torch.cuda.empty_cache()
-        row["max_abs_err"] = worst
-        return row
-
-    def check_attn_bwd(nw, heads, ws, d, b, masked, sparse, seed,
-                       timed=False):
-        """window_attn_bwd vs the plain recompute (autograd through the
-        plain version) on the same inputs and cotangent, f32, then bf16:
-        every gradient's max abs error over its max|ref| (GRAD_TOL); with
-        ``timed``, bf16 times of both."""
-        worst, row = 0.0, {}
-        for dt in (f32, bf16):
-            tag = str(dt).split(".")[1]
-            args, kw = attn_inputs(nw, heads, ws, d, b, masked, sparse, seed,
-                                   dt)
-            g = torch.randn(args[0].shape, generator=torch.Generator()
-                            .manual_seed(seed + 1)).cuda().to(dt)
-            got = wa.window_attn_bwd(g, *args, **kw)
-            ref = wa.window_attention_bwd(g, *args, **kw)
-            torch.cuda.synchronize()
-            rels = []
-            for gname, a, r in zip(("dq", "dk", "dv", "dbias", "dw"), got,
-                                   ref):
-                if r is None:
-                    continue
-                a, r = a.float(), r.float()
-                if a.shape != r.shape or not bool(torch.isfinite(a).all()):
-                    fail(f"window_attn_bwd {gname} at N={ws * ws} d={d} "
-                         f"{tag}: shape {tuple(a.shape)} vs "
-                         f"{tuple(r.shape)} or not finite")
-                err = (a - r).abs().max().item()
-                rels.append((err / max(r.abs().max().item(), 1e-30), gname))
-                worst = max(worst, err)
-            rel, gname = max(rels)
-            tol = GRAD_TOL[tag]
-            print(f"window_attn_bwd N={ws * ws} d={d} B'={b * nw} "
-                  f"heads={heads} masked={masked} sparse={sparse} {tag}: "
-                  "max_abs/max|ref| " +
-                  " ".join(f"{nm} {v:.2e}" for v, nm in rels) +
-                  f"; worst {gname} {rel:.3e} tol {tol:.0e} "
-                  f"{'ok' if rel <= tol else 'FAIL'}", flush=True)
-            if rel > tol:
-                fail(f"window_attn_bwd {gname} disagrees with the plain "
-                     f"recompute at N={ws * ws} d={d} B'={b * nw} {tag}")
-            if timed and dt == bf16:
-                ms = median_ms(lambda: wa.window_attn_bwd(g, *args, **kw),
-                               reps=10)
-                pms = median_ms(lambda: wa.window_attention_bwd(
-                    g, *args, **kw), reps=5)
-                bms, by = bound(*work_attn_bwd((nw, heads, masked), b, 2))
-                row = timing_row(ms, pms, bms, by, 0.0)
-                print(f"window_attn_bwd B'={b * nw} heads={heads} N=64 d=32 "
-                      f"masked={masked} bf16: kernel {ms}, plain recompute "
-                      f"{pms}, bound {bms:.4f} ms ({by}) on {card}",
-                      flush=True)
-            del got, ref, args, kw, g
-        torch.cuda.empty_cache()
-        row["max_abs_err"] = worst
-        return row
-
     for i, (c, h, w, hid, residual, s) in enumerate(LEFF_BWD_EDGE):
-        check_bwd(c, h, w, hid, 2, seed=20 + i, s=s, residual=residual)
+        check_leff_bwd(card, c, h, w, hid, 2, seed=20 + i, s=s,
+                       residual=residual)
     for i, (nw, heads, ws, d, masked, sparse) in enumerate(ATTN_EDGE):
-        check_attn_bwd(nw, heads, ws, d, 2, masked, sparse, seed=30 + i)
+        check_attn_bwd(card, nw, heads, ws, d, 2, masked, sparse,
+                       seed=30 + i)
     rows = {}
     for c, h in LEFF_SHAPES:
-        rows[("ln_leff_bwd", c, h, h)] = check_bwd(
-            c, h, h, 4 * c, batch, seed=c + h + 1, timed=True)
+        rows[("ln_leff_bwd", c, h, h)] = check_leff_bwd(
+            card, c, h, h, 4 * c, batch, seed=c + h + 1, timed=True)
     for nw, heads in ATTN_SHAPES:
         for masked in (False, True):
             rows[("window_attn_bwd", batch * nw, heads, masked)] = \
-                check_attn_bwd(nw, heads, AST_WIN, AST_HEAD_DIM, batch,
+                check_attn_bwd(card, nw, heads, AST_WIN, AST_HEAD_DIM, batch,
                                masked, True, seed=nw + heads + 2, timed=True)
     print(f"phase 7(a) took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
@@ -1021,7 +1144,8 @@ def ast_train_phase(card, batch, size, check_batch):
                      if k[4])
     # one kernel backward a window attention, each wanting dbias and dw:
     # the kernel, reduce_rows and the dw step
-    bwd_each = wa.bwd_plan(batch * 4, 16, 64).launches
+    bwd_each = wa.bwd_plan(batch * 4, 16, 64, d=AST_HEAD_DIM,
+                           itemsize=2).launches
     # two ln_leff and ln_leff_bwd calls a level, each FWD_LAUNCHES or
     # BWD_LAUNCHES a slice of the batch
     sms = _kernels.sm_count(torch.device("cuda"))
@@ -1077,7 +1201,7 @@ def ast_train_phase(card, batch, size, check_batch):
         g_ref = grads_of(model, lossfn, xc, yc, False, gen(1))
         rel, mx = grad_dist(grads_of(model, lossfn, xc, yc, True, gen(1)),
                             g_ref)
-        gone = grad_dist(grads_of(ast_without(model, "LeFF"), lossfn, xc, yc,
+        gone = grad_dist(grads_of(model_without(model, "LeFF"), lossfn, xc, yc,
                                   False, gen(1)), g_ref)[0]
         tol = AST_TRAIN_GRAD_TOL[tag]
         print(f"(c) AST gradients {tag}, batch {check_batch}, kernels vs "
@@ -1141,61 +1265,488 @@ def ast_train_phase(card, batch, size, check_batch):
 
     kernels = []
     for key, row in rows.items():
-        if key[0] != "ln_leff_bwd":
+        if key[0] == "ln_leff_bwd":
+            n = launches["ln_leff_bwd"].get(key[1:], 0)
+            label = f"ln_leff_bwd[C={key[1]},{key[2]}x{key[3]}]"
+        else:
+            n = launches["window_attn_bwd"].get(
+                (key[1], key[2], AST_WIN ** 2, AST_HEAD_DIM, key[3]), 0)
+            label = (f"window_attn_bwd[B'={key[1]},heads={key[2]},N=64,"
+                     f"d=32,{'masked' if key[3] else 'unmasked'}]")
+        kernels.append(kernel_row(label, key[0], n, row))
+    return kernels
+
+
+def new_model(name, use_dwt, dt, size, q_scale=NEW_Q_SCALE):
+    """A New* model at full width with its reference init from seed 0, its
+    q projections scaled by ``q_scale`` and its LayerNorm affines perturbed
+    (seed 1)."""
+    import torch
+
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.models.blocks import (
+        WindowAttentionSparse,
+    )
+    from underwater_image_restoration_torch.ops.layers import TokenLayerNorm
+
+    model = init_model(name, seed=0, img_size=size, use_dwt=use_dwt,
+                       compute_dtype=dt)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, WindowAttentionSparse):
+                m.to_qkv.to_q.weight.mul_(q_scale)
+            elif isinstance(m, TokenLayerNorm):
+                for p, base in ((m.weight, 1.0), (m.bias, 0.0)):
+                    p.copy_(base + 0.1 * torch.randn(p.shape, generator=g))
+    return model
+
+
+def new_launches(model, batch, sms=None):
+    """What the planners say one forward (with ``sms``, one train step) of
+    a New* model at ``batch`` in bf16 launches: ln_leff (and ln_leff_bwd)
+    by (C, H, W), window_attn (and window_attn_bwd) by (B', heads, N, d,
+    masked), from the model's blocks."""
+    import importlib
+
+    from underwater_image_restoration_torch.models.new_model import (
+        DecoderBlock,
+        EncoderBlock,
+    )
+    from underwater_image_restoration_torch.ops import fused_leff
+
+    wa = importlib.import_module(
+        "underwater_image_restoration_torch.ops.window_attention")
+    out = {k: collections.Counter() for k in (
+        "ln_leff", "ln_leff_bwd", "window_attn", "window_attn_bwd")}
+    for name, m in model.named_modules():
+        if not isinstance(m, (EncoderBlock, DecoderBlock)):
             continue
-        n = launches["ln_leff_bwd"].get(key[1:], 0)
-        if n == 0:
-            fail(f"{key} was not launched on the AST train path")
-        kernels.append({
-            "name": f"ln_leff_bwd[C={key[1]},{key[2]}x{key[3]}]",
-            "route": "cuda",
-            "source": "underwater_image_restoration_torch/csrc/ln_leff_bwd.cu",
-            "replaces": REPLACES["ln_leff_bwd"],
-            "launches": n,
-            "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"],
-            "ms_spread": row["ms_spread"],
-            "plain_ms": row["plain_ms"],
-            "plain_ms_spread": row["plain_ms_spread"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": None,
-            "hmma": HMMA["ln_leff_bwd"],
-        })
+        lvl = 4 if name == "bottleneck" else int(name.split("_")[1])
+        h, c = model.img_size >> lvl, m.norm2.weight.numel()
+        if m.token_mlp == "leff":
+            out["ln_leff"][(c, h, h)] += fused_leff.fwd_plan(
+                batch, h, h, c, 4 * c, 2).launches
+            if sms:
+                out["ln_leff_bwd"][(c, h, h)] += fused_leff.bwd_plan(
+                    batch, h, h, c, 4 * c, 2, sms).launches
+        if isinstance(m, DecoderBlock):
+            ws = m.mdassa.win_size
+            key = (batch * (h // ws) ** 2, NEW_HEADS, ws * ws, c // NEW_HEADS,
+                   False)
+            out["window_attn"][key] += 2
+            if sms:
+                out["window_attn_bwd"][key] += 2 * wa.bwd_plan(
+                    key[0], NEW_HEADS, ws * ws, sms, d=key[3],
+                    itemsize=2).launches
+    return {k: dict(v) for k, v in out.items() if v}
+
+
+def new_phase(card, batch, size):
+    """8. NewModel serving (and one forward of each big New* model);
+    returns the kernels' JSON rows."""
+    import torch
+
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.eval import (
+        batched_apply,
+        psnr_float_pm1,
+    )
+    from underwater_image_restoration_torch.ops import (
+        ln_leff,
+        ln_leff_plain,
+        window_attention,
+    )
+
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+    counters = {"ln_leff": ln_leff.launches,
+                "window_attn": window_attention.launches}
+
+    # ---- (a) kernels vs plain versions at every NewModel@256 shape
+    rows = {}
+    with torch.no_grad():
+        nw, heads, ws, d, masked, sparse = NEW_ATTN_EDGE
+        check_attn(nw, heads, ws, d, 2, masked, (sparse,), seed=40)
+        for c, h in NEW_ENC_LEFF:
+            xb, wts, err = check_leff(c, h, h, batch, seed=c + h + 3,
+                                      residual=False)
+            ms = median_ms(lambda: ln_leff(xb, *wts, residual=False))
+            pms = median_ms(lambda: ln_leff_plain(xb, *wts, residual=False),
+                            reps=5)
+            bms, by = bound(*work_ast("ln_leff", (c, h), batch, 2))
+            rows[("ln_leff", c, h, h)] = timing_row(ms, pms, bms, by, err)
+            print(f"ln_leff C={c} {h}x{h} bf16 batch {batch} residual=False:"
+                  f" kernel {ms}, plain {pms}, bound {bms:.4f} ms ({by}) on "
+                  f"{card}", flush=True)
+            del xb, wts
+        for nw, d in NEW_ATTN_SHAPES:
+            err = check_attn(nw, NEW_HEADS, AST_WIN, d, batch, False,
+                             (True, False), seed=nw + d)
+            rows[("window_attn", batch * nw, NEW_HEADS, d)] = time_attn(
+                card, nw, NEW_HEADS, d, batch, False, err, nw + d)
+    torch.cuda.empty_cache()
+    print(f"phase 8(a) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- (b) launches in one forward of NewModel-Wavelet@256
+    model = new_model("NewModel", "Wavelet", bf16, size)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != NEW_PARAMS:
+        fail(f"NewModel@{size} has {n_params} parameters, not {NEW_PARAMS}")
+    raw, _ = synthetic_pair_batch(batch, size, seed=0)
+    apply_b, _ = batched_apply(model, batch)
+    apply_b(raw)  # warm-up: cuDNN algorithms, cuFFT plans
+    torch.cuda.synchronize()
+    for cnt in counters.values():
+        cnt.clear()
+    y = apply_b(raw)
+    torch.cuda.synchronize()
+    launches = {k: dict(v) for k, v in counters.items()}
+    want = new_launches(model, batch)
+    print(f"(b) NewModel-Wavelet {size}x{size} ({n_params} parameters), "
+          f"launches in one forward, batch {batch}: "
+          f"{ {k: sum(v.values()) for k, v in launches.items()} } (ln_leff "
+          "9 calls as fused_leff.fwd_plan says, 4 without the residual; "
+          "window_attn 10 calls, none masked)", flush=True)
+    for name in launches:
+        for key, n in sorted(launches[name].items()):
+            print(f"  {name} {key}: {n}", flush=True)
+    if launches != want:
+        fail(f"expected the launches {want}")
+    if tuple(y.shape) != (batch, size, size, 3) or not bool(
+            torch.isfinite(y).all()):
+        fail(f"NewModel output shape {tuple(y.shape)} or not finite")
+
+    # ---- (c) the model's output, kernels vs plain model, both modes
+    def outputs(m, dt, use_kernels, u8=raw, b=batch):
+        m.compute_dtype = dt
+        out = batched_apply(m, b, use_kernels)[0](u8)
+        torch.cuda.synchronize()
+        return out
+
+    def dist(a, r):
+        return float((a.float() - r.float()).norm() / r.float().norm())
+
+    def held(m, what, dt, use_kernels_out=None, ref32=None, quarter=True,
+             **kw):
+        """The kernels' output vs the plain model's in dtype dt, relative
+        L2: f32 within NEW_MODEL_TOL, bf16 within NEW_BF16_FLOOR times the
+        bf16 plain model's distance from ``ref32`` (the f32 plain output),
+        each limit (with ``quarter``) within a quarter of what dropping a
+        branch moves.  Returns the plain output."""
+        tag = str(dt).split(".")[1]
+        ref = outputs(m, dt, False, **kw)
+        out = (outputs(m, dt, True, **kw) if use_kernels_out is None
+               else use_kernels_out)
+        err = dist(out, ref)
+        mx = (out - ref).abs().max().item() / ref.abs().max().item()
+        gone = {b: dist(outputs(model_without(m, b), dt, False, **kw), ref)
+                for b in ("LeFF", "attention")}
+        tol, beside = NEW_MODEL_TOL, ""
+        if dt != f32:
+            own = dist(ref, ref32)
+            tol = NEW_BF16_FLOOR * own
+            beside = (f"; vs the f32 plain model: the kernels "
+                      f"{dist(out, ref32):.3e}, the {tag} plain model "
+                      f"{own:.3e} (the limit is {NEW_BF16_FLOOR:g} times "
+                      "that)")
+        print(f"{what} {tag} kernels vs {tag} plain model: ||out - ref||/"
+              f"||ref|| {err:.3e} tol {tol:.2e} (max abs/max|ref| {mx:.3e}, "
+              f"max|ref| {ref.abs().max().item():.3f}); without the token "
+              f"MLP branches the plain model moves {gone['LeFF']:.3e}, "
+              f"without attention {gone['attention']:.3e}{beside}",
+              flush=True)
+        if quarter and not tol <= min(gone.values()) / 4:
+            fail(f"{what} the {tag} limit would not see a missing branch")
+        if not err <= tol:
+            fail(f"{what} output ({tag}) disagrees with the plain model")
+        return ref
+
+    for use_dwt in ("Wavelet", "Fourier"):
+        m = model if use_dwt == "Wavelet" else new_model(
+            "NewModel", use_dwt, bf16, size)
+        ref32 = held(m, f"(c) NewModel-{use_dwt}", f32)
+        out = y if use_dwt == "Wavelet" else outputs(m, bf16, True)
+        held(m, f"(c) NewModel-{use_dwt}", bf16, out, ref32)
+        err = (out - ref32).abs().max().item()
+        psnr = psnr_float_pm1(ref32.cpu().numpy(), out.cpu().numpy())
+        print(f"(c) NewModel-{use_dwt} bf16 kernels vs f32 plain model: "
+              f"max_abs {err:.3e}, PSNR {psnr:.2f} dB", flush=True)
+        del m, ref32, out
+        torch.cuda.empty_cache()
+
+    # ---- (d) serving: images/s and peak memory, in turns
+    model.compute_dtype = bf16
+    fns = {True: apply_b, False: batched_apply(model, batch, False)[0]}
+    rates, mem = serve_turns(fns, raw, batch)
+    print(f"(d) serving NewModel-Wavelet {size}x{size} bf16 batch {batch}: "
+          f"{sum(rates[True]) / 2:.2f} images/s with the kernels "
+          f"{rates[True]}, {sum(rates[False]) / 2:.2f} with the plain "
+          f"versions {rates[False]}; peak memory {mem[True]:.2f} GiB and "
+          f"{mem[False]:.2f} GiB; on {card}", flush=True)
+    del fns, apply_b, model
+    torch.cuda.empty_cache()
+
+    # ---- (e) one bf16 forward of each big model at 2 size, vs plain
+    for name, use_dwt, b in (("NewBigModel", "Wavelet", 2),
+                             ("NewBigFRFNModel", "Fourier", 1)):
+        big = new_model(name, use_dwt, bf16, 2 * size, NEW_BIG_Q_SCALE)
+        u8, _ = synthetic_pair_batch(b, 2 * size, seed=1)
+        outputs(big, bf16, True, u8, b)  # warm-up
+        for cnt in counters.values():
+            cnt.clear()
+        torch.cuda.reset_peak_memory_stats()
+        out = outputs(big, bf16, True, u8, b)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = {k: dict(v) for k, v in counters.items() if v}
+        want = new_launches(big, b)
+        print(f"(e) {name}-{use_dwt} {2 * size}x{2 * size} batch {b} "
+              f"({sum(p.numel() for p in big.parameters())} parameters), "
+              f"launches in one bf16 forward: "
+              f"{ {k: sum(v.values()) for k, v in got.items()} }, peak "
+              f"memory {peak:.2f} GiB", flush=True)
+        for kname in got:
+            for key, n in sorted(got[kname].items()):
+                print(f"  {kname} {key}: {n}", flush=True)
+        if got != want:
+            fail(f"(e) {name}: expected the launches {want}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"(e) {name}: non-finite output")
+        # the f32 forward sees a missing branch; in bf16 the attention
+        # branch of NewBigFRFNModel at this q scale moves the output by
+        # about its bf16 rounding (1.0e-2 and 5.3e-3 on an H100)
+        ref32 = held(big, f"(e) {name}-{use_dwt}", f32, u8=u8, b=b)
+        held(big, f"(e) {name}-{use_dwt}", bf16, out, ref32, quarter=False,
+             u8=u8, b=b)
+        del ref32
+        del big, out
+        torch.cuda.empty_cache()
+    print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    kernels = []
     for key, row in rows.items():
-        if key[0] != "window_attn_bwd":
-            continue
-        n = launches["window_attn_bwd"].get(
-            (key[1], key[2], AST_WIN ** 2, AST_HEAD_DIM, key[3]), 0)
-        if n == 0:
-            fail(f"{key} was not launched on the AST train path")
-        kernels.append({
-            "name": (f"window_attn_bwd[B'={key[1]},heads={key[2]},N=64,d=32,"
-                     f"{'masked' if key[3] else 'unmasked'}]"),
-            "route": "cuda",
-            "source": ("underwater_image_restoration_torch/csrc/"
-                       "window_attn_bwd.cu"),
-            "replaces": REPLACES["window_attn_bwd"],
-            "launches": n,
-            "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"],
-            "ms_spread": row["ms_spread"],
-            "plain_ms": row["plain_ms"],
-            "plain_ms_spread": row["plain_ms_spread"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": None,
-            "hmma": HMMA["window_attn_bwd"],
-        })
+        if key[0] == "ln_leff":
+            n = launches["ln_leff"].get(key[1:], 0)
+            label = f"ln_leff[C={key[1]},{key[2]}x{key[3]},residual=False]"
+        else:
+            n = launches["window_attn"].get(
+                (key[1], key[2], AST_WIN ** 2, key[3], False), 0)
+            label = (f"window_attn[B'={key[1]},heads={key[2]},N=64,"
+                     f"d={key[3]},unmasked]")
+        kernels.append(kernel_row(label, key[0], n, row))
+    return kernels
+
+
+def new_train_phase(card, batch, size, check_batch):
+    """9. the NewModel-Wavelet@256 train step; returns ln_leff_bwd's and
+    window_attn_bwd's JSON rows."""
+    import importlib
+
+    import torch
+
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.ops import (
+        _kernels,
+        ln_leff,
+        window_attention,
+    )
+    from underwater_image_restoration_torch.ops.fused_leff import ln_leff_bwd
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+        normalize_u8,
+    )
+
+    wa = importlib.import_module(
+        "underwater_image_restoration_torch.ops.window_attention")
+    t_phase = time.perf_counter()
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    # ---- (a) the backward kernels vs their plain versions
+    nw, heads, ws, d, masked, sparse = NEW_ATTN_EDGE
+    check_attn_bwd(card, nw, heads, ws, d, 2, masked, sparse, seed=41)
+    rows = {}
+    for c, h in NEW_ENC_LEFF:
+        rows[("ln_leff_bwd", c, h, h)] = check_leff_bwd(
+            card, c, h, h, 4 * c, batch, seed=c + h + 5, residual=False,
+            timed=True)
+    for nw, d in NEW_ATTN_SHAPES:
+        rows[("window_attn_bwd", batch * nw, NEW_HEADS, d)] = check_attn_bwd(
+            card, nw, NEW_HEADS, AST_WIN, d, batch, False, True,
+            seed=nw + d + 2, timed=True)
+    print(f"phase 9(a) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- (b) launches in one train step; (b)-(e) run cuDNN
+    # deterministic, as phases 5 and 7
+    torch.backends.cudnn.deterministic = True
+    lossfn = LossFunction("L1withColor")
+    model = new_model("NewModel", "Wavelet", bf16, size)
+    raw, ref = synthetic_pair_batch(batch, size, seed=0)
+    step = make_train_step(model, lossfn,
+                           get_optimizer("adam", model.parameters(), LR),
+                           generator=gen(0))
+    step(raw, ref)  # warm-up
+    torch.cuda.synchronize()
+    counters = {"ln_leff": ln_leff.launches,
+                "ln_leff_bwd": ln_leff_bwd.launches,
+                "window_attn": window_attention.launches,
+                "window_attn_bwd": wa.window_attn_bwd.launches}
+    for cnt in counters.values():
+        cnt.clear()
+    plain_bwd, recompute_calls = wa.window_attention_bwd, []
+
+    def counted(*a, **k):
+        recompute_calls.append(1)
+        return plain_bwd(*a, **k)
+
+    wa.window_attention_bwd = counted
+    try:
+        out = step(raw, ref)
+        torch.cuda.synchronize()
+    finally:
+        wa.window_attention_bwd = plain_bwd
+    launches = {k: dict(v) for k, v in counters.items()}
+    want = new_launches(model, batch, _kernels.sm_count(torch.device("cuda")))
+    print(f"(b) NewModel-Wavelet {size}x{size}, launches in one train step, "
+          f"batch {batch}: "
+          f"{ {k: sum(v.values()) for k, v in launches.items()} } "
+          f"(ln_leff_bwd {len(launches['ln_leff_bwd'])} shapes as "
+          "fused_leff.bwd_plan walks them; window_attn_bwd 10 calls of "
+          "three launches: the kernel, reduce_rows, dw), "
+          f"{len(recompute_calls)} calls of the plain recompute", flush=True)
+    for name in launches:
+        for key, n in sorted(launches[name].items()):
+            print(f"  {name} {key}: {n}", flush=True)
+    if launches != want or recompute_calls:
+        fail(f"expected the launches {want} and no plain recompute")
+    loss0 = float(out["loss"])
+    print(f"NewModel train step loss {loss0:.6f} grad_norm "
+          f"{float(out['grad_norm']):.6f}", flush=True)
+    if not math.isfinite(loss0):
+        fail("non-finite NewModel train loss")
+    for name, p in model.named_parameters():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            fail(f"(b) {name}: gradient missing or not finite")
+        if not bool(p.grad.any()):
+            fail(f"(b) {name}: the gradient is all zero (Wavelet mode "
+                 "leaves no parameter dead)")
+    print("(b) gradients: every parameter's present, finite and non-zero "
+          "(Wavelet mode leaves none dead)", flush=True)
+
+    # ---- (c) one step's gradients, kernels vs plain, same DropPath draws
+    xc, yc = (normalize_u8(torch.as_tensor(t[:check_batch]).cuda()).permute(
+        0, 3, 1, 2).contiguous() for t in (raw, ref))
+    g32 = None
+    for dt in (f32, bf16):
+        tag = str(dt).split(".")[1]
+        model.compute_dtype = dt
+        g_ref = grads_of(model, lossfn, xc, yc, False, gen(1))
+        g_k = grads_of(model, lossfn, xc, yc, True, gen(1))
+        rel, mx = grad_dist(g_k, g_ref)
+        gone = {b: grad_dist(grads_of(model_without(model, b), lossfn, xc,
+                                      yc, False, gen(1)), g_ref)[0]
+                for b in ("LeFF", "attention")}
+        tol = NEW_TRAIN_GRAD_TOL[tag]
+        worst = sorted(((float((g_k[n].float() - r.float()).norm())
+                         / max(float(r.float().norm()), 1e-30), n)
+                        for n, r in g_ref.items()), reverse=True)[:3]
+        floor = ("" if g32 is None else
+                 f"; vs the f32 plain gradients: the kernels "
+                 f"{grad_dist(g_k, g32)[0]:.3e}, the {tag} plain model "
+                 f"{grad_dist(g_ref, g32)[0]:.3e}")
+        print(f"(c) NewModel gradients {tag}, batch {check_batch}, kernels "
+              f"vs plain: ||g - g_ref||/||g_ref|| {rel:.3e} (tol {tol:.0e}),"
+              f" max abs/max|g_ref| {mx:.3e}; without the LeFF branches the "
+              f"plain gradients move {gone['LeFF']:.3e}, without attention "
+              f"{gone['attention']:.3e}{floor}; the parameters whose "
+              "gradients differ most, relative: " +
+              ", ".join(f"{n} {v:.2e}" for v, n in worst), flush=True)
+        if not tol <= min(gone.values()) / 4:
+            fail(f"(c) the NewModel {tag} gradient limit would not see a "
+                 "missing branch")
+        if not rel <= tol:
+            fail(f"(c) NewModel {tag} gradients disagree with the plain "
+                 "model")
+        g32 = g_ref if g32 is None else None
+        del g_k, g_ref
+        torch.cuda.empty_cache()
+
+    # ---- (d) three f32 steps, kernels vs plain
+    model.compute_dtype = f32
+    losses = {}
+    for use in (True, False):
+        m = copy.deepcopy(model)
+        st = make_train_step(m, lossfn, get_optimizer("adam", m.parameters(),
+                                                      LR),
+                             use_kernels=use, generator=gen(2))
+        losses[use] = [float(st(*synthetic_pair_batch(
+            check_batch, size, seed=10 + i))["loss"]) for i in range(3)]
+        del m, st
+        torch.cuda.empty_cache()
+    drift = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                   losses[False]))
+    print(f"(d) NewModel three f32 steps, batch {check_batch}: losses "
+          f"kernels {losses[True]} plain {losses[False]}, max relative "
+          f"difference {drift:.3e} (tol {TRAIN_LOSS_TOL:.0e})", flush=True)
+    if not drift <= TRAIN_LOSS_TOL:
+        fail("(d) the NewModel f32 train losses of the kernels and the "
+             "plain versions disagree")
+
+    # ---- (e) two bf16 backward passes, bit-equal
+    model.compute_dtype = bf16
+    xt, yt = (normalize_u8(torch.as_tensor(t).cuda()).permute(
+        0, 3, 1, 2).contiguous() for t in (raw, ref))
+    g1 = grads_of(model, lossfn, xt, yt, True, gen(1))
+    g2 = grads_of(model, lossfn, xt, yt, True, gen(1))
+    torch.backends.cudnn.deterministic = False
+    differ = [n for n in g1 if not torch.equal(g1[n], g2[n])]
+    print(f"(e) NewModel two bf16 backward passes, batch {batch}: "
+          f"{len(g1) - len(differ)} of {len(g1)} gradients bit-equal",
+          flush=True)
+    if differ or len(g1) != len(list(model.parameters())):
+        fail(f"(e) gradients missing or differing between two passes: "
+             f"{differ[:5]}")
+    del g1, g2, xt, yt
+    torch.cuda.empty_cache()
+
+    # ---- (f) train images/s and peak memory, in turns
+    rates, mem = train_turns(model, lossfn, raw, ref, lambda: gen(3))
+    print(f"(f) train step NewModel-Wavelet {size}x{size} bf16 batch "
+          f"{batch}: {sum(rates[True]) / 2:.2f} images/s with the kernels "
+          f"{rates[True]}, {sum(rates[False]) / 2:.2f} with the plain "
+          f"versions {rates[False]}; peak memory {mem[True]:.2f} GiB and "
+          f"{mem[False]:.2f} GiB; on {card}", flush=True)
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    kernels = []
+    for key, row in rows.items():
+        if key[0] == "ln_leff_bwd":
+            n = launches["ln_leff_bwd"].get(key[1:], 0)
+            label = (f"ln_leff_bwd[C={key[1]},{key[2]}x{key[3]},"
+                     "residual=False]")
+        else:
+            n = launches["window_attn_bwd"].get(
+                (key[1], key[2], AST_WIN ** 2, key[3], False), 0)
+            label = (f"window_attn_bwd[B'={key[1]},heads={key[2]},N=64,"
+                     f"d={key[3]},unmasked]")
+        kernels.append(kernel_row(label, key[0], n, row))
     return kernels
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "ast", "ast-train"),
+    ap.add_argument("--phase", choices=("all", "ast", "ast-train", "new",
+                                        "new-train"),
                     default="all",
                     help="'ast' ('ast-train'): the setup and the AST serving "
-                         "(training) phase alone")
+                         "(training) phase alone; 'new' ('new-train'): the "
+                         "setup and the New* serving (training) phase")
     args = ap.parse_args(argv)
     import torch
 
@@ -1294,6 +1845,12 @@ def main(argv=None):
         return record(torch, kernels, t_start)
     if args.phase == "ast-train":
         kernels = ast_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
+        return record(torch, kernels, t_start)
+    if args.phase == "new":
+        kernels = new_phase(card, SERVE_BATCH, SIZE)
+        return record(torch, kernels, t_start)
+    if args.phase == "new-train":
+        kernels = new_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
         return record(torch, kernels, t_start)
 
     # ---- 2. kernels vs plain versions
@@ -1670,31 +2227,15 @@ def main(argv=None):
     counts = {**{k: launches[k] for k in launches},
               "ln_gdfn_bwd": train_launches["ln_gdfn_bwd"],
               "ln_mdta_bwd": train_launches["ln_mdta_bwd"]}
-    kernels = []
-    for (name, c, h, w), row in rows.items():
-        n = counts[name].get((c, h, w), 0)
-        if n == 0:
-            fail(f"{name} C={c} {h}x{w} was not launched on its path")
-        kernels.append({
-            "name": f"{name}[C={c},{h}x{w}]",
-            "route": "cuda",
-            "source": f"underwater_image_restoration_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name],
-            "launches": n,
-            "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"],
-            "ms_spread": row["ms_spread"],
-            "plain_ms": row["plain_ms"],
-            "plain_ms_spread": row["plain_ms_spread"],
-            "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            "library_ms": None,
-            **({"hmma": HMMA[name]} if name in HMMA else {}),
-        })
+    kernels = [kernel_row(f"{name}[C={c},{h}x{w}]", name,
+                          counts[name].get((c, h, w), 0), row)
+               for (name, c, h, w), row in rows.items()]
     print(f"phases 1-5 took {time.perf_counter() - t_start:.1f} s",
           flush=True)
     kernels += ast_phase(card, SERVE_BATCH, SIZE)
     kernels += ast_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
+    kernels += new_phase(card, SERVE_BATCH, SIZE)
+    kernels += new_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     return record(torch, kernels, t_start)
 
 

@@ -18,8 +18,10 @@ port's ``state_dict`` through ``tools/convert_checkpoint.py convert_ast``.
   ``jax.grad`` of the JAX AST at img_size 32 / win_size 4 with one block a
   level (two at the bottleneck and the last decoder level, which then has
   a shifted, masked block), batch 2, mapped through ``params_from_jax``;
-- unported options raise, and training at a non-zero rate needs a DropPath
-  generator: with one, it runs and returns gradients.
+- an unknown token mixer raises (``token_mlp="frfn"`` builds:
+  ``tests/test_torch_new_model.py`` holds it against the JAX AST), and
+  training at a non-zero rate needs a DropPath generator: with one, it
+  runs and returns gradients.
 
 The weights are redrawn so every branch is O(1) and the attention far from
 uniform (the reference init, trunc_normal(0.02) Linears and bias tables,
@@ -206,9 +208,10 @@ def test_gradients_match_jax():
 
 
 def test_training_and_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model("AST", device="cpu", token_mlp="frfn",
+    with pytest.raises(ValueError, match="Unknown token_mlp"):
+        init_model("AST", device="cpu", token_mlp="conv",
                    **CONFIGS["32-win4"])
+    init_model("AST", device="cpu", token_mlp="frfn", **CONFIGS["32-win4"])
     model = init_model("AST", device="cpu", **CONFIGS["32-win4"]).train()
     with pytest.raises(ValueError, match="generator"):
         model(torch.zeros(1, 3, 32, 32))

@@ -116,6 +116,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         init_model("SpectralTransformer", **CFG)
     with pytest.raises(_device.CudaUnavailableError, match="device='cpu'"):
         init_model("AST", img_size=32, embed_dim=8, win_size=4)
+    with pytest.raises(_device.CudaUnavailableError, match="device='cpu'"):
+        init_model("NewModel", img_size=32, embed_dim=8, use_dwt="Wavelet")
     with pytest.raises(_device.CudaUnavailableError):
         evaluate.load_model("unused.npz", "SpectralTransformer")
     with pytest.raises(_device.CudaUnavailableError):
@@ -146,7 +148,7 @@ def test_port_imports_without_jax():
                 "train.trainer", "tools.profile_train", "ops.fused_gdfn",
                 "ops.fused_mdta", "ops.fused_leff", "ops.window_attention",
                 "ops.windows", "ops.droppath", "models.ast",
-                "models.blocks"):
+                "models.blocks", "models.new_model", "ops.wavelets"):
         assert pkg + mod in names, mod
 
 
@@ -156,7 +158,8 @@ def test_port_files_name_no_jax():
     assert len(files) >= 31
     assert {"ln_gdfn_bwd.cu", "ln_mdta_bwd.cu", "grad.cuh", "ln_leff.cu",
             "ln_leff_bwd.cu", "window_attn.cu", "ast.py",
-            "window_attention.py"} <= {
+            "window_attention.py", "new_model.py", "wavelets.py",
+            "window_attn_bwd.cu", "wattn.cuh"} <= {
         p.name for p in files}
     for p in files:
         text = p.read_text()

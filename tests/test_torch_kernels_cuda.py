@@ -24,6 +24,11 @@
   stats against the plain version's gram and driving the backward, the
   LN+GDFN forward with its hidden width split over blocks, two bf16 calls
   bit-equal;
+- the window attention at the New* models' widest heads (d = 128, and 96,
+  f32 and bf16): forward and backward vs the plain versions, two bf16
+  backward calls bit-equal, d = 129 refused; a small NewModel's forward
+  through the kernels, and its train-mode backward reaching every
+  parameter, bit-equal over two bf16 passes;
 - the staged designs' plans: the LN+LeFF forward and the LN+MDTA backward
   on both sides of their thresholds (one slice and several, forced by a
   smaller workspace budget; one and several dA ranges an image; 8, 16 and
@@ -608,7 +613,8 @@ def test_window_attn_backward_bit_equal_and_planned(cuda, dtype):
     two = wa.window_attn_bwd(g, q, k, v, bias, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(one, two))
-    plan = wa.bwd_plan(q.shape[0], 2, 64, _kernels.sm_count(q.device))
+    plan = wa.bwd_plan(q.shape[0], 2, 64, _kernels.sm_count(q.device),
+                       d=32, itemsize=q.element_size())
     assert plan.blocks_per_head > 1
     assert wa.window_attn_bwd.launches == {(32, 2, 64, 32, True):
                                            2 * plan.launches}
@@ -630,7 +636,7 @@ def test_window_attn_backward_refuses_bad_launch(cuda, monkeypatch):
         wa.window_attn_bwd(q[:1], q, k, v, bias, scale=scale, sparse_w=w,
                            mask=mask)
     monkeypatch.setattr(wa, "bwd_plan",
-                        lambda *a: wa.Plan(1, 0, 0, 3))
+                        lambda *a, **k: wa.Plan(1, 0, 0, 3))
     with pytest.raises(RuntimeError, match="window_attn_bwd: CUDA error"):
         wa.window_attn_bwd(q, q, k, v, bias, scale=scale, sparse_w=w,
                            mask=mask)
@@ -781,3 +787,110 @@ def test_window_attn_refuses_unsupported_shape(cuda):
         cuda, torch.float32, 1, 2, 9, 8, False, True, 17)
     with pytest.raises(ValueError, match="N <= 64"):
         window_attention(q, k, v, bias, scale=scale, sparse_w=w)
+
+
+WIDE = [(4, 4, 8, 128, False, True), (4, 2, 8, 96, True, False),
+        (4, 2, 4, 128, True, True)]
+WIDE_IDS = ["N64-d128-sparse", "N64-d96-masked-dense", "N16-d128-masked"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nw, heads, ws, d, masked, sparse", WIDE,
+                         ids=WIDE_IDS)
+def test_window_attn_wide_heads_match_plain(cuda, dtype, nw, heads, ws, d,
+                                            masked, sparse):
+    """Heads of up to 128 channels (NewModel's decoder 3 and bottleneck):
+    the forward within AST_TOL of max|out|, every gradient of the kernel
+    backward within BWD_TOL of its max|ref| (the f32 backward at d > 64
+    runs in phases over two operand slots), two bf16 backward calls
+    bit-equal."""
+    q, k, v, bias, w, mask, scale = _attn_inputs(
+        cuda, dtype, nw, heads, ws, d, masked, sparse, 20)
+    kw = dict(scale=scale, sparse_w=w, mask=mask)
+    got = window_attention(q, k, v, bias, **kw)
+    want = window_attention_plain(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= AST_TOL[dtype] * want.float().abs().max().item()
+    g = torch.randn_like(q)
+    one = wa.window_attn_bwd(g, q, k, v, bias, **kw)
+    ref = wa.window_attention_bwd(g, q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(one, ref)):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * b.float().abs().max().item(), (i, err)
+    if dtype == torch.bfloat16:
+        two = wa.window_attn_bwd(g, q, k, v, bias, **kw)
+        assert all(a is None or torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+def test_window_attn_refuses_wider_heads(cuda):
+    q, k, v, bias, w, mask, scale = _attn_inputs(
+        cuda, torch.bfloat16, 1, 2, 8, 129, False, True, 21)
+    with pytest.raises(ValueError, match="d <= 128"):
+        window_attention(q, k, v, bias, scale=scale, sparse_w=w)
+    with pytest.raises(ValueError, match="d <= 128"):
+        wa.window_attn_bwd(q, q, k, v, bias, scale=scale, sparse_w=w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_dwt", ["Wavelet", "Fourier"])
+def test_new_model_goes_through_the_kernels(cuda, use_dwt):
+    """A small NewModel on the card (img_size 64, embed 16, heads up to 64
+    channels): 9 LN+LeFF calls and 10 window attentions through the
+    kernels, the output close to the plain versions' in f32."""
+    model = init_model("NewModel", device=cuda, seed=5, img_size=64,
+                       embed_dim=16, use_dwt=use_dwt)
+    fused_leff.ln_leff.launches.clear()
+    window_attention.launches.clear()
+    x = torch.rand(2, 3, 64, 64, device=cuda) * 2 - 1
+    with torch.no_grad():
+        got = model(x)
+        want = model(x, use_kernels=False)
+    torch.cuda.synchronize()
+    assert len(fused_leff.ln_leff.launches) == 9
+    assert sum(window_attention.launches.values()) == 10
+    assert max(k[3] for k in window_attention.launches) == 64
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_new_model_gradients_reach_every_parameter(cuda):
+    """A NewModel-Wavelet train-mode backward on the card, heads of 16 to
+    128 channels (embed 32 at 64x64; DropPath at rate 0): every
+    parameter's gradient finite and non-zero, 9 LN+LeFF backwards and 10
+    window attention backwards (three launches each) through the kernels,
+    and two bf16 passes bit-equal."""
+    model = init_model("NewModel", device=cuda, seed=6, img_size=64,
+                       embed_dim=32, use_dwt="Wavelet",
+                       drop_path_rate=0.0).train()
+    x = torch.rand(2, 3, 64, 64, device=cuda) * 2 - 1
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        model(x).float().square().mean().backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    fused_leff.ln_leff_bwd.launches.clear()
+    wa.window_attn_bwd.launches.clear()
+    got = grads()
+    assert len(fused_leff.ln_leff_bwd.launches) == 9
+    assert sum(wa.window_attn_bwd.launches.values()) == 10 * 3
+    assert max(k[3] for k in wa.window_attn_bwd.launches) == 128
+    for name, g in got.items():
+        assert torch.isfinite(g).all(), name
+        assert torch.count_nonzero(g) > 0, name
+    model.compute_dtype = torch.bfloat16
+    torch.backends.cudnn.deterministic = True
+    try:
+        one, two = grads(), grads()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert all(torch.equal(one[n], two[n]) for n in one)

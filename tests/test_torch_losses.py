@@ -60,7 +60,7 @@ def test_psnr_matches_jax():
 @pytest.mark.parametrize("name", sorted(set(losses.LOSS_NAMES)
                                         - set(losses.PORTED)))
 def test_unported_names_raise(name):
-    with pytest.raises(NotImplementedError, match="queue 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         losses.LossFunction(name)
 
 

@@ -92,5 +92,17 @@ def test_reference_state_dict_loads_strict(jax_model):
 
 
 def test_other_architectures_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model("NewModel", device="cpu")
+    """Every architecture of the registry is ported now: each builds on the
+    CPU (small configurations), and an unknown name raises."""
+    from underwater_image_restoration_torch.models import get_names
+
+    assert sorted(get_names()) == sorted([
+        "SpectralTransformer", "AST", "NewModel", "NewBigModel",
+        "NewBigFRFNModel"])
+    for name in get_names():
+        kw = CFG if name == "SpectralTransformer" else dict(img_size=32,
+                                                            embed_dim=8)
+        model = init_model(name, device="cpu", use_dwt="Wavelet", **kw)
+        assert sum(p.numel() for p in model.parameters()) > 0
+    with pytest.raises(KeyError, match="Unknown model"):
+        init_model("NoSuchModel", device="cpu")

@@ -11,7 +11,10 @@ against the JAX package, on the CPU.
 - ``split_heads``/``merge_heads``/``sparse_mix_weights`` vs the JAX ones;
 - the CUDA kernels' algorithms, emulated in torch at their rounding points
   (``_emulate_forward``, ``_emulate_backward``), vs the Pallas function and
-  ``jax.vjp`` of it, and the planner that splits the windows over blocks.
+  ``jax.vjp`` of it, at d = 8 and at d = 128 (the New* models' widest
+  heads, whose output products walk the head width in 64-channel halves),
+  and the planners that split the windows over blocks (their shared memory
+  mirrored from the kernels', one block an SM at d = 128).
 
 Inputs are drawn so the attention is far from uniform: q, k ~ N(0, 1)
 with head width 8 (scores O(1)), a bias table of std 1 and mix weights
@@ -214,11 +217,20 @@ def _recompute(q, k, bias, w, mask, scale):
     return s, sm, r, sm * w1 + r * r * w2, w1, w2
 
 
+def _halves(eq, a, b):
+    """A product whose output runs over the head width (P v, dS k, P^T dO,
+    dS^T q), taken a half of at most 64 channels of ``b`` at a time, as the
+    kernels walk d > 64 (wattn.cuh rows_out, cols_out)."""
+    d = b[0].shape[-1]
+    return torch.cat([_prod(eq, a, [t[..., i:i + 64] for t in b])
+                      for i in range(0, d, 64)], -1)
+
+
 def _emulate_forward(q, k, v, bias, w, mask, scale):
     """csrc/window_attn.cu's output, in q's dtype."""
     p = _recompute(q, k, bias, w, mask, scale)[3]
-    return _prod("bhnm,bhmd->bhnd", _planes(p, q.dtype),
-                 _planes(v, q.dtype)).to(q.dtype)
+    return _halves("bhnm,bhmd->bhnd", _planes(p, q.dtype),
+                   _planes(v, q.dtype)).to(q.dtype)
 
 
 def _emulate_backward(g, q, k, v, bias, w, mask, scale, sms):
@@ -232,15 +244,16 @@ def _emulate_backward(g, q, k, v, bias, w, mask, scale, sms):
     def pl(t):
         return _planes(t, dt)
 
-    dv = _prod("bhnm,bhnd->bhmd", pl(p), pl(g))
+    dv = _halves("bhnm,bhnd->bhmd", pl(p), pl(g))
     dp = _prod("bhnd,bhmd->bhnm", pl(g), pl(v))
     rs = (dp * sm).sum(-1, keepdim=True)
     ds = w1 * sm * (dp - rs) + 2 * w2 * r * dp
-    dq = _prod("bhnm,bhmd->bhnd", pl(ds), pl(k)) * scale
-    dk = _prod("bhnm,bhnd->bhmd", pl(ds), pl(q)) * scale
+    dq = _halves("bhnm,bhmd->bhnd", pl(ds), pl(k)) * scale
+    dk = _halves("bhnm,bhnd->bhmd", pl(ds), pl(q)) * scale
     t1 = (dp * sm).sum((-2, -1))          # (B', H) f32 window sums
     t2 = (dp * r * r).sum((-2, -1))
-    plan = wa.bwd_plan(bq, h, n, sms)
+    plan = wa.bwd_plan(bq, h, n, sms, d=q.shape[-1],
+                       itemsize=q.element_size())
     nw = 1 if mask is None else mask.shape[0]
     dbias = torch.zeros(h, n, n)
     s1 = s2 = 0.0
@@ -280,7 +293,8 @@ def test_emulated_backward_matches_pallas_vjp(heads, ws, masked, sparse,
     g = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
     tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
     # an SM count that gives every head three blocks
-    sms = -(-3 * heads // wa.BWD_BLOCKS_PER_SM)
+    sms = -(-3 * heads // wa.blocks_per_sm(wa.bwd_smem_bytes(
+        8, tdt.itemsize)))
     got = _emulate_backward(_t(g, tdt), *(_t(a, tdt) for a in (q, k, v)),
                             _t(bias), _t(w), _t(mask), scale, sms=sms)
     args = [_j(a, jdt) for a in (q, k, v)] + [_j(bias)] + (
@@ -301,35 +315,102 @@ def test_emulated_backward_matches_pallas_vjp(heads, ws, masked, sparse,
             atol=EMU_GRAD_TOL[dtype] * np.abs(b).max(), err_msg=name)
 
 
+# (head width, itemsize) of the planners' checks: the AST's d = 32 in bf16,
+# the New* models' d = 16 and d = 128, in bf16 and f32
+PLAN_WIDTHS = ((32, 2), (16, 2), (128, 2), (128, 4), (16, 4))
+
+
 @pytest.mark.parametrize("bq, heads, n, nw, sms", [
     (8192, 2, 64, 1024, 132), (16384, 2, 64, 1, 132), (32, 16, 64, 4, 132),
     (8, 2, 16, 4, 1), (21, 3, 4, 7, 5)])
 def test_plans_cover_every_window_once(bq, heads, n, nw, sms):
     """Every window is walked exactly once a head, by blocks of at most
     windows_per_block, and the backward's rows fit their budget."""
-    for plan in (wa.fwd_plan(bq, heads, sms), wa.bwd_plan(bq, heads, n, sms)):
-        seen = []
-        for blk in range(plan.blocks_per_head):
-            run = wa.block_windows(bq, nw, plan.windows_per_block, blk)
-            assert 1 <= len(run) <= plan.windows_per_block
-            seen += run
-        assert sorted(seen) == list(range(bq))
-    plan = wa.bwd_plan(bq, heads, n, sms)
-    assert plan.workspace == plan.blocks_per_head * heads * \
-        wa.bwd_row_bytes(n) <= wa.BWD_WORKSPACE_BYTES
-    assert plan.blocks_per_head <= -(-wa.BWD_BLOCKS_PER_SM * sms // heads)
+    for d, size in PLAN_WIDTHS:
+        for plan in (wa.fwd_plan(bq, heads, sms, d=d, itemsize=size),
+                     wa.bwd_plan(bq, heads, n, sms, d=d, itemsize=size)):
+            seen = []
+            for blk in range(plan.blocks_per_head):
+                run = wa.block_windows(bq, nw, plan.windows_per_block, blk)
+                assert 1 <= len(run) <= plan.windows_per_block
+                seen += run
+            assert sorted(seen) == list(range(bq))
+        plan = wa.bwd_plan(bq, heads, n, sms, d=d, itemsize=size)
+        assert plan.workspace == plan.blocks_per_head * heads * \
+            wa.bwd_row_bytes(n) <= wa.BWD_WORKSPACE_BYTES
+        per_sm = wa.blocks_per_sm(wa.bwd_smem_bytes(d, size))
+        assert plan.blocks_per_head <= -(-per_sm * sms // heads)
 
 
 def test_backward_plan_keeps_its_budget(monkeypatch):
     """A smaller workspace budget gives fewer, longer blocks a head, and
     they still cover every window."""
     monkeypatch.setattr(wa, "BWD_WORKSPACE_BYTES", 10 * wa.bwd_row_bytes(64))
-    plan = wa.bwd_plan(8192, 2, 64, 132)
+    plan = wa.bwd_plan(8192, 2, 64, 132, d=32, itemsize=2)
     assert plan.blocks_per_head == 5 and plan.windows_per_block == 1639
     assert plan.workspace <= wa.BWD_WORKSPACE_BYTES
     seen = sorted(b for blk in range(5)
                   for b in wa.block_windows(8192, 1024, 1639, blk))
     assert seen == list(range(8192))
+
+
+def test_plans_at_wide_heads():
+    """The planners' shared memory, the kernels' smem_bytes: at d = 32 in
+    bf16 four forward blocks and two backward an SM (the AST's plans,
+    unchanged); at d = 128 every block fits the 227 KiB a block may take
+    (the f32 backward in two operand slots) and an SM holds one, so a
+    NewModel@256 call at batch 8 walks its 128 or 32 windows in one wave
+    of 132 blocks or fewer."""
+    limit = 227 << 10
+    assert (wa.fwd_smem_bytes(32, 2), wa.bwd_smem_bytes(32, 2)) == (54272,
+                                                                   101440)
+    assert wa.blocks_per_sm(54272) == 4 and wa.blocks_per_sm(101440) == 2
+    assert (wa.fwd_smem_bytes(128, 2), wa.fwd_smem_bytes(128, 4)) == (
+        132096, 192512)
+    assert (wa.bwd_smem_bytes(128, 2), wa.bwd_smem_bytes(128, 4)) == (
+        203840, 214080)
+    for d in (65, 96, 128):
+        for size in (2, 4):
+            for smem in (wa.fwd_smem_bytes(d, size),
+                         wa.bwd_smem_bytes(d, size)):
+                assert smem <= limit and wa.blocks_per_sm(smem) == 1
+    for bq in (128, 32):
+        plan = wa.fwd_plan(bq, 4, 132, d=128, itemsize=2)
+        assert plan.blocks_per_head * 4 <= 132
+        assert plan.blocks_per_head * plan.windows_per_block >= bq
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_emulated_wide_heads_match_pallas(dtype):
+    """d = 128 (NewModel's decoder 3 and bottleneck): the emulated kernels,
+    whose P v, dq, dk and dv walk the width in halves while S and dP sum
+    over all of it, vs the Pallas function in interpret mode and its
+    ``jax.vjp``, masked and sparse, N = 64."""
+    q, k, v, bias, w, mask, scale = _case(2, 8, True, True, seed=10,
+                                          batch=1, hw=16, d=128)
+    g = np.random.default_rng(11).standard_normal(q.shape).astype(
+        np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    args = [_j(a, jdt) for a in (q, k, v)] + [_j(bias), _j(w)]
+
+    def f(*a):
+        return pallas.window_attention(*a[:4], scale=scale, sparse_w=a[4],
+                                       mask=_j(mask), interpret=True)
+
+    want, vjp = jax.vjp(f, *args)
+    got = _emulate_forward(*(_t(a, tdt) for a in (q, k, v)), _t(bias),
+                           _t(w), _t(mask), scale)
+    want = np.asarray(want).astype(np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=EMU_TOL[dtype] * np.abs(want).max())
+    grads = _emulate_backward(_t(g, tdt), *(_t(a, tdt) for a in (q, k, v)),
+                              _t(bias), _t(w), _t(mask), scale, sms=2)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias", "dw"), grads,
+                          vjp(jnp.asarray(g).astype(jdt))):
+        b = np.asarray(b).astype(np.float32)
+        np.testing.assert_allclose(
+            a.float().numpy(), b, rtol=0,
+            atol=EMU_GRAD_TOL[dtype] * np.abs(b).max(), err_msg=name)
 
 
 def test_cpu_backward_takes_plain_version():

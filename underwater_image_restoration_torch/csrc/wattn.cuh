@@ -13,6 +13,13 @@
 // 4) + e % 2.  Keys past N get -inf from the bias tile, so they take no
 // weight in the softmax and no relu² term; rows past N are computed on
 // zeros and never stored.
+//
+// Head widths.  d <= 64 runs on DK = ceil(d / 16) 16-column tiles, d in
+// (64, 128] on DK = 8 (the channels past d are zeros).  The products that
+// sum over d (S = q k^T, dP = dO v^T) take every k16 step of the width
+// into one accumulator; the products whose output runs over d (P v, dS k,
+// P^T dO, dS^T q) walk it in halves of at most four tiles (out_dk), so a
+// warp's output accumulators, and its staging rows, stay those of d = 64.
 #pragma once
 
 #include <cmath>
@@ -27,7 +34,7 @@ using mma::bf16;
 
 constexpr int kThreads = 128;  // four warps of 16 query rows
 constexpr int kMaxN = 64;
-constexpr int kMaxD = 64;
+constexpr int kMaxD = 128;
 // f32 row of the bias tile: float2 reads of eight rows by four lanes fall
 // on distinct banks in each half-warp
 constexpr int kBLD = kMaxN + 8;
@@ -383,6 +390,53 @@ __device__ __forceinline__ void store_tile(const float (&o)[2 * DK][4],
 template <typename T, int DK>
 __host__ __device__ constexpr int stage_ld() {
   return 16 * DK + 16 / (int)sizeof(T);
+}
+
+// 16-column tiles of a half of the head width: the output products' step.
+__host__ __device__ constexpr int out_dk(int dk) { return dk < 4 ? dk : 4; }
+
+// The warp's rows of P b (P in registers, the regs_times_tile layout) over
+// the 16 DK channels of b, a half (out_dk tiles) at a time, each half times
+// mul and stored to dst's channels (store_tile; stg holds the warp's
+// stage_ld<T, out_dk(DK)> rows): P v, dS k.
+template <typename T, int NP, int DK>
+__device__ __forceinline__ void rows_out(const float (&p)[8][4],
+                                         const bf16* b, int ld, size_t plane,
+                                         float mul, T* stg,
+                                         T* __restrict__ dst, long long sn,
+                                         int r0, int N, int D, bool vec) {
+  constexpr int OD = out_dk(DK);
+#pragma unroll
+  for (int hh = 0; hh < DK / OD; ++hh) {
+    float o[2 * OD][4];
+    regs_times_tile<NP, OD>(o, p, b + 16 * OD * hh, ld, plane);
+    store_tile<T, OD>(o, mul, stg, stage_ld<T, OD>(), dst + 16 * OD * hh, sn,
+                      r0, N, D - 16 * OD * hh, vec);
+  }
+}
+
+// The warp's keys' rows of A^T b (cols_times_tile: a [k][row] plane, b a
+// [k][channel] tile of 16 DK channels, over nk k16 steps), a half at a
+// time, each times mul and stored: P^T dO, dS^T q.
+template <typename T, int NP, int DK>
+__device__ __forceinline__ void cols_out(const bf16* a, int lda, size_t pa,
+                                         const bf16* b, int ldb, size_t pb,
+                                         int nk, float mul, T* stg,
+                                         T* __restrict__ dst, long long sn,
+                                         int r0, int N, int D, bool vec) {
+  constexpr int OD = out_dk(DK);
+#pragma unroll
+  for (int hh = 0; hh < DK / OD; ++hh) {
+    float o[2 * OD][4];
+    cols_times_tile<NP, OD>(o, a, lda, pa, b + 16 * OD * hh, ldb, pb, nk);
+    store_tile<T, OD>(o, mul, stg, stage_ld<T, OD>(), dst + 16 * OD * hh, sn,
+                      r0, N, D - 16 * OD * hh, vec);
+  }
+}
+
+// DK of a head width: ceil(d / 16) up to 4, else 8.
+__host__ __device__ constexpr int tiles_of(int d) {
+  return (d + 15) / 16 <= 4 ? (d + 15) / 16 : 8;
 }
 
 }  // namespace wattn

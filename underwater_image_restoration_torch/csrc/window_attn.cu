@@ -31,7 +31,13 @@
 // layout in 16-byte stores.  Operands: bf16 calls take P as one bf16 plane;
 // f32 calls carry q, k, v and P as three bf16 planes, six passes a product
 // (about 2^-24 of each product, wattn.cuh planes; TF32 stays off).  N <= 64
-// and d <= 64 run on zero-padded 64 x 16 ceil(d / 16) tiles.
+// and d <= 128 run on zero-padded 64 x 16 DK tiles (wattn.cuh tiles_of);
+// P v walks the head width in halves of at most 64 channels (wattn.cuh
+// rows_out), so at d = 128 a warp holds the accumulators of d = 64.  The
+// shared memory a block takes (smem_bytes) sets how many blocks an SM
+// holds: four at d = 32 in bf16, one at d = 128 (about 129 KiB in bf16,
+// 188 KiB in f32); ops/window_attention.py fwd_plan plans from the same
+// figure.
 #include <cstdint>
 
 #include "wattn.cuh"
@@ -45,13 +51,16 @@ using wa::kThreads;
 using wa::Strides;
 using wa::Walk;
 
+// The block's shared memory (mirrored by ops/window_attention.py
+// fwd_smem_bytes): the bias and mask tile, q, k, v (NBUF windows of NP
+// planes), four warps' staging rows of a half width.
 template <typename T, int DK>
 constexpr size_t smem_bytes() {
   constexpr int NP = wa::planes<T>(), NBUF = NP == 1 ? 2 : 1;
   return wa::kBiasFloats * sizeof(float) +
          (size_t)NBUF * 3 * NP * wa::kMaxN * mm::pad_ld(16 * DK) *
              sizeof(bf16) +
-         (size_t)4 * 16 * wa::stage_ld<T, DK>() * sizeof(T);
+         (size_t)4 * 16 * wa::stage_ld<T, wa::out_dk(DK)>() * sizeof(T);
 }
 
 template <typename T, int DK>
@@ -68,7 +77,7 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int LD = mm::pad_ld(16 * DK);
   constexpr size_t PLANE = (size_t)wa::kMaxN * LD;
   constexpr size_t OPND = NP * PLANE;
-  constexpr int SLD = wa::stage_ld<T, DK>();
+  constexpr int SLD = wa::stage_ld<T, wa::out_dk(DK)>();
   extern __shared__ __align__(16) unsigned char smem[];
   float* bm = reinterpret_cast<float*>(smem);
   bf16* tiles = reinterpret_cast<bf16*>(bm + wa::kBiasFloats);
@@ -127,11 +136,10 @@ __global__ void __launch_bounds__(kThreads)
             p[jj][e] = p[jj][e] * w1 + r * r * w2;
           }
       }
-      float o[2 * DK][4];
-      wa::regs_times_tile<NP, DK>(o, p, t + 2 * OPND, LD, PLANE);
       const long long b = (long long)(i % wk.T) * wk.nW + j;
-      wa::store_tile<T, DK>(o, 1.f, stg, SLD, out + b * so.b + h * so.h,
-                            so.n, 16 * warp, wk.N, wk.D, vec & 8);
+      wa::rows_out<T, NP, DK>(p, t + 2 * OPND, LD, PLANE, 1.f, stg,
+                              out + b * so.b + h * so.h, so.n, 16 * warp,
+                              wk.N, wk.D, vec & 8);
     }
     __syncthreads();
   }
@@ -169,8 +177,11 @@ int dispatch(int DK, const void* q, const void* k, const void* v, void* out,
     case 3:
       return launch<T, 3>(q, k, v, out, sq, sk, sv, so, bias, mask, w, wk,
                           scale, vec, st);
-    default:
+    case 4:
       return launch<T, 4>(q, k, v, out, sq, sk, sv, so, bias, mask, w, wk,
+                          scale, vec, st);
+    default:
+      return launch<T, 8>(q, k, v, out, sq, sk, sv, so, bias, mask, w, wk,
                           scale, vec, st);
   }
 }
@@ -201,7 +212,7 @@ extern "C" int uir_window_attn_fwd(const void* q, const void* k,
   const auto* mk = static_cast<const float*>(mask);
   const auto* ww = static_cast<const float*>(w);
   auto st = static_cast<cudaStream_t>(stream);
-  const int DK = (D + 15) / 16;
+  const int DK = wa::tiles_of(D);
   if (bf16)
     return dispatch<__nv_bfloat16>(DK, q, k, v, out, sq, sk, sv, so, bi, mk,
                                    ww, wk, scale, (unsigned)vec, st);

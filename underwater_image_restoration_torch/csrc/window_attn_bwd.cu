@@ -35,6 +35,19 @@
 // rounded to bf16); three planes an f32 one (P and dS too), six passes a
 // product.
 //
+// Head widths up to 128 (wattn.cuh tiles_of).  S and dP sum over the whole
+// width in one accumulator (each pass over every k step, as at d <= 64);
+// dq, dK and dV walk it in halves of at most 64 channels (wattn.cuh
+// rows_out, cols_out), so a warp's registers stay those of d = 64.  A bf16
+// call at d = 128 holds q, k, v and dO of two windows (about 199 KiB a
+// block, one block an SM).  An f32 one cannot hold all four (three planes
+// of 136-wide rows: 204 KiB before P and dS), so it runs three phases a
+// window over two operand slots (phased): dO and v, then dP; q and k, then
+// S, P, dS, dq and dK; dO again, then dV.  It reads dO twice (an eighth
+// more bytes), and its sums run in the order of the unphased kernel.  Every
+// block count comes from smem_bytes (ops/window_attention.py
+// bwd_smem_bytes).
+//
 // dbias and dw in a fixed order, no float atomics: each lane adds its own
 // dS entries into the block's f32 dbias tile in shared memory, window
 // after window; each lane sums its dP sm and dP relu(S)^2 terms of a
@@ -60,14 +73,33 @@ using wa::Walk;
 
 constexpr int kPLD = mm::pad_ld(wa::kMaxN);  // bf16 row of a P / dS plane
 
+// f32 operands at d > 64 (three planes of 136-wide rows) cannot all four
+// stay in shared memory (q, k, v and dO would take 204 KiB of the 227 a
+// block may have): such a call stages two at a time, in three phases a
+// window (phased below).
+template <typename T, int DK>
+__host__ __device__ constexpr bool phased() {
+  return wa::planes<T>() > 1 && DK > 4;
+}
+
+// Operand tiles a block holds: q, k, v and dO of NBUF windows, or two.
+template <typename T, int DK>
+__host__ __device__ constexpr int slots() {
+  return phased<T, DK>() ? 2 : (wa::planes<T>() == 1 ? 2 : 1) * 4;
+}
+
+// The block's shared memory (mirrored by ops/window_attention.py
+// bwd_smem_bytes): the bias and mask tile, the dbias tile, the operand
+// slots, the P and dS planes, four warps' staging rows of a half width and
+// the f64 reduction.
 template <typename T, int DK>
 constexpr size_t smem_bytes() {
-  constexpr int NP = wa::planes<T>(), NBUF = NP == 1 ? 2 : 1;
+  constexpr int NP = wa::planes<T>();
   return 2 * wa::kBiasFloats * sizeof(float) +
-         (size_t)NBUF * 4 * NP * wa::kMaxN * mm::pad_ld(16 * DK) *
+         (size_t)slots<T, DK>() * NP * wa::kMaxN * mm::pad_ld(16 * DK) *
              sizeof(bf16) +
          (size_t)2 * NP * wa::kMaxN * kPLD * sizeof(bf16) +
-         (size_t)4 * 16 * wa::stage_ld<T, DK>() * sizeof(T) +
+         (size_t)4 * 16 * wa::stage_ld<T, wa::out_dk(DK)>() * sizeof(T) +
          8 * sizeof(double);
 }
 
@@ -88,18 +120,19 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ w, Walk wk, float scale,
                            unsigned vec) {
   constexpr int NP = wa::planes<T>();
+  constexpr bool PHASED = phased<T, DK>();
   constexpr int NBUF = NP == 1 ? 2 : 1;
   constexpr int LD = mm::pad_ld(16 * DK);
   constexpr size_t PLANE = (size_t)wa::kMaxN * LD;
   constexpr size_t OPND = NP * PLANE;
   constexpr size_t PPLANE = (size_t)wa::kMaxN * kPLD;
-  constexpr int SLD = wa::stage_ld<T, DK>();
+  constexpr int SLD = wa::stage_ld<T, wa::out_dk(DK)>();
   extern __shared__ __align__(16) unsigned char smem[];
   float* bm = reinterpret_cast<float*>(smem);
   float* db = bm + wa::kBiasFloats;  // the block's dbias sums
   bf16* tiles = reinterpret_cast<bf16*>(db + wa::kBiasFloats);
-  bf16* ps = tiles + NBUF * 4 * OPND;  // P planes
-  bf16* ds = ps + NP * PPLANE;         // dS planes
+  bf16* ps = tiles + slots<T, DK>() * OPND;  // P planes
+  bf16* ds = ps + NP * PPLANE;               // dS planes
   T* stg0 = reinterpret_cast<T*>(ds + NP * PPLANE);
   double* red = reinterpret_cast<double*>(stg0 + 4 * 16 * SLD);
 
@@ -109,6 +142,7 @@ __global__ void __launch_bounds__(kThreads)
   const int i0 = g * wk.per, i1 = min(wk.BQ, i0 + wk.per);
   const bool rows = 16 * warp < wk.N;
   const int r0 = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+  const int nk = (wk.N + 15) / 16;  // key k16 steps of the transposed ones
   float w1, w2;
   wa::mix_weights(w, w1, w2);
   const bool sums = gr.sums && w;
@@ -116,25 +150,38 @@ __global__ void __launch_bounds__(kThreads)
   if (gr.part)
     for (int e = threadIdx.x; e < wa::kBiasFloats; e += kThreads) db[e] = 0.f;
 
-  auto load_window = [&](int i, int buf) {
+  // operand t (0 q, 1 k, 2 v, 3 dO) of window i into slot `slot`
+  auto stage_op = [&](int t, int i, bf16* slot) {
     const long long b = (long long)(i % wk.T) * wk.nW + i / wk.T;
+    const T* src = t == 0 ? q : t == 1 ? k : t == 2 ? v : dO;
+    const Strides s = t == 0 ? sq : t == 1 ? sk : t == 2 ? sv : sg;
+    wa::stage<T, NP>(slot, PLANE, LD, 16 * DK, src + b * s.b + h * s.h, s.n,
+                     wk.N, wk.D, vec & (1u << t));
+  };
+  auto load_window = [&](int i, int buf) {
     bf16* t = tiles + buf * 4 * OPND;
-    wa::stage<T, NP>(t, PLANE, LD, 16 * DK, q + b * sq.b + h * sq.h, sq.n,
-                     wk.N, wk.D, vec & 1);
-    wa::stage<T, NP>(t + OPND, PLANE, LD, 16 * DK, k + b * sk.b + h * sk.h,
-                     sk.n, wk.N, wk.D, vec & 2);
-    wa::stage<T, NP>(t + 2 * OPND, PLANE, LD, 16 * DK,
-                     v + b * sv.b + h * sv.h, sv.n, wk.N, wk.D, vec & 4);
-    wa::stage<T, NP>(t + 3 * OPND, PLANE, LD, 16 * DK,
-                     dO + b * sg.b + h * sg.h, sg.n, wk.N, wk.D, vec & 8);
+#pragma unroll
+    for (int o = 0; o < 4; ++o) stage_op(o, i, t + o * OPND);
     mm::cp_async_commit();
   };
 
   int jcur = -1;
-  if (NBUF == 2 && i0 < i1) load_window(i0, 0);
+  if (!PHASED && NBUF == 2 && i0 < i1) load_window(i0, 0);
   for (int i = i0; i < i1; ++i) {
     const int buf = NBUF == 2 ? (i - i0) & 1 : 0;
-    if (NBUF == 1) {
+    // slots: q, k, v, dO of the window, or (phased) A and B
+    const bf16* tq = tiles + buf * 4 * OPND;
+    const bf16* tk = tq + OPND;
+    const bf16* tv = tq + 2 * OPND;
+    const bf16* tg = tq + 3 * OPND;
+    float dp[8][4];
+    if constexpr (PHASED) {
+      // phase 1: dP = dO v^T from slots A (dO) and B (v)
+      stage_op(3, i, tiles);
+      stage_op(2, i, tiles + OPND);
+      tq = tg = tiles;
+      tk = tiles + OPND;
+    } else if (NBUF == 1) {
       load_window(i, 0);
     } else if (i + 1 < i1) {
       load_window(i + 1, buf ^ 1);
@@ -149,13 +196,18 @@ __global__ void __launch_bounds__(kThreads)
       jcur = j;
     }
     __syncthreads();
-    const bf16* tq = tiles + buf * 4 * OPND;
-    const bf16* tk = tq + OPND;
-    const bf16* tv = tq + 2 * OPND;
-    const bf16* tg = tq + 3 * OPND;
     const long long b = (long long)(i % wk.T) * wk.nW + j;
+    if constexpr (PHASED) {
+      if (rows)
+        wa::rows_times_rows<NP, DK>(dp, tiles, tiles + OPND, LD, PLANE);
+      __syncthreads();
+      // phase 2: q and k into slots A and B
+      stage_op(0, i, tiles);
+      stage_op(1, i, tiles + OPND);
+      __syncthreads();
+    }
     if (rows) {
-      float s[8][4], sm[8][4], dp[8][4];
+      float s[8][4], sm[8][4];
       wa::scores<NP, DK>(s, tq, tk, LD, PLANE, bm, scale);
       wa::softmax_rows(sm, s);
 #pragma unroll
@@ -172,7 +224,8 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       // s now holds relu(S)
-      wa::rows_times_rows<NP, DK>(dp, tg, tv, LD, PLANE);
+      if constexpr (!PHASED)
+        wa::rows_times_rows<NP, DK>(dp, tg, tv, LD, PLANE);
       float t1 = 0.f, t2 = 0.f, rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj)
@@ -211,32 +264,34 @@ __global__ void __launch_bounds__(kThreads)
                            dp[jj][2 * hf], dp[jj][2 * hf + 1]);
         }
       if (gr.dq) {
-        float o[2 * DK][4];
-        wa::regs_times_tile<NP, DK>(o, dp, tk, LD, PLANE);
         const Strides& so = gr.sdq;
-        wa::store_tile<T, DK>(o, scale, stg, SLD,
-                              static_cast<T*>(gr.dq) + b * so.b + h * so.h,
-                              so.n, 16 * warp, wk.N, wk.D, vec & 16);
+        wa::rows_out<T, NP, DK>(dp, tk, LD, PLANE, scale, stg,
+                                static_cast<T*>(gr.dq) + b * so.b + h * so.h,
+                                so.n, 16 * warp, wk.N, wk.D, vec & 16);
       }
     }
     __syncthreads();
-    if (rows && (gr.dv || gr.dk)) {
-      // keys 16 w .. 16 w + 15: A = P^T (or dS^T) from the [query][key]
-      // planes, B = dO (or q) rows, over the 64 queries
-      for (int which = 0; which < 2; ++which) {
-        void* dst = which ? gr.dk : gr.dv;
-        if (!dst) continue;
-        float o[2 * DK][4];
-        // the P and dS rows of a warp without queries were never written
-        wa::cols_times_tile<NP, DK>(o, which ? ds : ps, kPLD, PPLANE,
-                                    which ? tq : tg, LD, PLANE,
-                                    (wk.N + 15) / 16);
-        const Strides& so = which ? gr.sdk : gr.sdv;
-        wa::store_tile<T, DK>(o, which ? scale : 1.f, stg, SLD,
-                              static_cast<T*>(dst) + b * so.b + h * so.h,
-                              so.n, 16 * warp, wk.N, wk.D,
-                              vec & (which ? 32 : 64));
-      }
+    // keys 16 w .. 16 w + 15: A = dS^T (or P^T) from the [query][key]
+    // planes, B = q (or dO) rows, over the queries; the P and dS rows of a
+    // warp without queries were never written, and nk stops before them
+    if (rows && gr.dk) {
+      const Strides& so = gr.sdk;
+      wa::cols_out<T, NP, DK>(ds, kPLD, PPLANE, tq, LD, PLANE, nk, scale,
+                              stg,
+                              static_cast<T*>(gr.dk) + b * so.b + h * so.h,
+                              so.n, 16 * warp, wk.N, wk.D, vec & 32);
+    }
+    if constexpr (PHASED) {
+      // phase 3: dO again into slot A
+      __syncthreads();
+      if (gr.dv) stage_op(3, i, tiles);
+      __syncthreads();
+    }
+    if (rows && gr.dv) {
+      const Strides& so = gr.sdv;
+      wa::cols_out<T, NP, DK>(ps, kPLD, PPLANE, tg, LD, PLANE, nk, 1.f, stg,
+                              static_cast<T*>(gr.dv) + b * so.b + h * so.h,
+                              so.n, 16 * warp, wk.N, wk.D, vec & 64);
     }
     __syncthreads();
   }
@@ -324,8 +379,11 @@ int dispatch(int DK, const void* q, const void* k, const void* v,
     case 3:
       return launch<T, 3>(q, k, v, dO, sq, sk, sv, sg, gr, bias, mask, w, wk,
                           scale, vec, st);
-    default:
+    case 4:
       return launch<T, 4>(q, k, v, dO, sq, sk, sv, sg, gr, bias, mask, w, wk,
+                          scale, vec, st);
+    default:
+      return launch<T, 8>(q, k, v, dO, sq, sk, sv, sg, gr, bias, mask, w, wk,
                           scale, vec, st);
   }
 }
@@ -362,7 +420,7 @@ extern "C" int uir_window_attn_bwd(
   const auto* mk = static_cast<const float*>(mask);
   const auto* ww = static_cast<const float*>(w);
   auto st = static_cast<cudaStream_t>(stream);
-  const int DK = (D + 15) / 16;
+  const int DK = wa::tiles_of(D);
   int err = bf16 ? dispatch<__nv_bfloat16>(DK, q, k, v, dO, s[0], s[1], s[2],
                                            s[3], gr, bi, mk, ww, wk, scale,
                                            (unsigned)vec, st)

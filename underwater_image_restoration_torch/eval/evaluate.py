@@ -96,8 +96,9 @@ def infer_directory(model, input_dir: str, out_dir: str, size: int = 256,
 
 def load_model(weights: str, arch: str, device=None,
                compute_dtype: torch.dtype = torch.float32,
-               img_size: int = 256):
-    """Build ``arch`` (AST for ``img_size`` x ``img_size`` images; the
+               img_size: int = 256, use_dwt: str = "Fourier"):
+    """Build ``arch`` (AST and the New* models for ``img_size`` x
+    ``img_size`` images, the New* models with ``use_dwt``; the
     SpectralTransformer takes any size) and load ``weights``: a ``.npz`` of
     the JAX package's flat parameters, or a reference ``.pth``
     checkpoint."""
@@ -105,7 +106,7 @@ def load_model(weights: str, arch: str, device=None,
     from ..tools.convert import load_reference_state_dict, params_from_jax
 
     model = init_model(arch, device=device, compute_dtype=compute_dtype,
-                       img_size=img_size)
+                       img_size=img_size, use_dwt=use_dwt)
     if weights.endswith(".npz"):
         with np.load(weights) as z:
             model.load_state_dict(params_from_jax(dict(z)), strict=True)
@@ -128,8 +129,11 @@ def main(argv=None):
     pi.add_argument("--input", required=True)
     pi.add_argument("--out", default="uTest")
     pi.add_argument("--size", type=int, default=256,
-                    help="images are resized to size x size (AST's "
-                         "img_size)")
+                    help="images are resized to size x size (the img_size "
+                         "of AST and the New* models)")
+    pi.add_argument("--use-dwt", default="Fourier",
+                    help="the New* models' frequency branch: Wavelet or "
+                         "Fourier")
     pi.add_argument("--batch", type=int, default=8,
                     help="images per forward")
     pi.add_argument("--compute-dtype", choices=sorted(_DTYPES),
@@ -139,7 +143,7 @@ def main(argv=None):
                          "one); 'cpu' runs the plain versions")
     args = p.parse_args(argv)
     model = load_model(args.weights, args.arch, args.device,
-                       _DTYPES[args.compute_dtype], args.size)
+                       _DTYPES[args.compute_dtype], args.size, args.use_dwt)
     n = infer_directory(model, args.input, args.out, args.size, args.batch)
     print(f"wrote {n} images to {args.out}")
     return n

@@ -8,7 +8,7 @@ value is not a batch mean), and the Adaptive pair weights its two terms by
 softmax(-log(detached losses)), which couples the whole batch
 (``batch_linear`` is False).  The other names of ``LOSS_NAMES`` need
 MS-SSIM, FFL, the gradient loss or the VGG16 trunk, and raise
-NotImplementedError until they are ported (ROADMAP.md queue 9).
+NotImplementedError until they are ported (ROADMAP.md queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ class LossFunction:
             raise NotImplementedError(
                 f"loss '{loss_name}' is not ported yet: the remaining losses "
                 "(MS-SSIM, FFL, gradient, VGG16 perceptual) are ROADMAP.md "
-                "queue 9")
+                "queue 1, item 5")
         self.loss_name = loss_name
         # how the loss scales with the batch (consumers: grad accumulation)
         self.bc_divided = loss_name in ("L1", "L1withColor", "L1ColorLum",

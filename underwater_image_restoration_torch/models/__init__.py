@@ -1,19 +1,23 @@
 """Model registry of the port (counterpart of
-the JAX package's ``models/__init__.py``).  SpectralTransformer and AST are
-ported; the New* models are later slices."""
+the JAX package's ``models/__init__.py``): SpectralTransformer, AST and the
+New* family."""
 from __future__ import annotations
 
 import torch
 
 from .._device import resolve_device
 from .ast import AST
+from .new_model import NewBigFRFNModel, NewBigModel, NewModel
 from .spectral_transformer import SpectralTransformer
 
-_PENDING = ("NewModel", "NewBigModel", "NewBigFRFNModel")
-_FACTORY = {"SpectralTransformer": SpectralTransformer, "AST": AST}
+_FACTORY = {"SpectralTransformer": SpectralTransformer, "AST": AST,
+            "NewModel": NewModel, "NewBigModel": NewBigModel,
+            "NewBigFRFNModel": NewBigFRFNModel}
 # archs whose window masks and drop-path schedule derive from img_size;
 # SpectralTransformer is size-agnostic and drops it, as the JAX registry does
-_SIZE_ARCHS = {"AST"}
+_SIZE_ARCHS = {"AST", "NewModel", "NewBigModel", "NewBigFRFNModel"}
+# archs that take use_dwt; the others drop it, as the JAX registry does
+_USE_DWT_ARCHS = {"NewModel", "NewBigModel", "NewBigFRFNModel"}
 
 
 def get_names():
@@ -25,15 +29,14 @@ def init_model(name: str, *, device=None, seed: int = 0,
     """Build ``name`` on ``device`` (CUDA unless ``device="cpu"``) with its
     reference init drawn from ``torch.Generator().manual_seed(seed)``, in
     eval mode.  ``kwargs`` go to the model (channels, num_blocks, ... for
-    SpectralTransformer; img_size, embed_dim, win_size, ... for AST)."""
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"{name} is not ported yet: the New* models and their kernels "
-            "are later slices (ROADMAP.md, queue 1)")
+    SpectralTransformer; img_size, embed_dim, win_size, ... for AST;
+    img_size, embed_dim, use_dwt, drop_path_rate for the New* models)."""
     if name not in _FACTORY:
         raise KeyError(f"Unknown model: {name}")
     if name not in _SIZE_ARCHS:
         kwargs.pop("img_size", None)
+    if name not in _USE_DWT_ARCHS:
+        kwargs.pop("use_dwt", None)
     dev = resolve_device(device)
     model = _FACTORY[name](compute_dtype=compute_dtype, device=dev, **kwargs)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -41,4 +44,5 @@ def init_model(name: str, *, device=None, seed: int = 0,
     return model.eval()
 
 
-__all__ = ["AST", "SpectralTransformer", "get_names", "init_model"]
+__all__ = ["AST", "NewBigFRFNModel", "NewBigModel", "NewModel",
+           "SpectralTransformer", "get_names", "init_model"]

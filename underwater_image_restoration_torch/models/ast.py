@@ -43,19 +43,7 @@ from ..ops import (
     window_reverse,
 )
 from ..ops.layers import Conv2d, ConvTranspose2d, TokenLayerNorm
-from .blocks import LeFF, Mlp, WindowAttentionSparse
-
-
-def _image(x):
-    """Tokens (B, L, C) -> an NCHW view (channels-last strides)."""
-    return tokens_to_image(x).permute(0, 3, 1, 2)
-
-
-def _tokens(img):
-    """NCHW -> contiguous tokens (B, L, C): free when the convolution wrote
-    channels-last (it does for the channels-last views ``_image`` gives it),
-    one copy at the NCHW input."""
-    return image_to_tokens(img.permute(0, 2, 3, 1)).contiguous()
+from .blocks import WindowAttentionSparse, _image, _tokens, make_token_mlp
 
 
 class ASTInputProj(nn.Module):
@@ -128,17 +116,8 @@ class ASTTransformerBlock(nn.Module):
                                               device=device)
         self.drop_path = DropPath(drop_path)
         self.norm2 = TokenLayerNorm(dim, device=device)
-        hid = int(dim * mlp_ratio)
-        if token_mlp == "leff":
-            self.mlp = LeFF(dim, hid, device=device)
-        elif token_mlp in ("ffn", "mlp"):
-            self.mlp = Mlp(dim, hid, device=device)
-        elif token_mlp == "frfn":
-            raise NotImplementedError(
-                "token_mlp='frfn' is not ported yet: FRFN comes with the "
-                "New* models (ROADMAP.md, queue 1 item 11)")
-        else:
-            raise ValueError(f"Unknown token_mlp type: {token_mlp}")
+        self.mlp = make_token_mlp(token_mlp, dim, int(dim * mlp_ratio),
+                                  device=device)
 
     def forward(self, x, use_kernels: bool = True, generator=None):
         b, l, c = x.shape

@@ -1,6 +1,7 @@
 """Ops of the port: plain PyTorch layers, and the fused ops whose CUDA
 kernels live in ``csrc/``: the two SpectralBlock halves (LN+MDTA, LN+GDFN),
-the AST's LN+LeFF and its window attention."""
+the AST's LN+LeFF and its window attention; the Haar transforms of the New*
+models."""
 from .attention import (
     channel_attention_core,
     merge_heads,
@@ -25,6 +26,7 @@ from .resample import (
     pixel_unshuffle,
     tokens_to_image,
 )
+from .wavelets import dwt2d, idwt2d
 from .spectral import (
     fft2,
     ifft2,
@@ -46,8 +48,10 @@ __all__ = [
     "DropPath",
     "LayerNorm",
     "channel_attention_core",
+    "dwt2d",
     "fft2",
     "gelu",
+    "idwt2d",
     "ifft2",
     "image_to_tokens",
     "l2_normalize",

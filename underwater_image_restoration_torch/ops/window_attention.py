@@ -11,18 +11,23 @@ through ``WindowAttnFn``, whose backward launches ``csrc/window_attn_bwd.cu``
 (``window_attn_bwd``): the same recompute from the inputs as the TPU
 kernel's custom VJP (``pallas.py:191``), as one kernel.  CPU tensors take
 the plain versions, ``window_attention_plain`` and ``window_attention_bwd``
-(autograd through the plain version).  The kernels take N <= 64 and d <= 64
-(a window of at most 8 x 8 tokens); any other shape raises.  q, k, v may be
-strided views with a unit channel stride (``attention.split_heads`` of the
-projections), and the result is a view of a (B', N, heads * d) tensor, so
-``attention.merge_heads`` of it copies nothing.
+(autograd through the plain version).  The kernels take N <= 64 and d <=
+128 (a window of at most 8 x 8 tokens, heads of at most 128 channels); any
+other shape raises.  q, k, v may be strided views with a unit channel
+stride (``attention.split_heads`` of the projections), and the result is a
+view of a (B', N, heads * d) tensor, so ``attention.merge_heads`` of it
+copies nothing.
 
 Both kernels walk the windows in blocks of one head each (``fwd_plan``,
 ``bwd_plan``): a block takes a run of windows in (mask index, image) order,
 so that it stages the head's bias and a mask index's mask once for the run.
-The backward's blocks each write one row of dbias and dw partials, summed
-in block order (no float atomics), so its block count is fixed by the shape
-and the SM count alone and two calls give the same bits.
+A call aims at one wave of blocks: as many a multiprocessor as its shared
+memory lets one hold (``fwd_smem_bytes``, ``bwd_smem_bytes``, the kernels'
+``smem_bytes``), at most four: four forward and two backward at d = 32 in
+bf16, one of each at d = 128.  The backward's blocks each write one row of
+dbias and dw partials, summed in block order (no float atomics), so its
+block count is fixed by the shape, the dtype and the SM count alone and two
+calls give the same bits.
 """
 from __future__ import annotations
 
@@ -35,17 +40,18 @@ from . import _kernels
 from .attention import window_attention_core
 
 MAX_N = 64
-MAX_D = 64
-# blocks a call aims at, per streaming multiprocessor: one wave of the
-# kernels' residency at N = 64, d = 32 in bf16 (the forward's blocks take
-# 54 KiB of shared memory, four an SM; the backward's 101 KiB, two), each
-# block walking a long run of windows over one bias tile (probed on an
-# H100 against 2 to 16 a multiprocessor)
-FWD_BLOCKS_PER_SM = 4
-BWD_BLOCKS_PER_SM = 2
+MAX_D = 128
+# shared memory an H100 multiprocessor gives its blocks, and what each
+# block of them reserves for itself
+SM_SHARED_BYTES = 228 << 10
+BLOCK_RESERVED_BYTES = 1 << 10
+# the registers' limit: a block's 128 threads take 96 to 128 registers each
+# in bf16 at d <= 64 (ptxas -v on an H100), so four blocks an SM at most
+MAX_BLOCKS_PER_SM = 4
 # the backward's rows of dbias and dw partials: (N * N f32, two f64) a
 # block
 BWD_WORKSPACE_BYTES = 64 << 20
+_BIAS_BYTES = 4 * MAX_N * (MAX_N + 8)  # the f32 bias and mask tile
 
 
 class Plan(collections.namedtuple(
@@ -57,16 +63,66 @@ class Plan(collections.namedtuple(
     that wants dbias and dw (the kernel, reduce_rows, the dw step)."""
 
 
+def _pad_ld(n: int) -> int:
+    """csrc/mma.cuh pad_ld: a bf16 row of n, padded."""
+    u = -(-n // 8)
+    return 8 * u if u % 2 else 8 * u + 8
+
+
+def _tiles(d: int) -> int:
+    """csrc/wattn.cuh tiles_of: 16-column tiles of a head width."""
+    dk = -(-d // 16)
+    return dk if dk <= 4 else 8
+
+
+def _layout(d: int, itemsize: int):
+    """(bf16 planes an operand, cp.async buffers, padded operand row, warp
+    staging bytes) of the kernels at head width d."""
+    planes = 1 if itemsize == 2 else 3
+    dk = _tiles(d)
+    stage = 4 * 16 * (16 * min(dk, 4) + 16 // itemsize) * itemsize
+    return planes, 2 if planes == 1 else 1, _pad_ld(16 * dk), stage
+
+
+def fwd_smem_bytes(d: int, itemsize: int) -> int:
+    """csrc/window_attn.cu smem_bytes: the bias and mask tile, q, k and v
+    of the buffered windows, the warps' staging rows."""
+    planes, nbuf, ld, stage = _layout(d, itemsize)
+    return _BIAS_BYTES + nbuf * 3 * planes * MAX_N * ld * 2 + stage
+
+
+def bwd_smem_bytes(d: int, itemsize: int) -> int:
+    """csrc/window_attn_bwd.cu smem_bytes: two f32 tiles (bias and mask,
+    dbias), the operand slots (q, k, v, dO of the buffered windows; two in
+    an f32 call at d > 64, which runs in phases), the P and dS planes, the
+    staging rows and the f64 reduction."""
+    planes, nbuf, ld, stage = _layout(d, itemsize)
+    slots = 2 if planes > 1 and _tiles(d) > 4 else 4 * nbuf
+    return (2 * _BIAS_BYTES + slots * planes * MAX_N * ld * 2
+            + 2 * planes * MAX_N * _pad_ld(MAX_N) * 2 + stage + 64)
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory a multiprocessor holds, at
+    most MAX_BLOCKS_PER_SM."""
+    return max(1, min(MAX_BLOCKS_PER_SM,
+                      SM_SHARED_BYTES // (smem + BLOCK_RESERVED_BYTES)))
+
+
 def _walk(bq: int, heads: int, blocks: int) -> tuple[int, int]:
     g = max(1, min(bq, -(-blocks // heads)))
     per = -(-bq // g)
     return -(-bq // per), per
 
 
-def fwd_plan(bq: int, heads: int, sms: int = 132) -> Plan:
-    """The forward's walk: about FWD_BLOCKS_PER_SM blocks a multiprocessor
-    (an H100 has 132), at least one window a block."""
-    g, per = _walk(bq, heads, FWD_BLOCKS_PER_SM * sms)
+def fwd_plan(bq: int, heads: int, sms: int = 132, *, d: int,
+             itemsize: int) -> Plan:
+    """The forward's walk for heads of d channels in a dtype of
+    ``itemsize`` bytes: one wave of blocks (``blocks_per_sm`` of its shared
+    memory on each of ``sms`` multiprocessors; an H100 has 132), at least
+    one window a block."""
+    g, per = _walk(bq, heads,
+                   blocks_per_sm(fwd_smem_bytes(d, itemsize)) * sms)
     return Plan(g, per, 0, 1)
 
 
@@ -76,13 +132,15 @@ def bwd_row_bytes(n: int) -> int:
     return 4 * n * n + 16
 
 
-def bwd_plan(bq: int, heads: int, n: int, sms: int = 132) -> Plan:
-    """The backward's walk: about BWD_BLOCKS_PER_SM blocks a multiprocessor,
-    fewer where the rows would exceed BWD_WORKSPACE_BYTES.  The count
-    depends on the shape and the SM count alone, so the rows' sums are the
+def bwd_plan(bq: int, heads: int, n: int, sms: int = 132, *, d: int,
+             itemsize: int) -> Plan:
+    """The backward's walk: one wave of blocks, as ``fwd_plan``, fewer
+    where the rows would exceed BWD_WORKSPACE_BYTES.  The count depends on
+    the shape, the dtype and the SM count alone, so the rows' sums are the
     same from call to call."""
     most = max(1, BWD_WORKSPACE_BYTES // (heads * bwd_row_bytes(n)))
-    g, per = _walk(bq, heads, min(BWD_BLOCKS_PER_SM * sms, most * heads))
+    wave = blocks_per_sm(bwd_smem_bytes(d, itemsize)) * sms
+    g, per = _walk(bq, heads, min(wave, most * heads))
     return Plan(g, per, g * heads * bwd_row_bytes(n), 3)
 
 
@@ -173,7 +231,8 @@ def _forward_cuda(q, k, v, bias, scale, sparse_w, mask):
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
     bi, mk, w = _operands(bias, sparse_w, mask)
-    plan = fwd_plan(bq, h, _kernels.sm_count(q.device))
+    plan = fwd_plan(bq, h, _kernels.sm_count(q.device), d=d,
+                    itemsize=q.element_size())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.uir_window_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
@@ -229,7 +288,8 @@ def window_attn_bwd(g, q, k, v, bias, *, scale: float, sparse_w=None,
         s for t in (q, k, v, g, dq, dk, dv)
         for s in (t.stride()[:3] if t is not None else (0, 0, 0))))
     bi, mk, w = _operands(bias, sparse_w, mask)
-    plan = bwd_plan(bq, h, n, _kernels.sm_count(q.device))
+    plan = bwd_plan(bq, h, n, _kernels.sm_count(q.device), d=d,
+                    itemsize=q.element_size())
     rows = plan.blocks_per_head * h
     f32 = dict(device=q.device, dtype=torch.float32)
     part = torch.empty(rows * n * n, **f32) if need[3] else None

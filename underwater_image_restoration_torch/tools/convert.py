@@ -1,4 +1,4 @@
-"""Carry SpectralTransformer and AST weights into the port.
+"""Carry SpectralTransformer, AST and New* weights into the port.
 
 The port's ``state_dict`` uses the reference's names and layouts (OIHW
 convs, ``(in, out, kh, kw)`` transposed convs, ``(out, in)`` Linears), so:
@@ -6,9 +6,10 @@ convs, ``(in, out, kh, kw)`` transposed convs, ``(out, in)`` Linears), so:
 - ``params_from_jax(flat)`` maps the JAX package's flat ``a/b/c`` parameter
   paths (HWIO kernels, ``(in, out)`` Dense kernels) onto it.  It is the
   inverse of the JAX package's ``tools/convert_checkpoint.py``
-  ``convert_spectral_transformer`` (``:81``) and ``convert_ast`` (``:205``,
-  through ``_blocky_convert:141``), which flips the transposed-conv taps:
-  they are flipped back here.
+  ``convert_spectral_transformer`` (``:81``), ``convert_ast`` (``:205``)
+  and ``convert_new_family`` (``:200``; both through ``_blocky_convert:141``,
+  with the renames ``_AST_RENAMES`` and ``_NEW_RENAMES:179``), which flips
+  the transposed-conv taps: they are flipped back here.
 - The map is linear (names and transposes), so it carries gradients and
   parameter trajectories too: ``params_from_jax(flatten(jax_grads))`` puts
   the JAX package's gradient tree beside the port's ``.grad`` tensors.
@@ -26,10 +27,15 @@ import numpy as np
 import torch
 
 # parameters the reference creates but never uses in its forward
-# (reference SpectralTransformer.py:89,232,235,251-252), and AST's
-# relative-position index buffers, which the port recomputes
+# (reference SpectralTransformer.py:89,232,235,251-252; in the New* models
+# MDASSA's norm_q and norm_kv, the self-attention's cross kv projection and
+# the cross-attention's self one), the relative-position index buffers,
+# which the port recomputes, and the New* models' Haar filter buffers
+# (the JAX converter's _BLOCKY_DROP)
 _DROP = re.compile(r"^(ups_4\.|ups1\.|ups2\.|output1\.)|(\.q1X1_2\.)"
-                   r"|(relative_position_index$)")
+                   r"|(relative_position_index$)|\.(dwt|idwt)\."
+                   r"|\.norm_(q|kv)\.|\.attn\.to_qkv\.to_kv\."
+                   r"|\.freq_attn\.to_qkv\.to_kv_from_q\.")
 
 _STAGES = {"enc0": "encoders.0", "enc1": "encoders.1", "enc2": "encoders.2",
            "enc3": "encoders.3", "dec0": "decoders.0", "dec1": "decoders.1",
@@ -86,11 +92,38 @@ def _ast_name(path: str, v: np.ndarray):
     return f"{pre}{ref}.weight", a
 
 
+_NEW_PATH = re.compile(r"(?:input_proj|output_proj|(?:en|de)coder_\d(?:_\d+)?"
+                       r"|bottleneck|(?:down|up)sample_\d)/.+")
+# New* JAX module path -> reference module path, the inverse of the JAX
+# converter's _NEW_RENAMES
+_NEW_MODULES = ((r"^(input_proj|output_proj)\.proj(\d)$", r"\1.proj.\2"),
+                (r"^((?:down|up)sample_\d)\.conv$", r"\1.body.0"),
+                (r"\.(attn|freq_attn)\.(to_q|to_kv|to_kv_from_q)$",
+                 r".\1.to_qkv.\2"),
+                (r"\.(linear1|linear2|dwconv)$", r".\1.0"))
+
+
+def _new_name(path: str, v: np.ndarray):
+    """New* JAX flat path -> (reference name, array), or None."""
+    if not _NEW_PATH.fullmatch(path):
+        return None
+    mod, leaf = path.rsplit("/", 1)
+    mod = mod.replace("/", ".")
+    for pat, rep in _NEW_MODULES:
+        mod = re.sub(pat, rep, mod)
+    if leaf in ("bias", "w", "relative_position_bias_table"):
+        return f"{mod}.{leaf}", v
+    if leaf == "scale":
+        return f"{mod}.weight", v
+    a = _oihw(v) if v.ndim == 4 else np.ascontiguousarray(v.T)
+    return f"{mod}.weight", a
+
+
 def _name(path: str, v: np.ndarray):
     """JAX flat path -> (reference name, array)."""
-    ast = _ast_name(path, v)
-    if ast is not None:
-        return ast
+    for named in (_ast_name(path, v), _new_name(path, v)):
+        if named is not None:
+            return named
     m = re.fullmatch(r"(enc\d|dec\d|refinement)_(\d+)/(.+)", path)
     if m:
         stage, i, rest = m.groups()

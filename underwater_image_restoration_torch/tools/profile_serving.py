@@ -2,13 +2,14 @@
 
 Traces ITERS ``batched_apply`` calls of a full-width model (the serving
 cell: SIZE x SIZE, batch BATCH, bf16, seeded weights; SpectralTransformer,
-or AST with ``--arch AST``) with ``torch.profiler`` and prints device time
-by kernel, grouped into the port's own kernels, cuDNN/cuBLAS convolutions
-and matrix products, FFTs and the rest, beside the wall time of the same
-calls, so the device's idle share shows.  Needs a CUDA GPU:
+AST with ``--arch AST`` or NewModel with ``--arch NewModel``, ``--use-dwt``
+Wavelet, the default, or Fourier) with ``torch.profiler`` and prints device
+time by kernel, grouped into the port's own kernels, cuDNN/cuBLAS
+convolutions and matrix products, FFTs and the rest, beside the wall time
+of the same calls, so the device's idle share shows.  Needs a CUDA GPU:
 
     python -m underwater_image_restoration_torch.tools.profile_serving \
-        [--arch AST]
+        [--arch AST|NewModel [--use-dwt Wavelet|Fourier]]
 """
 from __future__ import annotations
 
@@ -142,20 +143,25 @@ def profile(fn, iters: int, what: str, ranges=None) -> int:
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="SpectralTransformer",
-                   choices=("SpectralTransformer", "AST"))
+                   choices=("SpectralTransformer", "AST", "NewModel"))
+    p.add_argument("--use-dwt", default="Wavelet",
+                   choices=("Wavelet", "Fourier"),
+                   help="NewModel's frequency branch")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     print(card())
     model = init_model(args.arch, seed=0, compute_dtype=torch.bfloat16,
-                       img_size=SIZE)
+                       img_size=SIZE, use_dwt=args.use_dwt)
     raw, _ = synthetic_pair_batch(BATCH, SIZE, seed=0)
     apply_b, _ = batched_apply(model, BATCH)
     for _ in range(2):
         apply_b(raw)
     torch.cuda.synchronize()
+    arch = args.arch + ("-" + args.use_dwt if args.arch == "NewModel"
+                        else "")
     return profile(lambda: apply_b(raw), ITERS,
-                   f"{args.arch} batch {BATCH} at {SIZE}x{SIZE} bf16")
+                   f"{arch} batch {BATCH} at {SIZE}x{SIZE} bf16")
 
 
 if __name__ == "__main__":

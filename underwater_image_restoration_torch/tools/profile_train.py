@@ -4,20 +4,21 @@
 Traces STEPS train steps of a full-width model (SIZE x SIZE, batch BATCH,
 bf16 compute over f32 parameters, ``L1withColor``, Adam lr 3e-4 behind the
 global-norm clip, seeded weights, ``make_train_step``; SpectralTransformer,
-or AST with ``--arch AST``, its DropPath drawing from a seeded generator)
-with ``torch.profiler`` and prints device time by kernel group (the port's
-forward and backward kernels, cuDNN convolutions and cuBLAS products and
-their gradients, FFTs, the optimizer, the rest) beside the wall time, so the
-device's idle share shows.  For AST it also prints the device time inside
-the window attentions' backwards (a ``record_function`` range around
-``WindowAttnFn.backward``), whichever groups their kernels fall in; with
-``--plain-attn-bwd`` that backward recomputes through the plain version
-(autograd over (B', heads, N, N) f32 tensors) instead of
-``csrc/window_attn_bwd.cu``, so the two shares can be read side by side.
-Needs a CUDA GPU:
+AST with ``--arch AST`` or NewModel with ``--arch NewModel`` (``--use-dwt``
+Wavelet, the default, or Fourier), their DropPath drawing from a seeded
+generator) with ``torch.profiler`` and prints device time by kernel group
+(the port's forward and backward kernels, cuDNN convolutions and cuBLAS
+products and their gradients, FFTs, the optimizer, the rest) beside the
+wall time, so the device's idle share shows.  For AST and NewModel it also
+prints the device time inside the window attentions' backwards (a
+``record_function`` range around ``WindowAttnFn.backward``), whichever
+groups their kernels fall in; with ``--plain-attn-bwd`` that backward
+recomputes through the plain version (autograd over (B', heads, N, N) f32
+tensors) instead of ``csrc/window_attn_bwd.cu``, so the two shares can be
+read side by side.  Needs a CUDA GPU:
 
     python -m underwater_image_restoration_torch.tools.profile_train \
-        [--arch AST [--plain-attn-bwd]]
+        [--arch AST|NewModel [--use-dwt Wavelet|Fourier] [--plain-attn-bwd]]
 """
 from __future__ import annotations
 
@@ -63,23 +64,26 @@ def _annotate_attn_backward(plain: bool) -> None:
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", default="SpectralTransformer",
-                   choices=("SpectralTransformer", "AST"))
+                   choices=("SpectralTransformer", "AST", "NewModel"))
+    p.add_argument("--use-dwt", default="Wavelet",
+                   choices=("Wavelet", "Fourier"),
+                   help="NewModel's frequency branch")
     p.add_argument("--plain-attn-bwd", action="store_true",
-                   help="AST: the window attentions' backward through the "
-                        "plain recompute instead of its kernel")
+                   help="AST, NewModel: the window attentions' backward "
+                        "through the plain recompute instead of its kernel")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
     print(card())
     ranges = {}
-    if args.arch == "AST":
+    if args.arch != "SpectralTransformer":
         _annotate_attn_backward(args.plain_attn_bwd)
         # the kernel backward's launches: the kernel and the dw step, and
-        # reduce_rows (the AST step's only plain reduce_rows_kernel)
+        # reduce_rows (the step's only plain reduce_rows_kernel)
         ranges = {ATTN_BWD_RANGE: ("window_attn_bwd kernel and dw step",
                                    "backward row sums")}
     model = init_model(args.arch, seed=0, compute_dtype=torch.bfloat16,
-                       img_size=SIZE)
+                       img_size=SIZE, use_dwt=args.use_dwt)
     opt = get_optimizer("adam", model.parameters(), LR)
     step = make_train_step(
         model, LossFunction("L1withColor"), opt,
@@ -89,7 +93,9 @@ def main(argv=None):
         step(raw, ref)
     torch.cuda.synchronize()
     return profile(lambda: step(raw, ref), STEPS,
-                   f"{args.arch} train step, batch {BATCH} at {SIZE}x{SIZE} "
+                   f"{args.arch}"
+                   f"{'-' + args.use_dwt if args.arch == 'NewModel' else ''} "
+                   f"train step, batch {BATCH} at {SIZE}x{SIZE} "
                    "bf16" + (", window attention backward through the plain "
                              "recompute" if args.plain_attn_bwd else ""),
                    ranges)
