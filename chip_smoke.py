@@ -9,6 +9,7 @@ AST, trains both, and checks where the time and the launches went.
     python3 chip_smoke.py --phase ast-train    # phases 1 (the same) and 7
     python3 chip_smoke.py --phase new    # phases 1 (the same) and 8
     python3 chip_smoke.py --phase new-train    # phases 1 (the same) and 9
+    python3 chip_smoke.py --phase run    # phases 1 (Spectral kernels) and 10
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
@@ -110,7 +111,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    finite and non-zero; (c) one step's gradients, kernels vs plain, same
    DropPath draws, limits below a quarter of what dropping a branch moves;
    (d) three f32 losses; (e) two bf16 backward passes bit-equal; (f)
-   images/s and peak memory, kernels vs plain, in turns.
+   images/s and peak memory, kernels vs plain, in turns;
+10. the training run: the port's CLI (``cli.main.main``) trains the
+   full-width SpectralTransformer at 256x256 (bf16, L1withColor, Adam lr
+   3e-4, batch 16 over 40 pairs, so the final batch is padded; validation
+   over 16 pairs at batch 8; cuDNN's deterministic algorithms): run A
+   trains 3 epochs with the watch histograms every 2nd step, run B 2
+   epochs and run C resumes B for the third. (a) the launches of C's
+   epoch are its steps' (as phase 5 counts a step) and its validation
+   forwards' (as phase 3 counts a forward), and no plain version runs;
+   (b) A's final parameters, Adam state, loader state and losses are
+   bit-equal to B + C's; (c) best/ and latest/ hold the steps the rule
+   says, and ``ModelTrainer.evaluate`` on A's best gives the PSNR and SSIM
+   logged for that epoch; (d) ``--evaluate`` writes one image a test
+   input; (e) metrics.jsonl holds the train and test keys and the 64-bin
+   histograms.  Then a probe of the loop's overhead over 128 pairs of
+   1280x720 JPEGs (decoded and resized every epoch) with 4 decode threads,
+   with 1 and over the decoded cache, against the bare step on one
+   preloaded batch, in turns.  Prints the loop's images/s an epoch beside
+   the bare step's in the same call, the validation time and peak memory.
 The last line is the JSON device record; the line before it the kernels'.
 """
 import argparse
@@ -522,6 +541,36 @@ def work_leff_bwd(c, h, batch, itemsize):
     wbytes = 2 * 4 * (2 * c * hid + 9 * hid + 2 * hid + 3 * c)
     return (3 * px * c * itemsize + wbytes,
             px * (10 * c * hid + 6 * 9 * hid))
+
+
+def spectral_launches(batch, train=False):
+    """The Spectral kernels' launches in one bf16 forward of the full-width
+    model at ``batch`` (with ``train``, and its backward: ln_gdfn_bwd 2 a
+    block, ln_mdta_bwd BWD_LAUNCHES a slice of the batch and one a call), by
+    kernel and (C, H, W), as their planners say for BLOCKS."""
+    import torch
+
+    from underwater_image_restoration_torch.ops import (
+        _kernels,
+        fused_gdfn,
+        fused_mdta,
+    )
+
+    sms = _kernels.sm_count(torch.device("cuda"))
+    out = {
+        "ln_gdfn": {k: n * fused_gdfn.fwd_launches(
+            batch, k[1], k[2], k[0],
+            fused_gdfn.padded_hidden(int(k[0] * EXPANSION)), 2, sms)
+            for k, n in BLOCKS.items()},
+        "ln_mdta": {k: n * fused_mdta.fwd_plan(
+            batch, k[1], k[2], k[0], 2).launches
+            for k, n in BLOCKS.items()}}
+    if train:
+        out["ln_gdfn_bwd"] = {k: 2 * n for k, n in BLOCKS.items()}
+        out["ln_mdta_bwd"] = {k: n * fused_mdta.bwd_plan(
+            batch, k[1], k[2], k[0], 2, sms).launches
+            for k, n in BLOCKS.items()}
+    return out
 
 
 def grad_dist(g, r):
@@ -1739,14 +1788,366 @@ def new_train_phase(card, batch, size, check_batch):
     return kernels
 
 
+# phase 10: the training run through the CLI (SpectralTransformer at full
+# width, bf16): RUN_TRAIN pairs (not a multiple of the batch: the final
+# batch is padded), RUN_TEST pairs, validation batch RUN_TEST_BATCH
+RUN_TRAIN, RUN_TEST, RUN_TEST_BATCH = 40, 16, 8
+RUN_WATCH = 2
+# the loop probe's data: PROBE_PAIRS pairs as JPEGs of PROBE_JPEG (width,
+# height), which the loader decodes and resizes every epoch
+PROBE_PAIRS, PROBE_JPEG = 128, (1280, 720)
+
+
+def _write_pairs(root, n, size, seed, jpeg=None):
+    """``n`` synthetic pairs under root/a and root/b: PNGs of size x size,
+    or, given ``jpeg`` = (width, height), JPEGs (quality 90) resized to
+    it."""
+    from PIL import Image
+
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+
+    dirs = []
+    for sub, arr in zip("ab", synthetic_pair_batch(n, size, seed=seed)):
+        d = os.path.join(root, sub)
+        os.makedirs(d)
+        for i, img in enumerate(arr):
+            im = Image.fromarray(img)
+            if jpeg is None:
+                im.save(os.path.join(d, f"{i:04d}.png"))
+            else:
+                im.resize(jpeg, Image.BILINEAR).save(
+                    os.path.join(d, f"{i:04d}.jpg"), quality=90)
+        dirs.append(d)
+    return dirs
+
+
+def _jsonl(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_phase(card, batch, size):
+    """10. the training run: ``cli.main.main`` trains the full-width
+    SpectralTransformer (bf16, L1withColor, Adam lr 3e-4, cuDNN's
+    deterministic algorithms) over synthetic train/test directories. Run A
+    trains 3 epochs watching every RUN_WATCH-th step; run B trains 2
+    epochs and run C resumes it for a third, both without the watch.
+    (a) the launches of C's one epoch: its steps as phase 5's, its
+    validation batches as phase 3's forward, no plain version called;
+    (b) A's final parameters, Adam state and loader state bit-equal to
+    C's, and C's losses to A's third epoch; (c) best/ and latest/ hold the
+    steps the rule says, and ``ModelTrainer.evaluate`` on A's best gives
+    the PSNR and SSIM logged for that epoch; (d) ``--evaluate`` writes one
+    image a test input; (e) A's metrics.jsonl holds the train and test keys
+    and the 64-bin histograms.  Then a probe of where a loop epoch's wall
+    time goes (the first batch's wait, the later waits, the step calls,
+    the closing synchronise), on a fresh model's ``make_train_step`` over
+    PROBE_PAIRS pairs of PROBE_JPEG JPEGs, which the loader decodes and
+    resizes every epoch: with 4 decode threads (as the run), with 1, and
+    over the decoded cache (``data/cache.py``, no decode once built),
+    against as many steps on one preloaded batch (the bare step), in
+    turns.  Prints the loop's images/s an epoch (B and C) beside the bare
+    step's, the validation time and peak memory."""
+    import glob
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from underwater_image_restoration_torch.cli.main import main as cli
+    from underwater_image_restoration_torch.core.config import Config
+    from underwater_image_restoration_torch.data import (
+        PairedLoader,
+        UIEBDataset,
+        decode_image,
+    )
+    from underwater_image_restoration_torch.data.cache import (
+        CachedUIEBDataset,
+    )
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.models import (
+        init_model,
+        spectral_transformer,
+    )
+    from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
+    from underwater_image_restoration_torch.train import (
+        CheckpointManager,
+        ModelTrainer,
+        get_optimizer,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase10")
+    shutil.rmtree(root, ignore_errors=True)
+    train = _write_pairs(os.path.join(root, "data", "train"), RUN_TRAIN, size,
+                         seed=100)
+    test = _write_pairs(os.path.join(root, "data", "test"), RUN_TEST, size,
+                        seed=101)
+    nb = -(-RUN_TRAIN // batch)
+    common = ["-a", "SpectralTransformer", "--image-size", str(size),
+              "--train-batch-size", str(batch), "--test-batch-size",
+              str(RUN_TEST_BATCH), "--lossf", "L1withColor", "--optim",
+              "adam", "--lr", str(LR), "--compute-dtype", "bfloat16",
+              "--use-wandb", "--print-freq", "100", "-j", "4",
+              "--train-raw", train[0], "--train-ref", train[1],
+              "--test-raw", test[0], "--test-ref", test[1]]
+    counters = {"ln_gdfn": fused_gdfn.ln_gdfn, "ln_mdta": fused_mdta.ln_mdta,
+                "ln_gdfn_bwd": fused_gdfn.ln_gdfn_bwd,
+                "ln_mdta_bwd": fused_mdta.ln_mdta_bwd}
+    plain_calls = collections.Counter()
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            plain_calls[name] += 1
+            return fn(*a, **k)
+        return fn, wrapper
+
+    patched = [(mod, name) + counted(mod, name) for mod, name in (
+        (spectral_transformer, "ln_mdta_plain"),
+        (spectral_transformer, "ln_gdfn_plain"),
+        (fused_mdta, "ln_mdta_plain"), (fused_gdfn, "ln_gdfn_plain"),
+        (fused_mdta, "ln_mdta_bwd_plain"), (fused_gdfn, "ln_gdfn_bwd_plain"))]
+    cwd = os.getcwd()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mod, name, _, wrapper in patched:
+            setattr(mod, name, wrapper)
+        os.chdir(root)  # the CLI's logs/ and Images/ land here
+
+        def train_run(name, extra):
+            t = time.perf_counter()
+            cli(common + extra)
+            torch.cuda.synchronize()
+            ckpt = os.path.join(root, name)
+            return time.perf_counter() - t, os.path.join(
+                ckpt, os.listdir(ckpt)[0]) if os.path.isdir(ckpt) else None
+
+        torch.cuda.reset_peak_memory_stats()
+        secs_a, run_a = train_run("A", ["--max-epoch", "3", "--watch-freq",
+                                        str(RUN_WATCH), "--checkpoint-dir",
+                                        os.path.join(root, "A")])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        secs_b, run_b = train_run("B", ["--max-epoch", "2", "--watch-freq",
+                                        "0", "--checkpoint-dir",
+                                        os.path.join(root, "B")])
+        for cnt in counters.values():
+            cnt.launches.clear()
+        plain_calls.clear()
+        secs_c, _ = train_run("C", ["--max-epoch", "3", "--watch-freq", "0",
+                                    "--resume", run_b])
+        got = {k: dict(cnt.launches) for k, cnt in counters.items()}
+        print(f"phase 10 runs: A (3 epochs, watch every {RUN_WATCH}) "
+              f"{secs_a:.1f} s, B (2 epochs) {secs_b:.1f} s, C (resumes B for "
+              f"1) {secs_c:.1f} s; {RUN_TRAIN} train pairs at batch {batch} "
+              f"({nb} steps an epoch, the last padded), {RUN_TEST} test "
+              f"pairs at batch {RUN_TEST_BATCH}", flush=True)
+
+        # (a) one epoch's launches: nb steps, RUN_TEST / RUN_TEST_BATCH
+        # validation forwards, nothing else
+        step = spectral_launches(batch, train=True)
+        val = spectral_launches(RUN_TEST_BATCH)
+        n_val = -(-RUN_TEST // RUN_TEST_BATCH)
+        want = {k: {s: nb * n + n_val * val.get(k, {}).get(s, 0)
+                    for s, n in v.items()} for k, v in step.items()}
+        print(f"(a) launches in C's epoch: "
+              f"{ {k: sum(v.values()) for k, v in got.items()} } (want "
+              f"{ {k: sum(v.values()) for k, v in want.items()} }: {nb} "
+              f"steps as phase 5, {n_val} validation forwards at batch "
+              f"{RUN_TEST_BATCH}); plain versions called "
+              f"{sum(plain_calls.values())} times", flush=True)
+        if got != want:
+            fail(f"(a) expected launches {want} in one epoch, got {got}")
+        if plain_calls:
+            fail(f"(a) plain versions called in the run: {dict(plain_calls)}")
+
+        # (b) resume: A (3 straight, with the watch) == B + C
+        a = CheckpointManager(os.path.join(run_a, "latest")).restore()
+        c = CheckpointManager(os.path.join(run_b, "latest")).restore()
+        differ = [n for n in a["params"]
+                  if not torch.equal(a["params"][n], c["params"][n])]
+        sa, sc = a["opt_state"]["inner"], c["opt_state"]["inner"]
+        differ += [(i, k) for i in sa["state"] for k in sa["state"][i]
+                   if not torch.equal(torch.as_tensor(sa["state"][i][k]),
+                                      torch.as_tensor(sc["state"][i][k]))]
+        rec_a, rec_c = _jsonl(run_a), _jsonl(run_b)
+        loss_a = [r["train/loss"] for r in rec_a if "train/loss" in r]
+        loss_c = [r["train/loss"] for r in rec_c if "train/loss" in r]
+        print(f"(b) resume: {len(a['params'])} parameters and "
+              f"{sum(len(v) for v in sa['state'].values())} Adam tensors, "
+              f"{len(differ)} differ; loader {a['loader']} vs "
+              f"{c['loader']}; epoch-3 losses {loss_a[-nb:]} vs "
+              f"{loss_c[-nb:]}", flush=True)
+        if (differ or a["loader"] != c["loader"] or a["epoch"] != c["epoch"]
+                or sa["param_groups"] != sc["param_groups"]
+                or loss_a != loss_c or len(loss_a) != 3 * nb):
+            fail(f"(b) the resumed run differs from the straight one: "
+                 f"{differ[:5]}")
+
+        # (c) best/latest and evaluate
+        for run, rec in ((run_a, rec_a), (run_b, rec_c)):
+            val_loss = [r["test/loss"] for r in rec if "test/loss" in r]
+            best = min(range(3), key=lambda e: (val_loss[e], -e))
+            steps = {w: CheckpointManager(os.path.join(run, w)).all_steps()
+                     for w in ("best", "latest")}
+            print(f"(c) {os.path.basename(os.path.dirname(run))}: "
+                  f"validation losses {val_loss}, best/ {steps['best']}, "
+                  f"latest/ {steps['latest']}", flush=True)
+            if steps != {"best": [best], "latest": [2]}:
+                fail(f"(c) checkpoints {steps}, want best [{best}] and "
+                     "latest [2]")
+        best_a = CheckpointManager(os.path.join(run_a, "best")).all_steps()[0]
+        logged = [r for r in rec_a if "test/PSNR" in r][best_a]
+        cfg = Config(image_size=size, test_batch_size=RUN_TEST_BATCH,
+                     compute_dtype="bfloat16")
+        psnr, ssim = ModelTrainer(*train, *test).evaluate(
+            cfg, os.path.join(run_a, "best"))
+        print(f"(c) evaluate on A's best (epoch {best_a}): PSNR {psnr!r} "
+              f"SSIM {ssim!r}; logged {logged['test/PSNR']!r} "
+              f"{logged['test/SSIM']!r}", flush=True)
+        if (psnr, ssim) != (logged["test/PSNR"], logged["test/SSIM"]):
+            fail("(c) evaluate does not give the logged PSNR and SSIM")
+
+        # (d) the evaluate branch
+        out = os.path.join(root, "out")
+        cli(["--evaluate", "--load-weights", os.path.join(run_a, "best"),
+             "--image-in", test[0], "--image-out", out, "--infer-size",
+             str(size), "--compute-dtype", "bfloat16"])
+        written = sorted(os.listdir(out))
+        print(f"(d) --evaluate wrote {len(written)} images for "
+              f"{len(os.listdir(test[0]))} inputs", flush=True)
+        if written != sorted(f + ".png" for f in os.listdir(test[0])):
+            fail(f"(d) --evaluate wrote {written[:4]}...")
+
+        # (e) the sinks
+        keys = {k for r in rec_a for k in r}
+        need = {"train/loss", "train/learning_rate", "train/images_per_sec",
+                "train/epoch_loss", "test/loss", "test/PSNR", "test/SSIM",
+                "test/epochTime"}
+        hists = [(r["_step"], k, len(v["counts"])) for r in rec_a
+                 for k, v in r.items()
+                 if isinstance(v, dict) and v.get("_type") == "histogram"]
+        n_params = len(a["params"])
+        steps = sorted({h[0] for h in hists})
+        print(f"(e) metrics.jsonl: {len(rec_a)} records, keys "
+              f"{sorted(need & keys)}; {len(hists)} histograms at steps "
+              f"{steps}, {n_params} parameters and as many gradients a "
+              "step, bins " + str(sorted({h[2] for h in hists})), flush=True)
+        if not need <= keys or steps != list(range(0, 3 * nb, RUN_WATCH)) \
+                or {h[2] for h in hists} != {64} \
+                or len(hists) != 2 * n_params * len(steps):
+            fail("(e) metrics.jsonl lacks keys or histograms")
+
+        # the loop's images/s an epoch (B's and C's, no watch)
+        rates = [r["train/images_per_sec"] for r in rec_c
+                 if "train/images_per_sec" in r]
+        # the tee logs of B (maxEpoch-2) and C (maxEpoch-3, over A's)
+        val_secs = []
+        for log in sorted(glob.glob(os.path.join(
+                root, "logs", "**", "log_train.txt"), recursive=True)):
+            with open(log) as f:
+                val_secs += [float(v) for v in re.findall(
+                    r"Validation Loss: \S+ \((\S+)s\)", f.read())]
+    finally:
+        os.chdir(cwd)
+        for mod, name, fn, _ in patched:
+            setattr(mod, name, fn)
+        torch.backends.cudnn.deterministic = False
+
+    # the probe: a fresh model's step on the run's first batch of pairs
+    # (warmed up), and over the probe's JPEGs
+    model = init_model("SpectralTransformer", seed=0,
+                       compute_dtype=torch.bfloat16)
+    raw, ref = (np.stack([decode_image(os.path.join(d, f), size)
+                          for f in sorted(os.listdir(d))[:batch]])
+                for d in train)
+    st = make_train_step(model, LossFunction("L1withColor"),
+                         get_optimizer("adam", model.parameters(), LR))
+    st(raw, ref)
+    torch.cuda.synchronize()
+
+    def probe(batches):
+        """One epoch of steps over ``batches``: (images/s, seconds waiting
+        for the first batch, for the later ones, in the step calls (the
+        host's dispatch), in the closing synchronise)."""
+        t0 = time.perf_counter()
+        waits, disp = [], 0.0
+        it = iter(batches)
+        while True:
+            t = time.perf_counter()
+            b = next(it, None)
+            waits.append(time.perf_counter() - t)
+            if b is None:
+                break
+            t = time.perf_counter()
+            st(*b)
+            disp += time.perf_counter() - t
+        t = time.perf_counter()
+        torch.cuda.synchronize()
+        tail = time.perf_counter() - t
+        n = len(waits) - 1
+        return (n * batch / (time.perf_counter() - t0), waits[0],
+                sum(waits[1:]), disp, tail)
+
+    t = time.perf_counter()
+    jpegs = _write_pairs(os.path.join(root, "probe"), PROBE_PAIRS, size,
+                         seed=102, jpeg=PROBE_JPEG)
+    t_write = time.perf_counter() - t
+    t = time.perf_counter()
+    cached = CachedUIEBDataset(UIEBDataset(*jpegs, size),
+                               os.path.join(root, "cache"))
+    t_cache = time.perf_counter() - t
+    pb = PROBE_PAIRS // batch
+    loaders = {
+        "4 decode threads": PairedLoader(UIEBDataset(*jpegs, size), batch,
+                                         shuffle=True, seed=1,
+                                         num_workers=4),
+        "1 decode thread": PairedLoader(UIEBDataset(*jpegs, size), batch,
+                                        shuffle=True, seed=1, num_workers=1),
+        "decoded cache": PairedLoader(cached, batch, shuffle=True, seed=1,
+                                      num_workers=4),
+        "bare": None}
+    turns = {kind: [] for kind in loaders}
+    for kind in list(loaders) + list(loaders)[::-1]:
+        ld = loaders[kind]
+        turns[kind].append(probe([(raw, ref)] * pb if ld is None else
+                                 ((b.raw, b.ref) for b in ld)))
+    print(f"probe: {PROBE_PAIRS} pairs of {PROBE_JPEG[0]}x{PROBE_JPEG[1]} "
+          f"JPEGs (written in {t_write:.1f} s, decoded into the cache in "
+          f"{t_cache:.1f} s), {pb} steps an epoch, each kind twice in "
+          "turns", flush=True)
+    for kind, rows in turns.items():
+        print(f"probe, {kind}: " + "; ".join(
+            f"{r[0]:.2f} images/s, first batch {r[1]:.3f} s, later waits "
+            f"{r[2]:.3f} s, step calls {r[3]:.3f} s, closing synchronise "
+            f"{r[4]:.3f} s" for r in rows), flush=True)
+    bare = sum(r[0] for r in turns["bare"]) / len(turns["bare"])
+    del model, st
+    torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"train run SpectralTransformer {size}x{size} bf16 batch {batch}: "
+          f"loop {rates} images/s an epoch (B's two, C's one; wall clock of "
+          f"the epoch's {nb} steps, one padded, and its loader waits), bare "
+          f"step {bare:.2f} images/s (the probe's bare turns' mean, "
+          f"{pb} steps on one preloaded batch, same call); validation {val_secs} s an epoch "
+          f"({RUN_TEST} images at batch {RUN_TEST_BATCH}); peak memory "
+          f"{peak:.2f} GiB over run A; on {card}", flush=True)
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "ast", "ast-train", "new",
-                                        "new-train"),
+                                        "new-train", "run"),
                     default="all",
                     help="'ast' ('ast-train'): the setup and the AST serving "
                          "(training) phase alone; 'new' ('new-train'): the "
-                         "setup and the New* serving (training) phase")
+                         "setup and the New* serving (training) phase; "
+                         "'run': the setup and the training run (phase 10)")
     args = ap.parse_args(argv)
     import torch
 
@@ -1797,19 +2198,6 @@ def main(argv=None):
                 "ln_gdfn_bwd": ln_gdfn_bwd.launches,
                 "ln_mdta_bwd": ln_mdta_bwd.launches}
 
-    def fwd_launches(batch):
-        """The forwards' launches in one bf16 model forward at ``batch``, by
-        kernel and (C, H, W), as their planners say for BLOCKS."""
-        sms = _kernels.sm_count(torch.device("cuda"))
-        return {
-            "ln_gdfn": {k: n * fused_gdfn.fwd_launches(
-                batch, k[1], k[2], k[0],
-                fused_gdfn.padded_hidden(int(k[0] * EXPANSION)), 2, sms)
-                for k, n in BLOCKS.items()},
-            "ln_mdta": {k: n * fused_mdta.fwd_plan(
-                batch, k[1], k[2], k[0], 2).launches
-                for k, n in BLOCKS.items()}}
-
     # ---- 1. setup
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1820,8 +2208,10 @@ def main(argv=None):
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     built = _kernels.build_all(
-        None if args.phase == "all" else ["ln_leff", "ln_leff_bwd",
-                                          "window_attn", "window_attn_bwd"])
+        None if args.phase == "all" else
+        ["ln_gdfn", "ln_mdta", "ln_gdfn_bwd", "ln_mdta_bwd"]
+        if args.phase == "run" else
+        ["ln_leff", "ln_leff_bwd", "window_attn", "window_attn_bwd"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
@@ -1852,6 +2242,9 @@ def main(argv=None):
     if args.phase == "new-train":
         kernels = new_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
         return record(torch, kernels, t_start)
+    if args.phase == "run":
+        run_phase(card, TRAIN_BATCH, SIZE)
+        return record(torch, [], t_start)
 
     # ---- 2. kernels vs plain versions
     fns = {"ln_gdfn": (ln_gdfn, ln_gdfn_plain),
@@ -1927,7 +2320,7 @@ def main(argv=None):
     n_mdta = sum(ln_mdta.launches.values())
     launches = {"ln_gdfn": dict(ln_gdfn.launches),
                 "ln_mdta": dict(ln_mdta.launches)}
-    want_fwd = fwd_launches(SERVE_BATCH)
+    want_fwd = spectral_launches(SERVE_BATCH)
     print(f"launches in one forward: ln_gdfn {n_gdfn}, ln_mdta {n_mdta} "
           f"(as the planners say for {sum(BLOCKS.values())} blocks: "
           f"{ {k: sum(v.values()) for k, v in want_fwd.items()} })",
@@ -2104,12 +2497,7 @@ def main(argv=None):
     totals = {k: sum(v.values()) for k, v in train_launches.items()}
     # the forwards as in phase 3; ln_gdfn_bwd 2 a block; ln_mdta_bwd
     # BWD_LAUNCHES a slice of the batch and one a call (fused_mdta.bwd_plan)
-    sms = _kernels.sm_count(torch.device("cuda"))
-    want = {**fwd_launches(TRAIN_BATCH),
-            "ln_gdfn_bwd": {k: 2 * n for k, n in BLOCKS.items()},
-            "ln_mdta_bwd": {k: n * fused_mdta.bwd_plan(
-                TRAIN_BATCH, k[1], k[2], k[0], 2, sms).launches
-                for k, n in BLOCKS.items()}}
+    want = spectral_launches(TRAIN_BATCH, train=True)
     print(f"(a) launches in one train step: {totals} (the forwards as the "
           f"planners say, ln_gdfn_bwd 2 a block, ln_mdta_bwd "
           f"{fused_mdta.BWD_LAUNCHES} a slice of the batch and one a call)",
@@ -2236,6 +2624,7 @@ def main(argv=None):
     kernels += ast_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     kernels += new_phase(card, SERVE_BATCH, SIZE)
     kernels += new_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
+    run_phase(card, TRAIN_BATCH, SIZE)
     return record(torch, kernels, t_start)
 
 

@@ -6,8 +6,9 @@
   SpectralTransformer and for AST;
 - without CUDA and without ``device="cpu"`` the entry points raise;
 - every module of the port (the training modules, losses and backward
-  kernels' sources included) imports with ``jax`` and the JAX package
-  blocked, and no file of the port names either.
+  kernels' sources, the training run, data pipeline, observability and
+  CLI included) imports with ``jax`` and the JAX package blocked, and no
+  file of the port names either.
 """
 import os
 import pathlib
@@ -148,7 +149,12 @@ def test_port_imports_without_jax():
                 "train.trainer", "tools.profile_train", "ops.fused_gdfn",
                 "ops.fused_mdta", "ops.fused_leff", "ops.window_attention",
                 "ops.windows", "ops.droppath", "models.ast",
-                "models.blocks", "models.new_model", "ops.wavelets"):
+                "models.blocks", "models.new_model", "ops.wavelets",
+                "core.config", "cli.args", "cli.main", "data.uieb",
+                "data.augment", "data.cache", "data.loader", "data.manager",
+                "losses.msssim", "train.metrics", "train.checkpoint",
+                "obs.loggers", "obs.sinks", "obs.profiler",
+                "obs.visualiser"):
         assert pkg + mod in names, mod
 
 

@@ -34,6 +34,9 @@
   smaller workspace budget; one and several dA ranges an image; 8, 16 and
   32 channels a head), each vs the plain version, launch counts as the
   planners say.
+- the training run: two epochs of ``ModelTrainer.train`` through the
+  kernels (a small SpectralTransformer, bf16, Adam, the watch on) equal
+  one epoch and a resumed one bit for bit.
 
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 The file imports no JAX, so it also runs where only the port is installed:
@@ -49,6 +52,7 @@ dropped the branch would score 1.  TF32 is off, or the plain version's f32
 convolutions would round their inputs to 10 mantissa bits.
 """
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -894,3 +898,59 @@ def test_new_model_gradients_reach_every_parameter(cuda):
     finally:
         torch.backends.cudnn.deterministic = False
     assert all(torch.equal(one[n], two[n]) for n in one)
+
+
+@pytest.mark.cuda
+def test_trainer_resume_is_bit_exact_on_the_card(cuda, tmp_path, monkeypatch):
+    """Two epochs of ``ModelTrainer.train`` on the card through the kernels
+    (a small SpectralTransformer, 32x32, batch 2 with a padded final batch,
+    bf16, Adam, watch every 2nd step, cuDNN's deterministic algorithms)
+    equal one epoch and a resumed one bit for bit: parameters, Adam's
+    state, loader state; all four Spectral kernels launched."""
+    from PIL import Image
+
+    from underwater_image_restoration_torch.core.config import Config
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.train import (
+        CheckpointManager,
+        trainer,
+    )
+
+    dirs = []
+    for split, n, seed in (("train", 5, 0), ("test", 3, 1)):
+        for sub, arr in zip("ab", synthetic_pair_batch(n, 32, seed=seed)):
+            d = tmp_path / split / sub
+            d.mkdir(parents=True)
+            for i, img in enumerate(arr):
+                Image.fromarray(img).save(d / f"{i:03d}.png")
+            dirs.append(str(d))
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(trainer, "init_model", lambda arch, **k: init_model(
+        "SpectralTransformer", device=k["device"], seed=k["seed"],
+        compute_dtype=k["compute_dtype"], channels=(16, 32, 64, 128),
+        num_blocks=(1, 1, 1, 1), num_refinement=1))
+    cfg = Config(image_size=32, train_batch_size=2, test_batch_size=2,
+                 use_wandb=False, workers=1, watch_freq=2,
+                 lossf="L1withColor", print_freq=100)
+    counters = (fused_mdta.ln_mdta, fused_mdta.ln_mdta_bwd,
+                fused_gdfn.ln_gdfn, fused_gdfn.ln_gdfn_bwd)
+    for c in counters:
+        c.launches.clear()
+    runs = {}
+    for name, epochs in (("straight", 2), ("resumed", 1)):
+        ckpt = tmp_path / name
+        trainer.ModelTrainer(*dirs).train(cfg.replace(
+            checkpoint_dir=str(ckpt), max_epoch=epochs))
+        runs[name] = str(next(ckpt.iterdir()))
+    assert all(sum(c.launches.values()) for c in counters)
+    trainer.ModelTrainer(*dirs).train(cfg.replace(
+        max_epoch=2, resume=runs["resumed"]))
+    a, b = (CheckpointManager(os.path.join(runs[n], "latest")).restore()
+            for n in ("straight", "resumed"))
+    assert a["epoch"] == b["epoch"] == 1 and a["loader"] == b["loader"]
+    for n in a["params"]:
+        assert torch.equal(a["params"][n], b["params"][n]), n
+    sa, sb = a["opt_state"]["inner"]["state"], b["opt_state"]["inner"]["state"]
+    for i in sa:
+        for k in sa[i]:
+            assert torch.equal(sa[i][k], sb[i][k]), (i, k)

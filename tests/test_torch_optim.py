@@ -4,8 +4,14 @@ sgd (momentum, nesterov, none) and rmsprop behind clip_by_global_norm(1.0),
 with gradients whose global norm is below the clip (0.5) and above it (5),
 and the learning rate cut by ``set_learning_rate`` after the first update.
 Parameters agree to 1e-6 x max(1, max|p|) (f32 in another order; Adam's
-first steps are lr * sign(g) wherever |g| >> eps).  Also ``multistep_lr``.
+first steps are lr * sign(g) wherever |g| >> eps).  Also ``multistep_lr``,
+and the state_dict round trip of ``ClippedOptimizer``: after a few updates
+its state, saved and loaded into a new optimizer (through ``torch.save``,
+as the checkpoints do), gives a next update bit-equal to the unbroken
+run's.
 """
+import io
+
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -93,3 +99,43 @@ def test_multistep_lr_matches_jax():
 def test_unknown_optimizer_raises():
     with pytest.raises(ValueError, match="Unsupported optimizer"):
         optim.get_optimizer("lamb", [torch.nn.Parameter(torch.zeros(1))], 1.0)
+
+
+@pytest.mark.parametrize("name", ["adam", "rmsprop", "sgd"])
+def test_state_dict_round_trip_is_bit_exact(name):
+    params, grads = _problem(5.0, seed=3)
+    grads = grads + _problem(0.5, seed=4)[1]
+
+    def make(lr):
+        ps = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+        return ps, optim.get_optimizer(name, ps, lr, clip_norm=2.0)
+
+    def update(ps, opt, g):
+        for p, gi in zip(ps, g):
+            p.grad = torch.from_numpy(gi.copy())
+        return opt.step()
+
+    ps, opt = make(1e-2)
+    for g in grads[:4]:
+        update(ps, opt, g)
+    optim.set_learning_rate(opt, 5e-3)
+    buf = io.BytesIO()
+    torch.save({"opt": opt.state_dict(),
+                "params": [p.detach().clone() for p in ps]}, buf)
+    update(ps, opt, grads[4])
+    buf.seek(0)
+    saved = torch.load(buf, weights_only=True)
+    ps2, opt2 = make(1.0)
+    opt2.clip_norm = 0.0
+    with torch.no_grad():
+        for p, q in zip(ps2, saved["params"]):
+            p.copy_(q)
+    opt2.load_state_dict(saved["opt"])
+    assert opt2.clip_norm == 2.0 and optim.get_learning_rate(opt2) == 5e-3
+    update(ps2, opt2, grads[4])
+    for p, q in zip(ps, ps2):
+        assert torch.equal(p, q)
+    for a, b in zip(opt.inner.state.values(), opt2.inner.state.values()):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])), k

@@ -6,5 +6,10 @@ float NHWC in [-1, 1].  Every SpectralBlock sends its two halves to
 hand-written CUDA kernels (``ops.fused_mdta``, ``ops.fused_gdfn``) when its
 tensors lie on the GPU, and to their plain PyTorch versions on the CPU.
 
-Entry points run on CUDA unless the caller passes ``device="cpu"``.
+The training run around the train step (``train.ModelTrainer``: epochs,
+validation, checkpoints, resume) and the command line
+(``python -m underwater_image_restoration_torch.cli``) run here too.
+
+Entry points run on CUDA unless the caller passes ``device="cpu"`` (the
+CLI: ``--use-cpu``).
 """

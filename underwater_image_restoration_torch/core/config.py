@@ -1,0 +1,152 @@
+"""Typed configuration mirroring the reference CLI surface, the port's own
+copy of the JAX package's ``core/config.py`` (``Config``,
+``from_namespace``).
+
+Left out: the TPU-only fields (``compile_cache``, ``remat_policy``,
+``steps_per_dispatch``; ROADMAP.md ground rules), the unused
+``param_dtype`` (parameters are f32) and ``jsonl_metrics`` (the JSONL sink
+is always on), and the VGG fields (``vgg_weights``,
+``allow_placeholder_vgg``: the perceptual losses are not ported, and
+``from_namespace`` refuses their flags).  Added: ``use_kernels``, which the
+CLI's ``--no-pallas`` turns off to run the kernels' plain PyTorch versions.
+The parallel fields and ``remat`` are kept for the CLI's surface, and
+``validate`` refuses any value the port cannot honour.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+
+@dataclasses.dataclass
+class Config:
+    # ---- data (reference args.py:14-80) ----
+    root: str = "./datasets"
+    height: int = 128
+    width: int = 256
+    workers: int = 4
+    train_sampler: str = "RandomSampler"
+    split_id: int = 0
+    # aug flags (offline in the reference; online ops here)
+    random_erase: bool = False
+    color_jitter: bool = False
+    color_aug: bool = False
+    random_perspective: bool = False
+    random_rotate: bool = False
+
+    # ---- optimization (reference args.py:84-130) ----
+    optim: str = "adam"
+    lr: float = 0.0003
+    weight_decay: float = 5e-4
+    momentum: float = 0.9
+    sgd_dampening: float = 0.0
+    sgd_nesterov: bool = False
+    rmsprop_alpha: float = 0.99
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+
+    # ---- training schedule (reference args.py:132-166) ----
+    max_epoch: int = 60
+    start_epoch: int = 0
+    train_batch_size: int = 2
+    test_batch_size: int = 1
+    lr_scheduler: str = "multi_step"
+    stepsize: Sequence[int] = (20, 40)
+    gamma: float = 0.1
+
+    # ---- architecture (reference args.py:201-206) ----
+    arch: str = "SpectralTransformer"
+    lossf: str = "L1"
+    no_pretrained: bool = False
+    use_dwt: str = "Fourier"  # "Wavelet" | "Fourier" | anything-else = identity
+
+    # ---- test / resume (reference args.py:211-248) ----
+    load_weights: str = ""
+    evaluate: bool = False
+    eval_freq: int = -1
+    start_eval: int = 0
+    resume: str = ""
+
+    # ---- misc (reference args.py:240-273) ----
+    print_freq: int = 10
+    seed: int = 1
+    save_dir: str = "log"
+    use_cpu: bool = False         # the CPU and the plain versions; else CUDA
+    gpu_devices: str = "0"        # accepted for parity; the first CUDA device
+    use_avai_gpus: bool = False
+    use_wandb: bool = True
+
+    # ---- extensions (no reference equivalent) ----
+    image_size: int = 1024        # train transform resolution (reference hardcodes 1024²; DataLoader.py:14)
+    mesh_data: int = -1           # data-parallel size: -1 or 1 (one device)
+    mesh_context: int = 1         # context-parallel size: 1
+    shard_params: str = ""        # parameter sharding: "" (replicated)
+    compute_dtype: str = "bfloat16"   # the model's compute dtype; f32 params
+    remat: bool = False           # refused: see train/trainer.py
+    use_kernels: bool = True      # False: the kernels' plain versions (--no-pallas)
+    checkpoint_dir: str = "checkpoints"
+    profile_dir: str = ""         # when set, a torch.profiler trace lands here
+    cache_decoded: str = ""       # when set, decode+resize once into a uint8
+    #                               memmap cache dir and stream later epochs
+    #                               from it (data/cache.py)
+    watch_freq: int = 100         # param/grad histogram cadence in steps
+    #                               (reference wandb.watch log_freq=100,
+    #                               wandb_logger.py:27); 0 disables
+    grad_accum: int = 1           # microbatches per optimizer step, with
+    #                               per-loss-family scaling (make_train_step)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def from_namespace(ns) -> Config:
+    """Build a Config from an argparse namespace produced by cli/args.py.
+    Raises ValueError for the VGG flags: the perceptual losses that read
+    them are not ported (ROADMAP.md queue 1, item 5)."""
+    if getattr(ns, "vgg_weights", "") or getattr(ns, "allow_placeholder_vgg",
+                                                 False):
+        raise ValueError(
+            "--vgg-weights / --allow-placeholder-vgg: the VGG perceptual "
+            "losses are not ported; ROADMAP.md queue 1, item 5")
+    fields = {f.name for f in dataclasses.fields(Config)}
+    kv = {}
+    for k, v in vars(ns).items():
+        k2 = k.replace("-", "_")
+        # CLI parity names that differ from dataclass field names
+        alias = {
+            "randomPerspective": "random_perspective",
+            "randomRotate": "random_rotate",
+        }.get(k2, k2)
+        if alias in fields and v is not None:
+            kv[alias] = v
+    if getattr(ns, "no_pallas", False):
+        kv["use_kernels"] = False
+    return Config(**kv)
+
+
+def compute_dtype_of(cfg: Config):
+    """The torch dtype named by ``cfg.compute_dtype``."""
+    import torch
+
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[cfg.compute_dtype]
+
+
+def validate(cfg: Config) -> Config:
+    """Raise ValueError for a setting the port does not run: more than one
+    device (data or context parallelism, sharded parameters: ROADMAP.md
+    queue 1, item 8) or ``remat``."""
+    if cfg.mesh_data not in (-1, 1) or cfg.mesh_context != 1 \
+            or cfg.shard_params:
+        raise ValueError(
+            f"mesh_data={cfg.mesh_data}, mesh_context={cfg.mesh_context}, "
+            f"shard_params={cfg.shard_params!r}: the port trains on one "
+            "device (mesh_data -1 or 1, mesh_context 1, shard_params ''); "
+            "data, context and parameter parallelism are ROADMAP.md "
+            "queue 1, item 8")
+    if cfg.remat:
+        raise ValueError(
+            "remat: the port's train step has no remat option; its kernels' "
+            "autograd Functions already save only x, the weights and the "
+            "stats (train/trainer.py, 'Not here')")
+    return cfg

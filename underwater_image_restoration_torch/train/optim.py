@@ -115,6 +115,15 @@ class ClippedOptimizer:
         self.inner.step()
         return norm
 
+    def state_dict(self) -> dict:
+        """The inner optimizer's state (Adam's step, exp_avg and exp_avg_sq,
+        momentum buffers, the learning rates) and ``clip_norm``."""
+        return {"inner": self.inner.state_dict(), "clip_norm": self.clip_norm}
+
+    def load_state_dict(self, state: dict):
+        self.inner.load_state_dict(state["inner"])
+        self.clip_norm = state["clip_norm"]
+
 
 def get_optimizer(optim: str, params, learning_rate: float, *,
                   weight_decay: float = 0.01, momentum: float = 0.9,
