@@ -2,7 +2,8 @@
 """GPU check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
 against its plain PyTorch version at every shape of its model's 256x256
 path, then serves batches through the full-width SpectralTransformer and
-AST, trains both, and checks where the time and the launches went.
+AST, trains both, runs the training CLI and the evaluation protocol, and
+checks where the time and the launches went.
 
     python3 chip_smoke.py            # needs one CUDA GPU; no arguments
     python3 chip_smoke.py --phase ast    # phases 1 (AST kernels only) and 6
@@ -10,6 +11,7 @@ AST, trains both, and checks where the time and the launches went.
     python3 chip_smoke.py --phase new    # phases 1 (the same) and 8
     python3 chip_smoke.py --phase new-train    # phases 1 (the same) and 9
     python3 chip_smoke.py --phase run    # phases 1 (Spectral kernels) and 10
+    python3 chip_smoke.py --phase eval    # phases 1, 10 and 11
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
@@ -115,7 +117,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 10. the training run: the port's CLI (``cli.main.main``) trains the
    full-width SpectralTransformer at 256x256 (bf16, L1withColor, Adam lr
    3e-4, batch 16 over 40 pairs, so the final batch is padded; validation
-   over 16 pairs at batch 8; cuDNN's deterministic algorithms): run A
+   over 16 pairs at batch 8; the trainer sets cuDNN's deterministic mode,
+   this script does not): run A
    trains 3 epochs with the watch histograms every 2nd step, run B 2
    epochs and run C resumes B for the third. (a) the launches of C's
    epoch are its steps' (as phase 5 counts a step) and its validation
@@ -128,8 +131,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    histograms.  Then a probe of the loop's overhead over 128 pairs of
    1280x720 JPEGs (decoded and resized every epoch) with 4 decode threads,
    with 1 and over the decoded cache, against the bare step on one
-   preloaded batch, in turns.  Prints the loop's images/s an epoch beside
-   the bare step's in the same call, the validation time and peak memory.
+   preloaded batch, and the 4-thread loop and the bare step again with
+   cuDNN's default algorithms (the price of the deterministic mode), in
+   turns.  Prints the loop's images/s an epoch beside the bare step's in
+   the same call, the validation time and peak memory;
+11. the evaluation protocol (``eval.main``): (a) ``pairs`` at the JAX CLI's
+   defaults (NewBigModel-Wavelet built for 1024x1024, batch 8, bf16) from a
+   checkpoint directory over 16 synthetic JPEG pairs: the memory expected
+   from one image's forward and the peak, ln_leff and window_attn launches
+   as ``new_launches`` says for each batch and no plain version called,
+   one pred/ref PNG pair an input, the printed average PSNR, images/s of
+   the command and of the forward alone, two images vs the plain model at
+   batch 1 (relative L2: f32 1e-4; bf16 within twice the bf16 plain
+   model's own distance from the f32 one), and both kernels at the model's
+   1024x1024 shapes vs their plain versions (bf16) and timed; (b) ``infer``
+   from phase 10's ``best/`` checkpoint directory; (c) ``ssim-psnr`` (SSIM
+   on the card within 1e-5 of the CPU's) and ``uiqm`` over (a)'s pairs;
+   (d) every loss name at 256x256, batch 4, f32: value and gradient on the
+   card vs the CPU (1e-4 of max|ref|; the perceptual family's gradient in
+   relative L2, 1e-2), then ``loss-sanity``; (e) the SpectralTransformer
+   train step (batch 16, bf16) with fflMix and ssimFFLCharbonnier in turns
+   with L1withColor: launches as phase 5 counts, fflMix's five components
+   finite, images/s and peak memory; then a CLI epoch with ``--lossf
+   fflMix`` whose metrics.jsonl holds the components.
 The last line is the JSON device record; the line before it the kernels'.
 """
 import argparse
@@ -138,6 +162,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1828,8 +1853,9 @@ def _jsonl(run_dir):
 
 def run_phase(card, batch, size):
     """10. the training run: ``cli.main.main`` trains the full-width
-    SpectralTransformer (bf16, L1withColor, Adam lr 3e-4, cuDNN's
-    deterministic algorithms) over synthetic train/test directories. Run A
+    SpectralTransformer (bf16, L1withColor, Adam lr 3e-4; the trainer turns
+    cuDNN's deterministic mode on, this phase does not) over synthetic
+    train/test directories. Run A
     trains 3 epochs watching every RUN_WATCH-th step; run B trains 2
     epochs and run C resumes it for a third, both without the watch.
     (a) the launches of C's one epoch: its steps as phase 5's, its
@@ -1845,12 +1871,15 @@ def run_phase(card, batch, size):
     PROBE_PAIRS pairs of PROBE_JPEG JPEGs, which the loader decodes and
     resizes every epoch: with 4 decode threads (as the run), with 1, and
     over the decoded cache (``data/cache.py``, no decode once built),
-    against as many steps on one preloaded batch (the bare step), in
-    turns.  Prints the loop's images/s an epoch (B and C) beside the bare
-    step's, the validation time and peak memory."""
+    against as many steps on one preloaded batch (the bare step), and the
+    4-thread loop and the bare step with cuDNN's default algorithms (the
+    deterministic mode's price), in turns.  Prints the loop's images/s an
+    epoch (B and C) beside the bare step's, the validation time and peak
+    memory.  Returns (its directory, the train and test directories, A's
+    best/ checkpoint directory) for phase 11, which removes the
+    directory."""
     import glob
     import re
-    import shutil
 
     import numpy as np
     import torch
@@ -1913,7 +1942,6 @@ def run_phase(card, batch, size):
         (fused_mdta, "ln_mdta_plain"), (fused_gdfn, "ln_gdfn_plain"),
         (fused_mdta, "ln_mdta_bwd_plain"), (fused_gdfn, "ln_gdfn_bwd_plain"))]
     cwd = os.getcwd()
-    torch.backends.cudnn.deterministic = True
     try:
         for mod, name, _, wrapper in patched:
             setattr(mod, name, wrapper)
@@ -2056,7 +2084,8 @@ def run_phase(card, batch, size):
         os.chdir(cwd)
         for mod, name, fn, _ in patched:
             setattr(mod, name, fn)
-        torch.backends.cudnn.deterministic = False
+    if torch.backends.cudnn.deterministic:
+        fail("ModelTrainer.train left cuDNN's deterministic mode on")
 
     # the probe: a fresh model's step on the run's first batch of pairs
     # (warmed up), and over the probe's JPEGs
@@ -2102,20 +2131,30 @@ def run_phase(card, batch, size):
                                os.path.join(root, "cache"))
     t_cache = time.perf_counter() - t
     pb = PROBE_PAIRS // batch
+
+    def threads(n):
+        return PairedLoader(UIEBDataset(*jpegs, size), batch, shuffle=True,
+                            seed=1, num_workers=n)
+
+    # every kind runs as the trainer does, cuDNN deterministic, but the two
+    # "cuDNN default" kinds, which price the flag
     loaders = {
-        "4 decode threads": PairedLoader(UIEBDataset(*jpegs, size), batch,
-                                         shuffle=True, seed=1,
-                                         num_workers=4),
-        "1 decode thread": PairedLoader(UIEBDataset(*jpegs, size), batch,
-                                        shuffle=True, seed=1, num_workers=1),
+        "4 decode threads": threads(4),
+        "1 decode thread": threads(1),
         "decoded cache": PairedLoader(cached, batch, shuffle=True, seed=1,
                                       num_workers=4),
-        "bare": None}
+        "bare": None,
+        "4 decode threads, cuDNN default": threads(4),
+        "bare, cuDNN default": None}
     turns = {kind: [] for kind in loaders}
-    for kind in list(loaders) + list(loaders)[::-1]:
-        ld = loaders[kind]
-        turns[kind].append(probe([(raw, ref)] * pb if ld is None else
-                                 ((b.raw, b.ref) for b in ld)))
+    try:
+        for kind in list(loaders) + list(loaders)[::-1]:
+            ld = loaders[kind]
+            torch.backends.cudnn.deterministic = "cuDNN default" not in kind
+            turns[kind].append(probe([(raw, ref)] * pb if ld is None else
+                                     ((b.raw, b.ref) for b in ld)))
+    finally:
+        torch.backends.cudnn.deterministic = False
     print(f"probe: {PROBE_PAIRS} pairs of {PROBE_JPEG[0]}x{PROBE_JPEG[1]} "
           f"JPEGs (written in {t_write:.1f} s, decoded into the cache in "
           f"{t_cache:.1f} s), {pb} steps an epoch, each kind twice in "
@@ -2125,10 +2164,19 @@ def run_phase(card, batch, size):
             f"{r[0]:.2f} images/s, first batch {r[1]:.3f} s, later waits "
             f"{r[2]:.3f} s, step calls {r[3]:.3f} s, closing synchronise "
             f"{r[4]:.3f} s" for r in rows), flush=True)
-    bare = sum(r[0] for r in turns["bare"]) / len(turns["bare"])
+    def mean_rate(kind):
+        return sum(r[0] for r in turns[kind]) / len(turns[kind])
+
+    bare = mean_rate("bare")
+    for kind in ("4 decode threads", "bare"):
+        on, off = mean_rate(kind), mean_rate(kind + ", cuDNN default")
+        print(f"cuDNN deterministic ({kind}): {on:.2f} images/s against "
+              f"{off:.2f} with cuDNN's default algorithms, a cost of "
+              f"{100 * (off - on) / off:.1f}% on {card}", flush=True)
     del model, st
     torch.cuda.empty_cache()
-    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "probe"), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "cache"), ignore_errors=True)
     print(f"train run SpectralTransformer {size}x{size} bf16 batch {batch}: "
           f"loop {rates} images/s an epoch (B's two, C's one; wall clock of "
           f"the epoch's {nb} steps, one padded, and its loader waits), bare "
@@ -2137,17 +2185,501 @@ def run_phase(card, batch, size):
           f"({RUN_TEST} images at batch {RUN_TEST_BATCH}); peak memory "
           f"{peak:.2f} GiB over run A; on {card}", flush=True)
     print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return root, train, test, os.path.join(run_a, "best")
+
+
+# phase 11: the eval CLI's defaults (NewBigModel-Wavelet at 1024x1024, batch
+# 8, bf16) over EVAL_PAIRS synthetic pairs of PROBE_JPEG JPEGs (resized to
+# 1024x1024 by the command, as UIEB's photographs are); the losses at
+# LOSS_SIZE, batch
+# LOSS_BATCH, f32, value and gradient on the card vs the CPU
+EVAL_SIZE, EVAL_BATCH, EVAL_PAIRS = 1024, 8, 16
+LOSS_SIZE, LOSS_BATCH = 256, 4
+# the card vs the CPU, one loss in f32 (TF32 off): FFTs, convolutions and
+# sums in another order; relative to max|ref|, the value and each gradient
+# (readings on an H100: values 1.8e-7, gradients 5.1e-7)
+LOSS_TOL = 1e-4
+# the perceptual family's gradient is discontinuous (the sign of each L1
+# term, the VGG ReLUs): f32 roundoff flips some of those points on either
+# device, moving single pixels' gradient by a few percent of max|g|, so it
+# is held in relative L2 norm (readings on an H100: 5.5e-5 to 2.6e-3)
+PERC_GRAD_TOL = 1e-2
+# SSIM of one pair on the card vs the CPU (f32 filters in another order;
+# readings on an H100: 4.2e-7 and 6.0e-7)
+SSIM_DEVICE_TOL = 1e-5
+
+
+def _loss_inputs(shape, seed):
+    """(pred, truth): NCHW f32 in [-1, 1] on the CPU, seeded."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.rand(shape, generator=g) * 2 - 1 for _ in range(2))
+
+
+def loss_on(lossfn, pred, truth):
+    """The loss (its first element for fflMix) and its gradient w.r.t.
+    pred, on pred's device."""
+    import torch
+
+    p = pred.clone().requires_grad_()
+    res = lossfn(p, truth)
+    loss = res[0] if lossfn.returns_components else res
+    (g,) = torch.autograd.grad(loss, p)
+    return loss.detach(), g
+
+
+def eval_phase(card, run, train_batch):
+    """11. the evaluation protocol on the card: (a) ``eval pairs`` at the
+    JAX CLI's defaults (NewBigModel-Wavelet built for 1024, batch 8, bf16)
+    from a checkpoint directory, through ln_leff and window_attn (launches
+    as ``new_launches`` says for each batch, no plain version called), two
+    images vs the plain versions at batch 1, the dumped pairs and the
+    printed average PSNR, images/s and peak memory, and the kernels at the
+    model's 1024x1024 shapes vs their plain versions and timed; (b) ``eval
+    infer`` from phase 10's ``best/`` checkpoint directory; (c) ``eval
+    ssim-psnr`` and ``eval uiqm`` over (a)'s pairs, SSIM on the card vs the
+    CPU; (d) every loss name's value and gradient on the card vs the CPU,
+    then ``eval loss-sanity`` on the card; (e) the SpectralTransformer train
+    step with fflMix (placeholder VGG trunk) and ssimFFLCharbonnier in
+    turns with L1withColor, and one CLI epoch with fflMix.  ``run`` is what
+    phase 10 returns (its directory, train and test directories and A's
+    best checkpoint).  Returns the 1024x1024 kernels' JSON rows."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+    import torch
+
+    from underwater_image_restoration_torch.cli.main import main as cli
+    from underwater_image_restoration_torch.data import (
+        decode_image,
+        synthetic_pair_batch,
+    )
+    from underwater_image_restoration_torch.eval import (
+        batched_apply,
+        compute_uiqm,
+        dir_ssim_psnr,
+    )
+    from underwater_image_restoration_torch.eval import evaluate as ev
+    from underwater_image_restoration_torch.losses import (
+        COMPONENTS,
+        LOSS_NAMES,
+        PERCEPTUAL_FAMILY,
+        LossFunction,
+    )
+    from underwater_image_restoration_torch.losses import perceptual
+    from underwater_image_restoration_torch.models import blocks
+    from underwater_image_restoration_torch.models import (
+        new_model as new_model_module,
+    )
+    from underwater_image_restoration_torch.models.new_model import (
+        DecoderBlock,
+        EncoderBlock,
+    )
+    from underwater_image_restoration_torch.ops import (
+        ln_leff,
+        ln_leff_plain,
+        split_heads,
+        window_attention,
+        window_attention_plain,
+    )
+    from underwater_image_restoration_torch.train import (
+        CheckpointManager,
+        get_optimizer,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    root, train, test, best = run
+    f32, bf16 = torch.float32, torch.bfloat16
+    size, batch = EVAL_SIZE, EVAL_BATCH
+    counters = {"ln_leff": ln_leff.launches,
+                "window_attn": window_attention.launches}
+    plain_calls = collections.Counter()
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            plain_calls[name] += 1
+            return fn(*a, **k)
+        return fn, wrapper
+
+    patched = [(mod, name) + counted(mod, name) for mod, name in (
+        (new_model_module, "ln_leff_plain"),
+        (blocks, "window_attention_plain"))]
+
+    def run_cli(argv):
+        """``eval.main(argv)``, its printed lines echoed; (result, text)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = ev.main(argv)
+        print(buf.getvalue(), end="", flush=True)
+        return res, buf.getvalue()
+
+    # ---- (a) eval pairs at the JAX defaults from a checkpoint directory
+    d11 = os.path.join(root, "phase11")
+    t = time.perf_counter()
+    # UIEB-like inputs: JPEGs that the command decodes and resizes to 1024
+    raw_dir, ref_dir = _write_pairs(os.path.join(d11, "pairs"), EVAL_PAIRS,
+                                    256, seed=110, jpeg=PROBE_JPEG)
+    model = new_model("NewBigModel", "Wavelet", bf16, size, NEW_BIG_Q_SCALE)
+    # the LN+LeFF calls at 1024x1024: (C, residual), the encoder's without
+    # the residual, the decoder's with it
+    leff_1024 = sorted({(m.norm2.weight.numel(), isinstance(m, DecoderBlock))
+                        for name, m in model.named_modules()
+                        if isinstance(m, (EncoderBlock, DecoderBlock))
+                        and name != "bottleneck"
+                        and int(name.split("_")[1]) == 0})
+    ckpt = os.path.join(d11, "ckpt")
+    CheckpointManager(ckpt).save(0, params=model.state_dict(), opt_state={},
+                                 epoch=0, val_loss=0.0)
+    print(f"(a) {EVAL_PAIRS} pairs of {PROBE_JPEG[0]}x{PROBE_JPEG[1]} JPEGs "
+          f"and the checkpoint written in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    u8 = np.stack([decode_image(os.path.join(raw_dir, f), size)
+                   for f in sorted(os.listdir(raw_dir))[:2]])
+    apply_1, _ = batched_apply(model, 1)
+    apply_1(u8[:1])  # warm-up: cuDNN algorithms, plans
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    apply_1(u8[:1])
+    torch.cuda.synchronize()
+    one = torch.cuda.max_memory_allocated() - weights
+    print(f"(a) memory: weights {weights / 2 ** 30:.2f} GiB, one image's "
+          f"forward {one / 2 ** 30:.2f} GiB over them; batch {batch} "
+          f"expected {(weights + batch * one) / 2 ** 30:.2f} GiB of the "
+          f"card's {torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}",
+          flush=True)
+    out_pred, out_ref = (os.path.join(d11, x) for x in ("test", "ref"))
+    pairs_argv = ["pairs", "--weights", ckpt, "--test-raw", raw_dir,
+                  "--test-ref", ref_dir, "--out-pred", out_pred,
+                  "--out-ref", out_ref]
+    try:
+        for mod, name, _, wrapper in patched:
+            setattr(mod, name, wrapper)
+        bs = batch
+        while True:
+            for cnt in counters.values():
+                cnt.clear()
+            plain_calls.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            try:
+                psnrs, text = run_cli(pairs_argv + ["--batch", str(bs)])
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                if bs == 1:
+                    raise
+                print(f"(a) batch {bs} does not fit ({e}); trying "
+                      f"{bs // 2}", flush=True)
+                bs //= 2
+                torch.cuda.empty_cache()
+        secs = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = {k: dict(v) for k, v in counters.items()}
+    finally:
+        for mod, name, fn, _ in patched:
+            setattr(mod, name, fn)
+    n_batches = -(-EVAL_PAIRS // bs)
+    want = {k: {key: n_batches * n for key, n in v.items()}
+            for k, v in new_launches(model, bs).items()}
+    print(f"(a) eval pairs (NewBigModel-Wavelet {size}x{size}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, batch "
+          f"{bs}, bf16; the JAX CLI's defaults): {EVAL_PAIRS} pairs in "
+          f"{secs:.2f} s, {EVAL_PAIRS / secs:.2f} images/s (checkpoint load, "
+          f"PNG decode and encode included); peak memory {peak:.2f} GiB; "
+          f"launches {({k: sum(v.values()) for k, v in got.items()})} "
+          f"({n_batches} batches of {bs}); plain versions called "
+          f"{sum(plain_calls.values())} times; on {card}", flush=True)
+    if got != want:
+        fail(f"(a) expected the launches {want}, got {got}")
+    if plain_calls:
+        fail(f"(a) plain versions called: {dict(plain_calls)}")
+    names = sorted(f"{i}.png" for i in range(EVAL_PAIRS))
+    if sorted(os.listdir(out_pred)) != names or \
+            sorted(os.listdir(out_ref)) != names:
+        fail("(a) eval pairs did not dump one pred/ref pair an input")
+    avg = re.search(r"Average PSNR: (\S+) dB", text)
+    if (len(psnrs) != EVAL_PAIRS or not np.isfinite(psnrs).all() or avg is
+            None or avg.group(1) != f"{psnrs.mean():.2f}"):
+        fail(f"(a) PSNRs {psnrs} or the printed average {avg}")
+
+    # the forward alone at the batch, kernels, in images/s
+    raw8, _ = synthetic_pair_batch(bs, size, seed=111)
+    apply_b, _ = batched_apply(model, bs)
+    apply_b(raw8)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        apply_b(raw8)
+    torch.cuda.synchronize()
+    fwd_rate = 3 * bs / (time.perf_counter() - t)
+    print(f"(a) forward alone, batch {bs}: {fwd_rate:.2f} images/s on {card}",
+          flush=True)
+    del apply_b, raw8
+
+    # two images vs the plain versions at batch 1, relative L2
+    def dist(a, r):
+        return float((a.float() - r.float()).norm() / r.float().norm())
+
+    for i in range(2):
+        outs = {}
+        for dt in (f32, bf16):
+            model.compute_dtype = dt
+            for use in (True, False):
+                outs[(dt, use)] = batched_apply(model, 1, use)[0](
+                    u8[i:i + 1])
+        torch.cuda.synchronize()
+        e32 = dist(outs[(f32, True)], outs[(f32, False)])
+        e16 = dist(outs[(bf16, True)], outs[(bf16, False)])
+        own = dist(outs[(bf16, False)], outs[(f32, False)])
+        print(f"(a) image {i} at batch 1, kernels vs plain model, ||out - "
+              f"ref||/||ref||: f32 {e32:.3e} (tol {NEW_MODEL_TOL:.0e}), bf16 "
+              f"{e16:.3e} (tol {NEW_BF16_FLOOR:g} x the bf16 plain model's "
+              f"{own:.3e} from the f32 one)", flush=True)
+        if not e32 <= NEW_MODEL_TOL or not e16 <= NEW_BF16_FLOOR * own:
+            fail(f"(a) image {i}: the kernels disagree with the plain model")
+        del outs
+    model.compute_dtype = bf16
+    del model
+    torch.cuda.empty_cache()
+
+    # the kernels at the model's 1024x1024 shapes, batch bs, bf16 (f32 is
+    # held at every 256x256 shape in phases 6 and 8), inputs drawn on the
+    # card
+    rows = {}
+    with torch.no_grad():
+        for c, residual in leff_1024:
+            _, wts = leff_inputs(c, 1, 1, 1, seed=c + 11)
+            xb = torch.randn((bs, size, size, c), device="cuda", dtype=bf16,
+                             generator=torch.Generator("cuda").manual_seed(c))
+            got_y = ln_leff(xb, *wts, residual=residual).float()
+            ref_y = ln_leff_plain(xb, *wts, residual=residual).float()
+            err = (got_y - ref_y).abs().max().item()
+            branch = (ref_y - xb.float() if residual else ref_y).abs().max()
+            kernel_verdict(f"ln_leff C={c} {size}x{size} batch {bs} "
+                           f"residual={residual}", err, branch.item(), bf16)
+            del got_y, ref_y
+            ms = median_ms(lambda: ln_leff(xb, *wts, residual=residual),
+                           reps=5)
+            pms = median_ms(lambda: ln_leff_plain(xb, *wts,
+                                                  residual=residual),
+                            reps=1, warmup=1)
+            bms, by = bound(*work_ast("ln_leff", (c, size), bs, 2))
+            rows[("ln_leff", c, residual)] = timing_row(ms, pms, bms, by,
+                                                        err)
+            print(f"ln_leff C={c} {size}x{size} bf16 batch {bs} residual="
+                  f"{residual}: kernel {ms}, plain {pms}, bound {bms:.4f} "
+                  f"ms ({by}) on {card}", flush=True)
+            del xb
+        for key in sorted(k for k in want["window_attn"]
+                          if k[0] == bs * (size // AST_WIN) ** 2):
+            bq, heads, n, d, _ = key
+            g = torch.Generator("cuda").manual_seed(d)
+            q = torch.randn((bq, n, heads * d), device="cuda", dtype=bf16,
+                            generator=g)
+            kv = torch.randn((bq, n, 2 * heads * d), device="cuda",
+                             dtype=bf16, generator=g)
+            args = (split_heads(q, heads), split_heads(kv[..., :heads * d],
+                                                       heads),
+                    split_heads(kv[..., heads * d:], heads),
+                    torch.randn((heads, n, n), device="cuda", generator=g))
+            kw = dict(scale=d ** -0.5, mask=None,
+                      sparse_w=torch.tensor([0.3, -0.4], device="cuda"))
+            got_y = window_attention(*args, **kw).float()
+            ref_y = window_attention_plain(*args, **kw).float()
+            err = (got_y - ref_y).abs().max().item()
+            kernel_verdict(f"window_attn N={n} d={d} B'={bq} heads={heads}",
+                           err, ref_y.abs().max().item(), bf16)
+            del got_y, ref_y
+            ms = median_ms(lambda: window_attention(*args, **kw), reps=5)
+            pms = median_ms(lambda: window_attention_plain(*args, **kw),
+                            reps=1, warmup=1)
+            bms, by = bound(*work_ast("window_attn",
+                                      (bq // bs, heads, False), bs, 2, d))
+            rows[("window_attn", key)] = timing_row(ms, pms, bms, by, err)
+            print(f"window_attn B'={bq} heads={heads} N={n} d={d} bf16: "
+                  f"kernel {ms}, plain {pms}, bound {bms:.4f} ms ({by}) on "
+                  f"{card}", flush=True)
+            del q, kv, args
+    torch.cuda.empty_cache()
+    kernels = []
+    for key, row in rows.items():
+        if key[0] == "ln_leff":
+            _, c, residual = key
+            kernels.append(kernel_row(
+                f"ln_leff[C={c},{size}x{size},residual={residual},"
+                "NewBigModel]", "ln_leff",
+                got["ln_leff"].get((c, size, size), 0), row))
+        else:
+            k = key[1]
+            kernels.append(kernel_row(
+                f"window_attn[B'={k[0]},heads={k[1]},N=64,d={k[3]},"
+                "unmasked,NewBigModel]", "window_attn",
+                got["window_attn"].get(k, 0), row))
+    print(f"phase 11(a) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- (b) eval infer from phase 10's best/ checkpoint directory
+    out_u = os.path.join(d11, "uTest")
+    n, _ = run_cli(["infer", "--weights", best, "-a", "SpectralTransformer",
+                    "--use-dwt", "Fourier", "--input", test[0], "--out",
+                    out_u, "--size", "256"])
+    written = sorted(os.listdir(out_u))
+    print(f"(b) eval infer from {best}: {len(written)} images for "
+          f"{len(os.listdir(test[0]))} inputs", flush=True)
+    if n != len(os.listdir(test[0])) or written != sorted(
+            f"{i}.png" for i in range(n)):
+        fail(f"(b) eval infer wrote {written[:4]}...")
+
+    # ---- (c) eval ssim-psnr and eval uiqm over (a)'s pairs
+    (ssims, gray), _ = run_cli(["ssim-psnr", "--gen", out_pred, "--gt",
+                                out_ref])
+    cpu_ssims, cpu_gray = dir_ssim_psnr(out_pred, out_ref, device="cpu")
+    gap = float(np.abs(ssims - cpu_ssims).max())
+    print(f"(c) SSIM on the card vs the CPU: max |diff| {gap:.2e} (tol "
+          f"{SSIM_DEVICE_TOL:.0e}); grayscale PSNRs equal: "
+          f"{bool(np.array_equal(gray, cpu_gray))}", flush=True)
+    if not gap <= SSIM_DEVICE_TOL or not np.array_equal(gray, cpu_gray):
+        fail("(c) SSIM or PSNR on the card differ from the CPU's")
+    vals, _ = run_cli(["uiqm", "--dir", out_pred])
+    parts = np.array([compute_uiqm(decode_image(os.path.join(out_pred, f),
+                                                256), emulate_cv2=True)
+                      for f in sorted(os.listdir(out_pred))])
+    print(f"(c) UIQM {parts[:, 0].mean():.4f} (UICM {parts[:, 1].mean():.4f}"
+          f", UISM {parts[:, 2].mean():.4f}, UICONM {parts[:, 3].mean():.4f})"
+          f"; trimmed PSNR {np.sort(gray)[4:].mean():.4f} dB over "
+          f"{len(gray) - 4} pairs", flush=True)
+    if not np.array_equal(vals, parts[:, 0]) or not np.isfinite(parts).all():
+        fail("(c) the UIQM sweep disagrees with compute_uiqm")
+    print(f"phase 11(a-c) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- (d) every loss on the card vs the CPU, f32
+    shape = (LOSS_BATCH, 3, LOSS_SIZE, LOSS_SIZE)
+    worst = {}
+    for i, name in enumerate(LOSS_NAMES):
+        fn = LossFunction(name, allow_placeholder_vgg=True)
+        p, t_ = _loss_inputs(shape, seed=120 + i)
+        v_ref, g_ref = loss_on(fn, p, t_)
+        v, g = loss_on(fn, p.cuda(), t_.cuda())
+        g = g.cpu()
+        ev_ = abs(float(v) - float(v_ref)) / abs(float(v_ref))
+        if name in PERCEPTUAL_FAMILY:
+            eg, tol_g = float((g - g_ref).norm() / g_ref.norm()), PERC_GRAD_TOL
+        else:
+            eg = float((g - g_ref).abs().max() / g_ref.abs().max())
+            tol_g = LOSS_TOL
+        worst[name] = (ev_, eg)
+        if not (ev_ <= LOSS_TOL and eg <= tol_g and bool(
+                torch.isfinite(g).all())):
+            fail(f"(d) {name}: value {float(v)!r} vs {float(v_ref)!r} "
+                 f"(relative {ev_:.2e}), gradient {eg:.2e} (tol {tol_g:.0e})")
+    print(f"(d) the 20 losses at {LOSS_SIZE}x{LOSS_SIZE} batch {LOSS_BATCH} "
+          f"f32 on the card vs the CPU, value / gradient (max abs over "
+          f"max|ref|; the perceptual family's gradient in relative L2): " +
+          ", ".join(f"{k} {a:.1e}/{b:.1e}" for k, (a, b) in worst.items()),
+          flush=True)
+    floors, _ = run_cli(["loss-sanity"])
+    if any(not math.isfinite(v) for v in floors.values()) or len(floors) < 14:
+        fail(f"(d) loss-sanity: {floors}")
+    print(f"phase 11(d) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- (e) the train step with the new losses, in turns
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
+
+    tb = train_batch
+    model = init_model("SpectralTransformer", seed=0, compute_dtype=bf16)
+    raw, ref = synthetic_pair_batch(tb, 256, seed=121)
+    steps = {name: make_train_step(
+        model, LossFunction(name, allow_placeholder_vgg=True),
+        get_optimizer("adam", model.parameters(), LR))
+        for name in ("L1withColor", "fflMix", "ssimFFLCharbonnier")}
+    spec = {"ln_gdfn": fused_gdfn.ln_gdfn, "ln_mdta": fused_mdta.ln_mdta,
+            "ln_gdfn_bwd": fused_gdfn.ln_gdfn_bwd,
+            "ln_mdta_bwd": fused_mdta.ln_mdta_bwd}
+    want = spectral_launches(tb, train=True)
+    for name, st in steps.items():
+        m = st(raw, ref)  # warm-up
+        torch.cuda.synchronize()
+        for cnt in spec.values():
+            cnt.launches.clear()
+        m = st(raw, ref)
+        torch.cuda.synchronize()
+        got = {k: dict(c.launches) for k, c in spec.items()}
+        comps = {k: float(m[k]) for k in COMPONENTS if k in m}
+        print(f"(e) {name}: loss {float(m['loss']):.6f}, components "
+              f"{comps}; launches in one step "
+              f"{ {k: sum(v.values()) for k, v in got.items()} }",
+              flush=True)
+        if got != want:
+            fail(f"(e) {name}: the step launched {got}, phase 5 counts {want}")
+        if name == "fflMix" and (len(comps) != 5 or not all(
+                math.isfinite(v) for v in comps.values())):
+            fail(f"(e) fflMix components {comps}")
+    rates, mem = {k: [] for k in steps}, {}
+    for name in list(steps) + list(steps)[::-1]:
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(3):
+            steps[name](raw, ref)
+        torch.cuda.synchronize()
+        rates[name].append(3 * tb / (time.perf_counter() - t))
+        mem[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"(e) train step SpectralTransformer 256x256 bf16 batch {tb}, "
+          "images/s in turns (3 steps each) and peak memory: " + "; ".join(
+              f"{k} {[round(r, 2) for r in v]} ({mem[k]:.2f} GiB)"
+              for k, v in rates.items()) + f" on {card}", flush=True)
+    del steps, model
+    torch.cuda.empty_cache()
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        ckpt_e = os.path.join(d11, "fflmix")
+        cli(["-a", "SpectralTransformer", "--image-size", "256",
+             "--train-batch-size", str(tb), "--test-batch-size",
+             str(RUN_TEST_BATCH), "--lossf", "fflMix",
+             "--allow-placeholder-vgg", "--optim", "adam", "--lr", str(LR),
+             "--compute-dtype", "bfloat16", "--use-wandb", "--print-freq",
+             "100", "-j", "4", "--max-epoch", "1", "--watch-freq", "0",
+             "--checkpoint-dir", ckpt_e, "--train-raw", train[0],
+             "--train-ref", train[1], "--test-raw", test[0], "--test-ref",
+             test[1]])
+    finally:
+        os.chdir(cwd)
+    rec = _jsonl(os.path.join(ckpt_e, os.listdir(ckpt_e)[0]))
+    keys = {k for r in rec for k in r}
+    need = {"train/loss_" + c for c in COMPONENTS} | {"train/loss",
+                                                      "test/loss"}
+    print(f"(e) a CLI epoch with --lossf fflMix: metrics.jsonl keys "
+          f"{sorted(k for k in keys if k.startswith(('train/', 'test/')))}",
+          flush=True)
+    if not need <= keys:
+        fail(f"(e) metrics.jsonl lacks {sorted(need - keys)}")
+    shutil.rmtree(root, ignore_errors=True)
+    perceptual._trunk.cache_clear()
+    torch.cuda.empty_cache()
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return kernels
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "ast", "ast-train", "new",
-                                        "new-train", "run"),
+                                        "new-train", "run", "eval"),
                     default="all",
                     help="'ast' ('ast-train'): the setup and the AST serving "
                          "(training) phase alone; 'new' ('new-train'): the "
                          "setup and the New* serving (training) phase; "
-                         "'run': the setup and the training run (phase 10)")
+                         "'run': the setup and the training run (phase 10); "
+                         "'eval': the setup, phase 10 and the evaluation "
+                         "protocol (phase 11)")
     args = ap.parse_args(argv)
     import torch
 
@@ -2207,11 +2739,11 @@ def main(argv=None):
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
+    spectral = ["ln_gdfn", "ln_mdta", "ln_gdfn_bwd", "ln_mdta_bwd"]
     built = _kernels.build_all(
-        None if args.phase == "all" else
-        ["ln_gdfn", "ln_mdta", "ln_gdfn_bwd", "ln_mdta_bwd"]
-        if args.phase == "run" else
-        ["ln_leff", "ln_leff_bwd", "window_attn", "window_attn_bwd"])
+        None if args.phase == "all" else spectral if args.phase == "run"
+        else spectral + ["ln_leff", "window_attn"] if args.phase == "eval"
+        else ["ln_leff", "ln_leff_bwd", "window_attn", "window_attn_bwd"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()
@@ -2243,8 +2775,12 @@ def main(argv=None):
         kernels = new_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
         return record(torch, kernels, t_start)
     if args.phase == "run":
-        run_phase(card, TRAIN_BATCH, SIZE)
+        shutil.rmtree(run_phase(card, TRAIN_BATCH, SIZE)[0])
         return record(torch, [], t_start)
+    if args.phase == "eval":
+        kernels = eval_phase(card, run_phase(card, TRAIN_BATCH, SIZE),
+                             TRAIN_BATCH)
+        return record(torch, kernels, t_start)
 
     # ---- 2. kernels vs plain versions
     fns = {"ln_gdfn": (ln_gdfn, ln_gdfn_plain),
@@ -2624,7 +3160,8 @@ def main(argv=None):
     kernels += ast_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     kernels += new_phase(card, SERVE_BATCH, SIZE)
     kernels += new_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
-    run_phase(card, TRAIN_BATCH, SIZE)
+    kernels += eval_phase(card, run_phase(card, TRAIN_BATCH, SIZE),
+                          TRAIN_BATCH)
     return record(torch, kernels, t_start)
 
 

@@ -6,8 +6,10 @@
   ``--steps-per-dispatch``: the TPU's alone);
 - the parallel flags and ``--remat`` take only one device's values, and the
   others raise naming ROADMAP queue 1 item 8 or the train step's note;
-  ``--vgg-weights`` and ``--allow-placeholder-vgg`` raise when set, naming
-  queue 1 item 5 (the VGG losses);
+- ``--vgg-weights`` and ``--allow-placeholder-vgg`` reach the Config, and a
+  perceptual loss without weights raises FileNotFoundError;
+- ``ModelTrainer.train`` runs with cuDNN's deterministic mode on and
+  restores the prior setting after the run;
 - ``main([... "--use-cpu"])`` trains the full-width SpectralTransformer for
   one epoch at 32x32 (tee log under the hyperparameter directory,
   checkpoints, metrics, the probe image ``6_img_.png``), resumes for a
@@ -74,9 +76,7 @@ def test_parser_matches_jax_but_the_tpu_flags():
     (["--mesh-context", "2"], "queue 1, item 8"),
     (["--shard-params", "data"], "queue 1, item 8"),
     (["--shard-params", "context"], "queue 1, item 8"),
-    (["--remat"], "remat"),
-    (["--vgg-weights", "vgg16.npz"], "queue 1, item 5"),
-    (["--allow-placeholder-vgg"], "queue 1, item 5")])
+    (["--remat"], "remat")])
 def test_refused_values_raise(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(ValueError, match=match):
@@ -184,3 +184,43 @@ def test_profile_trace_and_sinks(tmp_path, monkeypatch, capsys):
     rec = json.loads((tmp_path / "metrics.jsonl").read_text())
     assert rec["_step"] == 3 and rec["w"] == {
         "_type": "histogram", "counts": [1, 2], "min": 0.0, "max": 1.0}
+
+
+def test_vgg_flags_reach_the_loss(tmp_path, monkeypatch):
+    ns = argument_parser().parse_args(["--vgg-weights", "vgg16.npz",
+                                       "--allow-placeholder-vgg"])
+    cfg = from_namespace(ns)
+    assert (cfg.vgg_weights, cfg.allow_placeholder_vgg) == ("vgg16.npz",
+                                                            True)
+    cfg = from_namespace(argument_parser().parse_args([]))
+    assert (cfg.vgg_weights, cfg.allow_placeholder_vgg) == ("", False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="VGG16"):
+        main(["--use-cpu", "--image-size", "32", "--max-epoch", "1",
+              "--lossf", "perceptual", "--vgg-weights", "missing.npz",
+              "-j", "1"] + _data(tmp_path))
+
+
+@pytest.mark.parametrize("before", [False, True])
+def test_trainer_runs_cudnn_deterministic(tmp_path, monkeypatch, before):
+    """The flag is on for the whole run (read at each epoch's end) and back
+    to its prior value afterwards."""
+    from underwater_image_restoration_torch.core.config import Config
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.train import trainer
+
+    monkeypatch.chdir(tmp_path)
+    dirs = _data(tmp_path)[1::2]
+    monkeypatch.setattr(trainer, "init_model", lambda arch, **k: init_model(
+        "SpectralTransformer", device=k["device"], channels=(8, 16, 32, 64),
+        num_blocks=(1, 1, 1, 1), num_refinement=1))
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", before)
+    seen = []
+    trainer.ModelTrainer(*dirs).train(
+        Config(use_cpu=True, image_size=32, train_batch_size=4,
+               test_batch_size=2, max_epoch=2, use_wandb=False, workers=1,
+               watch_freq=0, compute_dtype="float32"),
+        on_epoch_end=lambda *a: seen.append(
+            torch.backends.cudnn.deterministic))
+    assert seen == [True, True]
+    assert torch.backends.cudnn.deterministic is before

@@ -81,9 +81,10 @@ def test_infer_subcommand_writes_images(tmp_path):
     for i, img in enumerate(synthetic_pair_batch(3, 24, seed=2)[0]):
         Image.fromarray(img).save(src / f"{i}.png")
     out = tmp_path / "out"
-    n = evaluate.main(["infer", "--weights", str(weights), "--input",
-                       str(src), "--out", str(out), "--size", str(SIZE),
-                       "--batch", "2", "--device", "cpu",
+    n = evaluate.main(["infer", "--weights", str(weights), "-a",
+                       "SpectralTransformer", "--use-dwt", "Fourier",
+                       "--input", str(src), "--out", str(out), "--size",
+                       str(SIZE), "--batch", "2", "--device", "cpu",
                        "--compute-dtype", "fp32"])
     assert n == 3
     assert sorted(os.listdir(out)) == ["0.png", "1.png", "2.png"]
@@ -154,7 +155,9 @@ def test_port_imports_without_jax():
                 "data.augment", "data.cache", "data.loader", "data.manager",
                 "losses.msssim", "train.metrics", "train.checkpoint",
                 "obs.loggers", "obs.sinks", "obs.profiler",
-                "obs.visualiser"):
+                "obs.visualiser", "losses.ffl", "losses.perceptual",
+                "tools.convert_vgg16", "eval.uiqm", "eval.metrics",
+                "data.custom", "data.offline_augment"):
         assert pkg + mod in names, mod
 
 

@@ -36,7 +36,11 @@
   planners say.
 - the training run: two epochs of ``ModelTrainer.train`` through the
   kernels (a small SpectralTransformer, bf16, Adam, the watch on) equal
-  one epoch and a resumed one bit for bit.
+  one epoch and a resumed one bit for bit, with no cuDNN flag set by the
+  test (the trainer sets it);
+- every loss name's value and gradient on the card vs the CPU, and
+  ``evaluate_pairs`` through the kernels vs the plain versions on a
+  NewModel-Wavelet at 256x256.
 
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 The file imports no JAX, so it also runs where only the port is installed:
@@ -904,9 +908,9 @@ def test_new_model_gradients_reach_every_parameter(cuda):
 def test_trainer_resume_is_bit_exact_on_the_card(cuda, tmp_path, monkeypatch):
     """Two epochs of ``ModelTrainer.train`` on the card through the kernels
     (a small SpectralTransformer, 32x32, batch 2 with a padded final batch,
-    bf16, Adam, watch every 2nd step, cuDNN's deterministic algorithms)
-    equal one epoch and a resumed one bit for bit: parameters, Adam's
-    state, loader state; all four Spectral kernels launched."""
+    bf16, Adam, watch every 2nd step) equal one epoch and a resumed one bit
+    for bit: parameters, Adam's state, loader state; all four Spectral
+    kernels launched.  The test sets no cuDNN flag: the trainer does."""
     from PIL import Image
 
     from underwater_image_restoration_torch.core.config import Config
@@ -924,7 +928,6 @@ def test_trainer_resume_is_bit_exact_on_the_card(cuda, tmp_path, monkeypatch):
             for i, img in enumerate(arr):
                 Image.fromarray(img).save(d / f"{i:03d}.png")
             dirs.append(str(d))
-    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     monkeypatch.setattr(trainer, "init_model", lambda arch, **k: init_model(
         "SpectralTransformer", device=k["device"], seed=k["seed"],
         compute_dtype=k["compute_dtype"], channels=(16, 32, 64, 128),
@@ -954,3 +957,87 @@ def test_trainer_resume_is_bit_exact_on_the_card(cuda, tmp_path, monkeypatch):
     for i in sa:
         for k in sa[i]:
             assert torch.equal(sa[i][k], sb[i][k]), (i, k)
+
+
+# the losses whose value and gradient need sides > 160 (MS-SSIM), and the
+# perceptual family, whose gradient is discontinuous (the sign of each L1
+# term, the VGG ReLUs): f32 roundoff on either device flips some of those
+# points, so it is held in relative L2 norm
+_LARGE_LOSSES = ("ms_ssim", "mix", "fflMixTV", "bigMix", "fflMix",
+                 "ssimFFLCharbonnier", "perceptual")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "L1", "L1withColor", "L1ColorLum", "L2", "charbonnier", "perceptual",
+    "gradient", "ms_ssim", "ffl", "mix", "fflMixTV", "bigMix",
+    "fflCharbonnier", "fflMix", "LuminanceCharbonnier", "Luminance",
+    "AdaptiveLuminanceCharbonnier", "AdaptiveLuminanceFFL", "LuminanceFFL",
+    "ssimFFLCharbonnier"])
+def test_loss_on_the_card_matches_the_cpu(cuda, name):
+    """Each loss name's value and gradient on the card against the same
+    function on the CPU, f32 (TF32 off): the value within 1e-4 relative,
+    the gradient within 1e-4 x max|ref| (the perceptual family's in relative
+    L2, 1e-2; the placeholder VGG trunk on both)."""
+    from underwater_image_restoration_torch.losses import (
+        PERCEPTUAL_FAMILY,
+        LossFunction,
+    )
+
+    shape = (1, 3, 176, 176) if name in _LARGE_LOSSES else (2, 3, 16, 12)
+    g = torch.Generator().manual_seed(8)
+    p, t = (torch.rand(shape, generator=g) * 2 - 1 for _ in range(2))
+    fn = LossFunction(name, allow_placeholder_vgg=True)
+
+    def value_and_grad(dev):
+        x = p.to(dev).detach().requires_grad_()
+        res = fn(x, t.to(dev))
+        loss = res[0] if fn.returns_components else res
+        loss.backward()
+        return float(loss), x.grad.cpu()
+
+    want, want_g = value_and_grad("cpu")
+    got, got_g = value_and_grad(cuda)
+    assert abs(got - want) <= 1e-4 * abs(want)
+    if name in PERCEPTUAL_FAMILY:
+        assert (got_g - want_g).norm() <= 1e-2 * want_g.norm()
+    else:
+        assert (got_g - want_g).abs().max() <= 1e-4 * want_g.abs().max()
+
+
+@pytest.mark.cuda
+def test_eval_pairs_through_the_kernels(cuda, tmp_path):
+    """``evaluate_pairs`` on a NewModel-Wavelet at 256x256 (5 pairs, batch
+    2, f32) through ln_leff and window_attn equals its run through the plain
+    versions: every PSNR within 1e-3 dB, the dumped references equal."""
+    from PIL import Image
+
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.eval import evaluate
+
+    raw, ref = synthetic_pair_batch(5, 256, seed=9)
+    dirs = []
+    for sub, arr in zip("ab", (raw, ref)):
+        d = tmp_path / sub
+        d.mkdir()
+        for i, img in enumerate(arr):
+            Image.fromarray(img).save(d / f"{i}.png")
+        dirs.append(str(d))
+    model = init_model("NewModel", device=cuda, seed=10, img_size=256,
+                       use_dwt="Wavelet", compute_dtype=torch.float32)
+    fused_leff.ln_leff.launches.clear()
+    window_attention.launches.clear()
+    out = {}
+    for use in (True, False):
+        out[use] = evaluate.evaluate_pairs(
+            model, *dirs, str(tmp_path / f"pred{use}"),
+            str(tmp_path / f"ref{use}"), image_size=256, batch_size=2,
+            use_kernels=use)
+    assert sum(fused_leff.ln_leff.launches.values()) > 0
+    assert sum(window_attention.launches.values()) == 3 * 10
+    assert out[True].shape == (5,) and np.isfinite(out[True]).all()
+    np.testing.assert_allclose(out[True], out[False], atol=1e-3)
+    for i in range(5):
+        a, b = (np.asarray(Image.open(tmp_path / f"ref{u}" / f"{i}.png"))
+                for u in (True, False))
+        assert np.array_equal(a, b)

@@ -7,10 +7,7 @@ Left out: ``--compile-cache``, ``--remat-policy`` and
 ``--steps-per-dispatch``, which served only the TPU (an XLA cache, remat
 policies, a dispatch workaround).  ``--mesh-data``, ``--mesh-context``,
 ``--shard-params`` and ``--remat`` are accepted, and ``core.config.validate``
-refuses every value but one device's.  ``--vgg-weights`` and
-``--allow-placeholder-vgg`` are accepted and refused when set
-(``core.config.from_namespace``): the VGG perceptual losses are not
-ported.  ``--no-pallas`` runs the kernels'
+refuses every value but one device's.  ``--no-pallas`` runs the kernels'
 plain PyTorch versions; ``--use-cpu`` runs on the CPU (the plain versions).
 """
 from __future__ import annotations
@@ -165,8 +162,10 @@ def argument_parser() -> argparse.ArgumentParser:
                         help="write a torch.profiler chrome trace of the "
                              "training run here when set")
     parser.add_argument("--vgg-weights", type=str, default="",
-                        help="refused when set: the VGG perceptual losses "
-                             "are ROADMAP.md queue 1, item 5")
+                        help="VGG16 weights of the perceptual losses: an "
+                             ".npz of HWIO kernels (conv<i>.kernel/.bias) "
+                             "or a torch.save'd torchvision "
+                             "vgg16().features.state_dict()")
     parser.add_argument("--cache-decoded", type=str, default="",
                         help="directory for a decoded-image uint8 memmap "
                              "cache: decode+resize happens once, later "
@@ -185,8 +184,10 @@ def argument_parser() -> argparse.ArgumentParser:
                              "in steps (reference wandb.watch log_freq=100, "
                              "wandb_logger.py:27); 0 disables")
     parser.add_argument("--allow-placeholder-vgg", action="store_true",
-                        help="refused when set: the VGG perceptual losses "
-                             "are ROADMAP.md queue 1, item 5")
+                        help="train the perceptual losses on the seeded "
+                             "placeholder VGG trunk when no --vgg-weights "
+                             "file exists (tests and checks only: it does "
+                             "NOT match the reference)")
     parser.add_argument("--train-raw", type=str, default="uw_data/uw_data/train/a",
                         help="train raw dir (hardcoded in reference main.py:52)")
     parser.add_argument("--train-ref", type=str, default="uw_data/uw_data/train/b",

@@ -5,9 +5,7 @@ copy of the JAX package's ``core/config.py`` (``Config``,
 Left out: the TPU-only fields (``compile_cache``, ``remat_policy``,
 ``steps_per_dispatch``; ROADMAP.md ground rules), the unused
 ``param_dtype`` (parameters are f32) and ``jsonl_metrics`` (the JSONL sink
-is always on), and the VGG fields (``vgg_weights``,
-``allow_placeholder_vgg``: the perceptual losses are not ported, and
-``from_namespace`` refuses their flags).  Added: ``use_kernels``, which the
+is always on).  Added: ``use_kernels``, which the
 CLI's ``--no-pallas`` turns off to run the kernels' plain PyTorch versions.
 The parallel fields and ``remat`` are kept for the CLI's surface, and
 ``validate`` refuses any value the port cannot honour.
@@ -86,12 +84,16 @@ class Config:
     use_kernels: bool = True      # False: the kernels' plain versions (--no-pallas)
     checkpoint_dir: str = "checkpoints"
     profile_dir: str = ""         # when set, a torch.profiler trace lands here
+    vgg_weights: str = ""         # VGG16 weights of the perceptual losses:
+    #                               an .npz of HWIO kernels or a torchvision
+    #                               vgg16().features state dict
     cache_decoded: str = ""       # when set, decode+resize once into a uint8
     #                               memmap cache dir and stream later epochs
     #                               from it (data/cache.py)
     watch_freq: int = 100         # param/grad histogram cadence in steps
     #                               (reference wandb.watch log_freq=100,
     #                               wandb_logger.py:27); 0 disables
+    allow_placeholder_vgg: bool = False  # opt into the random VGG trunk
     grad_accum: int = 1           # microbatches per optimizer step, with
     #                               per-loss-family scaling (make_train_step)
 
@@ -100,14 +102,7 @@ class Config:
 
 
 def from_namespace(ns) -> Config:
-    """Build a Config from an argparse namespace produced by cli/args.py.
-    Raises ValueError for the VGG flags: the perceptual losses that read
-    them are not ported (ROADMAP.md queue 1, item 5)."""
-    if getattr(ns, "vgg_weights", "") or getattr(ns, "allow_placeholder_vgg",
-                                                 False):
-        raise ValueError(
-            "--vgg-weights / --allow-placeholder-vgg: the VGG perceptual "
-            "losses are not ported; ROADMAP.md queue 1, item 5")
+    """Build a Config from an argparse namespace produced by cli/args.py."""
     fields = {f.name for f in dataclasses.fields(Config)}
     kv = {}
     for k, v in vars(ns).items():

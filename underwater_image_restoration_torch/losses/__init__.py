@@ -1,26 +1,34 @@
 """String-dispatched composite losses, counterpart of the JAX package's
-``losses/__init__.py`` ``LossFunction`` on NCHW images.
+``losses/__init__.py`` ``LossFunction`` on NCHW images: all 20 names of the
+reference with its weights.
 
-Ported names: L1, L1withColor, L1ColorLum, L2, charbonnier, Luminance,
-LuminanceCharbonnier and AdaptiveLuminanceCharbonnier, with the reference's
-quirks kept: L1/L1withColor/L1ColorLum/L2 divide by B*C (``bc_divided``: the
-value is not a batch mean), and the Adaptive pair weights its two terms by
+Kept quirks: L1/L1withColor/L1ColorLum/L2 divide by B*C (``bc_divided``:
+the value is not a batch mean); the Adaptive pair weights its two terms by
 softmax(-log(detached losses)), which couples the whole batch
-(``batch_linear`` is False).  The other names of ``LOSS_NAMES`` need
-MS-SSIM, FFL, the gradient loss or the VGG16 trunk, and raise
-NotImplementedError until they are ported (ROADMAP.md queue 1, item 5).
+(``batch_linear`` is False); ``fflMix`` returns the 6-tuple (loss, charb,
+perc, grad, ffl, ssim) (``returns_components``).  The perceptual family
+needs ImageNet VGG16 weights: without a weights file ``LossFunction``
+raises FileNotFoundError unless the caller passes
+``allow_placeholder_vgg=True``.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
+from .ffl import focal_frequency_loss
+from .msssim import ms_ssim, ssim
+from .perceptual import vgg_perceptual_loss
 from .primitives import (
     charbonnier_loss,
     color_loss,
+    gradient_loss,
     l1_loss,
     luminance_loss,
     mse_loss,
     psnr,
+    tv_loss,
 )
 
 LOSS_NAMES = [
@@ -30,8 +38,12 @@ LOSS_NAMES = [
     "AdaptiveLuminanceCharbonnier", "AdaptiveLuminanceFFL", "LuminanceFFL",
     "ssimFFLCharbonnier",
 ]
-PORTED = ("L1", "L1withColor", "L1ColorLum", "L2", "charbonnier",
-          "Luminance", "LuminanceCharbonnier", "AdaptiveLuminanceCharbonnier")
+# losses whose value depends on ImageNet-pretrained VGG16 features
+PERCEPTUAL_FAMILY = frozenset(
+    {"perceptual", "mix", "bigMix", "fflMix", "fflMixTV"})
+# the names of fflMix's five components, as the train step logs them
+COMPONENTS = ("Charbonnier", "Perceptual", "Gradient Loss", "FFL Loss",
+              "MS_SSIM Loss")
 
 
 def _adaptive_pair(a, b):
@@ -42,22 +54,36 @@ def _adaptive_pair(a, b):
 
 
 class LossFunction:
-    """name -> (pred, truth) -> float32 scalar, on NCHW images."""
+    """name -> (pred, truth) -> float32 scalar (the 6-tuple for fflMix), on
+    NCHW images."""
 
-    def __init__(self, loss_name: str):
+    def __init__(self, loss_name: str, vgg_weights: str = "",
+                 allow_placeholder_vgg: bool = False):
         if loss_name not in LOSS_NAMES:
             raise ValueError(f"Unsupported loss: {loss_name}")
-        if loss_name not in PORTED:
-            raise NotImplementedError(
-                f"loss '{loss_name}' is not ported yet: the remaining losses "
-                "(MS-SSIM, FFL, gradient, VGG16 perceptual) are ROADMAP.md "
-                "queue 1, item 5")
+        if loss_name in PERCEPTUAL_FAMILY and not allow_placeholder_vgg \
+                and not (vgg_weights and os.path.exists(vgg_weights)):
+            raise FileNotFoundError(
+                f"Loss '{loss_name}' needs ImageNet-pretrained VGG16 "
+                f"features (reference losses.py:219-222) but no weights "
+                f"file was found (vgg_weights={vgg_weights!r}). Pass "
+                "--vgg-weights with an .npz of HWIO kernels or a "
+                "torch.save'd torchvision vgg16().features.state_dict(), or "
+                "opt into the random placeholder trunk with "
+                "--allow-placeholder-vgg (training will NOT match the "
+                "reference).")
         self.loss_name = loss_name
-        # how the loss scales with the batch (consumers: grad accumulation)
+        self._vgg = vgg_weights
+        self.returns_components = loss_name == "fflMix"
+        # how the loss scales with the batch (consumers: grad accumulation
+        # and the masked per-sample validation loss)
         self.bc_divided = loss_name in ("L1", "L1withColor", "L1ColorLum",
                                         "L2")
         self.batch_linear = not (self.bc_divided
                                  or loss_name.startswith("Adaptive"))
+
+    def _perc(self, p, t):
+        return vgg_perceptual_loss(p, t, weights_path=self._vgg)
 
     def getloss(self, pred, truth):
         name, p, t = self.loss_name, pred, truth
@@ -73,23 +99,71 @@ class LossFunction:
             return mse_loss(p, t) / bc
         if name == "charbonnier":
             return charbonnier_loss(p, t)
+        if name == "perceptual":
+            return self._perc(p, t)
+        if name == "gradient":
+            return gradient_loss(p, t)
+        if name == "ms_ssim":
+            return 1.0 - ms_ssim(p, t)
+        if name == "ffl":
+            return focal_frequency_loss(p, t)
+        if name == "mix":
+            return (0.03 * charbonnier_loss(p, t) + 0.025 * self._perc(p, t)
+                    + 0.02 * gradient_loss(p, t)
+                    + 0.01 * (1.0 - ms_ssim(p, t)))
+        if name == "fflMixTV":
+            return (0.03 * charbonnier_loss(p, t) + 0.025 * self._perc(p, t)
+                    + 0.02 * gradient_loss(p, t)
+                    + 0.01 * (1.0 - ms_ssim(p, t))
+                    + 0.02 * focal_frequency_loss(p, t) + tv_loss(p))
+        if name == "bigMix":
+            return (0.4 * charbonnier_loss(p, t) + 0.25 * self._perc(p, t)
+                    + 0.25 * gradient_loss(p, t)
+                    + 0.1 * (1.0 - ms_ssim(p, t)))
+        if name == "fflCharbonnier":
+            return focal_frequency_loss(p, t) + charbonnier_loss(p, t)
+        if name == "fflMix":
+            charb = charbonnier_loss(p, t)
+            perc = self._perc(p, t)
+            grad = gradient_loss(p, t)
+            ffl = focal_frequency_loss(p, t)
+            ssim_l = 1.0 - ms_ssim(p, t)
+            loss = (0.03 * charb + 0.025 * perc + 0.01 * grad + 0.005 * ffl
+                    + 0.1 * ssim_l)
+            return loss, charb, perc, grad, ffl, ssim_l
         if name == "LuminanceCharbonnier":
             return luminance_loss(p, t) + charbonnier_loss(p, t)
         if name == "Luminance":
             return luminance_loss(p, t)
-        return _adaptive_pair(charbonnier_loss(p, t), luminance_loss(p, t))
+        if name == "AdaptiveLuminanceCharbonnier":
+            return _adaptive_pair(charbonnier_loss(p, t), luminance_loss(p, t))
+        if name == "AdaptiveLuminanceFFL":
+            return _adaptive_pair(focal_frequency_loss(p, t),
+                                  luminance_loss(p, t))
+        if name == "LuminanceFFL":
+            return focal_frequency_loss(p, t) + luminance_loss(p, t)
+        # ssimFFLCharbonnier
+        return (0.025 * focal_frequency_loss(p, t)
+                + 0.025 * charbonnier_loss(p, t) + (1.0 - ms_ssim(p, t)))
 
     __call__ = getloss
 
 
 __all__ = [
+    "COMPONENTS",
     "LOSS_NAMES",
     "LossFunction",
-    "PORTED",
+    "PERCEPTUAL_FAMILY",
     "charbonnier_loss",
     "color_loss",
+    "focal_frequency_loss",
+    "gradient_loss",
     "l1_loss",
     "luminance_loss",
     "mse_loss",
+    "ms_ssim",
     "psnr",
+    "ssim",
+    "tv_loss",
+    "vgg_perceptual_loss",
 ]

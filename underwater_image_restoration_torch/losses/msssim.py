@@ -1,12 +1,14 @@
-"""Single-scale SSIM on NCHW tensors, the part of the JAX package's
-``losses/msssim.py`` that validation needs (``_gaussian_kernel``,
-``_filter_separable``, ``_ssim_per_channel``, ``ssim``), numerically the
-pytorch_msssim package's (the reference's dependency).
+"""SSIM and MS-SSIM on NCHW tensors, counterparts of the JAX package's
+``losses/msssim.py``, numerically the pytorch_msssim package's (the
+reference's dependency).
 
 11-tap gaussian window (sigma 1.5), separable depthwise filtering (a
 ``conv2d`` with ``groups=C``, first along H, then along W) with VALID
-padding, K1 = 0.01, K2 = 0.03, in f32.  ``ms_ssim`` and the losses built on
-it are ROADMAP.md queue 1, item 5.
+padding, K1 = 0.01, K2 = 0.03, in f32.  MS-SSIM: 5 scales weighted
+``_MS_WEIGHTS``; between scales a 2x2 average pool (stride 2) with
+symmetric zero padding of (H % 2, W % 2), the padding counted; ReLU on the
+contrast-structure terms and on the last scale's SSIM; the product of
+cs^w over the scales times ssim^w of the last.
 """
 from __future__ import annotations
 
@@ -52,3 +54,38 @@ def ssim(x, y, data_range: float = 1.0, win_size: int = 11,
     win = _gaussian_kernel(win_size, win_sigma)
     s, _ = _ssim_per_channel(x, y, win, data_range)
     return s.mean()
+
+
+def _avg_pool2(x):
+    """2x2 mean pool, stride 2, after symmetric zero padding of
+    (H % 2, W % 2), the padding counted."""
+    return F.avg_pool2d(x, 2, padding=(x.shape[-2] % 2, x.shape[-1] % 2),
+                        count_include_pad=True)
+
+
+_MS_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+
+
+def ms_ssim(x, y, data_range: float = 1.0, win_size: int = 11,
+            win_sigma: float = 1.5, weights=None):
+    """Multi-scale SSIM of NCHW images, size-averaged scalar.  The smallest
+    scale must still fit the window: min(H, W) > (win_size - 1) * 2^4
+    (pytorch_msssim's guard; below it the last level underflows to NaN)."""
+    w = torch.tensor(weights if weights is not None else _MS_WEIGHTS,
+                     dtype=torch.float32, device=x.device)
+    min_side = min(x.shape[-2], x.shape[-1])
+    need = (win_size - 1) * 2 ** (len(w) - 1)
+    if min_side <= need:
+        raise ValueError(
+            f"ms_ssim needs image sides > {need} for {len(w)} scales with "
+            f"win_size={win_size}; got {x.shape[-2]}x{x.shape[-1]}")
+    win = _gaussian_kernel(win_size, win_sigma)
+    x, y = x.float(), y.float()
+    mcs = []
+    for i in range(len(w)):
+        ssim_pc, cs = _ssim_per_channel(x, y, win, data_range)
+        if i < len(w) - 1:
+            mcs.append(torch.relu(cs))
+            x, y = _avg_pool2(x), _avg_pool2(y)
+    stack = torch.stack(mcs + [torch.relu(ssim_pc)])  # (levels, B, C)
+    return (stack ** w.view(-1, 1, 1)).prod(dim=0).mean()

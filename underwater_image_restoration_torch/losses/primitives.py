@@ -5,6 +5,7 @@ scalar, whatever the input dtype."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 # BT.601 luma weights over the RGB channel dim
 Y_COEFFS = (0.299, 0.587, 0.114)
@@ -44,3 +45,30 @@ def psnr(target, pred):
     """20 log10(1 / RMSE) over inputs clamped to [0, 1]."""
     d = pred.float().clamp(0, 1) - target.float().clamp(0, 1)
     return 20.0 * torch.log10(1.0 / torch.sqrt(d.square().mean()))
+
+
+_LAPLACIAN = ((0.0, 1.0, 0.0), (1.0, -4.0, 1.0), (0.0, 1.0, 0.0))
+
+
+def _laplacian_filter(x):
+    """Depthwise 3x3 Laplacian, VALID padding (a ``conv2d`` with
+    ``groups=C``), in f32."""
+    c = x.shape[1]
+    k = torch.tensor(_LAPLACIAN, device=x.device, dtype=torch.float32)
+    return F.conv2d(x.float(), k.expand(c, 1, 3, 3), groups=c)
+
+
+def gradient_loss(pred, target):
+    """L1 between Laplacian-filtered maps."""
+    return l1_loss(_laplacian_filter(pred), _laplacian_filter(target))
+
+
+def tv_loss(x, weight: float = 1.0):
+    """Total variation: 2 (h_tv / count_h + w_tv / count_w) / B, the squared
+    differences of neighbours summed along H and along W."""
+    xf = x.float()
+    b, c, h, w = x.shape
+    h_tv = (xf[:, :, 1:, :] - xf[:, :, :-1, :]).square().sum()
+    w_tv = (xf[:, :, :, 1:] - xf[:, :, :, :-1]).square().sum()
+    return weight * 2.0 * (h_tv / (c * (h - 1) * w)
+                           + w_tv / (c * h * (w - 1))) / b

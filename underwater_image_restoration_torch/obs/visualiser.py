@@ -82,28 +82,19 @@ def model_apply(model, use_kernels: bool = True):
 
 
 def load_model_from_weights(ckpt_path: str, config, arch: Optional[str] = None,
-                            img_size: Optional[int] = None):
-    """Build ``arch`` (default ``config.arch``) on the device (the CPU with
-    ``config.use_cpu``, else CUDA) in ``config.compute_dtype`` and load
-    ``ckpt_path`` (reference Visualiser.py:64-67): a checkpoint directory of
-    ``train.checkpoint`` (a manager directory's latest step, or one step's
-    directory), or, through ``eval.load_model``, a ``.npz`` of the JAX
-    package's flat parameters or a reference ``.pth``.
+                            img_size: Optional[int] = None, device=None):
+    """Build ``arch`` (default ``config.arch``) in ``config.compute_dtype``
+    on ``device`` (default: the CPU with ``config.use_cpu``, else CUDA) and
+    load ``ckpt_path`` (reference Visualiser.py:64-67) through
+    ``eval.load_model``: a checkpoint directory of ``train.checkpoint``, a
+    ``.npz`` of the JAX package's flat parameters or a reference ``.pth``.
     ``img_size`` specializes the size-dependent archs (AST, New*) to the
     inference resolution."""
     from ..core.config import compute_dtype_of
     from ..eval.evaluate import load_model
-    from ..models import init_model
-    from ..train.checkpoint import restore_params
 
-    arch = arch or config.arch
-    size = img_size or config.image_size
-    device = "cpu" if config.use_cpu else None
-    dtype = compute_dtype_of(config)
-    if ckpt_path.endswith((".npz", ".pth")):
-        return load_model(ckpt_path, arch, device, dtype, size,
-                          config.use_dwt)
-    model = init_model(arch, device=device, compute_dtype=dtype,
-                       img_size=size, use_dwt=config.use_dwt)
-    model.load_state_dict(restore_params(ckpt_path), strict=True)
-    return model
+    if device is None and config.use_cpu:
+        device = "cpu"
+    return load_model(ckpt_path, arch or config.arch, device,
+                      compute_dtype_of(config),
+                      img_size or config.image_size, config.use_dwt)

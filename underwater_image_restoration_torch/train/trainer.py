@@ -22,7 +22,9 @@ batch's); parameter and gradient histograms every ``watch_freq`` steps;
 validation (loss, PSNR, SSIM as masked sums); the checkpoint of a best epoch
 in ``best/`` and ``latest/``, of any other in ``latest/``; the probe image.
 ``--resume`` restores parameters, optimizer state, epoch, best loss and the
-loader's state.
+loader's state; the run keeps cuDNN on its deterministic algorithms, so a
+resumed run is bit-equal to a straight one.  A loss with components
+(``fflMix``) logs them beside the loss.
 
 Not here: the mesh and sharded state (ROADMAP.md queue 1, item 8), remat
 (the kernels' autograd Functions save only x and the stats), ``k_steps``
@@ -42,7 +44,7 @@ import torch
 from .._device import resolve_device
 from ..core.config import compute_dtype_of, validate
 from ..data import AugmentConfig, get_dataloaders
-from ..losses import LossFunction
+from ..losses import COMPONENTS, LossFunction
 from ..models import init_model
 from ..obs import ExperimentLogger, process_image_using_model
 from ..obs.profiler import profile_trace
@@ -79,7 +81,8 @@ def make_train_step(model, lossfn, optimizer, grad_accum: int = 1,
     ``step(raw_u8, ref_u8) -> {"loss", "grad_norm"}``: one
     optimizer update of ``model`` from uint8 (B, H, W, 3) batches (numpy or
     tensors), the metrics as f32 0-dim tensors on the model's device
-    (``grad_norm`` before the clip).
+    (``grad_norm`` before the clip).  A loss that returns components
+    (``fflMix``) adds them under ``losses.COMPONENTS``' names.
 
     grad_accum > 1 splits the batch into that many microbatches and averages
     their gradients before the one update, with an extra 1/grad_accum for
@@ -117,26 +120,37 @@ def make_train_step(model, lossfn, optimizer, grad_accum: int = 1,
         mb = b // grad_accum
         for p in params:
             p.grad = None
-        loss = torch.zeros((), device=device)
+        sums = None  # the loss (and its components), summed
         was_training = model.training
         model.train()
         try:
             for i in range(grad_accum):
                 sl = slice(i * mb, (i + 1) * mb)
-                li = lossfn(model(x[sl], use_kernels, **kwargs).float(),
-                            y[sl])
-                (li * inv if grad_accum > 1 else li).backward()
-                loss = loss + li.detach()
+                res = lossfn(model(x[sl], use_kernels, **kwargs).float(),
+                             y[sl])
+                res = res if lossfn.returns_components else (res,)
+                (res[0] * inv if grad_accum > 1 else res[0]).backward()
+                res = [r.detach() for r in res]
+                sums = res if sums is None else [a + r for a, r in
+                                                 zip(sums, res)]
         finally:
             model.train(was_training)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         gnorm = optimizer.step()
-        return {"loss": loss * inv if grad_accum > 1 else loss,
-                "grad_norm": gnorm}
+        if grad_accum > 1:
+            sums = [v * inv for v in sums]
+        return {"loss": sums[0], "grad_norm": gnorm,
+                **dict(zip(COMPONENTS, sums[1:]))}
 
     return step
+
+
+def _loss_only(lossfn, pred, truth):
+    """The loss without its components (fflMix returns a 6-tuple)."""
+    res = lossfn(pred, truth)
+    return res[0] if lossfn.returns_components else res
 
 
 WATCH_BINS = 64
@@ -182,7 +196,7 @@ def make_watch_step(model, lossfn, bins: int = WATCH_BINS,
         model.train()
         try:
             out = model(x, use_kernels, **_generator_kwargs(model, generator))
-            loss = lossfn(out.float(), y)
+            loss = _loss_only(lossfn, out.float(), y)
         finally:
             model.train(was_training)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -224,12 +238,12 @@ def make_eval_step(model, lossfn, use_kernels: bool = True):
         v = torch.as_tensor(np.asarray(valid)).to(device, torch.float32)
         n = v.sum()
         if lossfn.batch_linear or lossfn.bc_divided:
-            per = torch.stack([lossfn(out[i:i + 1], y[i:i + 1])
+            per = torch.stack([_loss_only(lossfn, out[i:i + 1], y[i:i + 1])
                                for i in range(out.shape[0])])
             masked = (per * v).sum()
             loss_sum = masked / n if lossfn.bc_divided else masked
         else:  # Adaptive*: batch-coupled weights, no exact masking
-            loss_sum = lossfn(out, y) * n
+            loss_sum = _loss_only(lossfn, out, y) * n
         return {"loss_sum": loss_sum,
                 "psnr_sum": (per_sample_psnr(y, out) * v).sum(),
                 "ssim_sum": (per_sample_ssim(y, out) * v).sum(),
@@ -280,7 +294,20 @@ class ModelTrainer:
         ``<checkpoint_dir>/<run name>/{best,latest}`` (the ``resume``
         directory when resuming), metrics to ``metrics.jsonl`` there.
         ``on_epoch_end(epoch, model, val_loss)`` runs after each epoch.
-        Returns (model, optimizer)."""
+        cuDNN runs its deterministic algorithms for the run (the prior
+        setting is restored on exit).  Returns (model, optimizer)."""
+        # a resumed run is bit-equal to a straight one only if every step
+        # is reproducible, and cuDNN's default conv weight gradients are not
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return self._train(config, arch, num_epochs, learning_rate,
+                               probe_image, on_epoch_end)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+    def _train(self, config, arch, num_epochs, learning_rate, probe_image,
+               on_epoch_end):
         cfg = validate(config)
         arch = arch or cfg.arch
         num_epochs = num_epochs or cfg.max_epoch
@@ -303,7 +330,8 @@ class ModelTrainer:
         model = init_model(arch, device=device, seed=cfg.seed,
                            compute_dtype=compute_dtype_of(cfg),
                            img_size=cfg.image_size, use_dwt=cfg.use_dwt)
-        lossfn = LossFunction(cfg.lossf)
+        lossfn = LossFunction(cfg.lossf, vgg_weights=cfg.vgg_weights,
+                              allow_placeholder_vgg=cfg.allow_placeholder_vgg)
         optimizer = get_optimizer(
             cfg.optim, model.parameters(), lr,
             weight_decay=cfg.weight_decay, momentum=cfg.momentum,
@@ -381,17 +409,24 @@ class ModelTrainer:
                 # records in ascending-step order (W&B drops a log whose
                 # step is below the run's max step, so histograms interleave
                 # with the per-batch metrics)
-                losses = (torch.stack([m["loss"] for _, m in epoch_metrics])
-                          .cpu().numpy() if epoch_metrics
-                          else np.zeros(0, np.float32))
+                keys = [k for k in ("loss",) + COMPONENTS
+                        if epoch_metrics and k in epoch_metrics[0][1]]
+                rows = (torch.stack([torch.stack([m[k] for k in keys])
+                                     for _, m in epoch_metrics]).cpu().numpy()
+                        if epoch_metrics else np.zeros((0, 1), np.float32))
+                losses = rows[:, 0]
                 host_hists = {bi: {k: (c.cpu().numpy(), e.cpu().numpy())
                                    for k, (c, e) in h.items()}
                               for bi, h in hist_pending}
-                for (bi, _), loss in zip(epoch_metrics, losses):
+                for (bi, _), row in zip(epoch_metrics, rows):
                     explog.log_train_metrics(
-                        explog.format_train_metrics(float(loss),
+                        explog.format_train_metrics(float(row[0]),
                                                     schedule(epoch)),
                         epoch, bi, nb)
+                    for comp, v in zip(keys[1:], row[1:]):
+                        explog.log_train_metrics(
+                            explog.format_loss_metrics(float(v), comp),
+                            epoch, bi, nb)
                     if bi in host_hists:
                         explog.log_histograms(host_hists[bi],
                                               step=epoch * nb + bi)
