@@ -12,6 +12,7 @@ checks where the time and the launches went.
     python3 chip_smoke.py --phase new-train    # phases 1 (the same) and 9
     python3 chip_smoke.py --phase run    # phases 1 (Spectral kernels) and 10
     python3 chip_smoke.py --phase eval    # phases 1, 10 and 11
+    python3 chip_smoke.py --phase parallel    # phases 1 and 12
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
@@ -153,7 +154,23 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    train step (batch 16, bf16) with fflMix and ssimFFLCharbonnier in turns
    with L1withColor: launches as phase 5 counts, fflMix's five components
    finite, images/s and peak memory; then a CLI epoch with ``--lossf
-   fflMix`` whose metrics.jsonl holds the components.
+   fflMix`` whose metrics.jsonl holds the components;
+12. parallelism and export (``parallel_phase``): (a) the 2-rank
+   data-parallel train step of the full-width SpectralTransformer@256
+   (bf16, global batch 16; two processes sharing the card over gloo, or a
+   card a rank over nccl): each rank's launches from zero as the planners
+   say for batch 8, loss and gradients vs the one-rank step in bf16 at
+   batch 16 and in f32 at batch 4 within phase 5(c)'s gradient and 5(d)'s
+   loss limits, images/s and peak memory a rank beside the one-rank
+   step's, in turns; (b) FSDP2 over the same ranks: its gradients vs the
+   data-parallel step's, its checkpoint (single-device format) loaded
+   strict on one device giving the sharded model's forward; (c)
+   ``torch.export`` of SpectralTransformer@256 and AST@256 (bf16, symbolic
+   batch): custom-op nodes as the planners' kernel calls (24 + 24; 18 +
+   10), the program vs the eager forward at batch 8 and 3 within 1e-6 with
+   the eager launches, reloaded in a fresh process that launches the
+   kernels, its images/s beside eager ``batched_apply``'s in turns there;
+   (d) Grad-CAM through the kernels and SFCA on the card vs the CPU, f32.
 The last line is the JSON device record; the line before it the kernels'.
 """
 import argparse
@@ -2669,17 +2686,517 @@ def eval_phase(card, run, train_batch):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# 12. data parallelism, parameter sharding, the exported serving forward,
+# Grad-CAM and SFCA
+
+PAR_WORLD = 2
+# the rates' windows: train steps a turn (12(a)) and serving batches a rate
+# (12(c)), long enough that repeated calls agree
+PAR_STEPS = 30
+SERVE_BATCHES = 40
+# a reloaded program within this much of the eager forward (the same
+# kernels on the same inputs)
+EXPORT_TOL = 1e-6
+EXPORT_BATCHES = (8, 3)
+EXPORT_NODES = {"SpectralTransformer": {"ln_mdta": 24, "ln_gdfn": 24},
+                "AST": {"ln_leff": 18, "window_attn": 10}}
+# Grad-CAM through the kernels vs the CPU's plain versions, f32: the map is
+# min-max normalized, its error the gradient's relative error times the
+# channels' spread
+CAM_TOL = 1e-3
+# SFCA on the card vs the CPU, f32, of max|ref|: cuFFT vs pocketfft and
+# cuDNN vs oneDNN sums (TF32 off)
+SFCA_TOL = 1e-4
+
+
+def _spectral_for_training(torch, device, dt):
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.models.spectral_transformer import (
+        MDTA,
+    )
+
+    model = init_model("SpectralTransformer", seed=0, compute_dtype=dt,
+                       device=device)
+    with torch.no_grad():
+        for blk in model.modules():
+            if isinstance(blk, MDTA):
+                blk.temperature.fill_(MODEL_TEMPERATURE)
+    return model
+
+
+def _grads_step(torch, model, raw, ref, parallel=None):
+    """One ``make_train_step`` step under plain SGD at learning rate 0 and
+    no clip: (loss, {name: f32 gradient on the CPU}, the full tensors of a
+    sharded model's), the parameters left as they were."""
+    from underwater_image_restoration_torch.core import meshes
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+    )
+
+    opt = get_optimizer("sgd", model.parameters(), 0.0, momentum=0.0,
+                        clip_norm=0.0)
+    out = make_train_step(model, LossFunction("L1withColor"), opt,
+                          parallel=parallel)(raw, ref)
+    grads = {n: meshes.full_tensor(p.grad).detach().float().cpu()
+             for n, p in model.named_parameters()}
+    return float(out["loss"]), grads
+
+
+def _rate_turn(torch, step, raw, ref, steps=PAR_STEPS):
+    """Images/s of ``steps`` steps after one untimed, and the peak GiB."""
+    step(raw, ref)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(steps):
+        step(raw, ref)
+    torch.cuda.synchronize()
+    return (steps / (time.perf_counter() - t),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _parallel_rank(rank, port, out_dir, batch, size, check_batch):
+    """A rank of phase 12(a)-(b): the data-parallel step's launches,
+    gradients and rate, then FSDP's gradients and checkpoint; results in
+    ``out_dir/rank<r>.pt``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(PAR_WORLD),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch
+
+    from underwater_image_restoration_torch.core import meshes
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.ops import ln_gdfn, ln_mdta
+    from underwater_image_restoration_torch.ops.fused_gdfn import ln_gdfn_bwd
+    from underwater_image_restoration_torch.ops.fused_mdta import ln_mdta_bwd
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+    )
+
+    def stage(msg):
+        print(f"12 rank {rank}: {msg}", flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    # the ranks share the host's cores (each one's CPU threads spinning
+    # against the other's would stall both)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // PAR_WORLD))
+    dp = meshes.init_data_parallel(
+        PAR_WORLD, rank,
+        backend=meshes.default_backend(torch.device("cuda"), PAR_WORLD))
+    counters = {"ln_gdfn": ln_gdfn.launches, "ln_mdta": ln_mdta.launches,
+                "ln_gdfn_bwd": ln_gdfn_bwd.launches,
+                "ln_mdta_bwd": ln_mdta_bwd.launches}
+    res = {"device": str(dp.device), "backend": dp.backend}
+    stage(f"joined the group on {dp.device} over {dp.backend}")
+    raw, ref = synthetic_pair_batch(batch, size, seed=0)
+    rows = dp.rows(batch)
+    dev = dp.device
+
+    # (a) the step's launches, from zero, and its gradients: bf16 at the
+    # global batch, f32 at check_batch
+    model = _spectral_for_training(torch, dev, torch.bfloat16)
+    _grads_step(torch, model, raw[rows], ref[rows], dp)  # warm-up
+    torch.cuda.synchronize()
+    stage("warm-up step done")
+    for cnt in counters.values():
+        cnt.clear()
+    res["bf16"] = _grads_step(torch, model, raw[rows], ref[rows], dp)
+    torch.cuda.synchronize()
+    res["launches"] = {k: dict(v) for k, v in counters.items()}
+    model.compute_dtype = torch.float32
+    crow = dp.rows(check_batch)
+    res["f32"] = _grads_step(torch, model, raw[:check_batch][crow],
+                             ref[:check_batch][crow], dp)
+    model.compute_dtype = torch.bfloat16
+
+    # images/s and peak memory, in turns: one rank's step at the global
+    # batch (rank 0, while rank 1 waits), the two ranks' steps
+    lossfn = LossFunction("L1withColor")
+    one = copy.deepcopy(model) if dp.is_main else None
+    turns = []
+    for kind in ("one", "two", "two", "one"):
+        dp.barrier()
+        if kind == "two":
+            st = make_train_step(
+                model, lossfn, get_optimizer("adam", model.parameters(), LR),
+                parallel=dp)
+            rate, mem = _rate_turn(torch, st, raw[rows], ref[rows])
+            turns.append((kind, rate * batch, mem))
+        elif dp.is_main:
+            st = make_train_step(one, lossfn,
+                                 get_optimizer("adam", one.parameters(), LR))
+            rate, mem = _rate_turn(torch, st, raw, ref)
+            turns.append((kind, rate * batch, mem))
+        st = None
+        torch.cuda.empty_cache()
+        dp.barrier()
+    res["turns"] = turns
+    stage("turns done")
+    del one, model
+    torch.cuda.empty_cache()
+
+    # (b) FSDP from the same weights: its gradients (gathered), then an Adam
+    # step, its checkpoint in the single-device format, and an eval-mode
+    # forward of the sharded model on rank 0's rows for the check on one
+    # device
+    fsdp = meshes.shard_model(
+        _spectral_for_training(torch, dev, torch.bfloat16), dp)
+    res["fsdp_bf16"] = _grads_step(torch, fsdp, raw[rows], ref[rows], dp)
+    opt = get_optimizer("adam", fsdp.parameters(), LR)
+    make_train_step(fsdp, lossfn, opt, parallel=dp)(raw[rows], ref[rows])
+    params, opt_state = meshes.full_state(fsdp, opt)
+    stage("FSDP step and gather done")
+    xs = raw[:check_batch]
+    fsdp.eval()
+    with torch.no_grad():
+        x = (torch.as_tensor(xs).to(dev).float() / 255.0 * 2 - 1).permute(
+            0, 3, 1, 2).contiguous()
+        res["fsdp_out"] = fsdp(x).float().cpu()
+    if dp.is_main:
+        torch.save({"params": params, "opt_state": opt_state},
+                   os.path.join(out_dir, "fsdp_ckpt.pt"))
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    del fsdp, opt
+    meshes.close_data_parallel(dp)
+
+
+_RELOAD = r'''
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+# the settings the parent process runs under
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+from underwater_image_restoration_torch.data import synthetic_pair_batch
+from underwater_image_restoration_torch.eval import batched_apply
+from underwater_image_restoration_torch.models import init_model
+from underwater_image_restoration_torch.ops import (
+    ln_gdfn, ln_leff, ln_mdta, window_attention)
+from underwater_image_restoration_torch.tools.export_model import (
+    load_exported)
+counters = {"ln_mdta": ln_mdta.launches, "ln_gdfn": ln_gdfn.launches,
+            "ln_leff": ln_leff.launches,
+            "window_attn": window_attention.launches}
+size, n = int(sys.argv[3]), int(sys.argv[4])
+
+
+def rate(fn, arg, b):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn(arg)
+    torch.cuda.synchronize()
+    return n * b / (time.perf_counter() - t)
+
+
+out = {}
+for arch in ("SpectralTransformer", "AST"):
+    fn = load_exported(f"{sys.argv[2]}/{arch}.pt2")
+    x, want = torch.load(f"{sys.argv[2]}/{arch}.io.pt")
+    x = x.cuda()
+    fn(x)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.clear()
+    got = fn(x)
+    torch.cuda.synchronize()
+    launches = {k: sum(v.values()) for k, v in counters.items()}
+    err = (got.cpu() - want).abs().max().item()
+    # images/s of the program and of the eager batched_apply (the same
+    # seeded model, uint8 in), in turns in this one process
+    b = x.shape[0]
+    apply_b, _ = batched_apply(init_model(arch, seed=0, img_size=size,
+                                          compute_dtype=torch.bfloat16), b)
+    u8 = synthetic_pair_batch(b, size, seed=1)[0]
+    apply_b(u8)
+    turns = {"program": [], "eager": []}
+    for kind in ("program", "eager", "eager", "program"):
+        turns[kind].append(rate(fn, x, b) if kind == "program"
+                           else rate(apply_b, u8, b))
+    out[arch] = {"launches": launches, "err": err, **turns}
+print(json.dumps(out))
+'''
+
+
+def parallel_phase(card, batch, size, check_batch):
+    """Phase 12: (a) the 2-rank data-parallel train step of the full-width
+    SpectralTransformer@256 (bf16, global batch ``batch``, rank r its rows
+    ``DataParallel.rows``; two processes sharing one card over gloo, over
+    nccl where there is a card a rank): each rank's launches as the
+    planners say for batch/2, loss and gradients vs the one-rank step
+    (bf16 at the global batch, f32 at ``check_batch``) within phase 5(c)'s
+    limits and 5(d)'s loss limit, images/s and peak memory a rank beside
+    the one-rank step's, in turns; (b) FSDP2 (``shard_model``, the same
+    two ranks): its gradients vs the data-parallel ones, and its
+    checkpoint (``full_state``) loaded into a model on one device, whose
+    forward equals the sharded model's; (c) ``torch.export`` of
+    SpectralTransformer@256 and AST@256 (bf16, symbolic batch): custom-op
+    nodes as the planners' kernel calls, the program vs the eager forward
+    at batch 8 and 3 within EXPORT_TOL with the eager launches, reloaded in
+    a fresh process that launches the kernels, its images/s beside eager
+    ``batched_apply``'s in turns there; (d) Grad-CAM and SFCA on the card
+    vs the CPU.  Returns no kernel rows (every kernel's row is its own phase's)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.eval.gradcam import grad_cam
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.models.spectral_transformer import (
+        SFCA,
+    )
+    from underwater_image_restoration_torch.ops import (
+        ln_gdfn,
+        ln_leff,
+        ln_mdta,
+        window_attention,
+    )
+    from underwater_image_restoration_torch.tools import export_model as em
+    from underwater_image_restoration_torch.train import get_optimizer
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="phase12-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    torch.backends.cudnn.deterministic = True
+    raw, ref = synthetic_pair_batch(batch, size, seed=0)
+
+    # ---- (a) the one-rank references, then the two ranks
+    model = _spectral_for_training(torch, "cuda", torch.bfloat16)
+    ref_bf16 = _grads_step(torch, model, raw, ref)
+    model.compute_dtype = torch.float32
+    ref_f32 = _grads_step(torch, model, raw[:check_batch], ref[:check_batch])
+    del model
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    # a rank that dies of a signal prints its Python stack
+    os.environ["PYTHONFAULTHANDLER"] = "1"
+    mp.spawn(_parallel_rank,
+             args=(_free_port(), out_dir, batch, size, check_batch),
+             nprocs=PAR_WORLD)
+    t_ranks = time.perf_counter() - t
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(PAR_WORLD)]
+    print(f"12 ranks: {PAR_WORLD} processes on {[r['device'] for r in ranks]}"
+          f" over {ranks[0]['backend']} ({t_ranks:.1f} s with their start)",
+          flush=True)
+    want = spectral_launches(batch // PAR_WORLD, train=True)
+    for r, res in enumerate(ranks):
+        totals = {k: sum(v.values()) for k, v in res["launches"].items()}
+        print(f"12(a) rank {r} launches in one step: {totals} (the planners "
+              f"at batch {batch // PAR_WORLD}: "
+              f"{ {k: sum(v.values()) for k, v in want.items()} })",
+              flush=True)
+        if res["launches"] != want:
+            fail(f"12(a) rank {r}: expected launches {want}, got "
+                 f"{res['launches']}")
+    for tag, (loss, g), (rloss, rg) in (("bfloat16", ranks[0]["bf16"],
+                                         ref_bf16),
+                                        ("float32", ranks[0]["f32"],
+                                         ref_f32)):
+        rel, mx = grad_dist(g, rg)
+        dl = abs(loss - rloss) / abs(rloss)
+        tol = TRAIN_GRAD_TOL[tag]
+        nb = batch if tag == "bfloat16" else check_batch
+        print(f"12(a) {tag} global batch {nb}, two ranks vs one: loss "
+              f"{loss:.6f} vs {rloss:.6f} (relative {dl:.3e}, tol "
+              f"{TRAIN_LOSS_TOL:.0e}); ||g - g_ref||/||g_ref|| {rel:.3e} "
+              f"(tol {tol:.0e}), max abs/max|g_ref| {mx:.3e}", flush=True)
+        if not (rel <= tol and dl <= TRAIN_LOSS_TOL):
+            fail(f"12(a) the two-rank {tag} step disagrees with one rank's")
+    by = collections.defaultdict(list)
+    for r, res in enumerate(ranks):
+        for kind, rate, mem in res["turns"]:
+            by[kind].append((r, rate, mem))
+    one = [rate for _, rate, _ in by["one"]]
+    two = [rate for r, rate, _ in by["two"] if r == 0]
+    print(f"12(a) train step SpectralTransformer {size}x{size} bf16 global "
+          f"batch {batch}: two ranks {sum(two) / 2:.2f} images/s {two} "
+          f"(peak memory a rank "
+          f"{[round(m, 2) for _, _, m in by['two']]} GiB), one rank "
+          f"{sum(one) / 2:.2f} images/s {one} (peak "
+          f"{[round(m, 2) for _, _, m in by['one']]} GiB), in turns, over "
+          f"{ranks[0]['backend']} on {card}", flush=True)
+
+    # ---- (b) FSDP vs the data-parallel step; its checkpoint on one device
+    rel, mx = grad_dist(ranks[0]["fsdp_bf16"][1], ranks[0]["bf16"][1])
+    dl = abs(ranks[0]["fsdp_bf16"][0] - ranks[0]["bf16"][0])
+    print(f"12(b) FSDP vs data-parallel bf16 step: loss difference {dl:.3e}, "
+          f"||g - g_dp||/||g_dp|| {rel:.3e}, max abs/max|g_dp| {mx:.3e} "
+          f"(tol {TRAIN_LOSS_TOL:.0e})", flush=True)
+    if not (rel <= TRAIN_LOSS_TOL and dl <= TRAIN_LOSS_TOL):
+        fail("12(b) FSDP's gradients disagree with the data-parallel step's")
+    ckpt = torch.load(os.path.join(out_dir, "fsdp_ckpt.pt"),
+                      weights_only=False)
+    single = _spectral_for_training(torch, "cuda", torch.bfloat16)
+    single.load_state_dict(ckpt["params"], strict=True)
+    get_optimizer("adam", single.parameters(), LR).load_state_dict(
+        ckpt["opt_state"])
+    with torch.no_grad():
+        xs = torch.as_tensor(raw[:check_batch]).cuda().float()
+        y1 = single((xs / 255.0 * 2 - 1).permute(0, 3, 1, 2).contiguous())
+    err = (y1.float().cpu() - ranks[0]["fsdp_out"]).abs().max().item()
+    print(f"12(b) the FSDP checkpoint ({len(ckpt['params'])} tensors, Adam "
+          f"state of {len(ckpt['opt_state']['inner']['state'])}) loads "
+          f"strict on one device; its forward vs the sharded model's: max "
+          f"abs {err:.3e} (tol {EXPORT_TOL:.0e})", flush=True)
+    if err > EXPORT_TOL:
+        fail("12(b) the FSDP checkpoint does not give the sharded model's "
+             "forward on one device")
+    del single, ckpt, y1
+    torch.cuda.empty_cache()
+
+    # ---- (c) the exported serving forward
+    counters = {"ln_mdta": ln_mdta.launches, "ln_gdfn": ln_gdfn.launches,
+                "ln_leff": ln_leff.launches,
+                "window_attn": window_attention.launches}
+
+    def count():
+        torch.cuda.synchronize()
+        return {k: sum(v.values()) for k, v in counters.items()}
+
+    eager_launches = {}
+    for arch in EXPORT_NODES:
+        model = init_model(arch, seed=0, compute_dtype=torch.bfloat16,
+                           img_size=size)
+        t = time.perf_counter()
+        program = em.export_module(model, size)
+        t_export = time.perf_counter() - t
+        nodes = dict(em.custom_op_counts(program))
+        print(f"12(c) {arch}@{size} exported in {t_export:.1f} s: custom-op "
+              f"nodes {nodes} (the planners' calls: {EXPORT_NODES[arch]})",
+              flush=True)
+        if nodes != EXPORT_NODES[arch]:
+            fail(f"12(c) {arch}'s program holds {nodes} custom-op nodes")
+        eager = em.ServingForward(model)
+        for b in EXPORT_BATCHES:
+            u8 = synthetic_pair_batch(b, size, seed=b)[0]
+            x = torch.as_tensor(u8).cuda().float() / 255.0 * 2 - 1
+            with torch.no_grad():
+                eager(x)
+                for c in counters.values():
+                    c.clear()
+                want = eager(x)
+                n_eager = count()
+            got = program.module()(x)
+            for c in counters.values():
+                c.clear()
+            got = program.module()(x)
+            n_prog = count()
+            err = (got.float() - want.float()).abs().max().item()
+            print(f"12(c) {arch} batch {b}: program vs eager max abs "
+                  f"{err:.3e} (tol {EXPORT_TOL:.0e}); launches {n_prog} "
+                  f"(eager {n_eager})", flush=True)
+            if err > EXPORT_TOL or n_prog != n_eager or not any(
+                    n_prog.values()):
+                fail(f"12(c) {arch}'s program at batch {b} disagrees with "
+                     "the eager forward")
+            if b == EXPORT_BATCHES[0]:
+                eager_launches[arch] = n_eager
+                torch.save((x.cpu(), got.float().cpu()),
+                           os.path.join(out_dir, f"{arch}.io.pt"))
+        torch.export.save(program, os.path.join(out_dir, f"{arch}.pt2"))
+        del model, program, eager
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    fresh = subprocess.run(
+        [sys.executable, "-c", _RELOAD,
+         os.path.dirname(os.path.abspath(__file__)), out_dir, str(size),
+         str(SERVE_BATCHES)],
+        capture_output=True, text=True, timeout=600)
+    if fresh.returncode != 0:
+        fail(f"12(c) the fresh process failed:\n{fresh.stderr[-3000:]}")
+    reload = json.loads(fresh.stdout.strip().splitlines()[-1])
+    print(f"12(c) fresh process ({time.perf_counter() - t:.1f} s with its "
+          f"start): {reload}", flush=True)
+    for arch, r in reload.items():
+        if r["err"] > EXPORT_TOL or r["launches"] != eager_launches[arch]:
+            fail(f"12(c) the reloaded {arch} program disagrees with the "
+                 f"eager forward or did not launch the kernels: {r}")
+        prog, eager = (sum(r[k]) / len(r[k]) for k in ("program", "eager"))
+        print(f"12(c) serving {arch}@{size} bf16 batch {EXPORT_BATCHES[0]} "
+              f"in the fresh process, {SERVE_BATCHES} batches a turn, in "
+              f"turns: reloaded program {prog:.2f} images/s {r['program']} "
+              f"(f32 NHWC in), eager batched_apply {eager:.2f} images/s "
+              f"{r['eager']} (uint8 in), program/eager {prog / eager:.3f}, "
+              f"on {card}", flush=True)
+
+    # ---- (d) Grad-CAM and SFCA on the card vs the CPU, f32
+    cam_model = init_model("SpectralTransformer", seed=0)
+    cam_cpu = init_model("SpectralTransformer", seed=0, device="cpu")
+    cam_cpu.load_state_dict(cam_model.state_dict())
+    u8 = synthetic_pair_batch(1, 64, seed=5)[0]
+    x = torch.as_tensor(u8).float().permute(0, 3, 1, 2) / 255.0 * 2 - 1
+    for target in ("outputl", "encoders.1.0"):
+        cam, act = grad_cam(cam_model, x.cuda(), target)
+        cam_ref, act_ref = grad_cam(cam_cpu, x, target)
+        err = float(abs(cam - cam_ref).max())
+        aerr = float(abs(act - act_ref).max() / abs(act_ref).max())
+        print(f"12(d) Grad-CAM at {target}, 64x64, through the kernels vs "
+              f"the CPU's plain versions: map max abs {err:.3e} (tol "
+              f"{CAM_TOL:.0e}), activation max abs/max|ref| {aerr:.3e}",
+              flush=True)
+        if err > CAM_TOL or aerr > SFCA_TOL:
+            fail(f"12(d) Grad-CAM at {target} disagrees with the CPU")
+    sfca = SFCA(16, device="cuda")
+    sfca_cpu = SFCA(16)
+    sfca_cpu.load_state_dict({k: v.cpu() for k, v in sfca.state_dict()
+                              .items()})
+    gen = torch.Generator().manual_seed(6)
+    xs = torch.randn(2, 16, 64, 64, generator=gen)
+    ct = torch.randn(2, 16, 64, 64, generator=gen)
+    results = []
+    for m, dev in ((sfca, "cuda"), (sfca_cpu, "cpu")):
+        xi = xs.to(dev).requires_grad_()
+        y = m(xi)
+        (y * ct.to(dev)).sum().backward()
+        results.append([y.detach().cpu(), xi.grad.cpu()] + [
+            p.grad.cpu() for p in m.parameters()])
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(*results))
+    print(f"12(d) SFCA(16) 64x64 f32 on the card vs the CPU: output, dx and "
+          f"{len(results[0]) - 2} parameter gradients, worst max abs/"
+          f"max|ref| {worst:.3e} (tol {SFCA_TOL:.0e})", flush=True)
+    if worst > SFCA_TOL:
+        fail("12(d) SFCA on the card disagrees with the CPU")
+    torch.backends.cudnn.deterministic = False
+    shutil.rmtree(out_dir)
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return []
+
+
+def _free_port():
+    """A free localhost port for the process group."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "ast", "ast-train", "new",
-                                        "new-train", "run", "eval"),
+                                        "new-train", "run", "eval",
+                                        "parallel"),
                     default="all",
                     help="'ast' ('ast-train'): the setup and the AST serving "
                          "(training) phase alone; 'new' ('new-train'): the "
                          "setup and the New* serving (training) phase; "
                          "'run': the setup and the training run (phase 10); "
                          "'eval': the setup, phase 10 and the evaluation "
-                         "protocol (phase 11)")
+                         "protocol (phase 11); 'parallel': the setup and "
+                         "phase 12 (data parallelism, FSDP, export, "
+                         "Grad-CAM, SFCA)")
     args = ap.parse_args(argv)
     import torch
 
@@ -2742,7 +3259,8 @@ def main(argv=None):
     spectral = ["ln_gdfn", "ln_mdta", "ln_gdfn_bwd", "ln_mdta_bwd"]
     built = _kernels.build_all(
         None if args.phase == "all" else spectral if args.phase == "run"
-        else spectral + ["ln_leff", "window_attn"] if args.phase == "eval"
+        else spectral + ["ln_leff", "window_attn"]
+        if args.phase in ("eval", "parallel")
         else ["ln_leff", "ln_leff_bwd", "window_attn", "window_attn_bwd"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in built.items():
@@ -2780,6 +3298,9 @@ def main(argv=None):
     if args.phase == "eval":
         kernels = eval_phase(card, run_phase(card, TRAIN_BATCH, SIZE),
                              TRAIN_BATCH)
+        return record(torch, kernels, t_start)
+    if args.phase == "parallel":
+        kernels = parallel_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
         return record(torch, kernels, t_start)
 
     # ---- 2. kernels vs plain versions
@@ -3162,6 +3683,7 @@ def main(argv=None):
     kernels += new_train_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     kernels += eval_phase(card, run_phase(card, TRAIN_BATCH, SIZE),
                           TRAIN_BATCH)
+    kernels += parallel_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     return record(torch, kernels, t_start)
 
 

@@ -157,7 +157,8 @@ def test_port_imports_without_jax():
                 "obs.loggers", "obs.sinks", "obs.profiler",
                 "obs.visualiser", "losses.ffl", "losses.perceptual",
                 "tools.convert_vgg16", "eval.uiqm", "eval.metrics",
-                "data.custom", "data.offline_augment"):
+                "data.custom", "data.offline_augment", "core.meshes",
+                "tools.export_model", "eval.gradcam"):
         assert pkg + mod in names, mod
 
 

@@ -40,7 +40,14 @@
   test (the trainer sets it);
 - every loss name's value and gradient on the card vs the CPU, and
   ``evaluate_pairs`` through the kernels vs the plain versions on a
-  NewModel-Wavelet at 256x256.
+  NewModel-Wavelet at 256x256;
+- the four forward kernels as ``torch.library`` custom ops
+  (``torch.ops.uir.ln_mdta``, ``ln_gdfn``, ``ln_leff``, ``window_attn``):
+  each op's outputs equal the direct kernel call's bit for bit, with the
+  same launches, and ``torch.library.opcheck`` passes (schema, fake
+  implementation, autograd registration, AOT dispatch); a small
+  SpectralTransformer exported on the card runs the kernels, and the model
+  takes a strided (permuted NHWC) input.
 
 These need the card (a CUDA kernel has no CPU mode) and skip without one.
 The file imports no JAX, so it also runs where only the port is installed:
@@ -1041,3 +1048,124 @@ def test_eval_pairs_through_the_kernels(cuda, tmp_path):
         a, b = (np.asarray(Image.open(tmp_path / f"ref{u}" / f"{i}.png"))
                 for u in (True, False))
         assert np.array_equal(a, b)
+
+
+def _op_cases(cuda, dtype):
+    """(name, op arguments, the direct kernel call) of each custom op."""
+    rng = np.random.default_rng(61)
+    x, wm = _fwd_case("mdta", (2, 32, 20, 36), 2, dtype, cuda, seed=61)
+    _, wg = _fwd_case("gdfn", (2, 32, 20, 36), 1, dtype, cuda, seed=62)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(
+            np.float32)).to(cuda)
+
+    tok = t(2, 12, 20, 32).to(dtype)
+    wl = (1 + 0.1 * t(32), 0.1 * t(32), t(32, 48, scale=32 ** -0.5),
+          0.1 * t(48), t(3, 3, 48, scale=1 / 3), 0.1 * t(48),
+          t(48, 32, scale=48 ** -0.5), 0.1 * t(32))
+    s = torch.tensor([1.25, 0.0], device=cuda)
+    q, k, v = (t(8, 2, 64, 32).to(dtype) for _ in range(3))
+    bias, w, mask = t(2, 64, 64), t(2), t(4, 64, 64)
+
+    def leff_direct():
+        ops = fused_leff.kernel_operands(*wl[2:], dtype)
+        return (fused_leff._forward_cuda(tok, wl[0], wl[1], ops, s, 1e-5,
+                                         True),)
+
+    return [
+        ("ln_mdta", (x, *wm, 2, 1e-5),
+         lambda: fused_mdta.forward_with_stats(x, *wm, 2)),
+        ("ln_gdfn", (x, *wg, 1e-5),
+         lambda: fused_gdfn._launch(x, *wg, 1e-5)),
+        ("ln_leff", (tok, *wl, s, 1e-5, True), leff_direct),
+        ("window_attn", (q, k, v, bias, w, mask, 0.2),
+         lambda: (wa._forward_cuda(q, k, v, bias, 0.2, w, mask),)),
+    ]
+
+
+OP_COUNTERS = {"ln_mdta": fused_mdta.ln_mdta.launches,
+               "ln_gdfn": fused_gdfn.ln_gdfn.launches,
+               "ln_leff": fused_leff.ln_leff.launches,
+               "window_attn": wa.window_attention.launches}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", range(4),
+                         ids=["ln_mdta", "ln_gdfn", "ln_leff", "window_attn"])
+def test_custom_op_is_the_kernel(cuda, dtype, index):
+    """The op's outputs are the direct kernel call's, bit for bit (the
+    leading one: y; then what the backward reads), and it launches as
+    many kernels."""
+    name, args, direct = _op_cases(cuda, dtype)[index]
+    op = getattr(torch.ops.uir, name)
+    counter = OP_COUNTERS[name]
+    counter.clear()
+    want = direct()
+    n_direct = sum(counter.values())
+    counter.clear()
+    got = op(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    assert sum(counter.values()) == n_direct > 0
+    assert len(got) >= len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("index", range(4),
+                         ids=["ln_mdta", "ln_gdfn", "ln_leff", "window_attn"])
+def test_custom_op_passes_opcheck(cuda, dtype, index):
+    name, args, _ = _op_cases(cuda, dtype)[index]
+    op = getattr(torch.ops.uir, name).default
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+@pytest.mark.cuda
+def test_exported_program_runs_the_kernels(cuda, tmp_path):
+    """A small SpectralTransformer exported on the card (symbolic batch):
+    one ln_mdta and one ln_gdfn node a block, the reloaded program equal
+    to the eager forward at batch 2 and 3, launching the kernels."""
+    from underwater_image_restoration_torch.tools import export_model as em
+
+    model = init_model("SpectralTransformer", seed=3,
+                       compute_dtype=torch.bfloat16,
+                       channels=(16, 32, 64, 128), num_blocks=(1, 1, 1, 1),
+                       num_refinement=1)
+    program = em.export_module(model, 32)
+    assert dict(em.custom_op_counts(program)) == {"ln_mdta": 8,
+                                                  "ln_gdfn": 8}
+    torch.export.save(program, str(tmp_path / "m.pt2"))
+    fn = em.load_exported(str(tmp_path / "m.pt2"))
+    for b in (2, 3):
+        x = torch.rand(b, 32, 32, 3, device=cuda) * 2 - 1
+        with torch.no_grad():
+            want = em.ServingForward(model)(x)
+        for c in OP_COUNTERS.values():
+            c.clear()
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert sum(OP_COUNTERS["ln_mdta"].values()) > 0
+        assert sum(OP_COUNTERS["ln_gdfn"].values()) > 0
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_model_takes_a_strided_input(cuda):
+    """An NHWC batch permuted to NCHW (not contiguous) goes through the
+    SpectralTransformer's kernels (the model makes its input contiguous;
+    cuDNN would give a channels-last activation otherwise) and gives the
+    contiguous input's output."""
+    model = init_model("SpectralTransformer", seed=4,
+                       channels=(16, 32, 64, 128), num_blocks=(1, 1, 1, 1),
+                       num_refinement=1)
+    nhwc = torch.rand(2, 32, 32, 3, device=cuda) * 2 - 1
+    with torch.no_grad():
+        got = model(nhwc.permute(0, 3, 1, 2))
+        want = model(nhwc.permute(0, 3, 1, 2).contiguous())
+    assert torch.equal(got, want)

@@ -5,9 +5,11 @@ are accepted and ignored).
 
 Left out: ``--compile-cache``, ``--remat-policy`` and
 ``--steps-per-dispatch``, which served only the TPU (an XLA cache, remat
-policies, a dispatch workaround).  ``--mesh-data``, ``--mesh-context``,
-``--shard-params`` and ``--remat`` are accepted, and ``core.config.validate``
-refuses every value but one device's.  ``--no-pallas`` runs the kernels'
+policies, a dispatch workaround).  ``--mesh-data N`` and ``--shard-params
+data`` run under ``torchrun --nproc-per-node N`` (data parallelism and
+FSDP2, ``core/meshes.py``); ``--mesh-context`` and ``--remat`` are
+accepted, and ``core.config.validate`` refuses every value but 1 and off
+(context and tensor parallelism are the CP/TP slice of ROADMAP.md).  ``--no-pallas`` runs the kernels'
 plain PyTorch versions; ``--use-cpu`` runs on the CPU (the plain versions).
 """
 from __future__ import annotations
@@ -141,14 +143,17 @@ def argument_parser() -> argparse.ArgumentParser:
                         help="train/eval resolution (reference hardcodes "
                              "1024^2 in DataLoader.py:14)")
     parser.add_argument("--mesh-data", type=int, default=-1,
-                        help="data-parallel size: -1 or 1 (one device; "
-                             "parallelism is ROADMAP.md queue 1, item 8)")
+                        help="data-parallel ranks, one process each under "
+                             "torchrun; -1 = WORLD_SIZE")
     parser.add_argument("--mesh-context", type=int, default=1,
-                        help="context-parallel size: 1")
+                        help="context-parallel size: 1 (CP/TP is the next "
+                             "slice of ROADMAP.md queue 1, item 8)")
     parser.add_argument("--shard-params", type=str, default="",
                         choices=["", "data", "context"],
-                        help="parameter sharding: '' (replicated); the "
-                             "others are ROADMAP.md queue 1, item 8")
+                        help="parameter sharding: '' (replicated) or "
+                             "'data' (FSDP2 over the data-parallel ranks); "
+                             "'context' is the CP/TP slice of ROADMAP.md "
+                             "queue 1, item 8")
     parser.add_argument("--compute-dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32", "float16"])
     parser.add_argument("--remat", action="store_true",

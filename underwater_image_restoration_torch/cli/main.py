@@ -11,6 +11,15 @@ branch (load weights, restore every image of ``--image-in`` into
 needs a CUDA GPU unless ``--use-cpu`` asks for the CPU (it raises
 ``CudaUnavailableError`` otherwise); ``--no-pallas`` runs the kernels'
 plain PyTorch versions.
+
+Data parallelism and FSDP2 run one process a rank under ``torchrun``:
+
+    torchrun --nproc-per-node N -m underwater_image_restoration_torch.cli \
+        --mesh-data N [--shard-params data] ...
+
+Rank 0 alone writes the tee log (and, in the trainer, the metrics, probe
+images and checkpoints); the other ranks print nothing.  The evaluate
+branch runs on rank 0.
 """
 from __future__ import annotations
 
@@ -52,13 +61,20 @@ def main(argv=None):
     args.save_dir = outputdirectory
     cfg = cfg.replace(save_dir=outputdirectory)
     log_name = "log_test.txt" if args.evaluate else "log_train.txt"
+    rank = int(os.environ.get("RANK", "0"))  # torchrun's
+    if rank != 0 and args.evaluate:
+        return
     prev_stdout = sys.stdout
-    sys.stdout = Logger(osp.join(args.save_dir, log_name))
+    sys.stdout = (Logger(osp.join(args.save_dir, log_name)) if rank == 0
+                  else open(os.devnull, "w"))
     try:
         _run(parser, args, cfg)
     finally:
         sys.stdout.close()
         sys.stdout = prev_stdout
+        if torch.distributed.is_available() and \
+                torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 def _run(parser, args, cfg):

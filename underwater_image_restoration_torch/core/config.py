@@ -7,8 +7,9 @@ Left out: the TPU-only fields (``compile_cache``, ``remat_policy``,
 ``param_dtype`` (parameters are f32) and ``jsonl_metrics`` (the JSONL sink
 is always on).  Added: ``use_kernels``, which the
 CLI's ``--no-pallas`` turns off to run the kernels' plain PyTorch versions.
-The parallel fields and ``remat`` are kept for the CLI's surface, and
-``validate`` refuses any value the port cannot honour.
+``mesh_data`` and ``shard_params='data'`` run under ``torchrun``
+(``core/meshes.py``); ``mesh_context`` and ``remat`` are kept for the
+CLI's surface, and ``validate`` refuses any value the port cannot honour.
 """
 from __future__ import annotations
 
@@ -76,9 +77,9 @@ class Config:
 
     # ---- extensions (no reference equivalent) ----
     image_size: int = 1024        # train transform resolution (reference hardcodes 1024²; DataLoader.py:14)
-    mesh_data: int = -1           # data-parallel size: -1 or 1 (one device)
+    mesh_data: int = -1           # data-parallel ranks: -1 = WORLD_SIZE
     mesh_context: int = 1         # context-parallel size: 1
-    shard_params: str = ""        # parameter sharding: "" (replicated)
+    shard_params: str = ""        # "" (replicated) or "data" (FSDP2)
     compute_dtype: str = "bfloat16"   # the model's compute dtype; f32 params
     remat: bool = False           # refused: see train/trainer.py
     use_kernels: bool = True      # False: the kernels' plain versions (--no-pallas)
@@ -128,17 +129,13 @@ def compute_dtype_of(cfg: Config):
 
 
 def validate(cfg: Config) -> Config:
-    """Raise ValueError for a setting the port does not run: more than one
-    device (data or context parallelism, sharded parameters: ROADMAP.md
-    queue 1, item 8) or ``remat``."""
-    if cfg.mesh_data not in (-1, 1) or cfg.mesh_context != 1 \
-            or cfg.shard_params:
-        raise ValueError(
-            f"mesh_data={cfg.mesh_data}, mesh_context={cfg.mesh_context}, "
-            f"shard_params={cfg.shard_params!r}: the port trains on one "
-            "device (mesh_data -1 or 1, mesh_context 1, shard_params ''); "
-            "data, context and parameter parallelism are ROADMAP.md "
-            "queue 1, item 8")
+    """Raise ValueError for a setting the port does not run: context or
+    tensor parallelism (the CP/TP slice of ROADMAP.md queue 1, item 8),
+    more data-parallel ranks than the process group has (start the run under
+    ``torchrun``; ``core.meshes.validate_parallel``) or ``remat``."""
+    from .meshes import validate_parallel
+
+    validate_parallel(cfg.mesh_data, cfg.mesh_context, cfg.shard_params)
     if cfg.remat:
         raise ValueError(
             "remat: the port's train step has no remat option; its kernels' "

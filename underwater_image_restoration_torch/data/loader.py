@@ -13,7 +13,11 @@ test):
   remaining order;
 - a short final batch is padded to full size by repeating its last pair,
   with a ``valid`` mask (the train step trains on the padding, as the JAX
-  step does; the eval step masks it); a decode error reaches the consumer.
+  step does; the eval step masks it); a decode error reaches the consumer;
+- ``rows`` (data parallelism, ``core.meshes.DataParallel.rows``) keeps
+  those rows of every (padded, augmented) batch: a rank's share of the
+  batch order one device would take.  Without augmentation only those rows
+  are decoded.
 """
 from __future__ import annotations
 
@@ -69,6 +73,7 @@ class PairedLoader:
         self.prefetch = prefetch
         self.epoch = 0
         self._start_batch = 0  # resume offset within the current epoch
+        self.rows: Optional[np.ndarray] = None  # a rank's rows of a batch
 
     # -- checkpointable iteration state ------------------------------------
     def state_dict(self):
@@ -93,19 +98,23 @@ class PairedLoader:
         return max(1, n // self.batch_size) if n >= self.batch_size else 0
 
     def _make_batch(self, idxs: np.ndarray, epoch: int, bi: int, pool) -> Batch:
+        valid = np.ones(self.batch_size, bool)
+        valid[len(idxs):] = False  # a short final batch repeats its last pair
+        idxs = np.concatenate([idxs, np.repeat(idxs[-1:],
+                                               self.batch_size - len(idxs))])
+        augment = self.augment is not None and self.augment.enabled
+        rows = self.rows
+        if rows is not None and not augment:  # decode the rank's rows alone
+            idxs, valid, rows = idxs[rows], valid[rows], None
         pairs = list(pool.map(self.dataset.__getitem__, idxs.tolist()))
         raw = np.stack([p[0] for p in pairs])
         ref = np.stack([p[1] for p in pairs])
-        valid = np.ones(self.batch_size, bool)
-        if raw.shape[0] < self.batch_size:  # pad short final batch
-            padn = self.batch_size - raw.shape[0]
-            raw = np.concatenate([raw, np.repeat(raw[-1:], padn, axis=0)])
-            ref = np.concatenate([ref, np.repeat(ref[-1:], padn, axis=0)])
-            valid[-padn:] = False
-        if self.augment is not None and self.augment.enabled:
+        if augment:
             # counter-based rng: deterministic per (seed, epoch, batch index)
             arng = np.random.default_rng((self.seed, epoch, bi))
             raw, ref = augment_pair_batch(raw, ref, arng, self.augment)
+        if rows is not None:
+            raw, ref, valid = raw[rows], ref[rows], valid[rows]
         return Batch(raw=raw, ref=ref, valid=valid, index=bi)
 
     def __iter__(self) -> Iterator[Batch]:

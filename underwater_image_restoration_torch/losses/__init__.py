@@ -13,6 +13,7 @@ raises FileNotFoundError unless the caller passes
 """
 from __future__ import annotations
 
+import copy
 import os
 
 import torch
@@ -46,10 +47,15 @@ COMPONENTS = ("Charbonnier", "Perceptual", "Gradient Loss", "FFL Loss",
               "MS_SSIM Loss")
 
 
-def _adaptive_pair(a, b):
-    """0.5/0.5 weights modulated by softmax(-log(detached losses))."""
+def _adaptive_pair(a, b, batch_mean=None):
+    """0.5/0.5 weights modulated by softmax(-log(detached losses));
+    ``batch_mean`` (data parallelism) turns the rank's detached losses into
+    the global batch's before the weights are formed."""
     losses = torch.stack([a, b])
-    scales = torch.softmax(-torch.log(losses.detach() + 1e-6), dim=0)
+    d = losses.detach()
+    if batch_mean is not None:
+        d = batch_mean(d)
+    scales = torch.softmax(-torch.log(d + 1e-6), dim=0)
     return (losses * 0.5 * scales).sum()
 
 
@@ -81,6 +87,18 @@ class LossFunction:
                                         "L2")
         self.batch_linear = not (self.bc_divided
                                  or loss_name.startswith("Adaptive"))
+        # data parallelism: the rank's detached batch means -> the global
+        # batch's (the Adaptive pair's weights)
+        self.batch_mean = None
+
+    def with_batch_mean(self, batch_mean) -> "LossFunction":
+        """A copy whose Adaptive weights are formed from
+        ``batch_mean(the rank's detached losses)``: the global batch's
+        under data parallelism (the ranks' rows are equal in number, so the
+        mean of the ranks' batch means is the global one)."""
+        other = copy.copy(self)
+        other.batch_mean = batch_mean
+        return other
 
     def _perc(self, p, t):
         return vgg_perceptual_loss(p, t, weights_path=self._vgg)
@@ -136,10 +154,11 @@ class LossFunction:
         if name == "Luminance":
             return luminance_loss(p, t)
         if name == "AdaptiveLuminanceCharbonnier":
-            return _adaptive_pair(charbonnier_loss(p, t), luminance_loss(p, t))
+            return _adaptive_pair(charbonnier_loss(p, t), luminance_loss(p, t),
+                                  self.batch_mean)
         if name == "AdaptiveLuminanceFFL":
             return _adaptive_pair(focal_frequency_loss(p, t),
-                                  luminance_loss(p, t))
+                                  luminance_loss(p, t), self.batch_mean)
         if name == "LuminanceFFL":
             return focal_frequency_loss(p, t) + luminance_loss(p, t)
         # ssimFFLCharbonnier

@@ -12,6 +12,10 @@ Every block at every level sends both halves to ``ops.ln_mdta`` and
 ``ops.ln_gdfn``: the CUDA kernels for CUDA tensors, the plain versions for
 CPU ones.  ``forward(x, use_kernels=False)`` takes the plain versions on any
 device; tests and ``chip_smoke.py`` use it as the reference.
+
+``inv_mag``, ``AGSSF`` and ``SFCA`` (reference SpectralTransformer.py:9-74,
+the JAX package's ``:291-358``) are defined with the reference's parameter
+names and, as there, never called by the model.
 """
 from __future__ import annotations
 
@@ -19,11 +23,16 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import (
     LayerNorm,
     fft2,
+    gelu,
+    ifft2,
+    inv_mag,
+    leaky_relu,
     ln_gdfn,
     ln_gdfn_plain,
     ln_mdta,
@@ -50,6 +59,69 @@ def _matrix(conv):
 def _taps(conv):
     """(3, 3, C) taps of a depthwise 3x3 conv."""
     return conv.weight[:, 0].permute(1, 2, 0)
+
+
+class AGSSF(nn.Module):
+    """ECA-style channel gate on the phase-only reconstruction (reference
+    SpectralTransformer.py:15-41): sigmoid of a 1D conv over the channels
+    of ``inv_mag(x)``'s spatial mean, times x.  ``conv`` is the reference's
+    ``nn.Conv1d(1, 1, k, bias=False)``, k from the channel count."""
+
+    def __init__(self, channels: int, b: int = 1, gamma: int = 2,
+                 device=None):
+        super().__init__()
+        k = self.kernel_size(channels, b, gamma)
+        self.conv = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False,
+                              device=device)
+
+    @staticmethod
+    def kernel_size(channels: int, b: int = 1, gamma: int = 2) -> int:
+        """|log2(C) / gamma + b / gamma| truncated, made odd."""
+        k = int(abs((math.log2(channels) / gamma) + b / gamma))
+        return k if k % 2 else k + 1
+
+    def forward(self, x):
+        y = inv_mag(x).float().mean(dim=(2, 3))  # (B, C)
+        y = F.conv1d(y[:, None], self.conv.weight.float(),
+                     padding=self.conv.padding)[:, 0]
+        gate = torch.sigmoid(y)[:, :, None, None]
+        return (x.float() * gate).to(x.dtype)
+
+
+class SFCA(nn.Module):
+    """Dual spatial/frequency channel attention fused by a 1x1 and AGSSF
+    (reference SpectralTransformer.py:43-74): a spatial branch (1x1 to 2C,
+    leaky relu, grouped 3x3 to C, leaky relu, plus a 1x1 of x) and a
+    frequency branch (real(fft2(x)), 1x1 to 2C, gelu, 1x1 to C,
+    real(ifft2(.)), plus a 1x1 of x), concatenated, a 1x1 to C, then the
+    gate.  The reference's chunk-and-cat after conv_1 is a no-op."""
+
+    def __init__(self, channels: int, relu_slope: float = 0.2, device=None):
+        super().__init__()
+        c = channels
+        self.relu_slope = relu_slope
+
+        def conv(cin, cout, k=1, groups=1):
+            return _conv(cin, cout, k, groups=groups, bias=True,
+                         device=device)
+
+        self.conv_1 = conv(c, 2 * c)
+        self.conv_2 = conv(2 * c, c, 3, groups=c)
+        self.identity1 = conv(c, c)
+        self.conv_f1 = conv(c, 2 * c)
+        self.conv_f2 = conv(2 * c, c)
+        self.identity2 = conv(c, c)
+        self.con2X1 = conv(2 * c, c)
+        self.agssf = AGSSF(c, device=device)
+
+    def forward(self, x):
+        out = leaky_relu(self.conv_1(x), self.relu_slope)
+        out = leaky_relu(self.conv_2(out), self.relu_slope)
+        out = out + self.identity1(x)
+        x_fft = fft2(x.float()).real.to(x.dtype)
+        x_fft = self.conv_f2(gelu(self.conv_f1(x_fft)))
+        recon = ifft2(x_fft.float()).real.to(x.dtype) + self.identity2(x)
+        return self.agssf(self.con2X1(torch.cat([out, recon], dim=1)))
 
 
 class MDTA(nn.Module):
@@ -232,7 +304,9 @@ class SpectralTransformer(nn.Module):
     def forward(self, x, use_kernels: bool = True):
         k = use_kernels
         enc = self.encoders
-        fo = self.embed_conv_rgb(x.to(self.compute_dtype))
+        # a strided input (an NHWC batch permuted) would give cuDNN's
+        # channels-last output, which the kernels do not take
+        fo = self.embed_conv_rgb(x.to(self.compute_dtype).contiguous())
         enc1 = enc[0](fo, k)
         enc2 = enc[1](self.down1(enc1), k)
         enc3 = enc[2](self.down2(enc2), k)

@@ -16,7 +16,8 @@ from typing import Callable, Optional
 import numpy as np
 
 
-def _prep_image(path: str, size: int = 256) -> np.ndarray:
+def prep_image(path: str, size: int = 256) -> np.ndarray:
+    """The probe's input: (1, size, size, 3) float32 in [-1, 1]."""
     from PIL import Image
 
     with Image.open(path) as im:
@@ -52,7 +53,7 @@ def process_image_using_model(
     size: int = 256,
     logger=None,
 ):
-    x = _prep_image(file_to_test, size)
+    x = prep_image(file_to_test, size)
     y = np.asarray(apply_fn(x))
     img = save_from_array(directory, save_name, y)
     if logger is not None:

@@ -30,6 +30,7 @@ from .wavelets import dwt2d, idwt2d
 from .spectral import (
     fft2,
     ifft2,
+    inv_mag,
     safe_abs,
     safe_angle,
     spectral_tile_upsample,
@@ -54,6 +55,7 @@ __all__ = [
     "idwt2d",
     "ifft2",
     "image_to_tokens",
+    "inv_mag",
     "l2_normalize",
     "layer_norm_channels",
     "leaky_relu",

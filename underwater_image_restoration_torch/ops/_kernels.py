@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -158,12 +159,27 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def check_plain(what: str, *tensors) -> None:
+    """Refuse a DTensor (a sharded parameter or its gradient): a kernel
+    reads whole tensors through their raw pointers.  FSDP2 hands the blocks
+    plain unsharded tensors in forward and backward, so none reaches here
+    from the model."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is None:  # not imported: no DTensor exists
+        return
+    for t in tensors:
+        if isinstance(t, mod.DTensor):
+            raise TypeError(f"{what}: a DTensor reached the kernel (shape "
+                            f"{tuple(t.shape)}); pass plain tensors")
+
+
 def check_input(what: str, x, *weights) -> None:
     """Validate what a kernel takes: a contiguous float32/bfloat16
     (B, C, H, W) CUDA tensor with C a multiple of 4, and weights on its
-    device."""
+    device, none of them a DTensor."""
     import torch
 
+    check_plain(what, x, *weights)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, x is "
                          f"on {x.device}")

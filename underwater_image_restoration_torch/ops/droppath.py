@@ -11,11 +11,30 @@ generator raises rather than draw from the global generator.
 a block draws the same numbers whether its branch goes through a fused
 kernel (which takes the scale) or through plain ops (``forward``).  The JAX
 rng stream cannot be reproduced here: parity with JAX runs at rate 0.
+
+Under data parallelism the train step passes a ``RankDraws`` in the
+generator's place: a call on the rank's ``batch`` rows draws the global
+batch's ``batch * world`` uniforms and keeps rows
+[rank batch, (rank + 1) batch).  Every rank's generator is seeded alike, so
+n ranks draw what one device draws at the global batch.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class RankDraws:
+    """A generator seeded alike on every data-parallel rank, with this
+    rank's place: DropPath draws ``world`` ranks' decisions from it and
+    keeps ``rank``'s rows."""
+
+    generator: torch.Generator
+    rank: int
+    world: int
 
 
 class DropPath(nn.Module):
@@ -25,10 +44,12 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def sample_scale(self, batch: int, generator: torch.Generator | None):
+    def sample_scale(self, batch: int,
+                     generator: torch.Generator | RankDraws | None):
         """The per-sample scale a fused kernel applies to its branch (the
         ``s`` of ``ops.ln_leff``): (batch,) f32 of 0 or 1/keep on the
-        generator's device, or None where the module is the identity."""
+        generator's device, or None where the module is the identity.  A
+        ``RankDraws`` gives the rank's rows of the global batch's draw."""
         if not self.training or self.rate == 0.0:
             return None
         if generator is None:
@@ -38,10 +59,17 @@ class DropPath(nn.Module):
                 "generator= (make_train_step(..., generator=...)), or call "
                 "eval() for inference")
         keep = 1.0 - self.rate
-        u = torch.rand(batch, generator=generator, device=generator.device)
+        rank, world = 0, 1
+        if isinstance(generator, RankDraws):
+            generator, rank, world = (generator.generator, generator.rank,
+                                      generator.world)
+        u = torch.rand(batch * world, generator=generator,
+                       device=generator.device)[rank * batch:
+                                                (rank + 1) * batch]
         return (u < keep).float() / keep
 
-    def forward(self, x, generator: torch.Generator | None = None):
+    def forward(self, x,
+                generator: torch.Generator | RankDraws | None = None):
         """``x / keep`` (in x's dtype) where a sample is kept, 0 where it is
         dropped; the identity at inference."""
         s = self.sample_scale(x.shape[0], generator)

@@ -24,6 +24,12 @@ and saves for the backward with x, as the TPU VJP saves x and the
 weights.  ``ln_gdfn_bwd`` is that backward's
 wrapper and ``ln_gdfn_bwd_plain`` its plain version (autograd through
 ``ln_gdfn_plain``).
+
+The forward is the ``torch.library`` custom op ``torch.ops.uir.ln_gdfn``
+(y and the weights' operands; the kernel on the card, the plain version
+and ``kernel_operands`` on the CPU, a fake implementation for tracing),
+which ``LnGdfnFn`` and the call without a gradient both go through, so
+``torch.export`` records it as one node.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from . import _kernels
@@ -235,10 +242,26 @@ def fwd_splits(tiles: int, hid_pad: int, sms: int = 132) -> int:
 
 
 def _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps):
-    """The forward's launches: the weights' operands (``kernel_operands``'
-    layout, made on the card), the tile kernel, then, when the hidden width
-    is split, the ordered sum of the splits' rows.  Returns y and the
-    operands (the backward's too)."""
+    """The forward's launches (``_launch``): y and the weights' operands
+    (``kernel_operands``' layout, made on the card; the backward's too)."""
+    y, planes, taps = _launch(x, scale, bias, w_in, w_dw, w_out, eps)
+    return y, _operands(planes, taps, x.shape[1], w_out.shape[0])
+
+
+def _operands(planes, taps, c, hid):
+    """``Operands`` as views of the forward's bf16 planes (W_in hi and lo,
+    W_out hi and lo, one after another) and f32 taps."""
+    hp = padded_hidden(hid)
+    n_in, n_out = c * 2 * hp, hp * c
+    win_h, win_l, wo_h, wo_l = planes.split((n_in, n_in, n_out, n_out))
+    return Operands(win_h, win_l, taps, wo_h, wo_l, hp)
+
+
+def _launch(x, scale, bias, w_in, w_dw, w_out, eps):
+    """The forward's launches: the weights' operands, the tile kernel, then,
+    when the hidden width is split, the ordered sum of the splits' rows.
+    Returns y, the operands' bf16 planes and the f32 taps."""
+    _kernels.check_input("ln_gdfn", x, scale, bias, w_in, w_dw, w_out)
     b, c, h, w = x.shape
     lib = _kernels.library("ln_gdfn")
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -248,8 +271,7 @@ def _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps):
     planes = torch.empty(2 * (n_in + n_out), device=x.device,
                          dtype=torch.bfloat16)
     taps = torch.empty(2 * hp * 9, device=x.device, dtype=torch.float32)
-    win_h, win_l, wo_h, wo_l = planes.split((n_in, n_in, n_out, n_out))
-    ops = Operands(win_h, win_l, taps, wo_h, wo_l, hp)
+    ops = _operands(planes, taps, c, hid)
     # held until the launch: a copy freed earlier could be handed to the
     # next copy (the model's weights are views) before the kernel reads it
     src = [t.float().contiguous() for t in (w_in, w_dw, w_out)]
@@ -272,7 +294,35 @@ def _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps):
         tw, splits, float(eps), stream)
     _kernels.check(lib, err, "ln_gdfn")
     ln_gdfn.launches[(c, h, w)] += 2 if splits == 1 else 3  # fwd_launches
-    return y, ops
+    return y, planes, taps
+
+
+@torch.library.custom_op("uir::ln_gdfn", mutates_args=(),
+                         device_types="cuda")
+def _ln_gdfn_op(x: Tensor, scale: Tensor, bias: Tensor, w_in: Tensor,
+                w_dw: Tensor, w_out: Tensor,
+                eps: float) -> tuple[Tensor, Tensor, Tensor]:
+    """``torch.ops.uir.ln_gdfn``: (y, the weights' bf16 planes, the f32
+    taps), the kernel on the card (``_launch``), the plain version and
+    ``kernel_operands`` on the CPU."""
+    return _launch(x, scale, bias, w_in, w_dw, w_out, eps)
+
+
+@_ln_gdfn_op.register_kernel("cpu")
+def _(x, scale, bias, w_in, w_dw, w_out, eps):
+    ops = kernel_operands(w_in, w_dw, w_out)
+    planes = torch.cat([t.reshape(-1) for t in
+                        (ops.win_h, ops.win_l, ops.wo_h, ops.wo_l)])
+    return (ln_gdfn_plain(x, scale, bias, w_in, w_dw, w_out, eps), planes,
+            ops.taps.reshape(-1))
+
+
+@_ln_gdfn_op.register_fake
+def _(x, scale, bias, w_in, w_dw, w_out, eps):
+    c, hp = x.shape[1], padded_hidden(w_out.shape[0])
+    return (torch.empty_like(x),
+            x.new_empty(2 * (c * 2 * hp + hp * c), dtype=torch.bfloat16),
+            x.new_empty(2 * hp * 9, dtype=torch.float32))
 
 
 def fwd_launches(b: int, h: int, w: int, c: int, hid_pad: int,
@@ -344,42 +394,47 @@ def _backward_cuda(x, dy, scale, bias, ops, hid, eps):
 
 
 class LnGdfnFn(torch.autograd.Function):
-    """The CUDA forward with the CUDA backward; saves x, the LayerNorm's
-    affine and the weights' operands (made once a call for both)."""
+    """The CUDA forward (``torch.ops.uir.ln_gdfn``) with the CUDA backward;
+    saves x, the LayerNorm's affine and the weights' operands (made once a
+    call for both)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w_in, w_dw, w_out, eps):
-        _kernels.check_input("ln_gdfn", x, scale, bias, w_in, w_dw, w_out)
-        y, ops = _forward_cuda(x, scale, bias, w_in, w_dw, w_out, eps)
-        ctx.eps, ctx.hid, ctx.hid_pad = eps, w_out.shape[0], ops.hid_pad
+        y, planes, taps = torch.ops.uir.ln_gdfn(x, scale, bias, w_in, w_dw,
+                                                w_out, eps)
+        ctx.eps, ctx.hid = eps, w_out.shape[0]
         ctx.dtypes = tuple(t.dtype for t in (scale, bias, w_in, w_dw, w_out))
-        ctx.save_for_backward(x, scale, bias, *ops[:5])
+        ctx.save_for_backward(x, scale, bias, planes, taps)
         return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, scale, bias, *ops = ctx.saved_tensors
+        x, scale, bias, planes, taps = ctx.saved_tensors
         if dy.shape != x.shape or dy.dtype != x.dtype:
             raise ValueError("ln_gdfn_bwd: dy must match x in shape and "
                              "dtype")
         grads = _backward_cuda(x, dy, scale, bias,
-                               Operands(*ops, ctx.hid_pad), ctx.hid, ctx.eps)
+                               _operands(planes, taps, x.shape[1], ctx.hid),
+                               ctx.hid, ctx.eps)
         return (grads[0],) + tuple(g.to(dt) for g, dt in
                                    zip(grads[1:], ctx.dtypes)) + (None,)
 
 
 def ln_gdfn(x, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
     """``x + GDFN(LayerNorm(x))``: the CUDA kernels (forward and backward)
-    for a CUDA tensor, the plain version for a CPU tensor; without a
-    gradient to take, the forward alone (no autograd Function)."""
+    for a CUDA tensor, the plain version for a CPU tensor.  Without a
+    gradient to take, the forward on the card is the custom op
+    ``torch.ops.uir.ln_gdfn`` alone; with one, ``LnGdfnFn``.  Under
+    ``torch.export`` a call without a gradient is the op on the CPU too
+    (what the program records)."""
     args = (x, scale, bias, w_in, w_dw, w_out)
-    if x.device.type == "cpu":
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    if x.device.type == "cpu" and (grad or not torch.compiler.is_exporting()):
         return ln_gdfn_plain(*args, eps)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+    if grad:
         return LnGdfnFn.apply(*args, eps)
-    _kernels.check_input("ln_gdfn", *args)
-    return _forward_cuda(*args, eps)[0]  # no backward
+    return torch.ops.uir.ln_gdfn(*args, eps)[0]
 
 
 # launches of the CUDA kernel(s), by (C, H, W); the CPU path adds none

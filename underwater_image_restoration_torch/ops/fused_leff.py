@@ -27,13 +27,21 @@ in image slices, ``bwd_plan``); it saves x, the prepared operands and s,
 never the hidden activations, and gives s no gradient, as the TPU VJP
 does.  ``ln_leff_bwd`` is that backward's wrapper and ``ln_leff_bwd_plain``
 its plain version (autograd through ``ln_leff_plain``).
+
+The forward is the ``torch.library`` custom op ``torch.ops.uir.ln_leff``
+(y and ``pack_operands``' two buffers; the kernels on the card, the plain
+version on the CPU, a fake implementation for tracing), which ``LnLeffFn``
+and the call without a gradient both go through, so ``torch.export``
+records it as one node.
 """
 from __future__ import annotations
 
 import collections
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from . import _kernels
@@ -99,17 +107,38 @@ class Operands(collections.namedtuple(
     bf16 planes (hi, mid as w1l/w2l, lo as w1x/w2x), then hid_pad."""
 
 
+def pack_operands(w1, b1, w_dw, b_dw, w2, b2, dtype):
+    """``kernel_weights`` packed into two buffers: fc1 and fc2 as three bf16
+    planes each (``_kernels.split_bf16``: hi, mid, lo of fc1, then of fc2),
+    and fc1's bias, the taps, their bias and fc2's bias in f32, each buffer
+    one piece after another.  Returns (planes, f32 values, hid_pad)."""
+    w1k, b1k, taps, bdwk, w2k, b2k, hp = kernel_weights(w1, b1, w_dw, b_dw,
+                                                        w2, b2, dtype)
+    planes = torch.cat([t.reshape(-1) for t in (
+        *_kernels.split_bf16(w1k, 3), *_kernels.split_bf16(w2k, 3))])
+    return planes, torch.cat([b1k, taps.reshape(-1), bdwk, b2k]), hp
+
+
+def unpack_operands(planes, values, c, hid_pad):
+    """``Operands`` as views of ``pack_operands``' two buffers."""
+    n = c * hid_pad
+    w1h, w1l, w1x, w2h, w2l, w2x = planes.split(n)
+    b1, taps, bdw, b2 = values.split((hid_pad, 9 * hid_pad, hid_pad, c))
+    return Operands(w1h.view(c, hid_pad), w1l.view(c, hid_pad), b1,
+                    taps.view(9, hid_pad), bdw, w2h.view(hid_pad, c),
+                    w2l.view(hid_pad, c), b2, w1x.view(c, hid_pad),
+                    w2x.view(hid_pad, c), hid_pad)
+
+
 def kernel_operands(w1, b1, w_dw, b_dw, w2, b2, dtype):
     """``kernel_weights`` with fc1 and fc2 as the bf16 planes the
     tensor-core products read (``_kernels.split_bf16``, three planes: the
     forward reads all three in f32, the backward hi and mid as its hi/lo
     pair; in bf16 they are exact and only hi is read): prepared once a
-    call, for the forward and the backward."""
-    w1k, b1k, taps, bdwk, w2k, b2k, hp = kernel_weights(w1, b1, w_dw, b_dw,
-                                                        w2, b2, dtype)
-    w1h, w1l, w1x = _kernels.split_bf16(w1k, 3)
-    w2h, w2l, w2x = _kernels.split_bf16(w2k, 3)
-    return Operands(w1h, w1l, b1k, taps, bdwk, w2h, w2l, b2k, w1x, w2x, hp)
+    call, for the forward and the backward (views of ``pack_operands``'
+    buffers)."""
+    planes, values, hp = pack_operands(w1, b1, w_dw, b_dw, w2, b2, dtype)
+    return unpack_operands(planes, values, w1.shape[0], hp)
 
 
 def _align256(n: int) -> int:
@@ -154,7 +183,8 @@ def fwd_plan(b: int, h: int, w: int, c: int, hid_pad: int,
 def _check(what, x, w1, w2, *weights):
     """What the kernels take: contiguous float32/bfloat16 (B, H, W, C)
     tokens on a CUDA device, C a multiple of 8 matching w1 (C, hid) and w2
-    (hid, C), the weights on x's device."""
+    (hid, C), the weights on x's device, none of them a DTensor."""
+    _kernels.check_plain(what, x, w1, w2, *weights)
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, x "
                          f"is on {x.device}")
@@ -350,31 +380,64 @@ def ln_leff_bwd(x, dy, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
                           residual)
 
 
+@torch.library.custom_op("uir::ln_leff", mutates_args=(),
+                         device_types="cuda")
+def _ln_leff_op(x: Tensor, scale: Tensor, bias: Tensor, w1: Tensor,
+                b1: Tensor, w_dw: Tensor, b_dw: Tensor, w2: Tensor,
+                b2: Tensor, s: Optional[Tensor], eps: float,
+                residual: bool) -> tuple[Tensor, Tensor, Tensor]:
+    """``torch.ops.uir.ln_leff``: (y, then ``pack_operands``' two buffers),
+    the kernels on the card, the plain version on the CPU."""
+    _check("ln_leff", x, w1, w2, scale, bias, b1, w_dw, b_dw, b2, s)
+    planes, values, hp = pack_operands(w1, b1, w_dw, b_dw, w2, b2, x.dtype)
+    y = _forward_cuda(x, scale, bias,
+                      unpack_operands(planes, values, x.shape[3], hp), s, eps,
+                      residual)
+    return y, planes, values
+
+
+@_ln_leff_op.register_kernel("cpu")
+def _(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps, residual):
+    planes, values, _ = pack_operands(w1, b1, w_dw, b_dw, w2, b2, x.dtype)
+    return (ln_leff_plain(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
+                          residual), planes, values)
+
+
+@_ln_leff_op.register_fake
+def _(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps, residual):
+    c, hp = x.shape[3], -(-w1.shape[1] // HIDDEN_CHUNK) * HIDDEN_CHUNK
+    return (torch.empty_like(x),
+            x.new_empty(6 * c * hp, dtype=torch.bfloat16),
+            x.new_empty(11 * hp + c, dtype=torch.float32))
+
+
 class LnLeffFn(torch.autograd.Function):
-    """The CUDA forward with the CUDA backward; prepares the kernels'
-    operands once (``kernel_operands``) and saves them with x and s.
-    Gradients come back for the Function's own inputs (the views
-    ``LeFF.operands()`` passes), f32 for f32 parameters; none for s."""
+    """The CUDA forward (``torch.ops.uir.ln_leff``, which prepares the
+    kernels' operands once a call) with the CUDA backward; saves x, the
+    operands and s.  Gradients come back for the Function's own inputs (the
+    views ``LeFF.operands()`` passes), f32 for f32 parameters; none for
+    s."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
                 residual):
-        _check("ln_leff", x, w1, w2, scale, bias, b1, w_dw, b_dw, b2, s)
-        ops = kernel_operands(w1, b1, w_dw, b_dw, w2, b2, x.dtype)
+        y, planes, values = torch.ops.uir.ln_leff(
+            x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps, residual)
         ctx.eps, ctx.residual, ctx.hid = eps, residual, w1.shape[1]
-        ctx.hid_pad = ops.hid_pad
         ctx.dtypes = tuple(t.dtype for t in (scale, bias, w1, b1, w_dw,
                                               b_dw, w2, b2))
-        ctx.save_for_backward(x, scale, bias, s, *ops[:-1])
-        return _forward_cuda(x, scale, bias, ops, s, eps, residual)
+        ctx.save_for_backward(x, scale, bias, s, planes, values)
+        return y
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        x, scale, bias, s, *ops = ctx.saved_tensors
+        x, scale, bias, s, planes, values = ctx.saved_tensors
+        hp = -(-ctx.hid // HIDDEN_CHUNK) * HIDDEN_CHUNK
         grads = _backward_cuda(x, dy, scale, bias,
-                               Operands(*ops, ctx.hid_pad), ctx.hid, s,
-                               ctx.eps, ctx.residual)
+                               unpack_operands(planes, values, x.shape[3],
+                                               hp),
+                               ctx.hid, s, ctx.eps, ctx.residual)
         return ((grads[0],) + tuple(g.to(d) for g, d in
                                     zip(grads[1:], ctx.dtypes)) + (None,) * 3)
 
@@ -383,12 +446,17 @@ def ln_leff(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
             eps: float = 1e-5, residual: bool = True):
     """``x + s_b * LeFF(LayerNorm(x))`` on (B, H, W, C): the CUDA kernels
     (forward and backward) for a CUDA tensor, the plain version for a CPU
-    tensor."""
-    if x.device.type == "cpu":
-        return ln_leff_plain(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s,
-                             eps, residual)
-    return LnLeffFn.apply(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s, eps,
-                          residual)
+    tensor.  Without a gradient to take, the forward on the card is the
+    custom op ``torch.ops.uir.ln_leff`` alone; with one, ``LnLeffFn``.
+    Under ``torch.export`` a call without a gradient is the op on the CPU
+    too (what the program records)."""
+    args = (x, scale, bias, w1, b1, w_dw, b_dw, w2, b2)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    if x.device.type == "cpu" and (grad or not torch.compiler.is_exporting()):
+        return ln_leff_plain(*args, s, eps, residual)
+    if grad:
+        return LnLeffFn.apply(*args, s, eps, residual)
+    return torch.ops.uir.ln_leff(*args, s, eps, residual)[0]
 
 
 # launches of the CUDA kernels, by (C, H, W); the CPU path adds none

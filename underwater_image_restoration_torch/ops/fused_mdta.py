@@ -27,12 +27,18 @@ the weights and the per-image stats the forward wrote (gram and row sums of
 squares), as the TPU VJP saves (x, G, Sq, Sk).  ``ln_mdta_bwd`` is that backward's wrapper
 and ``ln_mdta_bwd_plain`` its plain version (autograd through
 ``ln_mdta_plain``); the dead ``kf`` half of w_kv / t_kv gets zeros.
+
+The forward is the ``torch.library`` custom op ``torch.ops.uir.ln_mdta``
+(y and the stats; the kernels on the card, ``_plain`` on the CPU, a fake
+implementation for tracing), which ``LnMdtaFn`` and the call without a
+gradient both go through, so ``torch.export`` records it as one node.
 """
 from __future__ import annotations
 
 import collections
 
 import torch
+from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from . import _kernels
@@ -45,6 +51,15 @@ def ln_mdta_plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
                   w_pof, num_heads: int, eps: float = 1e-5):
     """Plain PyTorch version of the kernels (the CPU path and the kernels'
     reference on the card)."""
+    return _plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
+                  w_pof, num_heads, eps)
+
+
+def _plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
+           num_heads, eps, with_stats=False):
+    """``ln_mdta_plain``; with ``with_stats``, (y, stats) with the stats the
+    kernels write (each image's gram within the heads, Sq and Sk of
+    round(q) and round(k), ``forward_with_stats``' layout)."""
     b, c, h, w = x.shape
     dt = x.dtype
 
@@ -54,15 +69,20 @@ def ln_mdta_plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
     ln = layer_norm_channels(x, scale, bias, eps).float()
     qkv = dwconv3x3(conv1x1(ln, w_qkv.float()), t_qkv.float())
     q, k, v = qkv[:, :c], qkv[:, c:2 * c], qkv[:, 2 * c:]
-    q = l2_normalize(heads(q.to(dt).float()))
-    k = l2_normalize(heads(k.to(dt).float()))
-    outs, attn = channel_attention_core(q, k, heads(v), temp)
+    q, k = heads(q.to(dt).float()), heads(k.to(dt).float())
+    outs, attn = channel_attention_core(l2_normalize(q), l2_normalize(k),
+                                        heads(v), temp)
     out = conv1x1(outs.to(dt).float().reshape(b, c, h, w), w_po.float())
     vf = dwconv3x3(conv1x1(out.to(dt).float(), w_kv[:, c:].float()),
                    t_kv[:, :, c:].float())
     outf = torch.einsum("bhcd,bhdl->bhcl", attn, heads(vf)).to(dt)
     yf = conv1x1(outf.float().reshape(b, c, h, w), w_pof.float())
-    return x + yf.to(dt)
+    y = x + yf.to(dt)
+    if not with_stats:
+        return y
+    gram = torch.einsum("bhil,bhjl->bhij", q, k).reshape(b, -1)
+    return y, torch.cat([gram, q.square().sum(-1).reshape(b, c),
+                         k.square().sum(-1).reshape(b, c)], 1).reshape(-1)
 
 
 def _check_heads(c, num_heads):
@@ -361,15 +381,44 @@ def ln_mdta_bwd(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
             g_po.view(c, c), dw_kv, dt_kv, g_pof.view(c, c))
 
 
+@torch.library.custom_op("uir::ln_mdta", mutates_args=(),
+                         device_types="cuda")
+def _ln_mdta_op(x: Tensor, scale: Tensor, bias: Tensor, w_qkv: Tensor,
+                t_qkv: Tensor, temp: Tensor, w_po: Tensor, w_kv: Tensor,
+                t_kv: Tensor, w_pof: Tensor, num_heads: int,
+                eps: float) -> tuple[Tensor, Tensor]:
+    """``torch.ops.uir.ln_mdta``: (y, stats), the kernels on the card
+    (``forward_with_stats``), the plain version on the CPU."""
+    return forward_with_stats(x, scale, bias, w_qkv, t_qkv, temp, w_po,
+                              w_kv, t_kv, w_pof, num_heads, eps)
+
+
+@_ln_mdta_op.register_kernel("cpu")
+def _(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
+      num_heads, eps):
+    return _plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
+                  w_pof, num_heads, eps, with_stats=True)
+
+
+@_ln_mdta_op.register_fake
+def _(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
+      num_heads, eps):
+    b, c = x.shape[:2]
+    return (torch.empty_like(x),
+            x.new_empty(b * (c * (c // num_heads) + 2 * c),
+                        dtype=torch.float32))
+
+
 class LnMdtaFn(torch.autograd.Function):
-    """The CUDA forward with the CUDA backward; saves x, the weights and the
-    per-image stats."""
+    """The CUDA forward (``torch.ops.uir.ln_mdta``) with the CUDA backward;
+    saves x, the weights and the per-image stats."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
                 w_pof, num_heads, eps):
-        y, stats = forward_with_stats(x, scale, bias, w_qkv, t_qkv, temp,
-                                      w_po, w_kv, t_kv, w_pof, num_heads, eps)
+        y, stats = torch.ops.uir.ln_mdta(x, scale, bias, w_qkv, t_qkv, temp,
+                                         w_po, w_kv, t_kv, w_pof, num_heads,
+                                         eps)
         ctx.num_heads, ctx.eps = num_heads, eps
         ctx.save_for_backward(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
                               t_kv, w_pof, stats)
@@ -387,14 +436,18 @@ class LnMdtaFn(torch.autograd.Function):
 def ln_mdta(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
             num_heads: int, eps: float = 1e-5):
     """``x + MDTA(LayerNorm(x))``: the CUDA kernels (forward and backward)
-    for a CUDA tensor, the plain version for a CPU tensor; without a
-    gradient to take, the forward alone (no autograd Function)."""
+    for a CUDA tensor, the plain version for a CPU tensor.  Without a
+    gradient to take, the forward on the card is the custom op
+    ``torch.ops.uir.ln_mdta`` alone; with one, ``LnMdtaFn``.  Under
+    ``torch.export`` a call without a gradient is the op on the CPU too
+    (what the program records)."""
     args = (x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof)
-    if x.device.type == "cpu":
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    if x.device.type == "cpu" and (grad or not torch.compiler.is_exporting()):
         return ln_mdta_plain(*args, num_heads, eps)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+    if grad:
         return LnMdtaFn.apply(*args, num_heads, eps)
-    return forward_with_stats(*args, num_heads, eps)[0]  # no backward
+    return torch.ops.uir.ln_mdta(*args, num_heads, eps)[0]
 
 
 # launches of the CUDA kernel(s), by (C, H, W); the CPU path adds none

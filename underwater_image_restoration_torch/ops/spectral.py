@@ -42,6 +42,15 @@ def safe_angle(f):
     return _SafeAtan2.apply(f.imag, f.real)
 
 
+def inv_mag(x):
+    """Phase-only reconstruction (reference SpectralTransformer.py:9-13):
+    ``ifft2(exp(i * angle(fft2(x)))).real`` in f32, returned in x.dtype;
+    ``safe_angle`` keeps a zero gradient at exactly-zero bins."""
+    pha = safe_angle(fft2(x.float()))
+    return ifft2(torch.complex(torch.cos(pha), torch.sin(pha))).real.to(
+        x.dtype)
+
+
 def zero_stuff2x(x):
     """(B, C, H, W) -> (B, C, 2H, 2W) with x at the even positions."""
     b, c, h, w = x.shape

@@ -7,7 +7,9 @@ Counterpart of the JAX package's ``ops/pallas.py:217 window_attention``
 ``sparse_w`` the (2,) mix vector or None, mask ``(nW, N, N)`` or None.
 
 ``window_attention`` launches ``csrc/window_attn.cu`` for CUDA tensors
-through ``WindowAttnFn``, whose backward launches ``csrc/window_attn_bwd.cu``
+through the custom op ``torch.ops.uir.window_attn`` (which ``torch.export``
+records as one node; the plain version on the CPU) and, with a gradient to
+take, ``WindowAttnFn``, whose backward launches ``csrc/window_attn_bwd.cu``
 (``window_attn_bwd``): the same recompute from the inputs as the TPU
 kernel's custom VJP (``pallas.py:191``), as one kernel.  CPU tensors take
 the plain versions, ``window_attention_plain`` and ``window_attention_bwd``
@@ -33,8 +35,10 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from typing import Optional
 
 import torch
+from torch import Tensor
 
 from . import _kernels
 from .attention import window_attention_core
@@ -163,6 +167,7 @@ def window_attention_plain(q, k, v, bias, *, scale: float, sparse_w=None,
 
 
 def _check(q, k, v, bias, sparse_w, mask):
+    _kernels.check_plain("window_attn", q, k, v, bias, sparse_w, mask)
     bq, h, n, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"window_attn: the CUDA kernel takes CUDA tensors, "
@@ -226,8 +231,7 @@ def _forward_cuda(q, k, v, bias, scale, sparse_w, mask):
     _check(q, k, v, bias, sparse_w, mask)
     bq, h, n, d = q.shape
     lib = _kernels.library("window_attn")
-    out = torch.empty((bq, n, h, d), device=q.device,
-                      dtype=q.dtype).transpose(1, 2)
+    out = _out_like(q)
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
     bi, mk, w = _operands(bias, sparse_w, mask)
@@ -315,16 +319,48 @@ def window_attn_bwd(g, q, k, v, bias, *, scale: float, sparse_w=None,
     return dq, dk, dv, dbias, dw
 
 
+def _out_like(q):
+    """The kernel's output for q: (B', heads, N, d), a view of a
+    (B', N, heads, d) tensor."""
+    bq, h, n, d = q.shape
+    return q.new_empty((bq, n, h, d)).transpose(1, 2)
+
+
+@torch.library.custom_op("uir::window_attn", mutates_args=(),
+                         device_types="cuda")
+def _window_attn_op(q: Tensor, k: Tensor, v: Tensor, bias: Tensor,
+                    sparse_w: Optional[Tensor], mask: Optional[Tensor],
+                    scale: float) -> Tensor:
+    """``torch.ops.uir.window_attn``: the kernel on the card
+    (``_forward_cuda``), the plain version on the CPU, both in
+    ``_out_like``'s layout."""
+    return _forward_cuda(q, k, v, bias, scale, sparse_w, mask)
+
+
+@_window_attn_op.register_kernel("cpu")
+def _(q, k, v, bias, sparse_w, mask, scale):
+    out = _out_like(q)
+    out.copy_(window_attention_plain(q, k, v, bias, scale=scale,
+                                     sparse_w=sparse_w, mask=mask))
+    return out
+
+
+@_window_attn_op.register_fake
+def _(q, k, v, bias, sparse_w, mask, scale):
+    return _out_like(q)
+
+
 class WindowAttnFn(torch.autograd.Function):
-    """The CUDA forward; the backward recomputes from the inputs in
-    ``csrc/window_attn_bwd.cu`` (the attention matrices are never
-    stored)."""
+    """The CUDA forward (``torch.ops.uir.window_attn``); the backward
+    recomputes from the inputs in ``csrc/window_attn_bwd.cu`` (the
+    attention matrices are never stored)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, sparse_w, mask, scale):
         ctx.scale = scale
         ctx.save_for_backward(q, k, v, bias, sparse_w, mask)
-        return _forward_cuda(q, k, v, bias, scale, sparse_w, mask)
+        return torch.ops.uir.window_attn(q, k, v, bias, sparse_w, mask,
+                                         scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -338,16 +374,20 @@ def window_attention(q, k, v, bias, *, scale: float, sparse_w=None,
                      mask=None):
     """The CUDA kernel (with the kernel backward) for CUDA tensors, the
     plain version for CPU tensors.  Without a gradient to take, the forward
-    is launched directly, without the autograd Function (a fifth of a
-    small call's host time)."""
-    if q.device.type == "cpu":
+    on the card is the custom op ``torch.ops.uir.window_attn`` alone,
+    without the autograd Function (a fifth of a small call's host time).
+    Under ``torch.export`` a call without a gradient is the op on the CPU
+    too (what the program records)."""
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, bias, sparse_w))
+    if q.device.type == "cpu" and (grad or not torch.compiler.is_exporting()):
         return window_attention_plain(q, k, v, bias, scale=scale,
                                       sparse_w=sparse_w, mask=mask)
-    if not torch.is_grad_enabled() or not any(
-            t is not None and t.requires_grad
-            for t in (q, k, v, bias, sparse_w)):
-        return _forward_cuda(q, k, v, bias, float(scale), sparse_w, mask)
-    return WindowAttnFn.apply(q, k, v, bias, sparse_w, mask, float(scale))
+    if grad:
+        return WindowAttnFn.apply(q, k, v, bias, sparse_w, mask,
+                                  float(scale))
+    return torch.ops.uir.window_attn(q, k, v, bias, sparse_w, mask,
+                                     float(scale))
 
 
 # launches of the CUDA kernels, by (B', heads, N, d, masked): one a forward

@@ -71,11 +71,13 @@ _MASKS: dict = {}
 def shift_mask(h: int, w: int, win_size: int, shift_size: int,
                device) -> torch.Tensor:
     """``shift_window_mask`` as a float32 tensor on ``device``, built once a
-    (h, w, ws, ss, device)."""
+    (h, w, ws, ss, device).  One built while a tracer runs (``torch.export``
+    gives a fake tensor here) is not kept."""
     key = (h, w, win_size, shift_size, str(torch.device(device)))
     m = _MASKS.get(key)
     if m is None:
         m = torch.from_numpy(shift_window_mask(h, w, win_size,
                                                shift_size)).to(device)
-        _MASKS[key] = m
+        if type(m) is torch.Tensor:
+            _MASKS[key] = m
     return m

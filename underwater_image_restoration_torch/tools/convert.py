@@ -4,7 +4,8 @@ The port's ``state_dict`` uses the reference's names and layouts (OIHW
 convs, ``(in, out, kh, kw)`` transposed convs, ``(out, in)`` Linears), so:
 
 - ``params_from_jax(flat)`` maps the JAX package's flat ``a/b/c`` parameter
-  paths (HWIO kernels, ``(in, out)`` Dense kernels) onto it.  It is the
+  paths (HWIO kernels, ``(in, out)`` Dense kernels) onto it, the dormant
+  SFCA and AGSSF modules' trees included.  It is the
   inverse of the JAX package's ``tools/convert_checkpoint.py``
   ``convert_spectral_transformer`` (``:81``), ``convert_ast`` (``:205``)
   and ``convert_new_family`` (``:200``; both through ``_blocky_convert:141``,
@@ -119,9 +120,33 @@ def _new_name(path: str, v: np.ndarray):
     return f"{mod}.weight", a
 
 
+_SFCA_CONVS = re.compile(r"(?:(.+)/)?(conv_1|conv_2|identity1|identity2"
+                         r"|conv_f1|conv_f2|con2X1)/(kernel|bias)")
+_AGSSF_CONV = re.compile(r"(?:(.+)/)?conv")
+
+
+def _sfca_name(path: str, v: np.ndarray):
+    """SFCA / AGSSF JAX flat path (of the module's own tree, or under a
+    prefix) -> (reference name, array), or None: the convs' HWIO kernels
+    to OIHW, AGSSF's 1D taps (k, 1, 1) to the Conv1d's (1, 1, k)."""
+    m = _SFCA_CONVS.fullmatch(path)
+    if m:
+        pre, conv, kind = m.groups()
+        leaf, a = _leaf(kind, v)
+        pre = pre.replace("/", ".") + "." if pre else ""
+        return f"{pre}{conv}.{leaf}", a
+    m = _AGSSF_CONV.fullmatch(path)
+    if m and v.ndim == 3:
+        pre = m.group(1).replace("/", ".") + "." if m.group(1) else ""
+        return f"{pre}conv.weight", np.ascontiguousarray(v[:, 0, 0][None,
+                                                                    None])
+    return None
+
+
 def _name(path: str, v: np.ndarray):
     """JAX flat path -> (reference name, array)."""
-    for named in (_ast_name(path, v), _new_name(path, v)):
+    for name_of in (_sfca_name, _ast_name, _new_name):
+        named = name_of(path, v)
         if named is not None:
             return named
     m = re.fullmatch(r"(enc\d|dec\d|refinement)_(\d+)/(.+)", path)

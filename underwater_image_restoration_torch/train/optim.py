@@ -41,23 +41,47 @@ def multistep_lr(base_lr: float, milestones: Sequence[int] = DEFAULT_MILESTONES,
     return lr
 
 
+def _shards(tensors):
+    """(local tensors, process group): a sharded model's gradients are
+    DTensors (FSDP2), whose local shards together hold every element once;
+    others are their own, with no group."""
+    try:
+        from torch.distributed.tensor import DTensor
+    except ImportError:  # a build without torch.distributed
+        return list(tensors), None
+    if tensors and isinstance(tensors[0], DTensor):
+        return ([t.to_local() for t in tensors],
+                tensors[0].device_mesh.get_group())
+    return list(tensors), None
+
+
 @torch.no_grad()
 def global_norm(tensors) -> torch.Tensor:
     """The 2-norm of every element together, in f32 (optax's
-    ``global_norm``), from one multi-tensor launch over the list."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    ``global_norm``), from one multi-tensor launch over the list; over the
+    ranks' shards for sharded gradients (their sums of squares
+    all-reduced)."""
+    local, group = _shards(tensors)
+    norms = torch._foreach_norm([t.float() for t in local])
+    if group is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    import torch.distributed as dist
+
+    sq = torch.stack(norms).square().sum()
+    dist.all_reduce(sq, group=group)
+    return sq.sqrt()
 
 
 @torch.no_grad()
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm``, in place: each g becomes
     ``g * (max_norm / ||g||)`` when ``||g|| >= max_norm`` (optax's
-    ``g / ||g|| * max_norm`` to an ulp).  Returns ||g|| before the clip;
-    no host synchronisation."""
+    ``g / ||g|| * max_norm`` to an ulp), with the global norm of sharded
+    gradients too.  Returns ||g|| before the clip; no host
+    synchronisation."""
     norm = global_norm(grads)
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_(_shards(grads)[0], scale)
     return norm
 
 
