@@ -13,6 +13,7 @@ checks where the time and the launches went.
     python3 chip_smoke.py --phase run    # phases 1 (Spectral kernels) and 10
     python3 chip_smoke.py --phase eval    # phases 1, 10 and 11
     python3 chip_smoke.py --phase parallel    # phases 1 and 12
+    python3 chip_smoke.py --phase context    # phases 1 (AST kernels) and 13
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
@@ -170,7 +171,27 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    10), the program vs the eager forward at batch 8 and 3 within 1e-6 with
    the eager launches, reloaded in a fresh process that launches the
    kernels, its images/s beside eager ``batched_apply``'s in turns there;
-   (d) Grad-CAM through the kernels and SFCA on the card vs the CPU, f32.
+   (d) Grad-CAM through the kernels and SFCA on the card vs the CPU, f32;
+13. context and tensor parallelism (``context_phase``; two processes
+   sharing the card over gloo, mesh 1 x 2: correctness and the host's
+   round trips, not scaling): (a) the context-parallel train step of
+   AST@256 (default kwargs, bf16, batch 16; each rank its band of the
+   images' rows): each rank's launches of ln_leff, ln_leff_bwd,
+   window_attn and window_attn_bwd from zero as the planners say for its
+   band with its halo row (``cp_launches``), no plain version called,
+   loss and gradients vs the one-rank step within phase 7's limits (bf16
+   at batch 16, f32 at batch 4), images/s and peak memory a rank beside
+   one rank's, in turns; (b) the same for NewModel@256 in the Fourier
+   (the distributed token FFT, FDFP's ``sharded_fft2``) and Wavelet modes
+   within phase 9's limits; (c) ``--shard-params context`` (FSDP2 over the
+   context dimension): its gradients vs (a)'s, its checkpoint loaded
+   strict on one device giving the sharded model's f32 forward; (d) the
+   CLI under ``torchrun --nproc-per-node 2 ... -a AST --mesh-context 2``
+   for one epoch over synthetic pairs (f32, TF32 off), its logged
+   validation vs a one-process ``evaluate`` of its checkpoint; (e) the
+   primitives (halo exchange, roll, the rank's window attention, Ulysses,
+   the distributed FFT, a halo'd conv, LN+LeFF on a band) on CUDA tensors
+   vs the one-process ops.
 The last line is the JSON device record; the line before it the kernels'.
 """
 import argparse
@@ -3174,6 +3195,556 @@ def parallel_phase(card, batch, size, check_batch):
     return []
 
 
+# 13. context and tensor parallelism of the window-attention models
+
+CTX_WORLD = 2
+# phase 13's models: AST@256 at the default kwargs, NewModel@256 in both
+# modes (13(a)-(b)), with their one-step gradient limits
+CTX_CASES = (("AST", "AST", {}),
+             ("NewModel-Fourier", "NewModel", {"use_dwt": "Fourier"}),
+             ("NewModel-Wavelet", "NewModel", {"use_dwt": "Wavelet"}))
+# steps a turn: the Fourier mode's two ranks ran at 2.96-3.29 images/s on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, PR 13; its distributed FFTs
+# move the whole map through gloo's host round trip), so its turns are
+# short
+CTX_STEPS = {"AST": 10, "NewModel-Fourier": 3, "NewModel-Wavelet": 10}
+# the primitives on CUDA tensors (f32) vs the one-process op on the whole
+# map in the same process, of max|ref|: data movement is exact, the kernels
+# and cuFFT/cuDNN walk a band in another order than the whole map
+CTX_PRIM_TOL = 1e-5
+# the CLI's logged validation vs a one-process ``evaluate`` of its
+# checkpoint (f32, TF32 off in both), relative
+CTX_CLI_TOL = 1e-5
+CTX_CLI_PAIRS = (32, 8)
+
+
+def _ctx_tol(name):
+    return AST_TRAIN_GRAD_TOL if name == "AST" else NEW_TRAIN_GRAD_TOL
+
+
+def cp_launches(model, batch, index, n, sms):
+    """What the planners say one train step (forward and backward) of the
+    AST or a New* model at ``batch`` in bf16 launches on context rank
+    ``index`` of ``n``: ln_leff and ln_leff_bwd by (C, rows, W), the rows
+    the band's with a halo row to each neighbouring rank on a level the
+    model runs on bands (``_level_banded``) and the whole map's elsewhere;
+    window_attn and window_attn_bwd by (B', heads, N, d, masked), B' the
+    band's windows."""
+    import importlib
+
+    from underwater_image_restoration_torch.models.ast import AST
+    from underwater_image_restoration_torch.models.new_model import (
+        DecoderBlock,
+        EncoderBlock,
+    )
+    from underwater_image_restoration_torch.ops import fused_leff
+
+    wa = importlib.import_module(
+        "underwater_image_restoration_torch.ops.window_attention")
+    out = {k: collections.Counter() for k in (
+        "ln_leff", "ln_leff_bwd", "window_attn", "window_attn_bwd")}
+    halo = (index > 0) + (index < n - 1)
+
+    def leff(c, side, banded):
+        rows = side // n + halo if banded else side
+        out["ln_leff"][(c, rows, side)] += fused_leff.fwd_plan(
+            batch, rows, side, c, 4 * c, 2).launches
+        out["ln_leff_bwd"][(c, rows, side)] += fused_leff.bwd_plan(
+            batch, rows, side, c, 4 * c, 2, sms).launches
+
+    def attn(side, banded, ws, heads, c, masked, calls):
+        rows = side // n if banded else side
+        key = (batch * (rows // ws) * (side // ws), heads, ws * ws,
+               c // heads, masked)
+        out["window_attn"][key] += calls
+        out["window_attn_bwd"][key] += calls * wa.bwd_plan(
+            key[0], heads, ws * ws, sms, d=key[3], itemsize=2).launches
+
+    s = model.img_size
+    if isinstance(model, AST):
+        layers = ([(getattr(model, f"encoderlayer_{i}"), s >> i)
+                   for i in range(4)] + [(model.conv, s >> 4)]
+                  + [(getattr(model, f"decoderlayer_{i}"), s >> (3 - i))
+                     for i in range(4)])
+        for layer, side in layers:
+            banded = model._level_banded(layer, side)
+            for blk in layer.blocks:
+                c = blk.norm2.weight.numel()
+                if blk.att:
+                    attn(side, banded, blk.win_size, blk.attn.num_heads, c,
+                         blk.shift_size > 0, 1)
+                leff(c, side, banded)
+    else:
+        for name, m in model.named_modules():
+            if not isinstance(m, (EncoderBlock, DecoderBlock)):
+                continue
+            lvl = 4 if name == "bottleneck" else int(name.split("_")[1])
+            side, c = s >> lvl, m.norm2.weight.numel()
+            if isinstance(m, EncoderBlock):
+                banded = model._level_banded(side, dim=c)
+            else:
+                banded = model._level_banded(side, m.mdassa.win_size)
+                attn(side, banded, m.mdassa.win_size, NEW_HEADS, c, False, 2)
+            if m.token_mlp == "leff":
+                leff(c, side, banded)
+    return {k: dict(v) for k, v in out.items() if v}
+
+
+def _ctx_model(torch, arch, kw, dt, size, cp=None):
+    from underwater_image_restoration_torch.models import init_model
+
+    return init_model(arch, seed=0, img_size=size, compute_dtype=dt, cp=cp,
+                      **kw)
+
+
+def _ctx_grads(torch, model, raw, ref, parallel=None):
+    """One ``make_train_step`` step (SGD at learning rate 0, no clip,
+    DropPath from a generator seeded 1): (loss, {name: f32 gradient on the
+    CPU}), a sharded model's gathered."""
+    from underwater_image_restoration_torch.core import meshes
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+    )
+
+    opt = get_optimizer("sgd", model.parameters(), 0.0, momentum=0.0,
+                        clip_norm=0.0)
+    out = make_train_step(
+        model, LossFunction("L1withColor"), opt, parallel=parallel,
+        generator=torch.Generator(device="cuda").manual_seed(1))(raw, ref)
+    grads = {n: meshes.full_tensor(p.grad).detach().float().cpu()
+             for n, p in model.named_parameters()}
+    return float(out["loss"]), grads
+
+
+def _ctx_primitives(torch, dp):
+    """13(e): the primitives on CUDA tensors (f32), each rank's band vs the
+    one-process op on the whole map: [(name, max abs error / max|ref|)]."""
+    import torch.nn.functional as F
+
+    from underwater_image_restoration_torch.ops import fused_leff
+    from underwater_image_restoration_torch.ops.window_attention import (
+        window_attention,
+    )
+    from underwater_image_restoration_torch.ops.windows import (
+        shift_window_mask,
+    )
+    from underwater_image_restoration_torch.parallel import context as C
+    from underwater_image_restoration_torch.parallel import cp_ops
+
+    cp = dp.cp
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def n(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * std
+
+    img = n(2, 64, 64, 32)
+    band = cp.band(64)
+    rows = img[:, band].contiguous()
+    mask = torch.from_numpy(shift_window_mask(64, 64, 8, 4)).cuda()
+    nw = 64
+    q, k, v = (n(2 * nw, 4, 64, 32) for _ in range(3))
+    bias, w = n(4, 64, 64, std=0.5), torch.tensor([0.3, -0.4], device="cuda")
+    leff = [n(32, std=0.1) + 1, n(32, std=0.1), n(32, 128, std=0.2),
+            n(128, std=0.1), n(3, 3, 128, std=0.3), n(128, std=0.1),
+            n(128, 32, std=0.1), n(32, std=0.1)]
+    conv = n(16, 32, 3, 3, std=0.1), n(16, std=0.1)
+
+    def wins(t):  # the rank's windows of (2 nW, ...) batch-major
+        return t.reshape(2, nw, *t.shape[1:])[:, cp.band(nw)].reshape(
+            -1, *t.shape[1:])
+
+    checks = {
+        "halo_exchange": (C.halo_exchange(rows, 4, cp, "up"),
+                          img[:, (band.stop % 64) + torch.arange(4,
+                              device="cuda")]),
+        "cp_roll2d": (C.cp_roll2d(rows, -4, -4, cp),
+                      torch.roll(img, (-4, -4), (1, 2))[:, band]),
+        "cp_window_attention_qkv": (
+            C.cp_window_attention_qkv(wins(q), wins(k), wins(v), bias,
+                                      scale=0.2, cp=cp, n_win_h=8,
+                                      sparse_w=w, mask=mask),
+            wins(window_attention(q, k, v, bias, scale=0.2, sparse_w=w,
+                                  mask=mask))),
+        "ulysses_window_attention": (
+            C.ulysses_window_attention(q[cp.band(2 * nw)],
+                                       k[cp.band(2 * nw)],
+                                       v[cp.band(2 * nw)], bias, cp=cp,
+                                       scale=0.2, sparse_w=w),
+            window_attention(q, k, v, bias, scale=0.2, sparse_w=w)[
+                cp.band(2 * nw)]),
+        "sharded_fft2": (C.sharded_fft2(rows, cp),
+                         torch.fft.fftn(img.to(torch.complex64),
+                                        dim=(1, 2))[:, band]),
+        "conv2d_3x3": (cp_ops.conv2d(rows.permute(0, 3, 1, 2), *conv, 1, 1,
+                                     1, cp),
+                       F.conv2d(img.permute(0, 3, 1, 2), *conv,
+                                padding=1)[:, :, band]),
+        "ln_leff_rows": (fused_leff.ln_leff_rows(rows, *leff, cp=cp),
+                         fused_leff.ln_leff(img, *leff)[:, band]),
+    }
+    out = []
+    for name, (got, want) in checks.items():
+        err = float((got - want).abs().max() / want.abs().max())
+        out.append((name, err))
+    return out
+
+
+def _context_rank(rank, port, out_dir, batch, size, check_batch):
+    """A rank of phase 13(a)-(c), (e): each model's context-parallel step
+    (launches, gradients, rate in turns with one rank's step), the
+    tensor-parallel AST step and its checkpoint, the primitives; results
+    in ``out_dir/rank<r>.pt``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(CTX_WORLD),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import importlib
+
+    import torch
+
+    from underwater_image_restoration_torch.core import meshes
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.models import ast as ast_model
+    from underwater_image_restoration_torch.models import new_model
+    from underwater_image_restoration_torch.ops import (
+        _kernels,
+        fused_leff,
+        ln_leff,
+        window_attention,
+    )
+    from underwater_image_restoration_torch.ops.fused_leff import ln_leff_bwd
+    from underwater_image_restoration_torch.parallel import (
+        gather_replicated,
+        shard_params_tp,
+    )
+    from underwater_image_restoration_torch.parallel.context import (
+        collectives,
+        sent_bytes,
+    )
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+    )
+
+    wa = importlib.import_module(
+        "underwater_image_restoration_torch.ops.window_attention")
+
+    t0 = time.perf_counter()
+
+    def stage(msg):
+        print(f"13 rank {rank}: {msg} ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // CTX_WORLD))
+    dp = meshes.init_data_parallel(
+        CTX_WORLD, rank, mesh_context=CTX_WORLD,
+        backend=meshes.default_backend(torch.device("cuda"), CTX_WORLD))
+    cp, dev = dp.cp, dp.device
+    sms = _kernels.sm_count(dev)
+    res = {"device": str(dev), "backend": dp.backend}
+    stage(f"joined on {dev} over {dp.backend}, context index {cp.index}")
+    counters = {"ln_leff": ln_leff.launches,
+                "ln_leff_bwd": ln_leff_bwd.launches,
+                "window_attn": window_attention.launches,
+                "window_attn_bwd": wa.window_attn_bwd.launches}
+    # the plain versions of the path's kernels: none may run
+    plain_calls = collections.Counter()
+    patched = [(fused_leff, "ln_leff_plain"), (ast_model, "ln_leff_plain"),
+               (new_model, "ln_leff_plain"), (wa, "window_attention_core"),
+               (wa, "window_attention_bwd")]
+    saved = [getattr(mod, name) for mod, name in patched]
+
+    def counted(name, fn):
+        def call(*a, **k):
+            plain_calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    res["prims"] = _ctx_primitives(torch, dp)
+    stage("primitives done")
+    raw, ref = synthetic_pair_batch(batch, size, seed=0)
+    lossfn = LossFunction("L1withColor")
+    for name, arch, kw in CTX_CASES:
+        model = _ctx_model(torch, arch, kw, torch.bfloat16, size, cp)
+        _ctx_grads(torch, model, raw, ref, dp)  # warm-up
+        torch.cuda.synchronize()
+        for cnt in counters.values():
+            cnt.clear()
+        sent_bytes.clear()
+        collectives.clear()
+        for (mod, fn_name), fn in zip(patched, saved):
+            setattr(mod, fn_name, counted(fn_name, fn))
+        try:
+            res[name, "bf16"] = _ctx_grads(torch, model, raw, ref, dp)
+            torch.cuda.synchronize()
+        finally:
+            for (mod, fn_name), fn in zip(patched, saved):
+                setattr(mod, fn_name, fn)
+        res[name, "launches"] = {k: dict(v) for k, v in counters.items()}
+        res[name, "sent"] = dict(sent_bytes)
+        res[name, "collectives"] = dict(collectives)
+        res[name, "want"] = cp_launches(model, batch, cp.index, cp.size, sms)
+        res[name, "plain_calls"] = dict(plain_calls)
+        plain_calls.clear()
+        model.compute_dtype = torch.float32
+        res[name, "f32"] = _ctx_grads(torch, model, raw[:check_batch],
+                                      ref[:check_batch], dp)
+        model.compute_dtype = torch.bfloat16
+        # images/s and peak memory, in turns: one rank's step at the batch
+        # (rank 0, while rank 1 waits), the two ranks' context-parallel
+        # steps
+        one = (_ctx_model(torch, arch, kw, torch.bfloat16, size)
+               if dp.is_main else None)
+        if one is not None:
+            one.load_state_dict(model.state_dict())
+        turns = []
+        for kind in ("one", "two", "two", "one"):
+            dp.barrier()
+            m = model if kind == "two" else one
+            if m is not None:
+                st = make_train_step(
+                    m, lossfn, get_optimizer("adam", m.parameters(), LR),
+                    parallel=dp if kind == "two" else None,
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+                rate, mem = _rate_turn(torch, st, raw, ref, CTX_STEPS[name])
+                turns.append((kind, rate * batch, mem))
+            st = None
+            torch.cuda.empty_cache()
+            dp.barrier()
+        res[name, "turns"] = turns
+        stage(f"{name} done")
+        del one, model
+        torch.cuda.empty_cache()
+
+    # (c) --shard-params context: the AST's gradients, then an Adam step,
+    # its checkpoint, and an f32 eval-mode forward gathered
+    tp = shard_params_tp(_ctx_model(torch, "AST", {}, torch.bfloat16, size,
+                                    cp), dp)
+    res["tp_bf16"] = _ctx_grads(torch, tp, raw, ref, dp)
+    opt = get_optimizer("adam", tp.parameters(), LR)
+    make_train_step(tp, lossfn, opt, parallel=dp,
+                    generator=torch.Generator(device="cuda").manual_seed(3))(
+        raw, ref)
+    params, opt_state = meshes.full_state(tp, opt)
+    tp.eval()
+    tp.compute_dtype = torch.float32
+    with torch.no_grad():
+        x = (torch.as_tensor(raw[:check_batch]).to(dev).float() / 255.0 * 2
+             - 1).permute(0, 3, 1, 2)
+        res["tp_out"] = gather_replicated(
+            tp(x[:, :, cp.band(size)].contiguous()), cp, 2).float().cpu()
+    if dp.is_main:
+        torch.save({"params": params, "opt_state": opt_state},
+                   os.path.join(out_dir, "tp_ckpt.pt"))
+    stage("tensor parallel done")
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    del tp, opt
+    meshes.close_data_parallel(dp)
+
+
+def _ctx_cli(torch, card, root, size, batch):
+    """13(d): the CLI under ``torchrun --nproc-per-node 2 -a AST
+    --mesh-context 2`` for one epoch over synthetic pairs (f32, TF32 off),
+    then a one-process ``ModelTrainer.evaluate`` of its best checkpoint
+    against the validation it logged."""
+    from underwater_image_restoration_torch.core.config import Config
+    from underwater_image_restoration_torch.train import trainer
+
+    data = os.path.join(root, "data")
+    n_train, n_test = CTX_CLI_PAIRS
+    dirs = {}
+    for split, n, seed in (("train", n_train, 3), ("test", n_test, 4)):
+        dirs[split] = _write_pairs(os.path.join(data, split), n, size, seed)
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0", OMP_NUM_THREADS="4",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    ckpt = os.path.join(root, "checkpoints")
+    argv = ["-m", "torch.distributed.run", "--nproc-per-node",
+            str(CTX_WORLD), "--master-port", str(_free_port()),
+            "-m", "underwater_image_restoration_torch.cli", "-a", "AST",
+            "--mesh-context", str(CTX_WORLD), "--image-size", str(size),
+            "--train-batch-size", str(batch), "--test-batch-size", "8",
+            "--max-epoch", "1", "--use-wandb", "--compute-dtype", "float32",
+            "--lossf", "L1withColor", "--train-raw", dirs["train"][0],
+            "--train-ref", dirs["train"][1], "--test-raw", dirs["test"][0],
+            "--test-ref", dirs["test"][1], "--checkpoint-dir", ckpt]
+    t = time.perf_counter()
+    run = subprocess.run([sys.executable] + argv, cwd=root, env=env,
+                         capture_output=True, text=True, timeout=900)
+    took = time.perf_counter() - t
+    if run.returncode != 0:
+        fail(f"13(d) the CLI under torchrun failed:\n{run.stderr[-3000:]}")
+    run_dir = os.path.join(ckpt, os.listdir(ckpt)[0])
+    logged = [r for r in _jsonl(run_dir) if "test/PSNR" in r][-1]
+    cfg = Config(arch="AST", image_size=size, test_batch_size=8,
+                 compute_dtype="float32")
+    psnr, ssim = trainer.ModelTrainer(
+        dirs["train"][0], dirs["train"][1], dirs["test"][0],
+        dirs["test"][1]).evaluate(cfg, os.path.join(run_dir, "best"))
+    d_psnr = abs(psnr - logged["test/PSNR"]) / abs(psnr)
+    d_ssim = abs(ssim - logged["test/SSIM"]) / abs(ssim)
+    print(f"13(d) torchrun --nproc-per-node {CTX_WORLD} cli -a AST "
+          f"--mesh-context {CTX_WORLD}, one epoch of {n_train} pairs at "
+          f"batch {batch}, {took:.1f} s with its start: logged validation "
+          f"PSNR {logged['test/PSNR']:.6f} SSIM {logged['test/SSIM']:.6f}; "
+          f"one-process evaluate of its best/ {psnr:.6f} {ssim:.6f} "
+          f"(relative {d_psnr:.3e}, {d_ssim:.3e}; tol {CTX_CLI_TOL:.0e}), "
+          f"on {card}", flush=True)
+    if not (d_psnr <= CTX_CLI_TOL and d_ssim <= CTX_CLI_TOL):
+        fail("13(d) the CLI's logged validation disagrees with a "
+             "one-process evaluate of its checkpoint")
+
+
+def context_phase(card, batch, size, check_batch):
+    """Phase 13: context and tensor parallelism of AST@256 and NewModel@256
+    (Fourier and Wavelet) over two processes sharing the card over gloo
+    (correctness and the host's round trips, not scaling): (a)-(b) each
+    rank's launches of ln_leff, ln_leff_bwd, window_attn and
+    window_attn_bwd in one bf16 train step at ``batch``, from zero, as the
+    planners say for its band (``cp_launches``), and no plain version
+    called; loss and gradients vs the one-rank step (bf16 at ``batch``, f32
+    at ``check_batch``) within phase 7's (AST) and phase 9's (New*) limits;
+    images/s and peak memory a rank beside one rank's, in turns; (c)
+    ``--shard-params context``: the AST's gradients vs (a)'s, its
+    checkpoint loaded strict on one device giving the sharded model's f32
+    forward; (d) the CLI under ``torchrun``; (e) the primitives on CUDA
+    tensors vs the one-process ops.  Returns no kernel rows (every
+    kernel's row is its own phase's)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phase13-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    torch.backends.cudnn.deterministic = True
+    raw, ref = synthetic_pair_batch(batch, size, seed=0)
+    refs = {}
+    for name, arch, kw in CTX_CASES:
+        model = _ctx_model(torch, arch, kw, torch.bfloat16, size)
+        refs[name, "bf16"] = _ctx_grads(torch, model, raw, ref)
+        model.compute_dtype = torch.float32
+        refs[name, "f32"] = _ctx_grads(torch, model, raw[:check_batch],
+                                       ref[:check_batch])
+        del model
+        torch.cuda.empty_cache()
+    print(f"13 one-rank references took {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+    t = time.perf_counter()
+    os.environ["PYTHONFAULTHANDLER"] = "1"
+    mp.spawn(_context_rank,
+             args=(_free_port(), root, batch, size, check_batch),
+             nprocs=CTX_WORLD)
+    t_ranks = time.perf_counter() - t
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"),
+                        weights_only=False) for r in range(CTX_WORLD)]
+    print(f"13 ranks: {CTX_WORLD} processes on "
+          f"{[r['device'] for r in ranks]} over {ranks[0]['backend']} "
+          f"({t_ranks:.1f} s with their start)", flush=True)
+
+    # (e) the primitives
+    for r, res in enumerate(ranks):
+        for name, err in res["prims"]:
+            print(f"13(e) rank {r} {name} on CUDA f32, band vs the whole "
+                  f"map: max abs/max|ref| {err:.3e} (tol {CTX_PRIM_TOL:.0e})",
+                  flush=True)
+            if not err <= CTX_PRIM_TOL:
+                fail(f"13(e) {name} on rank {r} disagrees with the "
+                     "one-process op")
+
+    # (a)-(b) launches, gradients, rates
+    for name, arch, kw in CTX_CASES:
+        for r, res in enumerate(ranks):
+            got, want = res[name, "launches"], res[name, "want"]
+            totals = {k: sum(v.values()) for k, v in got.items()}
+            sent = {k: f"{v / 2 ** 20:.1f} MiB"
+                    for k, v in res[name, "sent"].items()}
+            print(f"13(a) {name}@{size} rank {r}, one bf16 step at batch "
+                  f"{batch}: launches {totals}; plain calls "
+                  f"{res[name, 'plain_calls']}; sent to the other rank "
+                  f"{sent} in {res[name, 'collectives']} collectives (the "
+                  "gradients' all-reduce apart)", flush=True)
+            for kname in ("ln_leff", "ln_leff_bwd"):
+                for key, nl in sorted(got.get(kname, {}).items()):
+                    print(f"  {kname} {key}: {nl} (planners "
+                          f"{want[kname].get(key, 0)})", flush=True)
+            if got != want or res[name, "plain_calls"]:
+                fail(f"13(a) {name} rank {r}: expected launches {want} and "
+                     f"no plain call, got {got}, "
+                     f"{res[name, 'plain_calls']}")
+        for tag, nb in (("bf16", batch), ("f32", check_batch)):
+            loss, g = ranks[0][name, tag]
+            rloss, rg = refs[name, tag]
+            rel, mx = grad_dist(g, rg)
+            dl = abs(loss - rloss) / abs(rloss)
+            tol = _ctx_tol(name)["bfloat16" if tag == "bf16" else "float32"]
+            print(f"13(a) {name} {tag} batch {nb}, two context ranks vs one "
+                  f"rank: loss {loss:.6f} vs {rloss:.6f} (relative {dl:.3e},"
+                  f" tol {TRAIN_LOSS_TOL:.0e}); ||g - g_ref||/||g_ref|| "
+                  f"{rel:.3e} (tol {tol:.0e}), max abs/max|g_ref| {mx:.3e}",
+                  flush=True)
+            if not (rel <= tol and dl <= TRAIN_LOSS_TOL):
+                fail(f"13(a) the context-parallel {name} {tag} step "
+                     "disagrees with one rank's")
+        by = collections.defaultdict(list)
+        for r, res in enumerate(ranks):
+            for kind, rate, mem in res[name, "turns"]:
+                by[kind].append((r, rate, mem))
+        one = [rate for _, rate, _ in by["one"]]
+        two = [rate for r, rate, _ in by["two"] if r == 0]
+        print(f"13(a) train step {name} {size}x{size} bf16 batch {batch}: "
+              f"two context ranks {sum(two) / 2:.2f} images/s {two} (peak "
+              f"memory a rank {[round(m, 2) for _, _, m in by['two']]} GiB),"
+              f" one rank {sum(one) / 2:.2f} images/s {one} (peak "
+              f"{[round(m, 2) for _, _, m in by['one']]} GiB), in turns of "
+              f"{CTX_STEPS[name]} steps, over {ranks[0]['backend']} on {card}",
+              flush=True)
+
+    # (c) --shard-params context
+    rel, mx = grad_dist(ranks[0]["tp_bf16"][1], ranks[0]["AST", "bf16"][1])
+    dl = abs(ranks[0]["tp_bf16"][0] - ranks[0]["AST", "bf16"][0])
+    print(f"13(c) --shard-params context vs the context-parallel AST bf16 "
+          f"step: loss difference {dl:.3e}, ||g - g_cp||/||g_cp|| {rel:.3e}, "
+          f"max abs/max|g_cp| {mx:.3e} (tol {TRAIN_LOSS_TOL:.0e})",
+          flush=True)
+    if not (rel <= TRAIN_LOSS_TOL and dl <= TRAIN_LOSS_TOL):
+        fail("13(c) the tensor-parallel gradients disagree with the "
+             "context-parallel step's")
+    ckpt = torch.load(os.path.join(root, "tp_ckpt.pt"), weights_only=False)
+    single = _ctx_model(torch, "AST", {}, torch.float32, size)
+    single.load_state_dict(ckpt["params"], strict=True)
+    single.eval()
+    with torch.no_grad():
+        x = (torch.as_tensor(raw[:check_batch]).cuda().float() / 255.0 * 2
+             - 1).permute(0, 3, 1, 2).contiguous()
+        y1 = single(x).float().cpu()
+    want = ranks[0]["tp_out"]
+    err = float((y1 - want).abs().max() / y1.abs().max())
+    print(f"13(c) the tensor-parallel checkpoint ({len(ckpt['params'])} "
+          f"tensors) loads strict on one device; its f32 forward vs the "
+          f"sharded model's gathered: max abs/max|ref| {err:.3e} (tol "
+          f"{AST_MODEL_TOL['float32']:.0e})", flush=True)
+    if err > AST_MODEL_TOL["float32"]:
+        fail("13(c) the tensor-parallel checkpoint does not give the "
+             "sharded model's forward on one device")
+    del single, ckpt
+    torch.cuda.empty_cache()
+
+    # (d) the CLI
+    _ctx_cli(torch, card, root, size, batch)
+    torch.backends.cudnn.deterministic = False
+    shutil.rmtree(root)
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return []
+
+
 def _free_port():
     """A free localhost port for the process group."""
     import socket
@@ -3187,7 +3758,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "ast", "ast-train", "new",
                                         "new-train", "run", "eval",
-                                        "parallel"),
+                                        "parallel", "context"),
                     default="all",
                     help="'ast' ('ast-train'): the setup and the AST serving "
                          "(training) phase alone; 'new' ('new-train'): the "
@@ -3196,7 +3767,8 @@ def main(argv=None):
                          "'eval': the setup, phase 10 and the evaluation "
                          "protocol (phase 11); 'parallel': the setup and "
                          "phase 12 (data parallelism, FSDP, export, "
-                         "Grad-CAM, SFCA)")
+                         "Grad-CAM, SFCA); 'context': the setup and phase "
+                         "13 (context and tensor parallelism)")
     args = ap.parse_args(argv)
     import torch
 
@@ -3301,6 +3873,9 @@ def main(argv=None):
         return record(torch, kernels, t_start)
     if args.phase == "parallel":
         kernels = parallel_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
+        return record(torch, kernels, t_start)
+    if args.phase == "context":
+        kernels = context_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
         return record(torch, kernels, t_start)
 
     # ---- 2. kernels vs plain versions
@@ -3684,6 +4259,7 @@ def main(argv=None):
     kernels += eval_phase(card, run_phase(card, TRAIN_BATCH, SIZE),
                           TRAIN_BATCH)
     kernels += parallel_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
+    kernels += context_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     return record(torch, kernels, t_start)
 
 

@@ -31,9 +31,10 @@ single-process references run here meanwhile):
   one-process ``ModelTrainer`` on the same data within 1e-6 relative, and
   the logged loss is the one-device validation of the checkpoint within
   1e-6;
-- ``validate`` refuses ``--mesh-context 2`` and ``--shard-params context``
-  citing the CP/TP slice, and ``--mesh-data 2`` without a process group
-  naming ``torchrun``.
+- ``validate`` refuses ``--mesh-context 2`` for SpectralTransformer citing
+  its ROADMAP item and an image side the context size does not divide, and
+  ``--mesh-data 2``, ``--mesh-context 2`` or ``--shard-params`` without a
+  process group naming ``torchrun``.
 
 The spawned ranks import this module, which imports no JAX.
 """
@@ -315,10 +316,14 @@ def test_validation_equals_one_process(runs):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh_context": 2}, "CP/TP slice"),
-    ({"shard_params": "context"}, "CP/TP slice"),
+    ({"mesh_context": 2}, "queue 1, item 9"),
+    ({"arch": "AST", "mesh_context": 2, "image_size": 33},
+     "not divisible by context-parallel size 2"),
     ({"mesh_data": 2}, "torchrun"),
-    ({"shard_params": "data"}, "torchrun")])
+    ({"shard_params": "data"}, "torchrun"),
+    ({"shard_params": "context"}, "torchrun"),
+    ({"arch": "NewModel", "mesh_context": 2, "image_size": 32},
+     "torchrun")])
 def test_validate_refuses(kw, match, monkeypatch):
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(ValueError, match=match):

@@ -5,11 +5,11 @@ are accepted and ignored).
 
 Left out: ``--compile-cache``, ``--remat-policy`` and
 ``--steps-per-dispatch``, which served only the TPU (an XLA cache, remat
-policies, a dispatch workaround).  ``--mesh-data N`` and ``--shard-params
-data`` run under ``torchrun --nproc-per-node N`` (data parallelism and
-FSDP2, ``core/meshes.py``); ``--mesh-context`` and ``--remat`` are
-accepted, and ``core.config.validate`` refuses every value but 1 and off
-(context and tensor parallelism are the CP/TP slice of ROADMAP.md).  ``--no-pallas`` runs the kernels'
+policies, a dispatch workaround).  ``--mesh-data N``, ``--mesh-context
+M`` (AST and the New* family) and ``--shard-params data|context`` run
+under ``torchrun --nproc-per-node N*M`` (data, context and tensor
+parallelism, FSDP2; ``core/meshes.py``); ``--remat`` is accepted, and
+``core.config.validate`` refuses it.  ``--no-pallas`` runs the kernels'
 plain PyTorch versions; ``--use-cpu`` runs on the CPU (the plain versions).
 """
 from __future__ import annotations
@@ -146,14 +146,14 @@ def argument_parser() -> argparse.ArgumentParser:
                         help="data-parallel ranks, one process each under "
                              "torchrun; -1 = WORLD_SIZE")
     parser.add_argument("--mesh-context", type=int, default=1,
-                        help="context-parallel size: 1 (CP/TP is the next "
-                             "slice of ROADMAP.md queue 1, item 8)")
+                        help="context-parallel ranks a data index, one "
+                             "process each under torchrun: each holds a band "
+                             "of the images' rows (AST and the New* family)")
     parser.add_argument("--shard-params", type=str, default="",
                         choices=["", "data", "context"],
-                        help="parameter sharding: '' (replicated) or "
-                             "'data' (FSDP2 over the data-parallel ranks); "
-                             "'context' is the CP/TP slice of ROADMAP.md "
-                             "queue 1, item 8")
+                        help="parameter sharding: '' (replicated), "
+                             "'data' or 'context' (FSDP2 over that dimension "
+                             "of the mesh, replicated over the other)")
     parser.add_argument("--compute-dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32", "float16"])
     parser.add_argument("--remat", action="store_true",

@@ -17,6 +17,14 @@ Data parallelism and FSDP2 run one process a rank under ``torchrun``:
     torchrun --nproc-per-node N -m underwater_image_restoration_torch.cli \
         --mesh-data N [--shard-params data] ...
 
+and context parallelism (AST and the New* family; each rank a band of the
+images' rows) with ``--mesh-context M`` (``--nproc-per-node`` the product
+of ``--mesh-data`` and ``--mesh-context``, ``--shard-params context`` for
+tensor parallelism):
+
+    torchrun --nproc-per-node 2 -m underwater_image_restoration_torch.cli \
+        -a AST --mesh-context 2 [--shard-params context] ...
+
 Rank 0 alone writes the tee log (and, in the trainer, the metrics, probe
 images and checkpoints); the other ranks print nothing.  The evaluate
 branch runs on rank 0.

@@ -7,9 +7,10 @@ Left out: the TPU-only fields (``compile_cache``, ``remat_policy``,
 ``param_dtype`` (parameters are f32) and ``jsonl_metrics`` (the JSONL sink
 is always on).  Added: ``use_kernels``, which the
 CLI's ``--no-pallas`` turns off to run the kernels' plain PyTorch versions.
-``mesh_data`` and ``shard_params='data'`` run under ``torchrun``
-(``core/meshes.py``); ``mesh_context`` and ``remat`` are kept for the
-CLI's surface, and ``validate`` refuses any value the port cannot honour.
+``mesh_data``, ``mesh_context`` (AST and the New* family) and
+``shard_params`` ('data' or 'context') run under ``torchrun``
+(``core/meshes.py``); ``remat`` is kept for the CLI's surface, and
+``validate`` refuses any value the port cannot honour.
 """
 from __future__ import annotations
 
@@ -78,8 +79,8 @@ class Config:
     # ---- extensions (no reference equivalent) ----
     image_size: int = 1024        # train transform resolution (reference hardcodes 1024²; DataLoader.py:14)
     mesh_data: int = -1           # data-parallel ranks: -1 = WORLD_SIZE
-    mesh_context: int = 1         # context-parallel size: 1
-    shard_params: str = ""        # "" (replicated) or "data" (FSDP2)
+    mesh_context: int = 1         # context-parallel ranks a data index
+    shard_params: str = ""        # "" (replicated), "data" or "context" (FSDP2)
     compute_dtype: str = "bfloat16"   # the model's compute dtype; f32 params
     remat: bool = False           # refused: see train/trainer.py
     use_kernels: bool = True      # False: the kernels' plain versions (--no-pallas)
@@ -129,13 +130,15 @@ def compute_dtype_of(cfg: Config):
 
 
 def validate(cfg: Config) -> Config:
-    """Raise ValueError for a setting the port does not run: context or
-    tensor parallelism (the CP/TP slice of ROADMAP.md queue 1, item 8),
-    more data-parallel ranks than the process group has (start the run under
-    ``torchrun``; ``core.meshes.validate_parallel``) or ``remat``."""
+    """Raise ValueError for a setting the port does not run: context
+    parallelism of SpectralTransformer (ROADMAP.md queue 1, item 9) or of an
+    image side the context size does not divide, more ranks than the process
+    group has (start the run under ``torchrun``;
+    ``core.meshes.validate_parallel``) or ``remat``."""
     from .meshes import validate_parallel
 
-    validate_parallel(cfg.mesh_data, cfg.mesh_context, cfg.shard_params)
+    validate_parallel(cfg.mesh_data, cfg.mesh_context, cfg.shard_params,
+                      cfg.arch, cfg.image_size)
     if cfg.remat:
         raise ValueError(
             "remat: the port's train step has no remat option; its kernels' "

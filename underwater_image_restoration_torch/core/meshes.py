@@ -1,34 +1,43 @@
-"""Data parallelism and parameter sharding, the port's counterpart of the
-JAX package's ``core/meshes.py`` (the ``data`` axis of its mesh).
+"""Data, context and tensor parallelism, the port's counterpart of the JAX
+package's ``core/meshes.py`` (its ``("data", "context")`` mesh).
 
 The JAX package runs one program over a ``Mesh`` and XLA's SPMD partitioner
 gives its train step the semantics of one device at the global batch.  The
 port runs one process a rank (``torchrun``) and reaches the same numbers
 with explicit collectives:
 
-- ``init_data_parallel(world_size, rank, backend, device)`` joins (or
-  reuses) the process group and returns a ``DataParallel``: the rank, the
-  world, the rank's device and a one-dimensional ``DeviceMesh`` with a
-  ``data`` dimension.  Ranks read ``RANK``, ``WORLD_SIZE`` and
+- ``init_data_parallel(world_size, rank, backend, device, mesh_context)``
+  joins (or reuses) the process group and returns a ``DataParallel``: the
+  rank's data index and the data-parallel size, its device and a
+  ``DeviceMesh``, one-dimensional (``data``) or, with ``mesh_context`` > 1,
+  two-dimensional (``data``, ``context``), and its ``ContextParallel``
+  (context index, size and group).  World rank r has data index
+  ``r // n_ctx`` and context index ``r % n_ctx`` (the JAX ``make_mesh``'s
+  row-major layout).  Ranks read ``RANK``, ``WORLD_SIZE`` and
   ``LOCAL_RANK`` as ``torchrun`` sets them.  The backend is an argument:
   ``default_backend`` gives ``gloo`` for the CPU and for ranks that share a
   card, ``nccl`` where every rank has a card of its own.
-- ``DataParallel.rows(batch, grad_accum)``: the rank's rows of the global
-  batch the single-device run takes (rank r takes rows [r B/n, (r+1) B/n),
-  microbatch by microbatch), so a run of n ranks is comparable to one rank.
-- ``shard_model``: ``--shard-params data`` as FSDP2 (``fully_shard`` of
-  every block, then of the model, over the ``data`` dimension; dim 0 of
-  each parameter is sharded, the output features of OIHW convs and
-  ``(out, in)`` Linears), gradients reduce-scattered.
+- ``DataParallel.rows(batch, grad_accum)``: the rows of the global batch
+  that the rank's data index takes (data index d of n takes rows
+  [d B/n, (d+1) B/n), microbatch by microbatch), so a run of n data ranks
+  is comparable to one rank; the context ranks of one data index take the
+  same rows, and each keeps its band of the images' rows
+  (``ContextParallel.band``, rows [c H/n_ctx, (c+1) H/n_ctx)).
+- ``shard_model``: ``--shard-params data`` or ``context`` as FSDP2
+  (``fully_shard`` of every block, then of the model, over that dimension
+  of the mesh, replicated over the other (HSDP); dim 0 of each parameter
+  is sharded, the output features of OIHW convs and ``(out, in)``
+  Linears, the dim the JAX ``tp_spec_for`` shards), gradients
+  reduce-scattered.
 - ``full_state`` / ``load_full_state``: a sharded model's parameters and
   optimizer state in the single-device checkpoint format, and back
   (gathered and scattered by c10d collectives, which gloo carries on CUDA
   tensors too).
 
-``validate_parallel`` refuses what the port does not run: context and
-tensor parallelism (``mesh_context`` != 1, ``shard_params='context'``: the
-CP/TP slice of ROADMAP.md queue 1, item 8), and more than one rank without
-a process group.
+``validate_parallel`` refuses what the port does not run:
+SpectralTransformer with ``mesh_context`` > 1 (ROADMAP.md queue 1, item 9),
+an image side that ``mesh_context`` does not divide, and more than one rank
+without a process group.
 """
 from __future__ import annotations
 
@@ -58,45 +67,59 @@ def _env_world() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def data_parallel_size(mesh_data: int) -> int:
-    """``--mesh-data`` resolved: -1 means the world size; any other value
-    must equal it (one process a rank)."""
+def parallel_sizes(mesh_data: int, mesh_context: int = 1):
+    """(data-parallel size, context-parallel size) of ``--mesh-data`` and
+    ``--mesh-context``: mesh_data -1 means the world size over
+    mesh_context; their product must be the world size (one process a
+    rank)."""
     world = _env_world()
-    if mesh_data == -1:
-        return world
-    if mesh_data != world:
+    if mesh_context < 1:
+        raise ValueError(f"mesh_context={mesh_context}: 1 or more")
+    n_data = world // mesh_context if mesh_data == -1 else mesh_data
+    if n_data * mesh_context != world:
+        n = max(1, n_data) * mesh_context
         raise ValueError(
-            f"mesh_data={mesh_data}: the port runs one process a data-"
-            f"parallel rank, and this process sees a world of {world}. Start "
-            f"the run under torchrun: torchrun --nproc-per-node {mesh_data} "
-            "-m underwater_image_restoration_torch.cli --mesh-data "
-            f"{mesh_data} (data parallelism, ROADMAP.md queue 1, item 8)")
-    return mesh_data
+            f"mesh_data={mesh_data}, mesh_context={mesh_context}: the port "
+            f"runs one process a rank, and this process sees a world of "
+            f"{world}. Start the run under torchrun: torchrun "
+            f"--nproc-per-node {n} -m underwater_image_restoration_torch.cli "
+            f"--mesh-data {max(1, n_data)} --mesh-context {mesh_context} "
+            "(ROADMAP.md queue 1, item 8)")
+    return n_data, mesh_context
 
 
-def validate_parallel(mesh_data: int, mesh_context: int,
-                      shard_params: str) -> None:
+# the archs whose forward runs row-sharded (``--mesh-context`` > 1)
+CONTEXT_ARCHS = ("AST", "NewModel", "NewBigModel", "NewBigFRFNModel")
+
+
+def validate_parallel(mesh_data: int, mesh_context: int, shard_params: str,
+                      arch: Optional[str] = None,
+                      image_size: Optional[int] = None) -> None:
     """Raise ValueError for a parallel setting the port does not run."""
-    if mesh_context != 1 or shard_params == "context":
+    if mesh_context > 1 and arch is not None and arch not in CONTEXT_ARCHS:
         raise ValueError(
-            f"mesh_context={mesh_context}, shard_params={shard_params!r}: "
-            "context and tensor parallelism are the CP/TP slice of "
-            "ROADMAP.md queue 1, item 8 (a row-sharded forward needs a halo "
-            "for every op across shard rows: the 3x3 taps inside ln_gdfn, "
-            "ln_mdta and ln_leff, the pixel (un)shuffles, the FFT "
-            "branches); the port runs mesh_context 1 and shard_params '' or "
-            "'data'")
-    if shard_params not in ("", DATA_AXIS):
-        raise ValueError(f"shard_params={shard_params!r}: '' or 'data' "
-                         "(ROADMAP.md queue 1, item 8)")
-    data_parallel_size(mesh_data)
-    if shard_params == DATA_AXIS and not (
+            f"mesh_context={mesh_context}: {arch} has no row-sharded forward "
+            "yet (SpectralTransformer context parallelism is ROADMAP.md "
+            "queue 1, item 9: ln_mdta's gram and row-norm stats summed over "
+            "all pixels need an all-reduce inside the kernel's stages); "
+            f"context parallelism runs {', '.join(CONTEXT_ARCHS)}")
+    if mesh_context > 1 and image_size is not None and \
+            image_size % mesh_context:
+        raise ValueError(
+            f"image_size={image_size} not divisible by context-parallel size "
+            f"{mesh_context}")
+    if shard_params not in ("", DATA_AXIS, CONTEXT_AXIS):
+        raise ValueError(f"shard_params={shard_params!r}: '', 'data' or "
+                         "'context' (ROADMAP.md queue 1, item 8)")
+    parallel_sizes(mesh_data, mesh_context)
+    if shard_params and not (
             "WORLD_SIZE" in os.environ or _dist().is_initialized()):
         raise ValueError(
-            "shard_params='data' shards the parameters over a process "
-            "group: start the run under torchrun (torchrun --nproc-per-node "
-            "N -m underwater_image_restoration_torch.cli --mesh-data N "
-            "--shard-params data; ROADMAP.md queue 1, item 8)")
+            f"shard_params={shard_params!r} shards the parameters over a "
+            "process group: start the run under torchrun (torchrun "
+            "--nproc-per-node N -m underwater_image_restoration_torch.cli "
+            "--mesh-data N --shard-params data, or --mesh-context N "
+            "--shard-params context; ROADMAP.md queue 1, item 8)")
 
 
 def default_backend(device: torch.device, world_size: int) -> str:
@@ -109,30 +132,67 @@ def default_backend(device: torch.device, world_size: int) -> str:
 
 
 @dataclasses.dataclass
+class ContextParallel:
+    """A rank's place on the ``context`` dimension: ``index`` of the
+    ``size`` ranks that hold row bands of the same images, their process
+    ``group`` (None at size 1).  Rank ``index`` holds rows
+    [index H/size, (index+1) H/size) of a map of H rows."""
+
+    index: int = 0
+    size: int = 1
+    group: object = None
+
+    def band(self, rows: int) -> slice:
+        """The rank's rows of ``rows`` (which ``size`` divides)."""
+        if rows % self.size:
+            raise ValueError(f"{rows} rows not divisible by the context-"
+                             f"parallel size {self.size}")
+        per = rows // self.size
+        return slice(self.index * per, (self.index + 1) * per)
+
+
+@dataclasses.dataclass
 class DataParallel:
-    """A rank of the data-parallel group: ``rank`` of ``world`` on
-    ``device`` over ``backend``; ``mesh`` the ``data`` DeviceMesh (None at
-    world 1 without a process group)."""
+    """A rank of the parallel run: data index ``rank`` of ``world`` data
+    indices on ``device`` over ``backend``; ``mesh`` the DeviceMesh, ``data``
+    or (``data``, ``context``) (None at one rank without a process group);
+    ``cp`` the rank's place on the ``context`` dimension."""
 
     rank: int = 0
     world: int = 1
     device: torch.device = torch.device("cpu")
     backend: str = ""
     mesh: object = None
+    cp: ContextParallel = dataclasses.field(default_factory=ContextParallel)
+
+    @property
+    def ranks(self) -> int:
+        """Processes of the run (data indices times context ranks)."""
+        return self.world * self.cp.size
 
     @property
     def is_main(self) -> bool:
-        return self.rank == 0
+        return self.rank == 0 and self.cp.index == 0
+
+    @property
+    def data_mesh(self):
+        """The ``data`` dimension of the mesh (None without one)."""
+        if self.mesh is None or self.mesh.ndim == 1:
+            return self.mesh
+        return self.mesh[DATA_AXIS]
 
     @property
     def group(self):
-        return None if self.mesh is None else self.mesh.get_group()
+        """The process group of the rank's data dimension (the ranks of its
+        context index)."""
+        return None if self.mesh is None else self.data_mesh.get_group()
 
     def rows(self, batch: int, grad_accum: int = 1) -> np.ndarray:
-        """The rank's rows of a global batch of ``batch``: microbatch i
-        (rows [i B/g, (i+1) B/g)) gives rank r its rows
-        [i B/g + r B/(g n), i B/g + (r+1) B/(g n)).  At grad_accum 1 that is
-        rows [r B/n, (r+1) B/n)."""
+        """The rows of a global batch of ``batch`` that the rank's data index
+        takes (its context ranks take the same): microbatch i (rows
+        [i B/g, (i+1) B/g)) gives data index d its rows
+        [i B/g + d B/(g n), i B/g + (d+1) B/(g n)).  At grad_accum 1 that is
+        rows [d B/n, (d+1) B/n)."""
         if batch % (grad_accum * self.world):
             raise ValueError(
                 f"batch {batch} not divisible by grad_accum*data-parallel = "
@@ -143,43 +203,46 @@ class DataParallel:
                                for i in range(grad_accum)])
 
     def all_reduce_(self, tensors) -> None:
-        """Sum each tensor over the ranks, in place (one collective over a
-        flat buffer; nothing at world 1)."""
+        """Sum each tensor over every rank of the run (the data and the
+        context dimension), in place (one collective over a flat buffer;
+        nothing at one rank)."""
         tensors = list(tensors)
-        if self.world == 1 or not tensors:
+        if self.ranks == 1 or not tensors:
             return
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        _dist().all_reduce(flat, group=self.group)
+        _dist().all_reduce(flat)
         for t, f in zip(tensors, flat.split([t.numel() for t in tensors])):
             t.copy_(f.view_as(t))
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ranks (a copy)."""
+        """``t`` summed over the data indices (a copy)."""
         t = t.clone()
         if self.world > 1:
             _dist().all_reduce(t, group=self.group)
         return t
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` averaged over the ranks (a copy)."""
+        """``t`` averaged over the data indices (a copy)."""
         return self.sum(t) / self.world if self.world > 1 else t
 
     def barrier(self) -> None:
-        if self.world > 1:
-            _dist().barrier(group=self.group)
+        if self.ranks > 1:
+            _dist().barrier()
 
 
 def init_data_parallel(world_size: Optional[int] = None,
                        rank: Optional[int] = None,
                        backend: Optional[str] = None,
-                       device=None) -> DataParallel:
-    """Join the data-parallel process group and return this rank's
-    ``DataParallel``.  ``world_size`` and ``rank`` default to ``WORLD_SIZE``
-    and ``RANK`` (``torchrun``); ``device`` is ``"cpu"`` or CUDA (the
-    default: the card ``LOCAL_RANK`` names, modulo the cards there are, so
-    ranks may share one); ``backend`` must be given when a group is made
-    (``default_backend``).  A group already initialized is reused; at world
-    1 without one none is made.  The group meets at ``env://``
+                       device=None, mesh_context: int = 1) -> DataParallel:
+    """Join the process group and return this rank's ``DataParallel``.
+    ``world_size`` and ``rank`` default to ``WORLD_SIZE`` and ``RANK``
+    (``torchrun``); ``device`` is ``"cpu"`` or CUDA (the default: the card
+    ``LOCAL_RANK`` names, modulo the cards there are, so ranks may share
+    one); ``backend`` must be given when a group is made
+    (``default_backend``).  ``mesh_context`` ranks share each data index
+    (world rank r: data index r // mesh_context, context index
+    r % mesh_context).  A group already initialized is reused; at world 1
+    without one none is made.  The group meets at ``env://``
     (``MASTER_ADDR``/``MASTER_PORT``, which ``torchrun`` sets)."""
     dist = _dist()
     world = int(world_size if world_size is not None
@@ -209,11 +272,22 @@ def init_data_parallel(world_size: Optional[int] = None,
     else:
         world, rk = dist.get_world_size(), dist.get_rank()
         backend = dist.get_backend()
+    if world % mesh_context:
+        raise ValueError(f"mesh_context={mesh_context} does not divide the "
+                         f"world of {world}")
     from torch.distributed.device_mesh import DeviceMesh
 
-    mesh = DeviceMesh.from_group(dist.group.WORLD, dev.type,
-                                 mesh_dim_names=(DATA_AXIS,))
-    return DataParallel(rk, world, dev, backend, mesh)
+    n_data = world // mesh_context
+    if mesh_context == 1:
+        mesh = DeviceMesh.from_group(dist.group.WORLD, dev.type,
+                                     mesh_dim_names=(DATA_AXIS,))
+        cp = ContextParallel()
+    else:
+        mesh = DeviceMesh(dev.type, torch.arange(world).reshape(
+            n_data, mesh_context), mesh_dim_names=(DATA_AXIS, CONTEXT_AXIS))
+        cp = ContextParallel(rk % mesh_context, mesh_context,
+                             mesh[CONTEXT_AXIS].get_group())
+    return DataParallel(rk // mesh_context, n_data, dev, backend, mesh, cp)
 
 
 def close_data_parallel(dp: DataParallel) -> None:
@@ -235,23 +309,46 @@ def _block_types():
     return (SpectralBlock, ASTTransformerBlock, EncoderBlock, DecoderBlock)
 
 
-def shard_model(model: torch.nn.Module, dp: DataParallel) -> torch.nn.Module:
-    """FSDP2 over the ``data`` dimension: ``fully_shard`` each block (its
-    parameters gathered for its forward and its backward alone), then the
-    model (the rest).  The reduce-scatter averages the gradients over the
-    ranks (dividing by powers of two at 2 and 4 ranks, exactly): the train
-    step scales a sharded model's losses by the world to make it their sum.
-    Returns the model, sharded in place."""
-    from torch.distributed.fsdp import fully_shard
-
+def _shard_mesh(dp: DataParallel, axis: str):
+    """The DeviceMesh FSDP2 shards ``axis`` over: one dimension where the
+    other has one rank, else two (the other replicated first, HSDP)."""
     if dp.mesh is None:
         raise ValueError("shard_model needs a process group "
                          "(init_data_parallel)")
+    if dp.mesh.ndim == 1:
+        if axis != DATA_AXIS:
+            raise ValueError(f"shard_model: axis {axis!r} needs "
+                             "mesh_context > 1")
+        return dp.mesh
+    if axis == CONTEXT_AXIS:
+        return dp.mesh if dp.world > 1 else dp.mesh[CONTEXT_AXIS]
+    if dp.world == 1 or dp.cp.size == 1:
+        return dp.mesh[DATA_AXIS]
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = torch.arange(dp.ranks).reshape(dp.world, dp.cp.size)
+    return DeviceMesh(dp.device.type, ranks.t().contiguous(),
+                      mesh_dim_names=(CONTEXT_AXIS, DATA_AXIS))
+
+
+def shard_model(model: torch.nn.Module, dp: DataParallel,
+                axis: str = DATA_AXIS) -> torch.nn.Module:
+    """FSDP2 over the ``axis`` dimension (``data`` or ``context``),
+    replicated over the other: ``fully_shard`` each block (its parameters
+    gathered for its forward and its backward alone), then the model (the
+    rest).  The reduce-scatter (and HSDP's all-reduce) averages the
+    gradients over every rank (dividing by powers of two at 2 and 4 ranks,
+    exactly; gloo refuses the pre-multiplied sum a divide factor of 1
+    would take): the train step scales a sharded model's losses by the
+    ranks to make it their sum.  Returns the model, sharded in place."""
+    from torch.distributed.fsdp import fully_shard
+
+    mesh = _shard_mesh(dp, axis)
     blocks = _block_types()
     for m in list(model.modules()):
         if isinstance(m, blocks):
-            fully_shard(m, mesh=dp.mesh)
-    fully_shard(model, mesh=dp.mesh)
+            fully_shard(m, mesh=mesh)
+    fully_shard(model, mesh=mesh)
     return model
 
 
@@ -262,37 +359,51 @@ def is_sharded(params) -> bool:
     return any(isinstance(p, DTensor) for p in params)
 
 
+def shard_dim(t) -> int:
+    """The mesh dimension over which the DTensor ``t`` is sharded on its
+    dim 0 (FSDP2's layout: ``(Shard(0),)``, or ``(Replicate(), Shard(0))``
+    under HSDP)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = [i for i, p in enumerate(t.placements) if p == Shard(0)]
+    if len(dims) != 1 or any(p != Replicate() for i, p in
+                             enumerate(t.placements) if i != dims[0]):
+        raise ValueError(f"placements {t.placements}: one Shard(0), the "
+                         "rest Replicate()")
+    return dims[0]
+
+
 def full_tensor(t: torch.Tensor) -> torch.Tensor:
-    """The whole of a DTensor sharded on dim 0 over a 1-D mesh (FSDP2's
-    layout: rank r holds ``torch.chunk``'s chunk r, or nothing), by one
-    ``all_gather_into_tensor`` of the chunks padded to one size; a plain
-    tensor as it is.  A collective: every rank of the mesh calls it.  (The
-    DTensor's own ``full_tensor`` goes through functional collectives,
-    which crash over gloo on CUDA tensors.)"""
-    from torch.distributed.tensor import DTensor, Shard
+    """The whole of a DTensor sharded on dim 0 over one dimension of its
+    mesh (FSDP2's layout: rank r of that dimension holds ``torch.chunk``'s
+    chunk r, or nothing), by one ``all_gather_into_tensor`` of the chunks
+    padded to one size over that dimension's group; a plain tensor as it
+    is.  A collective: every rank of the mesh calls it.  (The DTensor's own
+    ``full_tensor`` goes through functional collectives, which crash over
+    gloo on CUDA tensors.)"""
+    from torch.distributed.tensor import DTensor
 
     if not isinstance(t, DTensor):
         return t
-    if tuple(t.placements) != (Shard(0),):
-        raise ValueError(f"full_tensor: placements {t.placements}, not "
-                         "(Shard(0),)")
+    dim = shard_dim(t)
     mesh = t.device_mesh
-    world, n = mesh.size(), t.shape[0]
+    world, n = mesh.size(dim), t.shape[0]
     per = -(-n // world)
     local = t.to_local()
     buf = local.new_zeros((per,) + tuple(t.shape[1:]))
     buf[:local.shape[0]] = local
     out = local.new_empty((per * world,) + tuple(t.shape[1:]))
-    _dist().all_gather_into_tensor(out, buf, group=mesh.get_group())
+    _dist().all_gather_into_tensor(out, buf, group=mesh.get_group(dim))
     return out[:n]
 
 
 def _chunk_of(full: torch.Tensor, like) -> torch.Tensor:
     """This rank's chunk of dim 0 of ``full`` as the DTensor ``like`` holds
     it (empty where it holds nothing), on its device."""
+    dim = shard_dim(like)
     mesh = like.device_mesh
-    chunks = full.to(like.device, like.dtype).chunk(mesh.size(), dim=0)
-    r = mesh.get_local_rank()
+    chunks = full.to(like.device, like.dtype).chunk(mesh.size(dim), dim=0)
+    r = mesh.get_local_rank(dim)
     return chunks[r] if r < len(chunks) else chunks[0][:0]
 
 

@@ -42,7 +42,9 @@ from ..ops import (
     window_partition,
     window_reverse,
 )
+from ..ops.fused_leff import ln_leff_rows
 from ..ops.layers import Conv2d, ConvTranspose2d, TokenLayerNorm
+from ..parallel import cp_ops
 from .blocks import WindowAttentionSparse, _image, _tokens, make_token_mlp
 
 
@@ -54,8 +56,9 @@ class ASTInputProj(nn.Module):
         self.proj = nn.Sequential(Conv2d(cin, cout, 3, padding=1,
                                          device=device))
 
-    def forward(self, x):
-        return _tokens(leaky_relu(self.proj(x), 0.01))
+    def forward(self, x, cp=None):
+        """NCHW (the rank's band of rows with ``cp``) -> tokens."""
+        return _tokens(leaky_relu(cp_ops.conv(self.proj[0], x, cp), 0.01))
 
 
 class ASTOutputProj(nn.Module):
@@ -66,8 +69,8 @@ class ASTOutputProj(nn.Module):
         self.proj = nn.Sequential(Conv2d(cin, cout, 3, padding=1,
                                          device=device))
 
-    def forward(self, x):
-        return self.proj(_image(x))
+    def forward(self, x, cp=None):
+        return cp_ops.conv(self.proj[0], _image(x, cp), cp)
 
 
 class ASTDownsample(nn.Module):
@@ -78,8 +81,10 @@ class ASTDownsample(nn.Module):
         self.conv = nn.Sequential(Conv2d(cin, cout, 4, stride=2, padding=1,
                                          device=device))
 
-    def forward(self, x):
-        return _tokens(self.conv(_image(x)))
+    def forward(self, x, cp=None):
+        """With ``cp`` the rank's band, of an even number of rows (one halo
+        row each side: output row o reads rows 2o - 1 to 2o + 2)."""
+        return _tokens(cp_ops.conv(self.conv[0], _image(x, cp), cp))
 
 
 class ASTUpsample(nn.Module):
@@ -90,8 +95,9 @@ class ASTUpsample(nn.Module):
         self.deconv = nn.Sequential(ConvTranspose2d(cin, cout, 2, stride=2,
                                                     device=device))
 
-    def forward(self, x):
-        return _tokens(self.deconv(_image(x)))
+    def forward(self, x, cp=None):
+        """Row-local: a band of rows gives twice its rows."""
+        return _tokens(self.deconv(_image(x, cp)))
 
 
 class ASTTransformerBlock(nn.Module):
@@ -119,28 +125,33 @@ class ASTTransformerBlock(nn.Module):
         self.mlp = make_token_mlp(token_mlp, dim, int(dim * mlp_ratio),
                                   device=device)
 
-    def forward(self, x, use_kernels: bool = True, generator=None):
+    def forward(self, x, use_kernels: bool = True, generator=None, cp=None):
+        """``cp``: the tokens are the rank's band of the map's rows (a
+        multiple of the window where the block attends): the rolls move a
+        halo strip, the attention takes the band's windows and their rows
+        of the shift mask, LN+LeFF the band with a halo row each side."""
         b, l, c = x.shape
-        h = w = math.isqrt(l)
+        h, w = cp_ops.band_shape(l, cp)
         ws, ss = self.win_size, self.shift_size
         if self.att:
-            mask = shift_mask(h, w, ws, ss, x.device) if ss > 0 else None
+            mask = (shift_mask(h * cp_ops.context_size(cp), w, ws, ss,
+                               x.device, cp) if ss > 0 else None)
             img = tokens_to_image(self.norm1(x), h, w)
             if ss > 0:
-                img = torch.roll(img, (-ss, -ss), (1, 2))
+                img = cp_ops.roll2d(img, -ss, -ss, cp)
             wins = window_partition(img, ws).reshape(-1, ws * ws, c)
             wins = self.attn(wins, mask=mask, use_kernels=use_kernels)
             img = window_reverse(wins.reshape(-1, ws, ws, c), ws, h, w)
             if ss > 0:
-                img = torch.roll(img, (ss, ss), (1, 2))
+                img = cp_ops.roll2d(img, ss, ss, cp)
             x = x + self.drop_path(image_to_tokens(img), generator)
         if self.token_mlp != "leff":
-            return x + self.drop_path(self.mlp(self.norm2(x)), generator)
-        leff = ln_leff if use_kernels else ln_leff_plain
-        y = leff(tokens_to_image(x, h, w), self.norm2.weight, self.norm2.bias,
-                 *self.mlp.operands(),
-                 s=self.drop_path.sample_scale(b, generator),
-                 eps=self.norm2.eps)
+            return x + self.drop_path(self.mlp(self.norm2(x), cp), generator)
+        y = ln_leff_rows(tokens_to_image(x, h, w), self.norm2.weight,
+                         self.norm2.bias, *self.mlp.operands(),
+                         s=self.drop_path.sample_scale(b, generator),
+                         eps=self.norm2.eps, cp=cp,
+                         fn=ln_leff if use_kernels else ln_leff_plain)
         return image_to_tokens(y)
 
 
@@ -162,9 +173,9 @@ class BasicASTLayer(nn.Module):
                 device=device)
             for i in range(depth)])
 
-    def forward(self, x, use_kernels: bool = True, generator=None):
+    def forward(self, x, use_kernels: bool = True, generator=None, cp=None):
         for block in self.blocks:
-            x = block(x, use_kernels, generator)
+            x = block(x, use_kernels, generator, cp)
         return x
 
 
@@ -178,9 +189,14 @@ class AST(nn.Module):
                  win_size: int = 8, mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.1, token_mlp: str = "leff",
                  shift_flag: bool = True,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 cp=None):
         super().__init__()
         e, s, d, nh = embed_dim, img_size, depths, num_heads
+        # the rank's place on the context dimension: the forward takes and
+        # gives the rank's band of the images' rows (not a module: the
+        # state_dict is the single-device one)
+        self.cp = cp
         # mlp_ratio is taken and, as in the reference, not passed on
         self.img_size, self.dd_in = img_size, dd_in
         self.compute_dtype = compute_dtype
@@ -240,26 +256,50 @@ class AST(nn.Module):
             elif isinstance(m, WindowAttentionSparse):
                 normal(m.relative_position_bias_table)
 
+    def _level_banded(self, layer: BasicASTLayer, side: int) -> bool:
+        """Whether a level of ``side`` rows runs on the ranks' bands: the
+        context group divides its rows, and where it attends, each band
+        holds whole windows (else the level runs whole on every rank)."""
+        blk = layer.blocks[0]
+        return cp_ops.cp_spatial_viable(
+            side, self.cp, multiple=blk.win_size if blk.att else 1)
+
     def forward(self, x, use_kernels: bool = True,
                 generator: torch.Generator | None = None):
         """``generator``: where DropPath draws in training mode (required
-        there at a non-zero ``drop_path_rate``; unused at inference)."""
-        if x.shape[-2:] != (self.img_size, self.img_size):
+        there at a non-zero ``drop_path_rate``; unused at inference).  With
+        ``cp`` (context parallelism) x is the rank's band of the images'
+        rows, rows [c S/n, (c+1) S/n), and so is the output."""
+        cp = self.cp if cp_ops.context_size(self.cp) > 1 else None
+        n = cp_ops.context_size(cp)
+        if (x.shape[-2] * n, x.shape[-1]) != (self.img_size, self.img_size):
             raise ValueError(f"AST(img_size={self.img_size}) takes "
-                             f"{self.img_size}x{self.img_size} images, got "
-                             f"{tuple(x.shape[-2:])}")
-        k, g = use_kernels, generator
+                             f"{self.img_size}x{self.img_size} images"
+                             + (f" as bands of {self.img_size // n} rows on "
+                                f"{n} ranks" if n > 1 else "")
+                             + f", got {tuple(x.shape[-2:])}")
+        k, g, s = use_kernels, generator, self.img_size
         x = x.to(self.compute_dtype)
+        enc = [getattr(self, f"encoderlayer_{i}") for i in range(4)]
+        dec = [getattr(self, f"decoderlayer_{i}") for i in range(4)]
+        lay = ([self._level_banded(enc[i], s >> i) for i in range(4)]
+               + [self._level_banded(self.conv, s >> 4)]
+               + [self._level_banded(dec[i], s >> (3 - i))
+                  for i in range(4)])
+        top = cp is not None
+        y = cp_ops.between(self.input_proj, x, cp, top, lay[0], 2, 1)
         skips = []
-        y = self.input_proj(x)
         for i in range(4):
-            y = getattr(self, f"encoderlayer_{i}")(y, k, g)
+            y = enc[i](y, k, g, cp if lay[i] else None)
             skips.append(y)
-            y = getattr(self, f"dowsample_{i}")(y)
-        y = self.conv(y, k, g)
+            y = cp_ops.between(getattr(self, f"dowsample_{i}"), y, cp,
+                               lay[i], lay[i + 1])
+        y = self.conv(y, k, g, cp if lay[4] else None)
         for i in range(4):
-            y = torch.cat([getattr(self, f"upsample_{i}")(y), skips[3 - i]],
-                          -1)
-            y = getattr(self, f"decoderlayer_{i}")(y, k, g)
-        y = self.output_proj(y)
+            y = cp_ops.between(getattr(self, f"upsample_{i}"), y, cp,
+                               lay[4 + i], lay[5 + i])
+            skip = cp_ops.relayout(skips[3 - i], cp, lay[3 - i], lay[5 + i])
+            y = dec[i](torch.cat([y, skip], -1), k, g,
+                       cp if lay[5 + i] else None)
+        y = cp_ops.between(self.output_proj, y, cp, lay[8], top, 1, 2)
         return x + y if self.dd_in == 3 else y

@@ -22,8 +22,6 @@ takes no shift (the JAX module's shifted path is never exercised).
 """
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
@@ -40,11 +38,15 @@ from ..ops.attention import merge_heads, split_heads
 from ..ops.layers import Conv2d, Linear, TokenLayerNorm, gelu
 from ..ops.wavelets import dwt2d, idwt2d
 from ..ops.windows import relative_position_index
+from ..parallel import cp_ops
 
 
-def _image(x):
-    """Tokens (B, L, C) -> an NCHW view (channels-last strides)."""
-    return tokens_to_image(x).permute(0, 3, 1, 2)
+def _image(x, cp=None):
+    """Tokens (B, L, C) of a square map -> an NCHW view (channels-last
+    strides); with ``cp`` the tokens are the rank's band of the map's rows
+    (``parallel.cp_ops.band_shape``)."""
+    h, w = cp_ops.band_shape(x.shape[1], cp)
+    return tokens_to_image(x, h, w).permute(0, 3, 1, 2)
 
 
 def _tokens(img):
@@ -63,8 +65,11 @@ class InputProjection(nn.Module):
             Conv2d(a, b, 3, padding=1, device=device)
             for a, b in ((cin, 8), (8, 32), (32, cout))))
 
-    def forward(self, x):
-        return _tokens(leaky_relu(self.proj(x), 0.01))
+    def forward(self, x, cp=None):
+        """NCHW (the rank's band of rows with ``cp``) -> tokens."""
+        for conv in self.proj:
+            x = cp_ops.conv(conv, x, cp)
+        return _tokens(leaky_relu(x, 0.01))
 
 
 class OutputProjection(nn.Module):
@@ -76,8 +81,11 @@ class OutputProjection(nn.Module):
             Conv2d(a, b, 3, padding=1, device=device)
             for a, b in ((cin, 32), (32, 8), (8, cout))))
 
-    def forward(self, x):
-        return self.proj(_image(x))
+    def forward(self, x, cp=None):
+        x = _image(x, cp)
+        for conv in self.proj:
+            x = cp_ops.conv(conv, x, cp)
+        return x
 
 
 class Downsample(nn.Module):
@@ -90,9 +98,10 @@ class Downsample(nn.Module):
                                          padding=1, bias=False,
                                          device=device))
 
-    def forward(self, x):
+    def forward(self, x, cp=None):
+        """With ``cp`` the rank's band, of an even number of rows."""
         return _tokens(torch.nn.functional.pixel_unshuffle(
-            self.body(_image(x)), 2))
+            cp_ops.conv(self.body[0], _image(x, cp), cp), 2))
 
 
 class Upsample(nn.Module):
@@ -105,9 +114,9 @@ class Upsample(nn.Module):
                                          padding=1, bias=False,
                                          device=device))
 
-    def forward(self, x):
+    def forward(self, x, cp=None):
         return _tokens(torch.nn.functional.pixel_shuffle(
-            self.body(_image(x)), 2))
+            cp_ops.conv(self.body[0], _image(x, cp), cp), 2))
 
 
 class Mlp(nn.Module):
@@ -118,7 +127,7 @@ class Mlp(nn.Module):
         self.fc1 = Linear(dim, hidden_dim, device=device)
         self.fc2 = Linear(hidden_dim, dim, device=device)
 
-    def forward(self, x):
+    def forward(self, x, cp=None):
         return self.fc2(gelu(self.fc1(x)))
 
 
@@ -141,9 +150,9 @@ class LeFF(nn.Module):
         return (fc1.weight.t(), fc1.bias, dw.weight[:, 0].permute(1, 2, 0),
                 dw.bias, fc2.weight.t(), fc2.bias)
 
-    def forward(self, x):
+    def forward(self, x, cp=None):
         y = gelu(self.linear1[0](x))
-        y = _tokens(gelu(self.dwconv[0](_image(y))))
+        y = _tokens(gelu(cp_ops.conv(self.dwconv[0], _image(y, cp), cp)))
         return self.linear2[0](y)
 
 
@@ -164,13 +173,14 @@ class FRFN(nn.Module):
                                            device=device))
         self.linear2 = nn.Sequential(Linear(hidden_dim, dim, device=device))
 
-    def forward(self, x):
-        img = _image(x)
-        img = torch.cat([self.partial_conv3(img[:, :self.dim_conv]),
+    def forward(self, x, cp=None):
+        img = _image(x, cp)
+        img = torch.cat([cp_ops.conv(self.partial_conv3,
+                                     img[:, :self.dim_conv], cp),
                          img[:, self.dim_conv:]], 1)
         y = gelu(self.linear1[0](_tokens(img)))
         y1, y2 = y.chunk(2, -1)
-        y1 = _tokens(gelu(self.dwconv[0](_image(y1))))
+        y1 = _tokens(gelu(cp_ops.conv(self.dwconv[0], _image(y1, cp), cp)))
         return self.linear2[0](y1 * y2)
 
 
@@ -262,13 +272,6 @@ class WindowAttentionSparse(nn.Module):
         return self.proj(merge_heads(out))
 
 
-def _fft_real(x, inverse: bool, dims):
-    """real(fft) (or of the inverse) over ``dims`` in f32, rounded to x's
-    dtype (contiguous): the reference's lossy frequency projection."""
-    f = torch.fft.ifftn if inverse else torch.fft.fftn
-    return f(x.float(), dim=dims).real.to(x.dtype).contiguous()
-
-
 class FDFP(nn.Module):
     """Frequency-domain feature projection over (B, H, W, C): DWT (Wavelet)
     or real(fft2) (Fourier), 1x1 conv C -> hidden, gelu, 1x1 conv back,
@@ -282,17 +285,22 @@ class FDFP(nn.Module):
         self.conv1 = Conv2d(in_channels, hidden_channels, 1, device=device)
         self.conv2 = Conv2d(hidden_channels, in_channels, 1, device=device)
 
-    def forward(self, x):
+    def forward(self, x, cp=None):
+        """x (B, H, W, C), with ``cp`` the rank's band of rows (an even
+        number): the DWT and the 1x1 convs are the band's own, the FFTs
+        distributed (``cp_ops.fftn_real_spatial``), and the IDWT runs on
+        the gathered map, whose backward (the reference's quirk) mixes
+        rows across the whole map."""
         if self.use_dwt == "Wavelet":
             x = dwt2d(x)
         elif self.use_dwt == "Fourier":
-            x = _fft_real(x, False, (1, 2))
+            x = cp_ops.fftn_real_spatial(x, cp)
         y = self.conv2(gelu(self.conv1(x.permute(0, 3, 1, 2))))
         y = y.permute(0, 2, 3, 1)
         if self.use_dwt == "Wavelet":
-            return idwt2d(y)
+            return cp_ops.slice_rows(idwt2d(cp_ops.gather_rows(y, cp)), cp)
         if self.use_dwt == "Fourier":
-            return _fft_real(y, True, (1, 2))
+            return cp_ops.ifftn_real_spatial(y, cp)
         return y
 
 
@@ -315,9 +323,11 @@ class MDASSA(nn.Module):
         self.freq_attn = WindowAttentionSparse(dim, win_size, num_heads,
                                                kv="cross", device=device)
 
-    def forward(self, x, use_kernels: bool = True):
+    def forward(self, x, use_kernels: bool = True, cp=None):
+        """With ``cp`` the tokens are the rank's band of the map's rows (a
+        multiple of the window), whose windows are its own."""
         b, l, c = x.shape
-        h = w = math.isqrt(l)
+        h, w = cp_ops.band_shape(l, cp)
         ws, n = self.win_size, self.win_size ** 2
         x = self.norm1(x)
         img = tokens_to_image(x, h, w)
@@ -325,8 +335,8 @@ class MDASSA(nn.Module):
                          use_kernels=use_kernels)
         spatial = x + image_to_tokens(
             window_reverse(wins.reshape(-1, ws, ws, c), ws, h, w))
-        fq = self.fdfp(img)
-        kv = self.conv1x1(_image(spatial)).permute(0, 2, 3, 1)
+        fq = self.fdfp(img, cp)
+        kv = self.conv1x1(_image(spatial, cp)).permute(0, 2, 3, 1)
         kv_wins = torch.cat([window_partition(kv[..., :c], ws),
                              window_partition(kv[..., c:], ws)], -1)
         out = self.freq_attn(window_partition(fq, ws).reshape(-1, n, c),

@@ -49,8 +49,10 @@ from ..ops import (
     ln_leff_plain,
     tokens_to_image,
 )
+from ..ops.fused_leff import ln_leff_rows
 from ..ops.layers import Linear, TokenLayerNorm
 from ..ops.wavelets import dwt2d, idwt2d
+from ..parallel import cp_ops
 from .blocks import (
     MDASSA,
     Downsample,
@@ -58,25 +60,18 @@ from .blocks import (
     OutputProjection,
     Upsample,
     WindowAttentionSparse,
-    _fft_real,
     make_token_mlp,
 )
 
 
-def _fft_tokens_real(x, inverse: bool = False):
-    """real(fftn) (or of ifftn) of (B, L, C) tokens over their (L, C) axes,
-    in f32, rounded to x's dtype."""
-    return _fft_real(x, inverse, (-2, -1))
-
-
-def _ln_mlp(norm, mlp, x, use_kernels, s=None, residual=True):
+def _ln_mlp(norm, mlp, x, use_kernels, s=None, residual=True, cp=None):
     """LayerNorm + LeFF through ``ops.ln_leff`` (or its plain version) on
-    contiguous channels-last tokens; returns tokens."""
-    b, l, c = x.shape
-    h = math.isqrt(l)
-    leff = ln_leff if use_kernels else ln_leff_plain
-    y = leff(tokens_to_image(x, h, h), norm.weight, norm.bias,
-             *mlp.operands(), s=s, residual=residual, eps=norm.eps)
+    contiguous channels-last tokens (the rank's band with ``cp``, a halo
+    row each side); returns tokens."""
+    h, w = cp_ops.band_shape(x.shape[1], cp)
+    y = ln_leff_rows(tokens_to_image(x, h, w), norm.weight, norm.bias,
+                     *mlp.operands(), s=s, residual=residual, eps=norm.eps,
+                     cp=cp, fn=ln_leff if use_kernels else ln_leff_plain)
     return image_to_tokens(y)
 
 
@@ -96,27 +91,34 @@ class EncoderBlock(nn.Module):
         self.drop_path = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x, use_kernels: bool = True, generator=None):
+    def forward(self, x, use_kernels: bool = True, generator=None, cp=None):
+        """``cp``: the tokens are the rank's band of the map's rows (an
+        even number in the Wavelet mode): LN+LeFF and the token MLPs' taps
+        read a halo row each side, the Haar DWT is the band's own, the
+        IDWT runs on the gathered half-size map (its backward, the
+        reference's quirk, mixes rows across the map), and the Fourier
+        mode's (L, C) FFT is distributed over the sharded L."""
         b, l, c = x.shape
-        h = math.isqrt(l)
+        h, w = cp_ops.band_shape(l, cp)
         if self.token_mlp == "leff":
             # the unscaled branch also feeds the Fourier quirk, so DropPath
             # stays outside the kernel
             sp = _ln_mlp(self.norm1, self.mlp, x, use_kernels,
-                         residual=False)
+                         residual=False, cp=cp)
         else:
-            sp = self.mlp(self.norm1(x))
+            sp = self.mlp(self.norm1(x), cp)
         if self.use_dwt == "Wavelet":
-            fx = image_to_tokens(dwt2d(tokens_to_image(self.norm2(x), h, h)))
+            fx = image_to_tokens(dwt2d(tokens_to_image(self.norm2(x), h, w)))
         elif self.use_dwt == "Fourier":
-            fx = _fft_tokens_real(sp)
+            fx = cp_ops.fftn_real_tokens(sp, cp=cp)
         else:
             fx = self.norm2(x)
-        fx = self.freq_mlp(fx)
+        fx = self.freq_mlp(fx, cp)
         if self.use_dwt == "Wavelet":
-            fx = image_to_tokens(idwt2d(tokens_to_image(fx, h // 2, h // 2)))
+            fx = cp_ops.gather_rows(tokens_to_image(fx, h // 2, w // 2), cp)
+            fx = image_to_tokens(cp_ops.slice_rows(idwt2d(fx), cp))
         elif self.use_dwt == "Fourier":
-            fx = _fft_tokens_real(fx, inverse=True)
+            fx = cp_ops.fftn_real_tokens(fx, inverse=True, cp=cp)
         fx = self.drop_path2(fx, generator)
         return x + fx + self.drop_path(sp, generator)
 
@@ -141,15 +143,18 @@ class DecoderBlock(nn.Module):
         self.mlp_proj = Linear(mdim, dim, device=device)
 
     def forward(self, x, enc_out=None, use_kernels: bool = True,
-                generator=None):
+                generator=None, cp=None):
+        """``cp``: the tokens are the rank's band of the map's rows (a
+        multiple of the window)."""
         if enc_out is not None:
             x = torch.cat([x, enc_out], -1)
-        x = self.mdassa(self.norm1(x), use_kernels) + x
+        x = self.mdassa(self.norm1(x), use_kernels, cp) + x
         if self.token_mlp == "leff":
             x = _ln_mlp(self.norm2, self.mlp, x, use_kernels,
-                        s=self.drop_path.sample_scale(x.shape[0], generator))
+                        s=self.drop_path.sample_scale(x.shape[0], generator),
+                        cp=cp)
         else:
-            x = x + self.drop_path(self.mlp(self.norm2(x)), generator)
+            x = x + self.drop_path(self.mlp(self.norm2(x), cp), generator)
         return self.mlp_proj(x)
 
 
@@ -161,10 +166,16 @@ class NewFamily(nn.Module):
                  embed_dim: int = 32, drop_path_rate: float = 0.1,
                  use_dwt: str = "Fourier", token_mlp: str = "leff",
                  blocks_per_level: int = 1,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 cp=None):
         super().__init__()
         e, s, tm = embed_dim, img_size, token_mlp
         self.img_size, self.compute_dtype = img_size, compute_dtype
+        self.embed_dim, self.use_dwt = embed_dim, use_dwt
+        # the rank's place on the context dimension: the forward takes and
+        # gives the rank's band of the images' rows (not a module: the
+        # state_dict is the single-device one)
+        self.cp = cp
         self.blocks_per_level = blocks_per_level
         enc_dpr = np.linspace(0.0, drop_path_rate, 4)
         self.input_proj = InputProjection(dd_in, e, device=device)
@@ -212,30 +223,61 @@ class NewFamily(nn.Module):
                 r = torch.randn(t.shape, generator=generator, device=dev)
                 t.copy_((r * 0.02).clamp_(-2.0, 2.0))
 
+    def _level_banded(self, side: int, win: int = 0, dim: int = 0) -> bool:
+        """Whether a level of ``side`` rows runs on the ranks' bands: the
+        context group divides its rows, each band holds whole windows of
+        ``win`` where the level attends and an even number of rows in the
+        Wavelet mode (the Haar transforms pair rows), and the group divides
+        the ``dim`` channels of an encoder's Fourier token FFT (else the
+        level runs whole on every rank)."""
+        cp = self.cp
+        mult = max(win, 2 if self.use_dwt == "Wavelet" else 1)
+        if dim and self.use_dwt == "Fourier" and \
+                dim % cp_ops.context_size(cp):
+            return False
+        return cp_ops.cp_spatial_viable(side, cp, multiple=mult)
+
     def forward(self, x, use_kernels: bool = True,
                 generator: torch.Generator | None = None):
         """``generator``: where DropPath draws in training mode (required
-        there at a non-zero ``drop_path_rate``; unused at inference)."""
-        if x.shape[-2:] != (self.img_size, self.img_size):
+        there at a non-zero ``drop_path_rate``; unused at inference).  With
+        ``cp`` (context parallelism) x is the rank's band of the images'
+        rows, rows [c S/n, (c+1) S/n), and so is the output."""
+        cp = self.cp if cp_ops.context_size(self.cp) > 1 else None
+        n = cp_ops.context_size(cp)
+        if (x.shape[-2] * n, x.shape[-1]) != (self.img_size, self.img_size):
             raise ValueError(f"{type(self).__name__}(img_size="
                              f"{self.img_size}) takes {self.img_size}x"
-                             f"{self.img_size} images, got "
-                             f"{tuple(x.shape[-2:])}")
-        k, g = use_kernels, generator
+                             f"{self.img_size} images"
+                             + (f" as bands of {self.img_size // n} rows on "
+                                f"{n} ranks" if n > 1 else "")
+                             + f", got {tuple(x.shape[-2:])}")
+        k, g, s, e = use_kernels, generator, self.img_size, self.embed_dim
         x = x.to(self.compute_dtype)
-        y = self.input_proj(x)
+        enc = [self._level_banded(s >> lvl, dim=e << lvl) for lvl in range(4)]
+        mid = self._level_banded(s >> 4, self.bottleneck.mdassa.win_size)
+        dec = [self._level_banded(s >> lvl, getattr(
+            self, f"decoder_{lvl}").mdassa.win_size) for lvl in range(4)]
+        top = cp is not None
+        y = cp_ops.between(self.input_proj, x, cp, top, enc[0], 2, 1)
         skips = []
         for lvl in range(4):
             for name in self._names("encoder", lvl):
-                y = getattr(self, name)(y, k, g)
+                y = getattr(self, name)(y, k, g, cp if enc[lvl] else None)
             skips.append(y)
-            y = getattr(self, f"downsample_{lvl}")(y)
-        y = self.bottleneck(y, None, k, g)
+            y = cp_ops.between(getattr(self, f"downsample_{lvl}"), y, cp,
+                               enc[lvl], enc[lvl + 1] if lvl < 3 else mid)
+        y = self.bottleneck(y, None, k, g, cp if mid else None)
+        cur = mid
         for lvl in range(3, -1, -1):
-            y = getattr(self, f"upsample_{lvl}")(y)
+            y = cp_ops.between(getattr(self, f"upsample_{lvl}"), y, cp, cur,
+                               dec[lvl])
+            cur = dec[lvl]
             for i, name in enumerate(self._names("decoder", lvl)):
-                y = getattr(self, name)(y, None if i else skips[lvl], k, g)
-        return self.output_proj(y) + x
+                skip = None if i else cp_ops.relayout(skips[lvl], cp,
+                                                      enc[lvl], cur)
+                y = getattr(self, name)(y, skip, k, g, cp if cur else None)
+        return cp_ops.between(self.output_proj, y, cp, cur, top, 1, 2) + x
 
 
 class NewModel(NewFamily):

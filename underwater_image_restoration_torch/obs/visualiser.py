@@ -63,10 +63,15 @@ def process_image_using_model(
 
 def model_apply(model, use_kernels: bool = True):
     """``apply(x)``: float32 NHWC numpy in [-1, 1] -> the model's float32
-    NHWC numpy output, in eval mode on the model's device."""
+    NHWC numpy output, in eval mode on the model's device.  A model built
+    with a context group (``cp``) takes each rank's band of the rows and
+    gathers the output: every rank of the group calls ``apply``."""
     import torch
 
     dev = next(model.parameters()).device
+    cp = getattr(model, "cp", None)
+    if cp is not None and cp.size == 1:
+        cp = None
 
     @torch.no_grad()
     def apply(x):
@@ -74,7 +79,14 @@ def model_apply(model, use_kernels: bool = True):
         model.eval()
         try:
             t = torch.as_tensor(np.ascontiguousarray(x)).to(dev)
-            y = model(t.permute(0, 3, 1, 2).contiguous(), use_kernels)
+            t = t.permute(0, 3, 1, 2)
+            if cp is not None:  # every rank its band, then the whole image
+                from ..parallel import gather_replicated
+
+                t = t[:, :, cp.band(t.shape[2])]
+            y = model(t.contiguous(), use_kernels)
+            if cp is not None:
+                y = gather_replicated(y, cp, 2)
         finally:
             model.train(was_training)
         return y.permute(0, 2, 3, 1).float().cpu().numpy()

@@ -13,10 +13,13 @@ kernel (which takes the scale) or through plain ops (``forward``).  The JAX
 rng stream cannot be reproduced here: parity with JAX runs at rate 0.
 
 Under data parallelism the train step passes a ``RankDraws`` in the
-generator's place: a call on the rank's ``batch`` rows draws the global
-batch's ``batch * world`` uniforms and keeps rows
-[rank batch, (rank + 1) batch).  Every rank's generator is seeded alike, so
-n ranks draw what one device draws at the global batch.
+generator's place: a call on the data index's ``batch`` rows draws the
+global batch's ``batch * world`` uniforms and keeps rows
+[rank batch, (rank + 1) batch), ``rank`` the data index and ``world`` the
+data-parallel size.  Every rank's generator is seeded alike, so n data
+indices draw what one device draws at the global batch, and the context
+ranks of one data index (which hold bands of the same images) draw the
+same decisions.
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ from torch import nn
 
 @dataclasses.dataclass(frozen=True)
 class RankDraws:
-    """A generator seeded alike on every data-parallel rank, with this
-    rank's place: DropPath draws ``world`` ranks' decisions from it and
-    keeps ``rank``'s rows."""
+    """A generator seeded alike on every rank, with the rank's data index
+    ``rank`` of ``world`` data indices: DropPath draws the ``world`` data
+    indices' decisions from it and keeps ``rank``'s rows (every context
+    rank of a data index keeps the same)."""
 
     generator: torch.Generator
     rank: int
@@ -49,7 +53,8 @@ class DropPath(nn.Module):
         """The per-sample scale a fused kernel applies to its branch (the
         ``s`` of ``ops.ln_leff``): (batch,) f32 of 0 or 1/keep on the
         generator's device, or None where the module is the identity.  A
-        ``RankDraws`` gives the rank's rows of the global batch's draw."""
+        ``RankDraws`` gives the data index's rows of the global batch's
+        draw."""
         if not self.training or self.rate == 0.0:
             return None
         if generator is None:

@@ -462,3 +462,28 @@ def ln_leff(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
 # launches of the CUDA kernels, by (C, H, W); the CPU path adds none
 ln_leff.launches = collections.Counter()
 ln_leff_bwd.launches = collections.Counter()
+
+
+def ln_leff_rows(x, scale, bias, w1, b1, w_dw, b_dw, w2, b2, s=None,
+                 eps: float = 1e-5, residual: bool = True, cp=None,
+                 fn=None):
+    """``fn`` (``ln_leff``, the default, or ``ln_leff_plain``) of the
+    rank's band of a row-sharded map (``cp``, a
+    ``core.meshes.ContextParallel``; the whole map without it): the band
+    with one row of each neighbouring rank's (none past the map's edge, where
+    the kernel zero-pads g1 as the whole map's call does), its result
+    cropped to the band.  The 3x3 taps of a band row read the halo rows'
+    g1, so the band's rows are the whole map's.  In the backward the crop
+    gives the halo rows a zero cotangent; the kernel's dx on them is what
+    the neighbour's rows are owed through the taps, and the halo exchange's
+    adjoint adds it there; the weight gradients are the band's share (the
+    train step sums them over the ranks)."""
+    fn = ln_leff if fn is None else fn
+    args = (scale, bias, w1, b1, w_dw, b_dw, w2, b2)
+    if cp is None or cp.size == 1:
+        return fn(x, *args, s=s, eps=eps, residual=residual)
+    from ..parallel.context import halo_rows
+
+    ext, top = halo_rows(x, 1, 1, cp, dim=1, zeros=False)
+    y = fn(ext.contiguous(), *args, s=s, eps=eps, residual=residual)
+    return y[:, top:top + x.shape[1]].contiguous()

@@ -8,7 +8,10 @@ of each image, so window ``i`` of the batch uses shift mask ``i % nW``.
 
 ``shift_window_mask`` and ``relative_position_index`` are numpy builders
 (the model's static shapes make them constants); ``shift_mask`` keeps one
-copy of each mask on each device.
+copy of each mask on each device.  Under context parallelism a rank holds
+a band of the map's rows, and its windows are window rows
+[c nWh/n, (c+1) nWh/n) of the (nWh, nWw) grid: ``mask_rows`` (and
+``shift_mask(..., cp=)``) gives the mask of those windows alone.
 """
 from __future__ import annotations
 
@@ -68,11 +71,24 @@ def relative_position_index(win_h: int, win_w: int) -> np.ndarray:
 _MASKS: dict = {}
 
 
+def mask_rows(mask, cp, n_win_h: int):
+    """The rows of a (nW, N, N) mask of a map of ``n_win_h`` window rows
+    that belong to the windows of ``cp``'s band (window rows
+    [c nWh/n, (c+1) nWh/n), contiguous in the mask); ``mask`` itself
+    without ``cp`` or at one rank."""
+    if mask is None or cp is None or cp.size == 1:
+        return mask
+    per = mask.shape[0] // n_win_h
+    rows = cp.band(n_win_h)
+    return mask[rows.start * per:rows.stop * per]
+
+
 def shift_mask(h: int, w: int, win_size: int, shift_size: int,
-               device) -> torch.Tensor:
-    """``shift_window_mask`` as a float32 tensor on ``device``, built once a
-    (h, w, ws, ss, device).  One built while a tracer runs (``torch.export``
-    gives a fake tensor here) is not kept."""
+               device, cp=None) -> torch.Tensor:
+    """``shift_window_mask`` of the (h, w) map as a float32 tensor on
+    ``device``, built once a (h, w, ws, ss, device); with ``cp`` the rows of
+    its band's windows (``mask_rows``).  One built while a tracer runs
+    (``torch.export`` gives a fake tensor here) is not kept."""
     key = (h, w, win_size, shift_size, str(torch.device(device)))
     m = _MASKS.get(key)
     if m is None:
@@ -80,4 +96,4 @@ def shift_mask(h: int, w: int, win_size: int, shift_size: int,
                                                shift_size)).to(device)
         if type(m) is torch.Tensor:
             _MASKS[key] = m
-    return m
+    return mask_rows(m, cp, h // win_size)

@@ -43,15 +43,19 @@ def multistep_lr(base_lr: float, milestones: Sequence[int] = DEFAULT_MILESTONES,
 
 def _shards(tensors):
     """(local tensors, process group): a sharded model's gradients are
-    DTensors (FSDP2), whose local shards together hold every element once;
-    others are their own, with no group."""
+    DTensors (FSDP2), whose local shards over the sharded dimension of
+    their mesh together hold every element once (HSDP replicates them over
+    the other); others are their own, with no group."""
     try:
         from torch.distributed.tensor import DTensor
     except ImportError:  # a build without torch.distributed
         return list(tensors), None
     if tensors and isinstance(tensors[0], DTensor):
+        from ..core.meshes import shard_dim
+
+        t0 = tensors[0]
         return ([t.to_local() for t in tensors],
-                tensors[0].device_mesh.get_group())
+                t0.device_mesh.get_group(shard_dim(t0)))
     return list(tensors), None
 
 
