@@ -606,11 +606,17 @@ def work_leff_bwd(c, h, batch, itemsize):
             px * (10 * c * hid + 6 * 9 * hid))
 
 
-def spectral_launches(batch, train=False):
+def spectral_launches(batch, train=False, blocks=None, split=None,
+                      gdfn=None):
     """The Spectral kernels' launches in one bf16 forward of the full-width
     model at ``batch`` (with ``train``, and its backward: ln_gdfn_bwd 2 a
     block, ln_mdta_bwd BWD_LAUNCHES a slice of the batch and one a call), by
-    kernel and (C, H, W), as their planners say for BLOCKS."""
+    kernel and (C, H, W), as their planners say for ``blocks`` (BLOCKS, the
+    whole maps', by default): {(C, H, W): blocks}.  Context parallelism:
+    ``split``, {(C, H, W): (blocks, h_max)} of LN+MDTA calls on bands with
+    their halo rows, through the split entries (stats and apply; stage 1
+    and stage 2 in the slices of the tallest band, h_max rows); ``gdfn``,
+    LN+GDFN's calls where they are not ``blocks``."""
     import torch
 
     from underwater_image_restoration_torch.ops import (
@@ -619,21 +625,36 @@ def spectral_launches(batch, train=False):
         fused_mdta,
     )
 
+    blocks = BLOCKS if blocks is None else blocks
+    gdfn = blocks if gdfn is None else gdfn
+    split = split or {}
     sms = _kernels.sm_count(torch.device("cuda"))
     out = {
         "ln_gdfn": {k: n * fused_gdfn.fwd_launches(
             batch, k[1], k[2], k[0],
             fused_gdfn.padded_hidden(int(k[0] * EXPANSION)), 2, sms)
-            for k, n in BLOCKS.items()},
+            for k, n in gdfn.items()},
         "ln_mdta": {k: n * fused_mdta.fwd_plan(
             batch, k[1], k[2], k[0], 2).launches
-            for k, n in BLOCKS.items()}}
+            for k, n in blocks.items()}}
+    for name, per in (("ln_mdta_stats", fused_mdta.FWD_STATS_LAUNCHES),
+                      ("ln_mdta_apply", fused_mdta.FWD_APPLY_LAUNCHES)):
+        out[name] = {k: n * (1 + per * fused_mdta.fwd_plan(
+            batch, k[1], k[2], k[0], 2).slices)
+            for k, (n, _) in split.items()}
     if train:
-        out["ln_gdfn_bwd"] = {k: 2 * n for k, n in BLOCKS.items()}
+        out["ln_gdfn_bwd"] = {k: 2 * n for k, n in gdfn.items()}
         out["ln_mdta_bwd"] = {k: n * fused_mdta.bwd_plan(
             batch, k[1], k[2], k[0], 2, sms).launches
-            for k, n in BLOCKS.items()}
-    return out
+            for k, n in blocks.items()}
+        for name, per in (("ln_mdta_bwd_stage1",
+                           fused_mdta.BWD_STAGE1_LAUNCHES),
+                          ("ln_mdta_bwd_stage2",
+                           fused_mdta.BWD_STAGE2_LAUNCHES)):
+            out[name] = {k: n * per * fused_mdta.bwd_rows_plan(
+                batch, k[1], k[2], k[0], 2, sms, hm).slices
+                for k, (n, hm) in split.items()}
+    return {k: v for k, v in out.items() if v}
 
 
 def grad_dist(g, r):
@@ -1933,10 +1954,7 @@ def run_phase(card, batch, size):
         CachedUIEBDataset,
     )
     from underwater_image_restoration_torch.losses import LossFunction
-    from underwater_image_restoration_torch.models import (
-        init_model,
-        spectral_transformer,
-    )
+    from underwater_image_restoration_torch.models import init_model
     from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
     from underwater_image_restoration_torch.train import (
         CheckpointManager,
@@ -1975,8 +1993,6 @@ def run_phase(card, batch, size):
         return fn, wrapper
 
     patched = [(mod, name) + counted(mod, name) for mod, name in (
-        (spectral_transformer, "ln_mdta_plain"),
-        (spectral_transformer, "ln_gdfn_plain"),
         (fused_mdta, "ln_mdta_plain"), (fused_gdfn, "ln_gdfn_plain"),
         (fused_mdta, "ln_mdta_bwd_plain"), (fused_gdfn, "ln_gdfn_bwd_plain"))]
     cwd = os.getcwd()
@@ -3195,19 +3211,34 @@ def parallel_phase(card, batch, size, check_batch):
     return []
 
 
-# 13. context and tensor parallelism of the window-attention models
+# 13. context and tensor parallelism
 
 CTX_WORLD = 2
 # phase 13's models: AST@256 at the default kwargs, NewModel@256 in both
-# modes (13(a)-(b)), with their one-step gradient limits
+# modes, SpectralTransformer@256 at the full width (13(a)-(b)), with their
+# one-step gradient limits
 CTX_CASES = (("AST", "AST", {}),
              ("NewModel-Fourier", "NewModel", {"use_dwt": "Fourier"}),
-             ("NewModel-Wavelet", "NewModel", {"use_dwt": "Wavelet"}))
-# steps a turn: the Fourier mode's two ranks ran at 2.96-3.29 images/s on
-# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, PR 13; its distributed FFTs
-# move the whole map through gloo's host round trip), so its turns are
-# short
-CTX_STEPS = {"AST": 10, "NewModel-Fourier": 3, "NewModel-Wavelet": 10}
+             ("NewModel-Wavelet", "NewModel", {"use_dwt": "Wavelet"}),
+             ("Spectral", "SpectralTransformer", {}))
+# steps a turn: the Fourier mode's two ranks run at about 3 images/s on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6; its distributed FFTs move
+# the whole map through gloo's host round trip), so its turns are one
+# step; AST's and the Wavelet mode's are 5 so that the phase, with the
+# Spectral case's 10, keeps the script within about half its time limit
+CTX_STEPS = {"AST": 5, "NewModel-Fourier": 1, "NewModel-Wavelet": 5,
+             "Spectral": 10}
+# 13(f): the Spectral blocks' kernels on a rank's halo'd band vs the
+# whole-map kernel on the whole map, max abs error over max|branch|
+# (outputs) or max|reference| (gradients): f32 sums in another order, bf16
+# roundings on the other side of a boundary (phase 2's and phase 4's
+# readings).  Against the plain version the band is held to the limits
+# the whole-map kernels are (KERNEL_TOL; GRAD_TOL, whose f32 dtemp, a
+# gram's gradient over the map, reads up to 1.75e-5): the band's LN+GDFN
+# output is the whole-map kernel's bit for bit, and at batch 16 that
+# kernel reads up to 1.307e-05 from the plain version in f32 on an NVIDIA
+# H100 80GB HBM3
+CTX_BAND_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # the primitives on CUDA tensors (f32) vs the one-process op on the whole
 # map in the same process, of max|ref|: data movement is exact, the kernels
 # and cuFFT/cuDNN walk a band in another order than the whole map
@@ -3219,13 +3250,15 @@ CTX_CLI_PAIRS = (32, 8)
 
 
 def _ctx_tol(name):
-    return AST_TRAIN_GRAD_TOL if name == "AST" else NEW_TRAIN_GRAD_TOL
+    return {"AST": AST_TRAIN_GRAD_TOL, "Spectral": TRAIN_GRAD_TOL}.get(
+        name, NEW_TRAIN_GRAD_TOL)
 
 
-def cp_launches(model, batch, index, n, sms):
+def cp_launches(model, batch, index, n, sms, size=256):
     """What the planners say one train step (forward and backward) of the
     AST or a New* model at ``batch`` in bf16 launches on context rank
-    ``index`` of ``n``: ln_leff and ln_leff_bwd by (C, rows, W), the rows
+    ``index`` of ``n`` (of the SpectralTransformer at ``size``:
+    ``spectral_cp_launches``): ln_leff and ln_leff_bwd by (C, rows, W), the rows
     the band's with a halo row to each neighbouring rank on a level the
     model runs on bands (``_level_banded``) and the whole map's elsewhere;
     window_attn and window_attn_bwd by (B', heads, N, d, masked), B' the
@@ -3236,6 +3269,9 @@ def cp_launches(model, batch, index, n, sms):
     from underwater_image_restoration_torch.models.new_model import (
         DecoderBlock,
         EncoderBlock,
+    )
+    from underwater_image_restoration_torch.models.spectral_transformer import (
+        SpectralTransformer,
     )
     from underwater_image_restoration_torch.ops import fused_leff
 
@@ -3260,6 +3296,8 @@ def cp_launches(model, batch, index, n, sms):
         out["window_attn_bwd"][key] += calls * wa.bwd_plan(
             key[0], heads, ws * ws, sms, d=key[3], itemsize=2).launches
 
+    if isinstance(model, SpectralTransformer):
+        return spectral_cp_launches(model, batch, index, n, sms, size)
     s = model.img_size
     if isinstance(model, AST):
         layers = ([(getattr(model, f"encoderlayer_{i}"), s >> i)
@@ -3290,11 +3328,63 @@ def cp_launches(model, batch, index, n, sms):
     return {k: dict(v) for k, v in out.items() if v}
 
 
-def _ctx_model(torch, arch, kw, dt, size, cp=None):
-    from underwater_image_restoration_torch.models import init_model
+def spectral_block_levels(model):
+    """[(block, level)] of a SpectralTransformer: each SpectralBlock and
+    the level (0-3, its map the whole one halved that often) it runs at."""
+    from underwater_image_restoration_torch.models.spectral_transformer import (
+        SpectralBlock,
+    )
 
-    return init_model(arch, seed=0, img_size=size, compute_dtype=dt, cp=cp,
-                      **kw)
+    level = {"encoders.0": 0, "encoders.1": 1, "encoders.2": 2,
+             "encoders.3": 3, "decoders.0": 2, "decoders.1": 1,
+             "decoders.2": 0, "refinement": 0}
+    return [(m, level[name.rsplit(".", 1)[0]])
+            for name, m in model.named_modules()
+            if isinstance(m, SpectralBlock)]
+
+
+def spectral_cp_launches(model, batch, index, n, sms, size=256):
+    """``cp_launches`` of the SpectralTransformer at ``size``: on a level
+    it runs on bands (``levels_banded``), LN+GDFN on the band with a halo
+    row to each neighbouring rank and LN+MDTA through the split entries on
+    the band with MDTA_HALO rows to each (``spectral_launches``' split, the
+    backward in the slices of the tallest band of any rank); elsewhere both
+    on the whole map."""
+    from underwater_image_restoration_torch.ops.fused_mdta import MDTA_HALO
+
+    lv, _ = model.levels_banded(size, size)
+    sides = (index > 0) + (index < n - 1)
+    whole, gdfn, split = (collections.Counter(), collections.Counter(),
+                          {})
+    for m, i in spectral_block_levels(model):
+        c, side = m.norm1.weight.numel(), size >> i
+        if not lv[i]:
+            whole[(c, side, side)] += 1
+            gdfn[(c, side, side)] += 1
+            continue
+        rows = side // n
+        gdfn[(c, rows + sides, side)] += 1
+        key = (c, rows + MDTA_HALO * sides, side)
+        split[key] = (split.get(key, (0,))[0] + 1,
+                      rows + MDTA_HALO * min(2, n - 1))
+    return spectral_launches(batch, True, dict(whole), split, dict(gdfn))
+
+
+def _ctx_model(torch, arch, kw, dt, size, cp=None):
+    """A phase-13 model; the SpectralTransformer's attention temperatures
+    at MODEL_TEMPERATURE, as phase 5 trains it."""
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.models.spectral_transformer import (
+        MDTA,
+    )
+
+    model = init_model(arch, seed=0, img_size=size, compute_dtype=dt, cp=cp,
+                       **kw)
+    with torch.no_grad():
+        for blk in model.modules():
+            if isinstance(blk, MDTA):
+                blk.temperature.fill_(MODEL_TEMPERATURE)
+    return model
 
 
 def _ctx_grads(torch, model, raw, ref, parallel=None):
@@ -3391,6 +3481,94 @@ def _ctx_primitives(torch, dp):
     return out
 
 
+def _ctx_band_kernels(torch, dp, batch, size):
+    """13(f): the Spectral blocks' kernels on this rank's band, at every
+    (C, side, heads) that Spectral@``size`` runs on bands and at the train
+    batch (so the split backward runs the slices, the sums of dA and the
+    accumulation the main path's step runs), f32 and bf16:
+    ``ln_mdta_rows`` (the split entries around the sums over the ranks,
+    with autograd: ``LnMdtaRowsFn``) and ``ln_gdfn_rows`` (ln_gdfn,
+    ln_gdfn_bwd on the band with a halo row), their outputs and dx on the
+    band's rows and their weight gradients summed over the ranks, against
+    the whole-map kernels and the plain versions on the whole map (every
+    rank computes those alike): [(shape, slices of the split backward,
+    what, dtype, err vs the whole-map kernels, err vs the plain
+    versions, err of the whole-map kernels vs the plain versions)]."""
+    import torch.distributed as dist
+
+    from underwater_image_restoration_torch.models.spectral_transformer import (
+        SpectralTransformer,
+    )
+    from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
+
+    cp = dp.cp
+    model = SpectralTransformer(device="meta", cp=cp)
+    lv, _ = model.levels_banded(size, size)
+    shapes = sorted({(m.norm1.weight.numel(), size >> i, m.attn.num_heads)
+                     for m, i in spectral_block_levels(model) if lv[i]})
+    del model
+    out = []
+
+    def err(got, want, scale):
+        return float((got.float() - want.float()).abs().max() / scale)
+
+    for c, side, nh in shapes:
+        band = cp.band(side)
+        x32, ln, mdta, gdfn = block_inputs(c, side, side, nh, batch,
+                                           71 + c + side)
+        dy32 = torch.randn(x32.shape, generator=torch.Generator(
+            ).manual_seed(72 + c + side)).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dt), dy32.to(dt)
+            for what, ws in (("ln_mdta", (*ln, *mdta)),
+                             ("ln_gdfn", (*ln, *gdfn))):
+                if what == "ln_mdta":
+                    def band_fn(t, *w):
+                        return fused_mdta.ln_mdta_rows(t, *w, nh, cp=cp)
+                    plain = fused_mdta.ln_mdta_plain(x, *ws, nh)
+                    whole, stats = fused_mdta.forward_with_stats(x, *ws, nh)
+                    g_whole = fused_mdta.ln_mdta_bwd(x, dy, *ws, nh, stats)
+                    g_plain = fused_mdta.ln_mdta_bwd_plain(x, dy, *ws, nh)
+                    del stats
+                else:
+                    def band_fn(t, *w):
+                        return fused_gdfn.ln_gdfn_rows(t, *w, cp=cp)
+                    plain = fused_gdfn.ln_gdfn_plain(x, *ws)
+                    whole = fused_gdfn.ln_gdfn(x, *ws)
+                    g_whole = fused_gdfn.ln_gdfn_bwd(x, dy, *ws)
+                    g_plain = fused_gdfn.ln_gdfn_bwd_plain(x, dy, *ws)
+                ins = [t.detach().clone().requires_grad_() for t in
+                       (x[:, :, band].contiguous(), *ws)]
+                stage1 = sum(fused_mdta.ln_mdta_bwd_stage1.launches.values())
+                with torch.enable_grad():
+                    y = band_fn(*ins)
+                    grads = list(torch.autograd.grad(
+                        y, ins, dy[:, :, band].contiguous()))
+                slices = (sum(fused_mdta.ln_mdta_bwd_stage1.launches.values())
+                          - stage1) // fused_mdta.BWD_STAGE1_LAUNCHES
+                for g in grads[1:]:
+                    dist.all_reduce(g, group=cp.group)
+                torch.cuda.synchronize()
+                branch = float((plain - x).float().abs().max())
+                tag = "float32" if dt == torch.float32 else "bfloat16"
+                shape = (c, side, nh)
+                out.append((shape, slices, f"{what} y", tag,
+                            err(y, whole[:, :, band], branch),
+                            err(y, plain[:, :, band], branch),
+                            err(whole, plain, branch)))
+                for i, (g, gw, gp) in enumerate(zip(grads, g_whole,
+                                                    g_plain)):
+                    sl = (slice(None), slice(None), band) if i == 0 else ...
+                    scale = float(gp.float().abs().max()) or 1.0
+                    out.append((shape, slices, f"{what} grad {i}", tag,
+                                err(g, gw[sl], scale), err(g, gp[sl], scale),
+                                err(gw, gp, scale)))
+                del plain, whole, g_whole, g_plain, ins, y, grads
+            del x, dy
+            torch.cuda.empty_cache()
+    return out
+
+
 def _context_rank(rank, port, out_dir, batch, size, check_batch):
     """A rank of phase 13(a)-(c), (e): each model's context-parallel step
     (launches, gradients, rate in turns with one rank's step), the
@@ -3410,7 +3588,9 @@ def _context_rank(rank, port, out_dir, batch, size, check_batch):
     from underwater_image_restoration_torch.models import new_model
     from underwater_image_restoration_torch.ops import (
         _kernels,
+        fused_gdfn,
         fused_leff,
+        fused_mdta,
         ln_leff,
         window_attention,
     )
@@ -3451,12 +3631,25 @@ def _context_rank(rank, port, out_dir, batch, size, check_batch):
     counters = {"ln_leff": ln_leff.launches,
                 "ln_leff_bwd": ln_leff_bwd.launches,
                 "window_attn": window_attention.launches,
-                "window_attn_bwd": wa.window_attn_bwd.launches}
+                "window_attn_bwd": wa.window_attn_bwd.launches,
+                "ln_gdfn": fused_gdfn.ln_gdfn.launches,
+                "ln_gdfn_bwd": fused_gdfn.ln_gdfn_bwd.launches,
+                "ln_mdta": fused_mdta.ln_mdta.launches,
+                "ln_mdta_bwd": fused_mdta.ln_mdta_bwd.launches,
+                "ln_mdta_stats": fused_mdta.ln_mdta_stats.launches,
+                "ln_mdta_apply": fused_mdta.ln_mdta_apply.launches,
+                "ln_mdta_bwd_stage1": fused_mdta.ln_mdta_bwd_stage1.launches,
+                "ln_mdta_bwd_stage2": fused_mdta.ln_mdta_bwd_stage2.launches}
     # the plain versions of the path's kernels: none may run
     plain_calls = collections.Counter()
     patched = [(fused_leff, "ln_leff_plain"), (ast_model, "ln_leff_plain"),
                (new_model, "ln_leff_plain"), (wa, "window_attention_core"),
-               (wa, "window_attention_bwd")]
+               (wa, "window_attention_bwd"), (fused_mdta, "_plain"),
+               (fused_mdta, "ln_mdta_stats_plain"),
+               (fused_mdta, "ln_mdta_apply_plain"),
+               (fused_mdta, "ln_mdta_bwd_plain"),
+               (fused_gdfn, "ln_gdfn_plain"),
+               (fused_gdfn, "ln_gdfn_bwd_plain")]
     saved = [getattr(mod, name) for mod, name in patched]
 
     def counted(name, fn):
@@ -3467,6 +3660,8 @@ def _context_rank(rank, port, out_dir, batch, size, check_batch):
 
     res["prims"] = _ctx_primitives(torch, dp)
     stage("primitives done")
+    res["band"] = _ctx_band_kernels(torch, dp, batch, size)
+    stage("band kernels done")
     raw, ref = synthetic_pair_batch(batch, size, seed=0)
     lossfn = LossFunction("L1withColor")
     for name, arch, kw in CTX_CASES:
@@ -3485,10 +3680,12 @@ def _context_rank(rank, port, out_dir, batch, size, check_batch):
         finally:
             for (mod, fn_name), fn in zip(patched, saved):
                 setattr(mod, fn_name, fn)
-        res[name, "launches"] = {k: dict(v) for k, v in counters.items()}
+        res[name, "launches"] = {k: dict(v) for k, v in counters.items()
+                                 if v}
         res[name, "sent"] = dict(sent_bytes)
         res[name, "collectives"] = dict(collectives)
-        res[name, "want"] = cp_launches(model, batch, cp.index, cp.size, sms)
+        res[name, "want"] = cp_launches(model, batch, cp.index, cp.size, sms,
+                                        size)
         res[name, "plain_calls"] = dict(plain_calls)
         plain_calls.clear()
         model.compute_dtype = torch.float32
@@ -3521,8 +3718,14 @@ def _context_rank(rank, port, out_dir, batch, size, check_batch):
         del one, model
         torch.cuda.empty_cache()
 
-    # (c) --shard-params context: the AST's gradients, then an Adam step,
-    # its checkpoint, and an f32 eval-mode forward gathered
+    # (c) --shard-params context: the Spectral model's gradients; the
+    # AST's, then an Adam step, its checkpoint, and an f32 eval-mode
+    # forward gathered
+    tp = shard_params_tp(_ctx_model(torch, "SpectralTransformer", {},
+                                    torch.bfloat16, size, cp), dp)
+    res["tp_spectral_bf16"] = _ctx_grads(torch, tp, raw, ref, dp)
+    del tp
+    torch.cuda.empty_cache()
     tp = shard_params_tp(_ctx_model(torch, "AST", {}, torch.bfloat16, size,
                                     cp), dp)
     res["tp_bf16"] = _ctx_grads(torch, tp, raw, ref, dp)
@@ -3547,11 +3750,13 @@ def _context_rank(rank, port, out_dir, batch, size, check_batch):
     meshes.close_data_parallel(dp)
 
 
-def _ctx_cli(torch, card, root, size, batch):
-    """13(d): the CLI under ``torchrun --nproc-per-node 2 -a AST
+def _ctx_cli(torch, card, root, size, batch, archs):
+    """13(d): the CLI under ``torchrun --nproc-per-node 2 -a <arch>
     --mesh-context 2`` for one epoch over synthetic pairs (f32, TF32 off),
-    then a one-process ``ModelTrainer.evaluate`` of its best checkpoint
-    against the validation it logged."""
+    the runs of ``archs`` at once (four processes sharing the card: only
+    their numbers are checked), then for each a one-process
+    ``ModelTrainer.evaluate`` of its best checkpoint against the
+    validation it logged."""
     from underwater_image_restoration_torch.core.config import Config
     from underwater_image_restoration_torch.train import trainer
 
@@ -3562,58 +3767,79 @@ def _ctx_cli(torch, card, root, size, batch):
         dirs[split] = _write_pairs(os.path.join(data, split), n, size, seed)
     env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0", OMP_NUM_THREADS="4",
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    ckpt = os.path.join(root, "checkpoints")
-    argv = ["-m", "torch.distributed.run", "--nproc-per-node",
-            str(CTX_WORLD), "--master-port", str(_free_port()),
-            "-m", "underwater_image_restoration_torch.cli", "-a", "AST",
-            "--mesh-context", str(CTX_WORLD), "--image-size", str(size),
-            "--train-batch-size", str(batch), "--test-batch-size", "8",
-            "--max-epoch", "1", "--use-wandb", "--compute-dtype", "float32",
-            "--lossf", "L1withColor", "--train-raw", dirs["train"][0],
-            "--train-ref", dirs["train"][1], "--test-raw", dirs["test"][0],
-            "--test-ref", dirs["test"][1], "--checkpoint-dir", ckpt]
+    runs = {}
     t = time.perf_counter()
-    run = subprocess.run([sys.executable] + argv, cwd=root, env=env,
-                         capture_output=True, text=True, timeout=900)
-    took = time.perf_counter() - t
-    if run.returncode != 0:
-        fail(f"13(d) the CLI under torchrun failed:\n{run.stderr[-3000:]}")
-    run_dir = os.path.join(ckpt, os.listdir(ckpt)[0])
-    logged = [r for r in _jsonl(run_dir) if "test/PSNR" in r][-1]
-    cfg = Config(arch="AST", image_size=size, test_batch_size=8,
-                 compute_dtype="float32")
-    psnr, ssim = trainer.ModelTrainer(
-        dirs["train"][0], dirs["train"][1], dirs["test"][0],
-        dirs["test"][1]).evaluate(cfg, os.path.join(run_dir, "best"))
-    d_psnr = abs(psnr - logged["test/PSNR"]) / abs(psnr)
-    d_ssim = abs(ssim - logged["test/SSIM"]) / abs(ssim)
-    print(f"13(d) torchrun --nproc-per-node {CTX_WORLD} cli -a AST "
-          f"--mesh-context {CTX_WORLD}, one epoch of {n_train} pairs at "
-          f"batch {batch}, {took:.1f} s with its start: logged validation "
-          f"PSNR {logged['test/PSNR']:.6f} SSIM {logged['test/SSIM']:.6f}; "
-          f"one-process evaluate of its best/ {psnr:.6f} {ssim:.6f} "
-          f"(relative {d_psnr:.3e}, {d_ssim:.3e}; tol {CTX_CLI_TOL:.0e}), "
-          f"on {card}", flush=True)
-    if not (d_psnr <= CTX_CLI_TOL and d_ssim <= CTX_CLI_TOL):
-        fail("13(d) the CLI's logged validation disagrees with a "
-             "one-process evaluate of its checkpoint")
+    for arch in archs:
+        ckpt = os.path.join(root, f"checkpoints-{arch}")
+        argv = ["-m", "torch.distributed.run", "--nproc-per-node",
+                str(CTX_WORLD), "--master-port", str(_free_port()),
+                "-m", "underwater_image_restoration_torch.cli", "-a", arch,
+                "--mesh-context", str(CTX_WORLD), "--image-size", str(size),
+                "--train-batch-size", str(batch), "--test-batch-size", "8",
+                "--max-epoch", "1", "--use-wandb", "--compute-dtype",
+                "float32", "--lossf", "L1withColor", "--train-raw",
+                dirs["train"][0], "--train-ref", dirs["train"][1],
+                "--test-raw", dirs["test"][0], "--test-ref",
+                dirs["test"][1], "--checkpoint-dir", ckpt]
+        # a working directory each: the CLI writes logs/ and Images/ there
+        cwd = os.path.join(root, f"cli-{arch}")
+        os.makedirs(cwd)
+        log = open(os.path.join(cwd, "out.log"), "w")
+        runs[arch] = (subprocess.Popen(
+            [sys.executable] + argv, cwd=cwd, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log, ckpt)
+    for arch, (proc, log, ckpt) in runs.items():
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at 900 s"
+        log.close()
+        took = time.perf_counter() - t
+        if rc != 0:
+            with open(log.name) as f:
+                fail(f"13(d) the {arch} CLI under torchrun failed ({rc}):\n"
+                     f"{f.read()[-3000:]}")
+        run_dir = os.path.join(ckpt, os.listdir(ckpt)[0])
+        logged = [r for r in _jsonl(run_dir) if "test/PSNR" in r][-1]
+        cfg = Config(arch=arch, image_size=size, test_batch_size=8,
+                     compute_dtype="float32")
+        psnr, ssim = trainer.ModelTrainer(
+            dirs["train"][0], dirs["train"][1], dirs["test"][0],
+            dirs["test"][1]).evaluate(cfg, os.path.join(run_dir, "best"))
+        d_psnr = abs(psnr - logged["test/PSNR"]) / abs(psnr)
+        d_ssim = abs(ssim - logged["test/SSIM"]) / abs(ssim)
+        print(f"13(d) torchrun --nproc-per-node {CTX_WORLD} cli -a {arch} "
+              f"--mesh-context {CTX_WORLD}, one epoch of {n_train} pairs at "
+              f"batch {batch}, done {took:.1f} s after the runs' start: "
+              f"logged validation PSNR {logged['test/PSNR']:.6f} SSIM "
+              f"{logged['test/SSIM']:.6f}; one-process evaluate of its best/"
+              f" {psnr:.6f} {ssim:.6f} (relative {d_psnr:.3e}, "
+              f"{d_ssim:.3e}; tol {CTX_CLI_TOL:.0e}), on {card}",
+              flush=True)
+        if not (d_psnr <= CTX_CLI_TOL and d_ssim <= CTX_CLI_TOL):
+            fail(f"13(d) the {arch} CLI's logged validation disagrees with "
+                 "a one-process evaluate of its checkpoint")
 
 
 def context_phase(card, batch, size, check_batch):
-    """Phase 13: context and tensor parallelism of AST@256 and NewModel@256
-    (Fourier and Wavelet) over two processes sharing the card over gloo
-    (correctness and the host's round trips, not scaling): (a)-(b) each
-    rank's launches of ln_leff, ln_leff_bwd, window_attn and
-    window_attn_bwd in one bf16 train step at ``batch``, from zero, as the
-    planners say for its band (``cp_launches``), and no plain version
-    called; loss and gradients vs the one-rank step (bf16 at ``batch``, f32
-    at ``check_batch``) within phase 7's (AST) and phase 9's (New*) limits;
-    images/s and peak memory a rank beside one rank's, in turns; (c)
-    ``--shard-params context``: the AST's gradients vs (a)'s, its
-    checkpoint loaded strict on one device giving the sharded model's f32
-    forward; (d) the CLI under ``torchrun``; (e) the primitives on CUDA
-    tensors vs the one-process ops.  Returns no kernel rows (every
-    kernel's row is its own phase's)."""
+    """Phase 13: context and tensor parallelism of AST@256, NewModel@256
+    (Fourier and Wavelet) and SpectralTransformer@256 over two processes
+    sharing the card over gloo (correctness and the host's round trips,
+    not scaling): (a)-(b) each rank's launches of its model's kernels in
+    one bf16 train step at ``batch``, from zero, as the planners say for
+    its band (``cp_launches``), and no plain version called; loss and
+    gradients vs the one-rank step (bf16 at ``batch``, f32 at
+    ``check_batch``) within phase 5's (Spectral), 7's (AST) and 9's (New*)
+    limits; images/s, peak memory and bytes sent a rank beside one rank's,
+    in turns; (c) ``--shard-params context``: the Spectral and AST
+    gradients vs (a)'s, the AST's checkpoint loaded strict on one device
+    giving the sharded model's f32 forward; (d) the CLI under
+    ``torchrun``; (e) the primitives on CUDA tensors vs the one-process
+    ops; (f) the Spectral blocks' kernels on a halo'd band at every level
+    Spectral@``size`` runs on bands, at ``batch``.  Returns no kernel rows
+    (every kernel's row is its own phase's)."""
     import tempfile
 
     import torch
@@ -3659,6 +3885,38 @@ def context_phase(card, batch, size, check_batch):
                 fail(f"13(e) {name} on rank {r} disagrees with the "
                      "one-process op")
 
+    # (f) the Spectral blocks' kernels on a band
+    bad = []
+    for r, res in enumerate(ranks):
+        rows = collections.defaultdict(list)
+        for shape, slices, what, tag, e_whole, e_plain, e_ref in res["band"]:
+            op, part = what.split(" ", 1)
+            tol = CTX_BAND_TOL[tag]
+            ptol = (GRAD_TOL if part != "y" else KERNEL_TOL)[tag]
+            if not (e_whole <= tol and e_plain <= ptol):
+                bad.append(f"{what} {tag} of {shape} on rank {r}")
+            rows[shape, slices, op, tag, part == "y"].append(
+                (e_whole, e_plain, e_ref))
+        for (shape, slices, op, tag, out), errs in rows.items():
+            split = (f", split backward in {slices} slices"
+                     if op == "ln_mdta" else "")
+            print(f"13(f) rank {r} {op} {tag} on its halo'd band of (C, "
+                  f"side, heads) {shape} at batch {batch}{split}, "
+                  f"{'y' if out else f'the {len(errs)} gradients (max)'}: "
+                  f"vs the whole-map kernels "
+                  f"{max(e[0] for e in errs):.3e} (tol "
+                  f"{CTX_BAND_TOL[tag]:.0e}), vs the plain version "
+                  f"{max(e[1] for e in errs):.3e} (tol "
+                  f"{(KERNEL_TOL if out else GRAD_TOL)[tag]:.0e}; the "
+                  f"whole-map kernels' own {max(e[2] for e in errs):.3e})",
+                  flush=True)
+        if not {shape for shape, *_ in res["band"]} >= {
+                (16, size, 1), (32, size // 2, 2), (64, size // 4, 4),
+                (128, size // 8, 8), (32, size, 1)}:
+            fail(f"13(f) rank {r} missed a banded level of Spectral@{size}")
+    if bad:
+        fail(f"13(f) the band disagrees: {bad}")
+
     # (a)-(b) launches, gradients, rates
     for name, arch, kw in CTX_CASES:
         for r, res in enumerate(ranks):
@@ -3671,7 +3929,9 @@ def context_phase(card, batch, size, check_batch):
                   f"{res[name, 'plain_calls']}; sent to the other rank "
                   f"{sent} in {res[name, 'collectives']} collectives (the "
                   "gradients' all-reduce apart)", flush=True)
-            for kname in ("ln_leff", "ln_leff_bwd"):
+            for kname in sorted(got):
+                if kname.startswith("window_attn"):
+                    continue
                 for key, nl in sorted(got.get(kname, {}).items()):
                     print(f"  {kname} {key}: {nl} (planners "
                           f"{want[kname].get(key, 0)})", flush=True)
@@ -3708,6 +3968,16 @@ def context_phase(card, batch, size, check_batch):
               flush=True)
 
     # (c) --shard-params context
+    rel, mx = grad_dist(ranks[0]["tp_spectral_bf16"][1],
+                        ranks[0]["Spectral", "bf16"][1])
+    dl = abs(ranks[0]["tp_spectral_bf16"][0] - ranks[0]["Spectral", "bf16"][0])
+    print(f"13(c) --shard-params context vs the context-parallel Spectral "
+          f"bf16 step: loss difference {dl:.3e}, ||g - g_cp||/||g_cp|| "
+          f"{rel:.3e}, max abs/max|g_cp| {mx:.3e} (tol "
+          f"{TRAIN_LOSS_TOL:.0e})", flush=True)
+    if not (rel <= TRAIN_LOSS_TOL and dl <= TRAIN_LOSS_TOL):
+        fail("13(c) the tensor-parallel Spectral gradients disagree with "
+             "the context-parallel step's")
     rel, mx = grad_dist(ranks[0]["tp_bf16"][1], ranks[0]["AST", "bf16"][1])
     dl = abs(ranks[0]["tp_bf16"][0] - ranks[0]["AST", "bf16"][0])
     print(f"13(c) --shard-params context vs the context-parallel AST bf16 "
@@ -3738,7 +4008,7 @@ def context_phase(card, batch, size, check_batch):
     torch.cuda.empty_cache()
 
     # (d) the CLI
-    _ctx_cli(torch, card, root, size, batch)
+    _ctx_cli(torch, card, root, size, batch, ("AST", "SpectralTransformer"))
     torch.backends.cudnn.deterministic = False
     shutil.rmtree(root)
     print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -3833,7 +4103,8 @@ def main(argv=None):
         None if args.phase == "all" else spectral if args.phase == "run"
         else spectral + ["ln_leff", "window_attn"]
         if args.phase in ("eval", "parallel")
-        else ["ln_leff", "ln_leff_bwd", "window_attn", "window_attn_bwd"])
+        else ["ln_leff", "ln_leff_bwd", "window_attn", "window_attn_bwd"]
+        + (spectral if args.phase == "context" else []))
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, info in built.items():
         regs = [ln.strip() for ln in info["log"].splitlines()

@@ -73,7 +73,8 @@ def test_parser_matches_jax_but_the_tpu_flags():
 @pytest.mark.parametrize("argv,match", [
     (["--mesh-data", "2"], "queue 1, item 8"),
     (["--mesh-data", "8"], "queue 1, item 8"),
-    (["--mesh-context", "2"], "queue 1, item 9"),
+    (["--mesh-context", "2"], "queue 1, item 8"),
+    (["--mesh-context", "16", "--image-size", "16"], "too few rows a rank"),
     (["--shard-params", "data"], "queue 1, item 8"),
     (["--shard-params", "context"], "queue 1, item 8"),
     (["--remat"], "remat")])

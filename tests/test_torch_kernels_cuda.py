@@ -21,7 +21,10 @@
   train-mode backward reaching every parameter through the kernels;
 - the LN+MDTA and LN+GDFN forwards at ragged shapes and every tile shape,
   the LN+MDTA forward over forced slices (bit-equal to one slice), its
-  stats against the plain version's gram and driving the backward, the
+  stats against the plain version's gram and driving the backward, its
+  split entries (stats and apply, the backward's two stages: what context
+  parallelism runs around its sums) bit-equal to the whole-map entries on
+  the whole map and against the plain halves on a band, the
   LN+GDFN forward with its hidden width split over blocks, two bf16 calls
   bit-equal;
 - the window attention at the New* models' widest heads (d = 128, and 96,
@@ -260,6 +263,87 @@ def test_mdta_forward_stats(cuda, dtype):
     dy = dy.to(cuda, dtype)
     got = fused_mdta.ln_mdta_bwd(x, dy, *w, nh, stats=stats)
     want = fused_mdta.ln_mdta_bwd_plain(x, dy, *w, nh)
+    torch.cuda.synchronize()
+    for i, (g, r) in enumerate(zip(got, want)):
+        scale = r.float().abs().max().item()
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * scale, (i, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("budget", [None, 1 << 20])
+def test_mdta_split_entries_bit_equal(cuda, dtype, budget, monkeypatch):
+    """The split forward (stats over every row, then apply) and the split
+    backward (stage 1, stage 2, no sum between) on the whole map give the
+    whole-map entries' bits, in one slice and in several (a smaller
+    workspace budget), launching what their plans say."""
+    if budget is not None:
+        monkeypatch.setattr(fused_mdta, "FWD_WORKSPACE_BYTES", budget)
+        monkeypatch.setattr(fused_mdta, "BWD_WORKSPACE_BYTES", budget)
+    b, c, h, w_, nh = 3, 32, 20, 36, 2
+    x, w = _fwd_case("mdta", (b, c, h, w_), nh, dtype, cuda, seed=61)
+    y, stats = fused_mdta.forward_with_stats(x, *w, nh)
+    for cnt in (fused_mdta.ln_mdta_stats.launches,
+                fused_mdta.ln_mdta_apply.launches,
+                fused_mdta.ln_mdta_bwd_stage1.launches,
+                fused_mdta.ln_mdta_bwd_stage2.launches):
+        cnt.clear()
+    st = fused_mdta.ln_mdta_stats(x, *w, nh, 0, h)
+    y2 = fused_mdta.ln_mdta_apply(x, *w, nh, st)
+    torch.cuda.synchronize()
+    assert torch.equal(st.reshape(-1), stats) and torch.equal(y2, y)
+    plan = fused_mdta.fwd_plan(b, h, w_, c, x.element_size())
+    assert plan.slices > 1 if budget else plan.slices == 1
+    assert fused_mdta.ln_mdta_stats.launches[(c, h, w_)] == \
+        1 + fused_mdta.FWD_STATS_LAUNCHES * plan.slices
+    assert fused_mdta.ln_mdta_apply.launches[(c, h, w_)] == \
+        1 + fused_mdta.FWD_APPLY_LAUNCHES * plan.slices
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(9))
+    dy = dy.to(cuda, dtype)
+    want = fused_mdta.ln_mdta_bwd(x, dy, *w, nh, stats=stats)
+    got = fused_mdta.ln_mdta_bwd_rows(x, dy, *w, nh, stats.view(b, -1), 0,
+                                      h)
+    torch.cuda.synchronize()
+    for i, (g, r) in enumerate(zip(got, want)):
+        assert torch.equal(g, r), i
+    bp = fused_mdta.bwd_plan(b, h, w_, c, x.element_size(),
+                             _kernels.sm_count(x.device))
+    assert bp.slices > 1 if budget else bp.slices == 1
+    assert fused_mdta.ln_mdta_bwd_stage1.launches[(c, h, w_)] == \
+        fused_mdta.BWD_STAGE1_LAUNCHES * bp.slices
+    assert fused_mdta.ln_mdta_bwd_stage2.launches[(c, h, w_)] == \
+        fused_mdta.BWD_STAGE2_LAUNCHES * bp.slices
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mdta_split_entries_on_a_band(cuda, dtype):
+    """On a band with two halo rows each side (rows [2, 18) of 20 hold the
+    stats): the stats, apply and the split backward (dy zero on the halo,
+    one rank, so the sum is the rank's own) against the plain halves
+    composed by autograd, within the whole-map kernels' limits: dq and dk
+    masked to the band's rows, dtemp taken once."""
+    b, c, h, w_, nh, r0, r1 = 2, 32, 20, 36, 2, 2, 18
+    x, w = _fwd_case("mdta", (b, c, h, w_), nh, dtype, cuda, seed=67)
+    st = fused_mdta.ln_mdta_stats(x, *w, nh, r0, r1)
+    ref = fused_mdta.ln_mdta_stats_plain(x, *w[:4], nh, r0, r1)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (st - ref).abs().max() <= tol * ref.abs().max()
+    y = fused_mdta.ln_mdta_apply(x, *w, nh, st)
+    want = fused_mdta.ln_mdta_apply_plain(x, st, *w, nh)
+    assert _branch_err(y, want, x) <= FWD_TOL[dtype]
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+    dy[:, :, :r0] = 0
+    dy[:, :, r1:] = 0
+    dy = dy.to(cuda, dtype)
+    got = fused_mdta.ln_mdta_bwd_rows(x, dy, *w, nh, st, r0, r1)
+    ins = [t.detach().requires_grad_() for t in (x, *w)]
+    with torch.enable_grad():
+        out = fused_mdta.ln_mdta_apply_plain(
+            ins[0], fused_mdta.ln_mdta_stats_plain(ins[0], *ins[1:5], nh,
+                                                   r0, r1), *ins[1:], nh)
+        want = torch.autograd.grad(out, ins, dy)
     torch.cuda.synchronize()
     for i, (g, r) in enumerate(zip(got, want)):
         scale = r.float().abs().max().item()

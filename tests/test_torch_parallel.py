@@ -58,7 +58,7 @@ from underwater_image_restoration_torch.data import (
 )
 from underwater_image_restoration_torch.losses import LossFunction
 from underwater_image_restoration_torch.models import init_model
-from underwater_image_restoration_torch.models import spectral_transformer
+from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
 from underwater_image_restoration_torch.train import (
     get_optimizer,
     make_train_step,
@@ -139,13 +139,12 @@ def _worker(rank, port, out, data):
             return fn(*args, **kw)
         return call
 
-    st = spectral_transformer
-    real = st.ln_mdta, st.ln_gdfn
-    st.ln_mdta, st.ln_gdfn = (recorded(f) for f in real)
+    real = fused_mdta.ln_mdta, fused_gdfn.ln_gdfn
+    fused_mdta.ln_mdta, fused_gdfn.ln_gdfn = (recorded(f) for f in real)
     try:
         res["fsdp"] = run_steps("l1withcolor", dp, shard=True)
     finally:
-        st.ln_mdta, st.ln_gdfn = real
+        fused_mdta.ln_mdta, fused_gdfn.ln_gdfn = real
     res["fsdp_inputs"] = sorted(seen)
     trainer.init_model = _small_init_model
     root = pathlib.Path(out).parent
@@ -316,7 +315,9 @@ def test_validation_equals_one_process(runs):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh_context": 2}, "queue 1, item 9"),
+    ({"mesh_context": 2}, "torchrun"),
+    ({"mesh_context": 2, "image_size": 36}, "multiple of 8"),
+    ({"mesh_context": 16, "image_size": 16}, "too few rows a rank"),
     ({"arch": "AST", "mesh_context": 2, "image_size": 33},
      "not divisible by context-parallel size 2"),
     ({"mesh_data": 2}, "torchrun"),

@@ -387,7 +387,8 @@ def test_checkpoint_manager_keeps_best_and_latest(tmp_path):
 
 @pytest.mark.parametrize("kw,match", [
     ({"mesh_data": 2}, "queue 1, item 8"),
-    ({"mesh_context": 2}, "queue 1, item 9"),
+    ({"mesh_context": 2}, "queue 1, item 8"),
+    ({"mesh_context": 2, "image_size": 36}, "multiple of 8"),
     ({"shard_params": "data"}, "queue 1, item 8"),
     ({"remat": True}, "remat")])
 def test_unsupported_settings_raise(kw, match):

@@ -6,7 +6,7 @@ are accepted and ignored).
 Left out: ``--compile-cache``, ``--remat-policy`` and
 ``--steps-per-dispatch``, which served only the TPU (an XLA cache, remat
 policies, a dispatch workaround).  ``--mesh-data N``, ``--mesh-context
-M`` (AST and the New* family) and ``--shard-params data|context`` run
+M`` (every arch) and ``--shard-params data|context`` run
 under ``torchrun --nproc-per-node N*M`` (data, context and tensor
 parallelism, FSDP2; ``core/meshes.py``); ``--remat`` is accepted, and
 ``core.config.validate`` refuses it.  ``--no-pallas`` runs the kernels'
@@ -148,7 +148,7 @@ def argument_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mesh-context", type=int, default=1,
                         help="context-parallel ranks a data index, one "
                              "process each under torchrun: each holds a band "
-                             "of the images' rows (AST and the New* family)")
+                             "of the images' rows (every arch)")
     parser.add_argument("--shard-params", type=str, default="",
                         choices=["", "data", "context"],
                         help="parameter sharding: '' (replicated), "

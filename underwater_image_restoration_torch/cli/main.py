@@ -17,7 +17,7 @@ Data parallelism and FSDP2 run one process a rank under ``torchrun``:
     torchrun --nproc-per-node N -m underwater_image_restoration_torch.cli \
         --mesh-data N [--shard-params data] ...
 
-and context parallelism (AST and the New* family; each rank a band of the
+and context parallelism (every arch; each rank a band of the
 images' rows) with ``--mesh-context M`` (``--nproc-per-node`` the product
 of ``--mesh-data`` and ``--mesh-context``, ``--shard-params context`` for
 tensor parallelism):

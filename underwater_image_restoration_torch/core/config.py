@@ -131,10 +131,10 @@ def compute_dtype_of(cfg: Config):
 
 def validate(cfg: Config) -> Config:
     """Raise ValueError for a setting the port does not run: context
-    parallelism of SpectralTransformer (ROADMAP.md queue 1, item 9) or of an
-    image side the context size does not divide, more ranks than the process
-    group has (start the run under ``torchrun``;
-    ``core.meshes.validate_parallel``) or ``remat``."""
+    parallelism of an image side the context size does not divide (or, for
+    SpectralTransformer, not a multiple of 8 or of fewer rows a rank than
+    its LN+MDTA halo), more ranks than the process group has (start the run
+    under ``torchrun``; ``core.meshes.validate_parallel``) or ``remat``."""
     from .meshes import validate_parallel
 
     validate_parallel(cfg.mesh_data, cfg.mesh_context, cfg.shard_params,

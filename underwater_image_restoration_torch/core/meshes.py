@@ -34,10 +34,12 @@ with explicit collectives:
   (gathered and scattered by c10d collectives, which gloo carries on CUDA
   tensors too).
 
-``validate_parallel`` refuses what the port does not run:
-SpectralTransformer with ``mesh_context`` > 1 (ROADMAP.md queue 1, item 9),
-an image side that ``mesh_context`` does not divide, and more than one rank
-without a process group.
+``validate_parallel`` refuses what the port does not run: an image side
+that ``mesh_context`` does not divide, a SpectralTransformer side that is
+not a multiple of 8 or leaves a rank fewer rows than LN+MDTA's halo, and
+more than one rank without a process group.  Context parallelism runs
+every arch (``CONTEXT_ARCHS``): SpectralTransformer, the AST and the New*
+family.
 """
 from __future__ import annotations
 
@@ -89,7 +91,11 @@ def parallel_sizes(mesh_data: int, mesh_context: int = 1):
 
 
 # the archs whose forward runs row-sharded (``--mesh-context`` > 1)
-CONTEXT_ARCHS = ("AST", "NewModel", "NewBigModel", "NewBigFRFNModel")
+CONTEXT_ARCHS = ("SpectralTransformer", "AST", "NewModel", "NewBigModel",
+                 "NewBigFRFNModel")
+# rows of each neighbouring rank's that SpectralTransformer's LN+MDTA reads
+# on a band (ops.fused_mdta.MDTA_HALO): a band needs at least as many
+SPECTRAL_MIN_ROWS = 2
 
 
 def validate_parallel(mesh_data: int, mesh_context: int, shard_params: str,
@@ -98,16 +104,27 @@ def validate_parallel(mesh_data: int, mesh_context: int, shard_params: str,
     """Raise ValueError for a parallel setting the port does not run."""
     if mesh_context > 1 and arch is not None and arch not in CONTEXT_ARCHS:
         raise ValueError(
-            f"mesh_context={mesh_context}: {arch} has no row-sharded forward "
-            "yet (SpectralTransformer context parallelism is ROADMAP.md "
-            "queue 1, item 9: ln_mdta's gram and row-norm stats summed over "
-            "all pixels need an all-reduce inside the kernel's stages); "
-            f"context parallelism runs {', '.join(CONTEXT_ARCHS)}")
+            f"mesh_context={mesh_context}: {arch} has no row-sharded "
+            f"forward; context parallelism runs {', '.join(CONTEXT_ARCHS)}")
     if mesh_context > 1 and image_size is not None and \
             image_size % mesh_context:
         raise ValueError(
             f"image_size={image_size} not divisible by context-parallel size "
             f"{mesh_context}")
+    if mesh_context > 1 and image_size is not None and \
+            arch == "SpectralTransformer":
+        if image_size % 8:
+            raise ValueError(
+                f"image_size={image_size}: SpectralTransformer halves the "
+                "map three times (its DownSamples), so its side is a "
+                "multiple of 8")
+        if image_size // mesh_context < SPECTRAL_MIN_ROWS:
+            raise ValueError(
+                f"image_size={image_size} over context-parallel size "
+                f"{mesh_context} gives bands of "
+                f"{image_size // mesh_context} row: too few rows a rank for "
+                f"SpectralTransformer's LN+MDTA halo of {SPECTRAL_MIN_ROWS} "
+                "rows, so no level would run on bands")
     if shard_params not in ("", DATA_AXIS, CONTEXT_AXIS):
         raise ValueError(f"shard_params={shard_params!r}: '', 'data' or "
                          "'context' (ROADMAP.md queue 1, item 8)")

@@ -47,6 +47,17 @@
 // product takes 1 or 2 passes, in f32 6 (three planes a value: the gram
 // sums up to 65536 pixels).
 //
+// Context parallelism.  A rank holds a band of the map's rows, and A needs
+// the gram and Sq, Sk over every pixel: the forward is split into two
+// entries around a sum of the stats over the ranks.  uir_ln_mdta_fwd_stats
+// runs steps 1-4 and the stats of step 5 over rows [r0, r1) of its input
+// (the band without its halo rows): the gram's K range starts r0 rows into
+// each image, and Sq, Sk sum only those rows' segments.
+// uir_ln_mdta_fwd_apply recomputes LN, u and v (steps 1-3) rather than
+// keep them in a workspace across the sum, forms A from the stats it is
+// given and runs 6-11.  On the whole map the two give uir_ln_mdta_fwd's
+// bits: the same sums in the same order.
+//
 // Rounding points (the TPU kernels'): LN, q, k, A v, project_out's output,
 // A vf and project_outf's output round to T; v, vf and the gram stay f32;
 // y = round(x + round(project_outf)).
@@ -155,34 +166,28 @@ using TOut = gm::Tile<BN, 128, BN / 16, 128 / BN, true, false, NF, NP>;
 
 // ---- 5. each image's stats and attention matrix
 
-// Block b (an image of the slice): the gram [C][CPH] (within the heads) as
-// the sum of its nrows rows [C][C] in order, Sq and Sk as the sums of its
-// segs segments' rows [2C] (kThreads / 2C threads a value when 2C <
-// kThreads, each over a run of consecutive rows, their sums added in run
-// order), into stats [C CPH + 2C]; then A from them (csrc/mdta.cuh).
-template <int CPH, int NF>
-__global__ void __launch_bounds__(kThreads)
-    ln_mdta_fwd_attn_kernel(const float* __restrict__ rows, int nrows,
-                            const float* __restrict__ ssq, int segs,
-                            const float* __restrict__ temp,
-                            float* __restrict__ stats, float* __restrict__ a32,
-                            bf16* __restrict__ ap, size_t lo, int C) {
-  __shared__ float part[2 * md::MAX_C > kThreads ? 2 * md::MAX_C : kThreads];
-  const int CC = C * CPH, b = blockIdx.x, C2 = 2 * C;
-  float* st = stats + (size_t)b * (CC + C2);
-  const float* rw = rows + (size_t)b * nrows * C * C;
+// An image's stats [C CPH + 2C] into st: the gram [C][CPH] (within the
+// heads) as the sum of its nrows rows [C][C] in order, Sq and Sk as the
+// sums of nseg segments' rows [2C] from ssq (kThreads / 2C threads a value
+// when 2C < kThreads, each over a run of consecutive rows, their sums
+// added in run order).  part: kThreads floats of shared memory.  Ends
+// synchronized.
+template <int CPH>
+__device__ void image_stats(const float* __restrict__ rw, int nrows,
+                            const float* __restrict__ sq, int nseg,
+                            float* __restrict__ st, float* part, int C) {
+  const int CC = C * CPH, C2 = 2 * C;
   for (int e = threadIdx.x; e < CC; e += blockDim.x) {
     const int i = e / CPH, j = (i / CPH) * CPH + e % CPH;
     float s = 0.f;
     for (int r = 0; r < nrows; ++r) s += rw[(size_t)r * C * C + i * C + j];
     st[e] = s;
   }
-  const int runs = max(1, kThreads / C2), len = (segs + runs - 1) / runs;
-  const float* sq = ssq + (size_t)b * segs * C2;
+  const int runs = max(1, kThreads / C2), len = (nseg + runs - 1) / runs;
   for (int t = threadIdx.x; t < runs * C2; t += blockDim.x) {
     const int e = t % C2, run = t / C2;
     float s = 0.f;
-    const int r1 = min(segs, (run + 1) * len);
+    const int r1 = min(nseg, (run + 1) * len);
 #pragma unroll 8
     for (int r = run * len; r < r1; ++r) s += sq[(size_t)r * C2 + e];
     part[t] = s;
@@ -194,7 +199,38 @@ __global__ void __launch_bounds__(kThreads)
     st[CC + e] = s;
   }
   __syncthreads();  // the image's stats, written by this block, are read
-  md::attention<CPH, NF>(st, temp, a32, ap, lo, (size_t)b * C * C, C);
+}
+
+// Block b (an image of the slice): its stats from the gram's nrows rows
+// and from segments [seg0, seg0 + nseg) of its segs segments' Sq, Sk rows
+// (the rows of the map the stats cover); with a32, then A from them
+// (csrc/mdta.cuh).
+template <int CPH, int NF>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_fwd_attn_kernel(const float* __restrict__ rows, int nrows,
+                            const float* __restrict__ ssq, int segs, int seg0,
+                            int nseg, const float* __restrict__ temp,
+                            float* __restrict__ stats, float* __restrict__ a32,
+                            bf16* __restrict__ ap, size_t lo, int C) {
+  __shared__ float part[2 * md::MAX_C > kThreads ? 2 * md::MAX_C : kThreads];
+  const int b = blockIdx.x, ES = C * CPH + 2 * C;
+  float* st = stats + (size_t)b * ES;
+  image_stats<CPH>(rows + (size_t)b * nrows * C * C, nrows,
+                   ssq + ((size_t)b * segs + seg0) * 2 * C, nseg, st, part,
+                   C);
+  if (a32 != nullptr)
+    md::attention<CPH, NF>(st, temp, a32, ap, lo, (size_t)b * C * C, C);
+}
+
+// Block b: A of image b from the stats it is given (the apply entry).
+template <int CPH, int NF>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_fwd_a_kernel(const float* __restrict__ stats,
+                         const float* __restrict__ temp,
+                         float* __restrict__ a32, bf16* __restrict__ ap,
+                         size_t lo, int C) {
+  md::attention<CPH, NF>(stats + (size_t)blockIdx.x * (C * CPH + 2 * C),
+                         temp, a32, ap, lo, (size_t)blockIdx.x * C * C, C);
 }
 
 // ---- the workspace
@@ -231,16 +267,26 @@ struct Layout {
   }
 };
 
+// What a call runs: the whole forward (WHOLE), or its two halves around a
+// sum of the stats over the ranks that hold the map's other rows: STATS
+// (steps 1-4 and the stats of step 5 over rows [r0, r1) of each image,
+// into stats) and APPLY (steps 1-3 again, A from the stats it is given,
+// 6-11).
+enum Mode { WHOLE, STATS, APPLY };
+
 // BN: the products' output tile width (C for C = 16, 32; else 64)
 template <typename T, int CPH, int BN>
-int launch(const T* x, T* y, const float* scale, const float* bias,
-           const md::Weights& wt, float* stats, unsigned char* work, int B,
-           int C, int H, int W, int imgs, int KsA, float eps,
-           cudaStream_t st) {
+int launch(Mode mode, const T* x, T* y, const float* scale,
+           const float* bias, const md::Weights& wt, float* stats,
+           unsigned char* work, int B, int C, int H, int W, int imgs,
+           int KsA, int r0, int r1, float eps, cudaStream_t st) {
   constexpr int NP = NPT<T>, NF = NFT<T>;
   const int HW = H * W, C2 = 2 * C, C3 = 3 * C, ES = C * CPH + 2 * C;
   const Layout L(imgs, H, W, C, NP, NF, KsA);
-  const int splits_a = (HW + KsA - 1) / KsA;  // gram rows an image
+  // the gram's pixels: rows [r0, r1) of each image, a row of partial sums
+  // a range of KsA pixels
+  const int KA = (r1 - r0) * W, splits_a = (KA + KsA - 1) / KsA;
+  const int ns = md::segments(1, 1, W);  // segments an image row
   auto at = [&](Piece i, size_t off = 0) { return work + L.off[i] + off; };
   auto bfp = [&](Piece i, size_t off = 0) {
     return reinterpret_cast<bf16*>(at(i, off));
@@ -279,23 +325,35 @@ int launch(const T* x, T* y, const float* scale, const float* bias,
     UIR_TRY(cudaGetLastError());
     UIR_TRY((md::qkv_stage<T, MdtaFwdF32Epi, BN>(
         ln_mdta_fwd_taps_kernel<T>, pl(bfp(R1), NP), Wqkv, wt.tqkv,
-        f32p(R1, L.u), qk, v, f32p(ROWS_S), I, H, W, C, st)));
-    // 4: the gram over the head tiles, a row a pixel range of an image
-    const Opnd q = pl(qk, NP, C2);
-    const Opnd k{{q.pl[0] + C, q.pl[1] + C, q.pl[2] + C}, C2, q.zs};
-    gm::Args a = gm::simple(q, k, C, C, HW);
-    a.Ks = KsA;
-    a.splits = splits_a;
-    a.diag = 1;
-    const long long sa = (long long)splits_a * cc;
-    UIR_TRY((gm::launch<md::TK<NP, NP>>(
-        a, I, MdtaFwdGramEpi{{{f32p(ROWS_G), f32p(ROWS_G)}, C, {C, C}, sa}},
-        st)));
-    // 5: the stats, then A
-    ln_mdta_fwd_attn_kernel<CPH, NF><<<I, kThreads, 0, st>>>(
-        f32p(ROWS_G), splits_a, f32p(ROWS_S), md::segments(1, H, W), wt.temp,
-        stats + (size_t)b0 * ES, f32p(A32), bfp(AP), mlo, C);
-    UIR_TRY(cudaGetLastError());
+        f32p(R1, L.u), qk, v, mode == APPLY ? nullptr : f32p(ROWS_S), I, H,
+        W, C, st)));
+    if (mode == APPLY) {
+      // 5: A from the stats given
+      ln_mdta_fwd_a_kernel<CPH, NF><<<I, kThreads, 0, st>>>(
+          stats + (size_t)b0 * ES, wt.temp, f32p(A32), bfp(AP), mlo, C);
+      UIR_TRY(cudaGetLastError());
+    } else {
+      // 4: the gram over the head tiles and rows [r0, r1), a row a pixel
+      // range of an image
+      Opnd q = pl(qk, NP, C2);
+      for (auto& p : q.pl) p += (size_t)r0 * W * C2;
+      const Opnd k{{q.pl[0] + C, q.pl[1] + C, q.pl[2] + C}, C2, q.zs};
+      gm::Args a = gm::simple(q, k, C, C, KA);
+      a.Ks = KsA;
+      a.splits = splits_a;
+      a.diag = 1;
+      const long long sa = (long long)splits_a * cc;
+      UIR_TRY((gm::launch<md::TK<NP, NP>>(
+          a, I, MdtaFwdGramEpi{{{f32p(ROWS_G), f32p(ROWS_G)}, C, {C, C}, sa}},
+          st)));
+      // 5: the stats (rows [r0, r1)), then A
+      ln_mdta_fwd_attn_kernel<CPH, NF><<<I, kThreads, 0, st>>>(
+          f32p(ROWS_G), splits_a, f32p(ROWS_S), md::segments(1, H, W),
+          r0 * ns, (r1 - r0) * ns, wt.temp, stats + (size_t)b0 * ES,
+          mode == STATS ? nullptr : f32p(A32), bfp(AP), mlo, C);
+      UIR_TRY(cudaGetLastError());
+      if (mode == STATS) continue;
+    }
     // 6-10: outs, out, u_vf, vf, outf (each over what is dead: Layout)
     UIR_TRY((md::apply_stage<T, MdtaFwdRoundEpi, MdtaFwdF32Epi, BN>(
         ln_mdta_fwd_taps_kernel<T>, pl(v, NF), Ab, Wpo, Wkvf, wt.tkv + C, C2,
@@ -311,19 +369,53 @@ int launch(const T* x, T* y, const float* scale, const float* bias,
 // the products' tile width by C: 16 and 32 wide at C = 16 and 32 (a 64-wide
 // tile would leave 3/4 or 1/2 of its outputs idle), 64 from C = 64
 template <typename T, int CPH>
-int launch_c(const T* x, T* y, const float* scale, const float* bias,
-             const md::Weights& wt, float* stats, unsigned char* work, int B,
-             int C, int H, int W, int imgs, int KsA, float eps,
-             cudaStream_t st) {
+int launch_c(Mode mode, const T* x, T* y, const float* scale,
+             const float* bias, const md::Weights& wt, float* stats,
+             unsigned char* work, int B, int C, int H, int W, int imgs,
+             int KsA, int r0, int r1, float eps, cudaStream_t st) {
   if constexpr (CPH <= 16)
     if (C <= 16)
-      return launch<T, CPH, 16>(x, y, scale, bias, wt, stats, work, B, C, H,
-                                W, imgs, KsA, eps, st);
+      return launch<T, CPH, 16>(mode, x, y, scale, bias, wt, stats, work, B,
+                                C, H, W, imgs, KsA, r0, r1, eps, st);
   if (C <= 32)
-    return launch<T, CPH, 32>(x, y, scale, bias, wt, stats, work, B, C, H, W,
-                              imgs, KsA, eps, st);
-  return launch<T, CPH, 64>(x, y, scale, bias, wt, stats, work, B, C, H, W,
-                            imgs, KsA, eps, st);
+    return launch<T, CPH, 32>(mode, x, y, scale, bias, wt, stats, work, B, C,
+                              H, W, imgs, KsA, r0, r1, eps, st);
+  return launch<T, CPH, 64>(mode, x, y, scale, bias, wt, stats, work, B, C,
+                            H, W, imgs, KsA, r0, r1, eps, st);
+}
+
+int run(Mode mode, const void* x, void* y, const void* scale,
+        const void* bias, const void* wqkv, const void* tqkv, const void* wpo,
+        const void* wkv, const void* tkv, const void* wpof, const void* temp,
+        void* stats, void* work, int B, int C, int H, int W, int cph,
+        int bf16, int imgs, int KsA, int r0, int r1, float eps,
+        void* stream) {
+  if (C % 16 || C > md::MAX_C || C % cph || B < 1 || H < 1 || W < 1 ||
+      imgs < 1 || KsA < gm::BK || KsA % gm::BK ||
+      (H * W + KsA - 1) / KsA > md::MAX_SPLITS_A || r0 < 0 || r1 > H ||
+      r0 >= r1)
+    return (int)cudaErrorInvalidValue;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const md::Weights wt{f(wqkv), f(wpo), f(wkv), f(wpof), f(tqkv), f(tkv),
+                       f(temp)};
+  auto* sts = static_cast<float*>(stats);
+  auto* wk = static_cast<unsigned char*>(work);
+  auto st = static_cast<cudaStream_t>(stream);
+#define UIR_MDTA_FWD(TT, CPH)                                               \
+  return launch_c<TT, CPH>(mode, static_cast<const TT*>(x),                \
+                           static_cast<TT*>(y), f(scale), f(bias), wt, sts, \
+                           wk, B, C, H, W, imgs, KsA, r0, r1, eps, st)
+  if (bf16) {
+    if (cph == 8) UIR_MDTA_FWD(__nv_bfloat16, 8);
+    if (cph == 16) UIR_MDTA_FWD(__nv_bfloat16, 16);
+    if (cph == 32) UIR_MDTA_FWD(__nv_bfloat16, 32);
+  } else {
+    if (cph == 8) UIR_MDTA_FWD(float, 8);
+    if (cph == 16) UIR_MDTA_FWD(float, 16);
+    if (cph == 32) UIR_MDTA_FWD(float, 32);
+  }
+#undef UIR_MDTA_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -342,29 +434,38 @@ extern "C" int uir_ln_mdta_fwd(const void* x, void* y, const void* scale,
                                void* stats, void* work, int B, int C, int H,
                                int W, int cph, int bf16, int imgs, int KsA,
                                float eps, void* stream) {
-  if (C % 16 || C > md::MAX_C || C % cph || B < 1 || H < 1 || W < 1 ||
-      imgs < 1 || KsA < gm::BK || KsA % gm::BK ||
-      (H * W + KsA - 1) / KsA > md::MAX_SPLITS_A)
-    return (int)cudaErrorInvalidValue;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  const md::Weights wt{f(wqkv), f(wpo), f(wkv), f(wpof), f(tqkv), f(tkv),
-                       f(temp)};
-  auto* sts = static_cast<float*>(stats);
-  auto* wk = static_cast<unsigned char*>(work);
-  auto st = static_cast<cudaStream_t>(stream);
-#define UIR_MDTA_FWD(TT, CPH)                                            \
-  return launch_c<TT, CPH>(static_cast<const TT*>(x), static_cast<TT*>(y), \
-                           f(scale), f(bias), wt, sts, wk, B, C, H, W,    \
-                           imgs, KsA, eps, st)
-  if (bf16) {
-    if (cph == 8) UIR_MDTA_FWD(__nv_bfloat16, 8);
-    if (cph == 16) UIR_MDTA_FWD(__nv_bfloat16, 16);
-    if (cph == 32) UIR_MDTA_FWD(__nv_bfloat16, 32);
-  } else {
-    if (cph == 8) UIR_MDTA_FWD(float, 8);
-    if (cph == 16) UIR_MDTA_FWD(float, 16);
-    if (cph == 32) UIR_MDTA_FWD(float, 32);
-  }
-#undef UIR_MDTA_FWD
-  return (int)cudaErrorInvalidValue;
+  return run(WHOLE, x, y, scale, bias, wqkv, tqkv, wpo, wkv, tkv, wpof, temp,
+             stats, work, B, C, H, W, cph, bf16, imgs, KsA, 0, H, eps,
+             stream);
+}
+
+// The forward's first half on a band of a row-sharded map (x: the band
+// with its halo rows): one launch a call, then 5 a slice (prep, u, the
+// taps, the gram, the stats), each image's stats over rows [r0, r1) of x
+// (the band without its halo) into stats, as uir_ln_mdta_fwd lays them
+// out.  Summed over the ranks, they are the whole map's.
+extern "C" int uir_ln_mdta_fwd_stats(
+    const void* x, const void* scale, const void* bias, const void* wqkv,
+    const void* tqkv, const void* wpo, const void* wkv, const void* tkv,
+    const void* wpof, const void* temp, void* stats, void* work, int B,
+    int C, int H, int W, int cph, int bf16, int imgs, int KsA, int r0,
+    int r1, float eps, void* stream) {
+  return run(STATS, x, nullptr, scale, bias, wqkv, tqkv, wpo, wkv, tkv, wpof,
+             temp, stats, work, B, C, H, W, cph, bf16, imgs, KsA, r0, r1, eps,
+             stream);
+}
+
+// Its second half: y from x and the stats it is given (the sum over the
+// ranks); LN, u and v recomputed, one launch a call, then 10 a slice
+// (prep, u, the taps, A, outs, out, u_vf, the taps, outf, y).  With the
+// whole map's stats on the whole map, y is uir_ln_mdta_fwd's, bit for bit.
+extern "C" int uir_ln_mdta_fwd_apply(
+    const void* x, void* y, const void* scale, const void* bias,
+    const void* wqkv, const void* tqkv, const void* wpo, const void* wkv,
+    const void* tkv, const void* wpof, const void* temp, const void* stats,
+    void* work, int B, int C, int H, int W, int cph, int bf16, int imgs,
+    int KsA, float eps, void* stream) {
+  return run(APPLY, x, y, scale, bias, wqkv, tqkv, wpo, wkv, tkv, wpof, temp,
+             const_cast<void*>(stats), work, B, C, H, W, cph, bf16, imgs, KsA,
+             0, H, eps, stream);
 }

@@ -49,7 +49,7 @@
 //      rk and alpha_k = rk^3 sum_i dP G rq (zero where S < 1e-24: the
 //      rsqrt(max(S, 1e-24)) gate, fused_attn.py:92);
 //   18. dq = round(M k - alpha_q q), dk = round(M^T q - alpha_k k), one
-//      launch of two products;
+//      launch of two products (zero outside the rows the stats cover);
 //   19. d(u_qkv) by the transposed taps of [dq; dk; dv], with the rows of
 //      dtaps_qkv;
 //   20-21. dW_pof, dW_po, dW_kvf and dW_qkv (K = pixels), split over pixel
@@ -70,6 +70,18 @@
 // cancels to a few percent of its terms, read 2.3e-4 of its max|ref|
 // against the limit of 1e-4; three planes hold every value to f32's
 // precision.  No float atomics and no ticket: two runs give the same bits.
+//
+// Context parallelism.  On a band of the map's rows the softmax backward
+// needs dA over every pixel, so the backward is split around a sum of dA
+// over the ranks, one slice a call, the slice's workspace kept between the
+// halves: uir_ln_mdta_bwd_stage1 runs steps 1-16 and writes each image's dA
+// (the rank's share: dy is zero on the halo rows, so only the band's own
+// cotangents contribute, and d_out reaches the halo rows' v where the
+// transposed taps carry it); uir_ln_mdta_bwd_stage2 runs 17-23 from the
+// summed dA, takes dtemp from the rank's own dA (dtemp is linear in dA,
+// and the ranks' parameter gradients are summed after the step), and
+// zeroes dq and dk outside the rows whose q and k the stats hold.  On the
+// whole map the two give uir_ln_mdta_bwd's bits.
 //
 // Rounding points (the TPU kernels', as autograd through the plain version
 // rounds): LN, q, k, outs, out, outf, d_outf, d_out, d_outs, dq, dk and dLN
@@ -165,6 +177,7 @@ struct MdtaBwdDqkEpi {
   const float* alpha;  // [images][2C]
   T* dqk;
   int M, C;
+  int p0, p1;  // the pixels of an image whose q and k the stats hold
   __device__ void operator()(const float* o, int l, int bm, int bn, int m0,
                              int n0, int prob, int, int batch) const {
     const float* al = alpha + (size_t)batch * 2 * C + prob * C;
@@ -172,10 +185,12 @@ struct MdtaBwdDqkEpi {
     gm::for_pairs(o, l, bm, bn, m0, n0, M, C,
                   [&](int m, int n, float v0, float v1) {
                     const size_t i = (row0 + m) * 2 * C + prob * C + n;
+                    const bool in = m >= p0 && m < p1;
                     const float a = v0 - al[n] * plane_at<NP>(qk, qk_lo, i);
                     const float b =
                         v1 - al[n + 1] * plane_at<NP>(qk, qk_lo, i + 1);
-                    gm::store2(dqk, i, round_to<T>(a), round_to<T>(b));
+                    gm::store2(dqk, i, in ? round_to<T>(a) : 0.f,
+                               in ? round_to<T>(b) : 0.f);
                   });
   }
 };
@@ -333,33 +348,27 @@ __global__ void __launch_bounds__(DW_T)
 
 // ---- 17. the softmax and l2-normalize backward of each image
 
+// The image's softmax and l2-normalize backward from its dA [C][CPH] in
+// shared memory (sh, followed by dP [C][CPH], rq, rk and a row's dtemp
+// [C] each): M and M^T (planes, zero outside the heads), alpha and dtemp.
+// dtemp is taken from dAt (shared, [C][CPH]): dA itself on a whole map;
+// on a band of a row-sharded map, the rank's own dA while dA is the sum
+// over the ranks (dtemp is linear in dA, and the ranks' parameter
+// gradients are summed after the step).
 template <int CPH, int NF>
-__global__ void __launch_bounds__(kThreads)
-    ln_mdta_bwd_softmax_kernel(const float* __restrict__ stats,
-                               const float* __restrict__ temp,
-                               const float* __restrict__ a32,
-                               const float* __restrict__ rows, int nrows,
-                               bf16* __restrict__ mhi, bf16* __restrict__ mti,
-                               float* __restrict__ alpha,
-                               float* __restrict__ dtemp, int C) {
-  extern __shared__ float sh[];
-  const int CC = C * CPH, b = blockIdx.x, NH = C / CPH;
-  float* dA = sh;          // [C][CPH]
-  float* dP = dA + CC;     // [C][CPH]
-  float* rq = dP + CC;     // [C]
-  float* rk = rq + C;      // [C]
-  float* rowdt = rk + C;   // [C]
-  const float* st = stats + (size_t)b * (CC + 2 * C);
-  const float* A = a32 + (size_t)b * C * C;
-  const float* rw = rows + (size_t)b * nrows * C * C;
-  const size_t mb = (size_t)b * C * C, mlo = (size_t)gridDim.x * C * C;
-  // the image's dA: its rows in order, within the heads
-  for (int e = threadIdx.x; e < CC; e += blockDim.x) {
-    const int i = e / CPH, j = (i / CPH) * CPH + e % CPH;
-    float s = 0.f;
-    for (int r = 0; r < nrows; ++r) s += rw[(size_t)r * C * C + i * C + j];
-    dA[e] = s;
-  }
+__device__ void softmax_bwd(const float* st, const float* __restrict__ temp,
+                            const float* __restrict__ A, float* sh,
+                            const float* dAt, bf16* __restrict__ mhi,
+                            bf16* __restrict__ mti, float* __restrict__ al,
+                            float* __restrict__ dtemp, int C) {
+  const int CC = C * CPH, NH = C / CPH;
+  const float* dA = sh;  // [C][CPH]
+  float* dP = sh + CC;   // [C][CPH]
+  float* rq = dP + CC;   // [C]
+  float* rk = rq + C;    // [C]
+  float* rowdt = rk + C; // [C]
+  const size_t mb = (size_t)blockIdx.x * C * C,
+               mlo = (size_t)gridDim.x * C * C;
   for (int i = threadIdx.x; i < C; i += blockDim.x) {
     rq[i] = rsqrtf(fmaxf(st[CC + i], 1e-24f));
     rk[i] = rsqrtf(fmaxf(st[CC + C + i], 1e-24f));
@@ -370,19 +379,24 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < NF; ++k)
       mhi[mb + e + k * mlo] = mti[mb + e + k * mlo] = __float2bfloat16(0.f);
   __syncthreads();
-  float* al = alpha + (size_t)b * 2 * C;
   for (int i = threadIdx.x; i < C; i += blockDim.x) {
     const int h = i / CPH;
     const float* ar = A + (size_t)i * C + h * CPH;
     const float* dar = dA + i * CPH;
-    float s = 0.f;
+    const float* dat = dAt + i * CPH;
+    float s = 0.f, sdt = 0.f;
     for (int jj = 0; jj < CPH; ++jj) s = fmaf(dar[jj], ar[jj], s);
+    if (dat == dar)
+      sdt = s;
+    else
+      for (int jj = 0; jj < CPH; ++jj) sdt = fmaf(dat[jj], ar[jj], sdt);
     float rd = 0.f, cq = 0.f;
     for (int jj = 0; jj < CPH; ++jj) {
       const int j = h * CPH + jj;
       const float g = st[i * CPH + jj];
       const float ds = ar[jj] * (dar[jj] - s);
-      rd = fmaf(ds, g * rq[i] * rk[j], rd);
+      const float dst = dat == dar ? ds : ar[jj] * (dat[jj] - sdt);
+      rd = fmaf(dst, g * rq[i] * rk[j], rd);
       const float dp = temp[h] * ds;
       dP[i * CPH + jj] = dp;
       const float mv = rq[i] * dp * rk[j];
@@ -406,8 +420,72 @@ __global__ void __launch_bounds__(kThreads)
   for (int h = threadIdx.x; h < NH; h += blockDim.x) {
     float s = 0.f;
     for (int ii = 0; ii < CPH; ++ii) s += rowdt[h * CPH + ii];
-    dtemp[(size_t)b * NH + h] = s;
+    dtemp[h] = s;
   }
+}
+
+// The image's dA [C][CPH] into d (a block an image): its rows in order,
+// within the heads.
+template <int CPH>
+__device__ void sum_dA(const float* __restrict__ rw, int nrows, float* d,
+                       int C) {
+  for (int e = threadIdx.x; e < C * CPH; e += blockDim.x) {
+    const int i = e / CPH, j = (i / CPH) * CPH + e % CPH;
+    float s = 0.f;
+    for (int r = 0; r < nrows; ++r) s += rw[(size_t)r * C * C + i * C + j];
+    d[e] = s;
+  }
+}
+
+template <int CPH, int NF>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_bwd_softmax_kernel(const float* __restrict__ stats,
+                               const float* __restrict__ temp,
+                               const float* __restrict__ a32,
+                               const float* __restrict__ rows, int nrows,
+                               bf16* __restrict__ mhi, bf16* __restrict__ mti,
+                               float* __restrict__ alpha,
+                               float* __restrict__ dtemp, int C) {
+  extern __shared__ float sh[];
+  const int b = blockIdx.x, CC = C * CPH;
+  sum_dA<CPH>(rows + (size_t)b * nrows * C * C, nrows, sh, C);
+  softmax_bwd<CPH, NF>(stats + (size_t)b * (CC + 2 * C), temp,
+                       a32 + (size_t)b * C * C, sh, sh, mhi, mti,
+                       alpha + (size_t)b * 2 * C, dtemp + (size_t)b * (C / CPH),
+                       C);
+}
+
+// stage 1's last launch: each image's dA [C][CPH] into dA [images][C CPH]
+template <int CPH>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_bwd_da_kernel(const float* __restrict__ rows, int nrows,
+                          float* __restrict__ dA, int C) {
+  sum_dA<CPH>(rows + (size_t)blockIdx.x * nrows * C * C, nrows,
+              dA + (size_t)blockIdx.x * C * CPH, C);
+}
+
+// stage 2's softmax backward: dA, the sum over the ranks, and the rank's
+// own dAt for dtemp, each [images][C CPH]
+template <int CPH, int NF>
+__global__ void __launch_bounds__(kThreads)
+    ln_mdta_bwd_softmax_split_kernel(
+        const float* __restrict__ stats, const float* __restrict__ temp,
+        const float* __restrict__ a32, const float* __restrict__ dA,
+        const float* __restrict__ dAt, bf16* __restrict__ mhi,
+        bf16* __restrict__ mti, float* __restrict__ alpha,
+        float* __restrict__ dtemp, int C) {
+  extern __shared__ float sh[];
+  const int b = blockIdx.x, CC = C * CPH;
+  float* t = sh + 2 * CC + 3 * C;  // after softmax_bwd's pieces
+  for (int e = threadIdx.x; e < CC; e += blockDim.x) {
+    sh[e] = dA[(size_t)b * CC + e];
+    t[e] = dAt[(size_t)b * CC + e];
+  }
+  __syncthreads();
+  softmax_bwd<CPH, NF>(stats + (size_t)b * (CC + 2 * C), temp,
+                       a32 + (size_t)b * C * C, sh, t, mhi, mti,
+                       alpha + (size_t)b * 2 * C, dtemp + (size_t)b * (C / CPH),
+                       C);
 }
 
 // ---- the workspace
@@ -462,11 +540,20 @@ struct Layout {
   }
 };
 
+// What a call runs: the whole backward (WHOLE), or its two halves around a
+// sum of dA over the ranks that hold the map's other rows, each on one
+// slice whose workspace the second half finds as the first left it: STAGE1
+// (the weights' planes, steps 1-16, then each image's dA into dA) and
+// STAGE2 (steps 17-23, from dA, the sum, and dAt, the rank's own; dq and
+// dk zero outside rows [r0, r1)).
+enum Mode { WHOLE, STAGE1, STAGE2 };
+
 template <typename T, int CPH>
-int launch(const T* x, const T* dy, T* dx, const float* scale,
+int launch(Mode mode, const T* x, const T* dy, T* dx, const float* scale,
            const float* bias, const md::Weights& wt, const float* stats,
-           unsigned char* work, float* grads, float* dtemp, int B, int C,
-           int H, int W, int imgs, int Ks, int KsA, float eps,
+           unsigned char* work, float* grads, float* dtemp, float* dA,
+           const float* dAt, int B, int C, int H, int W, int imgs, int Ks,
+           int KsA, int r0, int r1, int accumulate, float eps,
            cudaStream_t st) {
   constexpr int NP = NPT<T>, NF = NFT<T>;
   const int HW = H * W, C2 = 2 * C, C3 = 3 * C, ES = C * CPH + 2 * C;
@@ -490,10 +577,12 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
   const long long cc = (long long)C * C;
   bf16* wts = bfp(WTS);
   const md::WeightSet ws = md::weight_set(wt, C, NF);
-  ln_mdta_bwd_weights_kernel<NF>
-      <<<dim3((3 * C * C + kThreads - 1) / kThreads, 4), kThreads, 0, st>>>(
-          ws, wts);
-  UIR_TRY(cudaGetLastError());
+  if (mode != STAGE2) {
+    ln_mdta_bwd_weights_kernel<NF>
+        <<<dim3((3 * C * C + kThreads - 1) / kThreads, 4), kThreads, 0,
+            st>>>(ws, wts);
+    UIR_TRY(cudaGetLastError());
+  }
   const Opnd Wqkv = md::weight(wts, ws, 0, C3, 0, NF);
   const Opnd Wpo = md::weight(wts, ws, 1, C, 0, NF);
   const Opnd Wkvf = md::weight(wts, ws, 2, C2, C, NF);
@@ -517,71 +606,92 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
     };
     const Opnd Ab = per_image(AP), Mb = per_image(MP), Mt = per_image(MTP);
     const float* stb = stats + (size_t)b0 * ES;
-
-    // 1, 2
-    ln_mdta_bwd_prep_kernel<T, NP>
-        <<<(P + PT - 1) / PT, kThreads, md::prep_smem(C), st>>>(
-            x + base, dy + base, scale, bias, stat2, bfp(LN), bfp(DY), P, HW,
-            C, eps);
-    UIR_TRY(cudaGetLastError());
-    ln_mdta_bwd_attn_kernel<CPH, NF><<<I, kThreads, 0, st>>>(
-        stb, wt.temp, f32p(A32), bfp(AP), mlo, C);
-    UIR_TRY(cudaGetLastError());
-    // 3, 4: u, then round(q), round(k) and v; 5-9: outs, out, u_vf, vf,
-    // outf (csrc/mdta.cuh)
-    UIR_TRY((md::qkv_stage<T, MdtaBwdF32Epi>(
-        ln_mdta_bwd_taps_kernel<T>, pl(LN, NP), Wqkv, wt.tqkv, f32p(U),
-        bfp(QK), bfp(V), nullptr, I, H, W, C, st)));
-    UIR_TRY((md::apply_stage<T, MdtaBwdRoundEpi, MdtaBwdF32Epi>(
-        ln_mdta_bwd_taps_kernel<T>, pl(V, NF), Ab, Wpo, Wkvf, wt.tkv + C, C2,
-        bfp(OUTS), bfp(OUT), f32p(UVF), bfp(VF), bfp(OUTF), I, H, W, C, CPH,
-        st)));
     const int segs = md::segments(I, H, W);
     const int g3 = md::taps_grid(C3, segs), g1 = md::taps_grid(C, segs);
-    // 10-15: d_outf, dvf, d(u_vf) and dtaps_vf, d_out, d_outs, dv
-    UIR_TRY(gm::launch<TPn>(
-        gm::simple(pl(DY, NP), Wpof, P, C, C), 1,
-        MdtaBwdRoundEpi<T, NP>{{bfp(DOF), pc, C, P, C, 0}}, st));
-    gm::Args a = gm::simple(pl(DOF, NP), Ab, HW, C, C);
-    a.band = CPH;
-    UIR_TRY(gm::launch<TPt>(a, I, MdtaBwdF32Epi{{f32p(DVF), C, HW, C, HW}},
-                            st));
-    ln_mdta_bwd_taps_t_kernel<T><<<g1, DW_T, 0, st>>>(
-        static_cast<const T*>(nullptr), 0, f32p(DVF), C, f32p(UVF), C,
-        wt.tkv + C, C2, C, 0, bfp(DUVF), pc, f32p(ROWS_TV), segs, H, W);
-    UIR_TRY(cudaGetLastError());
-    UIR_TRY(gm::launch<TPf>(
-        gm::simple(pl(DUVF, NF), Wkvf, P, C, C), 1,
-        MdtaBwdRoundEpi<T, NP>{{bfp(DOUT), pc, C, P, C, 0}}, st));
-    UIR_TRY(gm::launch<TPn>(
-        gm::simple(pl(DOUT, NP), Wpo, P, C, C), 1,
-        MdtaBwdRoundEpi<T, NP>{{bfp(DOUTS), pc, C, P, C, 0}}, st));
-    a = gm::simple(pl(DOUTS, NP), Ab, HW, C, C);
-    a.band = CPH;
-    UIR_TRY(
-        gm::launch<TPt>(a, I, MdtaBwdF32Epi{{f32p(DV), C, HW, C, HW}}, st));
-    // 16, 17: dA over the head tiles, then the per-image softmax backward
-    a = gm::simple(pl(DOF, NP), pl(VF, NF), C, C, HW);
-    a.A[1] = pl(DOUTS, NP);
-    a.B[1] = pl(V, NF);
-    a.Ks = KsA;
-    a.nprob = 2;
-    a.splits = splits_a;
-    a.diag = 1;
     const long long sa = (long long)splits_a * cc;
-    UIR_TRY(gm::launch<TKf>(
-        a, I,
-        MdtaBwdRowsEpi{
-            {{f32p(ROWS_A), f32p(ROWS_A) + sa}, C, {C, C}, 2 * sa}},
-        st));
-    const size_t ssm = (2 * (size_t)C * CPH + 3 * C) * sizeof(float);
-    static const cudaError_t es = gm::set_smem(
-        ln_mdta_bwd_softmax_kernel<CPH, NF>,
-        (2 * (size_t)MAX_C * CPH + 3 * MAX_C) * sizeof(float));
-    UIR_TRY(es);
-    ln_mdta_bwd_softmax_kernel<CPH, NF><<<I, kThreads, ssm, st>>>(
-        stb, wt.temp, f32p(A32), f32p(ROWS_A), 2 * splits_a, bfp(MP),
-        bfp(MTP), f32p(ALPHA), dtemp + (size_t)b0 * (C / CPH), C);
+    gm::Args a;
+    if (mode != STAGE2) {
+      // 1, 2
+      ln_mdta_bwd_prep_kernel<T, NP>
+          <<<(P + PT - 1) / PT, kThreads, md::prep_smem(C), st>>>(
+              x + base, dy + base, scale, bias, stat2, bfp(LN), bfp(DY), P, HW,
+              C, eps);
+      UIR_TRY(cudaGetLastError());
+      ln_mdta_bwd_attn_kernel<CPH, NF><<<I, kThreads, 0, st>>>(
+          stb, wt.temp, f32p(A32), bfp(AP), mlo, C);
+      UIR_TRY(cudaGetLastError());
+      // 3, 4: u, then round(q), round(k) and v; 5-9: outs, out, u_vf, vf,
+      // outf (csrc/mdta.cuh)
+      UIR_TRY((md::qkv_stage<T, MdtaBwdF32Epi>(
+          ln_mdta_bwd_taps_kernel<T>, pl(LN, NP), Wqkv, wt.tqkv, f32p(U),
+          bfp(QK), bfp(V), nullptr, I, H, W, C, st)));
+      UIR_TRY((md::apply_stage<T, MdtaBwdRoundEpi, MdtaBwdF32Epi>(
+          ln_mdta_bwd_taps_kernel<T>, pl(V, NF), Ab, Wpo, Wkvf, wt.tkv + C, C2,
+          bfp(OUTS), bfp(OUT), f32p(UVF), bfp(VF), bfp(OUTF), I, H, W, C, CPH,
+          st)));
+      // 10-15: d_outf, dvf, d(u_vf) and dtaps_vf, d_out, d_outs, dv
+      UIR_TRY(gm::launch<TPn>(
+          gm::simple(pl(DY, NP), Wpof, P, C, C), 1,
+          MdtaBwdRoundEpi<T, NP>{{bfp(DOF), pc, C, P, C, 0}}, st));
+      a = gm::simple(pl(DOF, NP), Ab, HW, C, C);
+      a.band = CPH;
+      UIR_TRY(gm::launch<TPt>(a, I, MdtaBwdF32Epi{{f32p(DVF), C, HW, C, HW}},
+                              st));
+      ln_mdta_bwd_taps_t_kernel<T><<<g1, DW_T, 0, st>>>(
+          static_cast<const T*>(nullptr), 0, f32p(DVF), C, f32p(UVF), C,
+          wt.tkv + C, C2, C, 0, bfp(DUVF), pc, f32p(ROWS_TV), segs, H, W);
+      UIR_TRY(cudaGetLastError());
+      UIR_TRY(gm::launch<TPf>(
+          gm::simple(pl(DUVF, NF), Wkvf, P, C, C), 1,
+          MdtaBwdRoundEpi<T, NP>{{bfp(DOUT), pc, C, P, C, 0}}, st));
+      UIR_TRY(gm::launch<TPn>(
+          gm::simple(pl(DOUT, NP), Wpo, P, C, C), 1,
+          MdtaBwdRoundEpi<T, NP>{{bfp(DOUTS), pc, C, P, C, 0}}, st));
+      a = gm::simple(pl(DOUTS, NP), Ab, HW, C, C);
+      a.band = CPH;
+      UIR_TRY(
+          gm::launch<TPt>(a, I, MdtaBwdF32Epi{{f32p(DV), C, HW, C, HW}}, st));
+      // 16, 17: dA over the head tiles, then the per-image softmax backward
+      a = gm::simple(pl(DOF, NP), pl(VF, NF), C, C, HW);
+      a.A[1] = pl(DOUTS, NP);
+      a.B[1] = pl(V, NF);
+      a.Ks = KsA;
+      a.nprob = 2;
+      a.splits = splits_a;
+      a.diag = 1;
+      UIR_TRY(gm::launch<TKf>(
+          a, I,
+          MdtaBwdRowsEpi{
+              {{f32p(ROWS_A), f32p(ROWS_A) + sa}, C, {C, C}, 2 * sa}},
+          st));
+      if (mode == STAGE1) {
+        // each image's dA, to be summed over the ranks
+        ln_mdta_bwd_da_kernel<CPH><<<I, kThreads, 0, st>>>(
+            f32p(ROWS_A), 2 * splits_a, dA + (size_t)b0 * C * CPH, C);
+        UIR_TRY(cudaGetLastError());
+        continue;
+      }
+    }
+    if (mode == WHOLE) {
+      const size_t ssm = (2 * (size_t)C * CPH + 3 * C) * sizeof(float);
+      static const cudaError_t es = gm::set_smem(
+          ln_mdta_bwd_softmax_kernel<CPH, NF>,
+          (2 * (size_t)MAX_C * CPH + 3 * MAX_C) * sizeof(float));
+      UIR_TRY(es);
+      ln_mdta_bwd_softmax_kernel<CPH, NF><<<I, kThreads, ssm, st>>>(
+          stb, wt.temp, f32p(A32), f32p(ROWS_A), 2 * splits_a, bfp(MP),
+          bfp(MTP), f32p(ALPHA), dtemp + (size_t)b0 * (C / CPH), C);
+    } else {
+      const size_t ssm = (3 * (size_t)C * CPH + 3 * C) * sizeof(float);
+      static const cudaError_t es = gm::set_smem(
+          ln_mdta_bwd_softmax_split_kernel<CPH, NF>,
+          (3 * (size_t)MAX_C * CPH + 3 * MAX_C) * sizeof(float));
+      UIR_TRY(es);
+      ln_mdta_bwd_softmax_split_kernel<CPH, NF><<<I, kThreads, ssm, st>>>(
+          stb, wt.temp, f32p(A32), dA + (size_t)b0 * C * CPH,
+          dAt + (size_t)b0 * C * CPH, bfp(MP), bfp(MTP), f32p(ALPHA),
+          dtemp + (size_t)b0 * (C / CPH), C);
+    }
     UIR_TRY(cudaGetLastError());
     // 18, 19: dq, dk; d(u_qkv) and dtaps_qkv
     const Opnd qk = pl(QK, NP, C2);
@@ -594,7 +704,7 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
     UIR_TRY(gm::launch<TPn>(
         a, I,
         MdtaBwdDqkEpi<T, NP>{bfp(QK), (size_t)P * C2, f32p(ALPHA), dqk, HW,
-                             C},
+                             C, r0 * W, r1 * W},
         st));
     ln_mdta_bwd_taps_t_kernel<T><<<g3, DW_T, 0, st>>>(
         dqk, C2, f32p(DV), C, f32p(U), C3, wt.tqkv, C3, C3, C2, bfp(DU),
@@ -643,45 +753,37 @@ int launch(const T* x, const T* dy, T* dx, const float* scale,
          {f32p(ROWS_QKV), splits, 3 * c2, 3 * c2 + 9 * C, 0, 0},
          {f32p(ROWS_TQ), segs, 27 * C, 6 * c2 + 9 * C, 0, 0},
          {f32p(ROWS_LN), blocks, 2 * C, 6 * c2 + 36 * C, 0, 0}},
-        grads, b0 > 0, st));
+        grads, b0 > 0 || accumulate, st));
   }
   return 0;
 }
 
-}  // namespace
-
-// The backward over the batch in slices of `imgs` images: one launch a call
-// (the weights' planes), then 23 a slice.  The weights in f32 as their
-// parameters store them: w_qkv (C, 3C), w_po (C, C), w_kv (C, 2C) (its vf
-// half read in place), w_pof (C, C), t_qkv (3, 3, 3C), t_kv (3, 3, 2C)
-// (its vf half read in place); stats [B][C cph + 2C] as the forward wrote
-// them.  work:
-// one slice's workspace (Layout); grads [6C^2 + 38C] as ops/fused_mdta.py
-// lays them out; dtemp [B][C / cph].  Ks: pixels a split of the
-// weight-gradient products, KsA of an image's dA product (multiples of 32).
-extern "C" int uir_ln_mdta_bwd(
-    const void* x, const void* dy, void* dx, const void* scale,
-    const void* bias, const void* wqkv, const void* tqkv, const void* wpo,
-    const void* wkv, const void* tkv, const void* wpof, const void* temp,
-    const void* stats, void* work, void* grads, void* dtemp, int B, int C,
-    int H, int W, int cph, int bf16, int imgs, int Ks, int KsA, float eps,
-    void* stream) {
+int run(Mode mode, const void* x, const void* dy, void* dx,
+        const void* scale, const void* bias, const void* wqkv,
+        const void* tqkv, const void* wpo, const void* wkv, const void* tkv,
+        const void* wpof, const void* temp, const void* stats, void* work,
+        void* grads, void* dtemp, void* dA, const void* dAt, int B, int C,
+        int H, int W, int cph, int bf16, int imgs, int Ks, int KsA, int r0,
+        int r1, int accumulate, float eps, void* stream) {
   if (C % 16 || C > MAX_C || C % cph || B < 1 || H < 1 || W < 1 ||
       imgs < 1 || Ks < gm::BK || Ks % gm::BK || KsA < gm::BK ||
-      KsA % gm::BK || (H * W + KsA - 1) / KsA > md::MAX_SPLITS_A)
+      KsA % gm::BK || (H * W + KsA - 1) / KsA > md::MAX_SPLITS_A ||
+      r0 < 0 || r1 > H || r0 >= r1 || (mode != WHOLE && B > imgs))
     return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const md::Weights wt{f(wqkv), f(wpo), f(wkv), f(wpof), f(tqkv), f(tkv),
-                   f(temp)};
+                       f(temp)};
   auto* wk = static_cast<unsigned char*>(work);
   auto* gr = static_cast<float*>(grads);
   auto* dt = static_cast<float*>(dtemp);
+  auto* da = static_cast<float*>(dA);
   auto st = static_cast<cudaStream_t>(stream);
-#define UIR_MDTA_BWD(TT, CPH)                                                \
-  return launch<TT, CPH>(static_cast<const TT*>(x),                         \
-                         static_cast<const TT*>(dy), static_cast<TT*>(dx),  \
-                         f(scale), f(bias), wt, f(stats), wk, gr, dt, B, C, \
-                         H, W, imgs, Ks, KsA, eps, st)
+#define UIR_MDTA_BWD(TT, CPH)                                               \
+  return launch<TT, CPH>(mode, static_cast<const TT*>(x),                  \
+                         static_cast<const TT*>(dy), static_cast<TT*>(dx), \
+                         f(scale), f(bias), wt, f(stats), wk, gr, dt, da,  \
+                         f(dAt), B, C, H, W, imgs, Ks, KsA, r0, r1,        \
+                         accumulate, eps, st)
   if (bf16) {
     if (cph == 8) UIR_MDTA_BWD(__nv_bfloat16, 8);
     if (cph == 16) UIR_MDTA_BWD(__nv_bfloat16, 16);
@@ -693,4 +795,63 @@ extern "C" int uir_ln_mdta_bwd(
   }
 #undef UIR_MDTA_BWD
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The backward over the batch in slices of `imgs` images: one launch a call
+// (the weights' planes), then 23 a slice.  The weights in f32 as their
+// parameters store them: w_qkv (C, 3C), w_po (C, C), w_kv (C, 2C) (its vf
+// half read in place), w_pof (C, C), t_qkv (3, 3, 3C), t_kv (3, 3, 2C)
+// (its vf half read in place); stats [B][C cph + 2C] as the forward wrote
+// them.  work: one slice's workspace (Layout); grads [6C^2 + 38C] as
+// ops/fused_mdta.py lays them out; dtemp [B][C / cph].  Ks: pixels a split
+// of the weight-gradient products, KsA of an image's dA product (multiples
+// of 32).
+extern "C" int uir_ln_mdta_bwd(
+    const void* x, const void* dy, void* dx, const void* scale,
+    const void* bias, const void* wqkv, const void* tqkv, const void* wpo,
+    const void* wkv, const void* tkv, const void* wpof, const void* temp,
+    const void* stats, void* work, void* grads, void* dtemp, int B, int C,
+    int H, int W, int cph, int bf16, int imgs, int Ks, int KsA, float eps,
+    void* stream) {
+  return run(WHOLE, x, dy, dx, scale, bias, wqkv, tqkv, wpo, wkv, tkv, wpof,
+             temp, stats, work, grads, dtemp, nullptr, nullptr, B, C, H, W,
+             cph, bf16, imgs, Ks, KsA, 0, H, 0, eps, stream);
+}
+
+// The backward's first half on one slice of B <= imgs images of a band of
+// a row-sharded map (x and dy: the band with its halo rows, dy zero on
+// them; stats: the sum over the ranks): the weights' planes, steps 1-16,
+// then each image's dA [B][C cph] (the rank's share) into dA: 18 launches.
+// The workspace keeps what the second half reads.
+extern "C" int uir_ln_mdta_bwd_stage1(
+    const void* x, const void* dy, const void* scale, const void* bias,
+    const void* wqkv, const void* tqkv, const void* wpo, const void* wkv,
+    const void* tkv, const void* wpof, const void* temp, const void* stats,
+    void* work, void* dA, int B, int C, int H, int W, int cph, int bf16,
+    int imgs, int Ks, int KsA, float eps, void* stream) {
+  return run(STAGE1, x, dy, nullptr, scale, bias, wqkv, tqkv, wpo, wkv, tkv,
+             wpof, temp, stats, work, nullptr, nullptr, dA, nullptr, B, C, H,
+             W, cph, bf16, imgs, Ks, KsA, 0, H, 0, eps, stream);
+}
+
+// Its second half on the same slice and workspace: steps 17-23 from dA
+// (the sum over the ranks) and dAt (the rank's own, for dtemp), dq and dk
+// zero outside rows [r0, r1) (the band without its halo: the q and k the
+// stats hold); dx [B] and dtemp [B][C / cph], the weight gradients added
+// to grads when accumulate (a later slice): 7 launches.  With r0 = 0, r1 =
+// H and dA = dAt, the two halves give uir_ln_mdta_bwd's bits.
+extern "C" int uir_ln_mdta_bwd_stage2(
+    const void* x, const void* dy, void* dx, const void* scale,
+    const void* bias, const void* wqkv, const void* tqkv, const void* wpo,
+    const void* wkv, const void* tkv, const void* wpof, const void* temp,
+    const void* stats, void* work, void* grads, void* dtemp, const void* dA,
+    const void* dAt, int B, int C, int H, int W, int cph, int bf16, int imgs,
+    int Ks, int KsA, int r0, int r1, int accumulate, float eps,
+    void* stream) {
+  return run(STAGE2, x, dy, dx, scale, bias, wqkv, tqkv, wpo, wkv, tkv, wpof,
+             temp, stats, work, grads, dtemp, const_cast<void*>(dA), dAt, B,
+             C, H, W, cph, bf16, imgs, Ks, KsA, r0, r1, accumulate, eps,
+             stream);
 }

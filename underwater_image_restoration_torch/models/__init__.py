@@ -32,17 +32,12 @@ def init_model(name: str, *, device=None, seed: int = 0,
     eval mode.  ``kwargs`` go to the model (channels, num_blocks, ... for
     SpectralTransformer; img_size, embed_dim, win_size, ... for AST;
     img_size, embed_dim, use_dwt, drop_path_rate for the New* models).
-    ``cp`` (``core.meshes.ContextParallel``, AST and the New* models): the
-    forward takes and gives the rank's band of the images' rows (context
-    parallelism); the parameters and the state_dict are the single-device
-    ones."""
+    ``cp`` (``core.meshes.ContextParallel``, every arch): the forward takes
+    and gives the rank's band of the images' rows (context parallelism);
+    the parameters and the state_dict are the single-device ones."""
     if name not in _FACTORY:
         raise KeyError(f"Unknown model: {name}")
     if cp is not None and cp.size > 1:
-        if name not in _SIZE_ARCHS:
-            from ..core.meshes import validate_parallel
-
-            validate_parallel(1, cp.size, "", arch=name)
         kwargs["cp"] = cp
     if name not in _SIZE_ARCHS:
         kwargs.pop("img_size", None)

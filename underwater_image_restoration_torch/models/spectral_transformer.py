@@ -13,6 +13,18 @@ Every block at every level sends both halves to ``ops.ln_mdta`` and
 CPU ones.  ``forward(x, use_kernels=False)`` takes the plain versions on any
 device; tests and ``chip_smoke.py`` use it as the reference.
 
+With ``cp`` (context parallelism, a ``core.meshes.ContextParallel``) the
+forward takes and gives the rank's band of the images' rows.  A level runs
+on bands where the group divides its rows and each band holds at least
+``MDTA_HALO`` rows: the blocks through ``ln_mdta_rows`` (the attention's
+stats summed over the ranks between the kernels' halves) and
+``ln_gdfn_rows``, the 3x3 convs through ``cp_ops.conv`` (a halo row each
+side), the pixel (un)shuffles and 1x1 convs on the band, the UpS FFT pair
+through the distributed FFT (``cp_ops.fft2_chw``,
+``cp_ops.spectral_tile_upsample``; the group also divides the level's
+columns).  A level that cannot runs whole on every rank
+(``cp_ops.between``, ``cp_ops.relayout``).
+
 ``inv_mag``, ``AGSSF`` and ``SFCA`` (reference SpectralTransformer.py:9-74,
 the JAX package's ``:291-358``) are defined with the reference's parameter
 names and, as there, never called by the model.
@@ -33,17 +45,15 @@ from ..ops import (
     ifft2,
     inv_mag,
     leaky_relu,
-    ln_gdfn,
-    ln_gdfn_plain,
-    ln_mdta,
-    ln_mdta_plain,
     pixel_shuffle,
     pixel_unshuffle,
     safe_abs,
     safe_angle,
-    spectral_tile_upsample,
 )
+from ..ops.fused_gdfn import ln_gdfn_rows
+from ..ops.fused_mdta import MDTA_HALO, ln_mdta_rows
 from ..ops.layers import Conv2d
+from ..parallel import cp_ops
 
 
 def _conv(cin, cout, k=1, groups=1, bias=False, device=None):
@@ -59,6 +69,12 @@ def _matrix(conv):
 def _taps(conv):
     """(3, 3, C) taps of a depthwise 3x3 conv."""
     return conv.weight[:, 0].permute(1, 2, 0)
+
+
+def _conv_rows(module, x, cp):
+    """A conv module on the whole map (its own forward, hooks included),
+    or on the rank's band with the halo rows it reads (``cp_ops.conv``)."""
+    return module(x) if cp is None else cp_ops.conv(module, x, cp)
 
 
 class AGSSF(nn.Module):
@@ -174,33 +190,36 @@ class SpectralBlock(nn.Module):
         self.norm2 = LayerNorm(c, device=device)
         self.ffn = GDFN(c, expansion_factor, device=device)
 
-    def forward(self, x, use_kernels: bool = True):
-        mdta = ln_mdta if use_kernels else ln_mdta_plain
-        gdfn = ln_gdfn if use_kernels else ln_gdfn_plain
-        x = mdta(x, self.norm1.weight, self.norm1.bias,
-                 *self.attn.operands(), self.attn.num_heads)
-        return gdfn(x, self.norm2.weight, self.norm2.bias,
-                    *self.ffn.operands())
+    def forward(self, x, use_kernels: bool = True, cp=None):
+        """``cp``: x is the rank's band of the map's rows (at least
+        MDTA_HALO); without it the whole map."""
+        x = ln_mdta_rows(x, self.norm1.weight, self.norm1.bias,
+                         *self.attn.operands(), self.attn.num_heads, cp=cp,
+                         use_kernels=use_kernels)
+        return ln_gdfn_rows(x, self.norm2.weight, self.norm2.bias,
+                            *self.ffn.operands(), cp=cp,
+                            use_kernels=use_kernels)
 
 
 class Stage(nn.Sequential):
     """A run of SpectralBlocks (reference ``nn.Sequential`` of blocks)."""
 
-    def forward(self, x, use_kernels: bool = True):
+    def forward(self, x, use_kernels: bool = True, cp=None):
         for block in self:
-            x = block(x, use_kernels)
+            x = block(x, use_kernels, cp)
         return x
 
 
 class DownSample(nn.Module):
-    """conv3x3 C -> C/2, pixel_unshuffle(2): 2C at H/2."""
+    """conv3x3 C -> C/2, pixel_unshuffle(2): 2C at H/2 (on an even band,
+    the band of the half map)."""
 
     def __init__(self, c: int, device=None):
         super().__init__()
         self.body = nn.Sequential(_conv(c, c // 2, 3, device=device))
 
-    def forward(self, x):
-        return pixel_unshuffle(self.body(x), 2)
+    def forward(self, x, cp=None):
+        return pixel_unshuffle(_conv_rows(self.body[0], x, cp), 2)
 
 
 class SpectralUpSample(nn.Module):
@@ -220,11 +239,15 @@ class SpectralUpSample(nn.Module):
         self.post = _conv(c, c // 2 if channel_red else c, bias=True,
                           device=device)
 
-    def forward(self, x):
-        f = fft2(x.float())
+    def forward(self, x, cp=None):
+        """``cp``: x is the rank's band; the FFT pair is distributed (the
+        amplitude and phase MLPs and the zero stuffing are the band's
+        own)."""
+        f = cp_ops.fft2_chw(x.float(), cp)
         mag = self.amp_fuse(safe_abs(f))
         pha = self.pha_fuse(safe_angle(f))
-        return self.post(spectral_tile_upsample(mag, pha).to(x.dtype))
+        return self.post(cp_ops.spectral_tile_upsample(mag, pha, cp).to(
+            x.dtype))
 
 
 class ShuffleUpSample(nn.Module):
@@ -234,8 +257,8 @@ class ShuffleUpSample(nn.Module):
         super().__init__()
         self.body = nn.Sequential(_conv(c, 2 * c, 3, device=device))
 
-    def forward(self, x):
-        return pixel_shuffle(self.body(x), 2)
+    def forward(self, x, cp=None):
+        return pixel_shuffle(_conv_rows(self.body[0], x, cp), 2)
 
 
 class UpS(nn.Module):
@@ -247,8 +270,9 @@ class UpS(nn.Module):
         self.Sups = ShuffleUpSample(c, device=device)
         self.reduce = _conv(c, c // 2, device=device)
 
-    def forward(self, x):
-        return self.reduce(torch.cat([self.Fups(x), self.Sups(x)], dim=1))
+    def forward(self, x, cp=None):
+        return self.reduce(torch.cat([self.Fups(x, cp), self.Sups(x, cp)],
+                                     dim=1))
 
 
 class SpectralTransformer(nn.Module):
@@ -259,10 +283,15 @@ class SpectralTransformer(nn.Module):
                  num_heads: Sequence[int] = (1, 2, 4, 8),
                  channels: Sequence[int] = (16, 32, 64, 128),
                  num_refinement: int = 4, expansion_factor: float = 2.66,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 cp=None):
         super().__init__()
         nb, nh, ch, ef = num_blocks, num_heads, channels, expansion_factor
         self.compute_dtype = compute_dtype
+        # the rank's place on the context dimension: the forward takes and
+        # gives the rank's band of the images' rows (not a module: the
+        # state_dict is the single-device one)
+        self.cp = cp
 
         def stage(n, c, heads):
             return Stage(*[SpectralBlock(c, heads, ef, device=device)
@@ -301,20 +330,56 @@ class SpectralTransformer(nn.Module):
                                        device=generator.device)
                         p.copy_((r * 2 - 1) * bound)
 
+    def levels_banded(self, h: int, w: int):
+        """For a map of h x w (the whole map's) under ``cp``: whether each
+        of the four levels runs on bands (the group divides its rows, each
+        band at least MDTA_HALO rows; the bands of level i + 1 are then
+        those of level i halved, so DownSample and the pixel shuffle stay
+        on the band) and whether each UpS runs there too (its level's
+        columns divide as well, for the distributed FFT)."""
+        cp = self.cp if cp_ops.context_size(self.cp) > 1 else None
+        lv = [cp_ops.cp_spatial_viable(h >> i, cp, min_rows=MDTA_HALO)
+              for i in range(4)]
+        ups = [lv[i] and cp_ops.cp_fft_viable(h >> i, w >> i, cp)
+               for i in range(4)]
+        return lv, ups
+
     def forward(self, x, use_kernels: bool = True):
+        """With ``cp``, x is the rank's band of the images' rows, rows
+        [c H/n, (c+1) H/n), and so is the output."""
         k = use_kernels
         enc = self.encoders
+        cp = self.cp if cp_ops.context_size(self.cp) > 1 else None
         # a strided input (an NHWC batch permuted) would give cuDNN's
         # channels-last output, which the kernels do not take
-        fo = self.embed_conv_rgb(x.to(self.compute_dtype).contiguous())
-        enc1 = enc[0](fo, k)
-        enc2 = enc[1](self.down1(enc1), k)
-        enc3 = enc[2](self.down2(enc2), k)
-        enc4 = enc[3](self.down3(enc3), k)
-        d3 = self.reduces1(torch.cat([self.ups_1(enc4), enc3], dim=1))
-        dec3 = self.decoders[0](d3, k)
-        d2 = self.reduces2(torch.cat([self.ups_2(dec3), enc2], dim=1))
-        dec2 = self.decoders[1](d2, k)
-        fd = self.decoders[2](torch.cat([self.ups_3(dec2), enc1], dim=1), k)
-        fr = self.refinement(fd, k)
-        return self.output(self.outputl(fr))
+        x = x.to(self.compute_dtype).contiguous()
+        # without cp every level is whole and each step below the module's
+        # own call on the whole map
+        lv, ups = self.levels_banded(x.shape[2] * cp_ops.context_size(cp),
+                                     x.shape[3])
+
+        def on(b):
+            return cp if b else None
+
+        def between(fn, y, src, dst):
+            return cp_ops.between(fn, y, cp, src, dst, 2, 2)
+
+        def up(mod, y, i):  # level i + 1 -> level i
+            y = cp_ops.relayout(y, cp, lv[i + 1], ups[i + 1], 2)
+            return between(mod, y, ups[i + 1], lv[i])
+
+        fo = between(lambda y, c: _conv_rows(self.embed_conv_rgb, y, c), x,
+                     True, lv[0])
+        enc1 = enc[0](fo, k, on(lv[0]))
+        enc2 = enc[1](between(self.down1, enc1, lv[0], lv[1]), k, on(lv[1]))
+        enc3 = enc[2](between(self.down2, enc2, lv[1], lv[2]), k, on(lv[2]))
+        enc4 = enc[3](between(self.down3, enc3, lv[2], lv[3]), k, on(lv[3]))
+        d3 = self.reduces1(torch.cat([up(self.ups_1, enc4, 2), enc3], dim=1))
+        dec3 = self.decoders[0](d3, k, on(lv[2]))
+        d2 = self.reduces2(torch.cat([up(self.ups_2, dec3, 1), enc2], dim=1))
+        dec2 = self.decoders[1](d2, k, on(lv[1]))
+        fd = self.decoders[2](torch.cat([up(self.ups_3, dec2, 0), enc1],
+                                        dim=1), k, on(lv[0]))
+        fr = self.refinement(fd, k, on(lv[0]))
+        return between(lambda y, c: _conv_rows(
+            self.output, _conv_rows(self.outputl, y, c), c), fr, lv[0], True)

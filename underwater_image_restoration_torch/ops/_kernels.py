@@ -48,6 +48,17 @@ SIGNATURES = {
         # stats, workspace, B, C, H, W, cph, bf16, images a slice, pixels a
         # range of an image's gram, eps, stream
         [_P] * 13 + [_I] * 8 + [_F, _P],
+    ("ln_mdta", "uir_ln_mdta_fwd_stats"):
+        # x, scale, bias, w_qkv, t_qkv, w_po, w_kv, t_kv, w_pof, temp,
+        # stats, workspace, B, C, H, W, cph, bf16, images a slice, pixels a
+        # range of an image's gram, first and end row of the stats, eps,
+        # stream
+        [_P] * 12 + [_I] * 10 + [_F, _P],
+    ("ln_mdta", "uir_ln_mdta_fwd_apply"):
+        # x, y, scale, bias, w_qkv, t_qkv, w_po, w_kv, t_kv, w_pof, temp,
+        # stats, workspace, B, C, H, W, cph, bf16, images a slice, pixels a
+        # range of an image's gram, eps, stream
+        [_P] * 13 + [_I] * 8 + [_F, _P],
     ("ln_gdfn_bwd", "uir_ln_gdfn_bwd"):
         # x, dy, dx, scale, bias, w_in hi, w_in lo, taps, w_out hi, w_out
         # lo, part, grads, B, C, H, W, hid_pad, gate_chunk, bf16, TH, TW,
@@ -59,6 +70,18 @@ SIGNATURES = {
         # images a slice, pixels a split, pixels a split of an image's dA,
         # eps, stream
         [_P] * 16 + [_I] * 9 + [_F, _P],
+    ("ln_mdta_bwd", "uir_ln_mdta_bwd_stage1"):
+        # x, dy, scale, bias, w_qkv, t_qkv, w_po, w_kv, t_kv, w_pof, temp,
+        # stats, workspace, dA, B, C, H, W, cph, bf16, images a slice,
+        # pixels a split, pixels a split of an image's dA, eps, stream
+        [_P] * 14 + [_I] * 9 + [_F, _P],
+    ("ln_mdta_bwd", "uir_ln_mdta_bwd_stage2"):
+        # x, dy, dx, scale, bias, w_qkv, t_qkv, w_po, w_kv, t_kv, w_pof,
+        # temp, stats, workspace, grads, dtemp, dA, dA of the rank, B, C, H,
+        # W, cph, bf16, images a slice, pixels a split, pixels a split of an
+        # image's dA, first and end row of the stats, accumulate, eps,
+        # stream
+        [_P] * 18 + [_I] * 12 + [_F, _P],
     ("ln_leff", "uir_ln_leff_fwd"):
         # x, y, scale, bias, w1 hi, w1 mid, b1, taps, bdw, w2 hi, w2 mid,
         # b2, w1 lo, w2 lo, s, workspace, B, H, W, C, hid_pad, residual,

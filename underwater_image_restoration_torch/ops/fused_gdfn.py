@@ -42,7 +42,7 @@ from torch import Tensor
 from torch.autograd.function import once_differentiable
 
 from . import _kernels
-from .layers import gelu, layer_norm_channels
+from .layers import gelu, layer_norm_channels, wide
 
 
 def conv1x1(t, w):
@@ -61,10 +61,10 @@ def ln_gdfn_plain(x, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
     reference on the card)."""
     hid = w_out.shape[0]
     ln = layer_norm_channels(x, scale, bias, eps)
-    t = dwconv3x3(conv1x1(ln.float(), w_in.float()), w_dw.float())
+    t = dwconv3x3(conv1x1(wide(ln), wide(w_in)), wide(w_dw))
     t1, t2 = t[:, :hid], t[:, hid:]
     o = (gelu(t1) * t2).to(x.dtype)
-    return x + conv1x1(o.float(), w_out.float()).to(x.dtype)
+    return x + conv1x1(wide(o), wide(w_out)).to(x.dtype)
 
 
 # gate pairs a chunk of the kernel's weight layout; passed with every launch,
@@ -440,3 +440,27 @@ def ln_gdfn(x, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5):
 # launches of the CUDA kernel(s), by (C, H, W); the CPU path adds none
 ln_gdfn.launches = collections.Counter()
 ln_gdfn_bwd.launches = collections.Counter()
+
+
+def ln_gdfn_rows(x, scale, bias, w_in, w_dw, w_out, eps: float = 1e-5,
+                 cp=None, use_kernels: bool = True):
+    """``ln_gdfn`` (or, without ``use_kernels``, ``ln_gdfn_plain``) of the
+    rank's band of a row-sharded NCHW map (``cp``, a
+    ``core.meshes.ContextParallel``; the whole map without it): the band
+    with one row of each neighbouring rank's (none past the map's edge,
+    where the kernel zero-pads as the whole map's call does), its result
+    cropped to the band.  The 3x3 taps of a band row read the halo rows'
+    hidden values, so the band's rows are the whole map's.  In the backward
+    the crop gives the halo rows a zero cotangent; the kernel's dx on them
+    is what the neighbour's rows are owed through the taps, and the halo
+    exchange's adjoint adds it there; the weight gradients are the band's
+    share (the train step sums them over the ranks)."""
+    fn = ln_gdfn if use_kernels else ln_gdfn_plain
+    args = (scale, bias, w_in, w_dw, w_out)
+    if cp is None or cp.size == 1:
+        return fn(x, *args, eps=eps)
+    from ..parallel.context import halo_rows
+
+    ext, top = halo_rows(x, 1, 1, cp, dim=2, zeros=False)
+    y = fn(ext.contiguous(), *args, eps=eps)
+    return y[:, :, top:top + x.shape[2]].contiguous()

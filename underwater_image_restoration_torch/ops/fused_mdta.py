@@ -32,6 +32,15 @@ The forward is the ``torch.library`` custom op ``torch.ops.uir.ln_mdta``
 (y and the stats; the kernels on the card, ``_plain`` on the CPU, a fake
 implementation for tracing), which ``LnMdtaFn`` and the call without a
 gradient both go through, so ``torch.export`` records it as one node.
+
+Context parallelism: ``ln_mdta_rows`` takes a rank's band of the map's rows.
+A's gram and row sums of squares span every pixel, so the function is two
+halves around a sum over the ranks: ``ln_mdta_stats`` (the band's own rows'
+stats) and ``ln_mdta_apply`` (y from the summed stats), each the split
+entries of ``csrc/ln_mdta.cu`` on the card and ``ln_mdta_stats_plain`` /
+``ln_mdta_apply_plain`` on the CPU; with a gradient on the card,
+``LnMdtaRowsFn``, whose backward (``ln_mdta_bwd_rows``) runs the
+backward's two stages a slice at a time around the sum of dA.
 """
 from __future__ import annotations
 
@@ -44,7 +53,7 @@ from torch.autograd.function import once_differentiable
 from . import _kernels
 from .attention import channel_attention_core
 from .fused_gdfn import conv1x1, dwconv3x3
-from .layers import l2_normalize, layer_norm_channels
+from .layers import l2_normalize, layer_norm_channels, wide
 
 
 def ln_mdta_plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
@@ -66,23 +75,79 @@ def _plain(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
     def heads(t):
         return t.reshape(b, num_heads, c // num_heads, h * w)
 
-    ln = layer_norm_channels(x, scale, bias, eps).float()
-    qkv = dwconv3x3(conv1x1(ln, w_qkv.float()), t_qkv.float())
+    ln = wide(layer_norm_channels(x, scale, bias, eps))
+    qkv = dwconv3x3(conv1x1(ln, wide(w_qkv)), wide(t_qkv))
     q, k, v = qkv[:, :c], qkv[:, c:2 * c], qkv[:, 2 * c:]
-    q, k = heads(q.to(dt).float()), heads(k.to(dt).float())
+    q, k = heads(wide(q.to(dt))), heads(wide(k.to(dt)))
     outs, attn = channel_attention_core(l2_normalize(q), l2_normalize(k),
                                         heads(v), temp)
-    out = conv1x1(outs.to(dt).float().reshape(b, c, h, w), w_po.float())
-    vf = dwconv3x3(conv1x1(out.to(dt).float(), w_kv[:, c:].float()),
-                   t_kv[:, :, c:].float())
-    outf = torch.einsum("bhcd,bhdl->bhcl", attn, heads(vf)).to(dt)
-    yf = conv1x1(outf.float().reshape(b, c, h, w), w_pof.float())
-    y = x + yf.to(dt)
+    y = _apply_tail(x, outs, attn, w_po, w_kv, t_kv, w_pof, num_heads)
     if not with_stats:
         return y
+    return y, _gram_stats(q, k).reshape(-1)
+
+
+def _gram_stats(q, k):
+    """(B, C cph + 2C): each image's gram within the heads, Sq and Sk of
+    q and k (B, heads, cph, pixels)."""
+    b = q.shape[0]
     gram = torch.einsum("bhil,bhjl->bhij", q, k).reshape(b, -1)
-    return y, torch.cat([gram, q.square().sum(-1).reshape(b, c),
-                         k.square().sum(-1).reshape(b, c)], 1).reshape(-1)
+    return torch.cat([gram, q.square().sum(-1).reshape(b, -1),
+                      k.square().sum(-1).reshape(b, -1)], 1)
+
+
+def _apply_tail(x, outs, attn, w_po, w_kv, t_kv, w_pof, num_heads):
+    """y from outs = A v and A (f32): project_out, the kv chain's vf, A vf,
+    project_outf and the residual, rounding where the kernels round."""
+    b, c, h, w = x.shape
+    dt = x.dtype
+    out = conv1x1(wide(outs.to(dt)).reshape(b, c, h, w), wide(w_po))
+    vf = dwconv3x3(conv1x1(wide(out.to(dt)), wide(w_kv[:, c:])),
+                   wide(t_kv[:, :, c:]))
+    outf = torch.einsum("bhcd,bhdl->bhcl", attn,
+                        vf.reshape(b, num_heads, c // num_heads, h * w))
+    yf = conv1x1(wide(outf.to(dt)).reshape(b, c, h, w), wide(w_pof))
+    return x + yf.to(dt)
+
+
+def ln_mdta_stats_plain(x, scale, bias, w_qkv, t_qkv, num_heads: int,
+                        r0: int, r1: int, eps: float = 1e-5):
+    """The first half of ``ln_mdta_plain`` on a band of a row-sharded map
+    (x the band with its halo rows): each image's stats (B, C cph + 2C),
+    its gram within the heads, Sq and Sk of round(q) and round(k) over
+    rows [r0, r1) of x (the band without its halo).  Summed over the ranks,
+    they are the whole map's."""
+    b, c = x.shape[:2]
+    ln = wide(layer_norm_channels(x, scale, bias, eps))
+    qk = dwconv3x3(conv1x1(ln, wide(w_qkv[:, :2 * c])),
+                   wide(t_qkv[:, :, :2 * c]))
+    qk = wide(qk[:, :, r0:r1].to(x.dtype)).reshape(
+        b, 2, num_heads, c // num_heads, -1)
+    return _gram_stats(qk[:, 0], qk[:, 1])
+
+
+def ln_mdta_apply_plain(x, stats, scale, bias, w_qkv, t_qkv, temp, w_po,
+                        w_kv, t_kv, w_pof, num_heads: int,
+                        eps: float = 1e-5):
+    """The second half: y from x and the stats it is given (the sum over
+    the ranks), A = softmax(temp G rq rk^T) a head with rq =
+    rsqrt(max(Sq, 1e-24)) as the kernels form it."""
+    b, c, h, w = x.shape
+    nh, cph = num_heads, c // num_heads
+    ln = wide(layer_norm_channels(x, scale, bias, eps))
+    v = dwconv3x3(conv1x1(ln, wide(w_qkv[:, 2 * c:])),
+                  wide(t_qkv[:, :, 2 * c:]))
+    v = v.reshape(b, nh, cph, h * w)
+    stats = wide(stats.reshape(b, -1))
+    cc = c * cph
+    rq = torch.rsqrt(stats[:, cc:cc + c].clamp_min(1e-24))
+    rk = torch.rsqrt(stats[:, cc + c:].clamp_min(1e-24))
+    logits = (stats[:, :cc].reshape(b, nh, cph, cph)
+              * rq.reshape(b, nh, cph, 1) * rk.reshape(b, nh, 1, cph)
+              * wide(temp))
+    attn = torch.softmax(logits, dim=-1)
+    outs = torch.einsum("bhcd,bhdl->bhcl", attn, v)
+    return _apply_tail(x, outs, attn, w_po, w_kv, t_kv, w_pof, nh)
 
 
 def _check_heads(c, num_heads):
@@ -369,16 +434,7 @@ def ln_mdta_bwd(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
         plan.image_split_pixels, float(eps), stream)
     _kernels.check(lib, err, "ln_mdta_bwd")
     ln_mdta_bwd.launches[(c, h, w)] += plan.launches
-    sizes = (c * c, c * c, 9 * c, c * c, 3 * c * c, 27 * c, c, c)
-    g_pof, g_kvf, g_tvf, g_po, g_qkv, g_t3, dsc, dbi = grads.split(sizes)
-    zero = torch.zeros(c, c, **f32)
-    dw_kv = torch.cat([zero, g_kvf.view(c, c)], 1)
-    dt_kv = torch.cat([zero[:, :9], g_tvf.view(c, 9)]).t().reshape(3, 3,
-                                                                   2 * c)
-    return (dx, dsc, dbi, g_qkv.view(c, 3 * c),
-            g_t3.view(3 * c, 9).t().reshape(3, 3, 3 * c),
-            dtemp.view(b, num_heads).sum(0).view(1, num_heads, 1, 1),
-            g_po.view(c, c), dw_kv, dt_kv, g_pof.view(c, c))
+    return _unpack_grads(grads, dx, dtemp, c, num_heads)
 
 
 @torch.library.custom_op("uir::ln_mdta", mutates_args=(),
@@ -453,3 +509,277 @@ def ln_mdta(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof,
 # launches of the CUDA kernel(s), by (C, H, W); the CPU path adds none
 ln_mdta.launches = collections.Counter()
 ln_mdta_bwd.launches = collections.Counter()
+
+
+# ---------------------------------------------------------------------------
+# a band of a row-sharded map (context parallelism): the attention's stats
+# (each image's gram and row sums of squares over all pixels) are summed
+# over the ranks between the forward's two halves, and dA between the
+# backward's
+
+# rows of each neighbouring rank's a band takes: qkv's taps, then kv's taps
+# on out = A v (a band row's vf reads out a row out, whose v reads x one
+# more row out); the outermost halo row's own values are wrong (its taps
+# read past the rows given) and reach only halo rows of y, which are
+# cropped
+MDTA_HALO = 2
+# launches a slice of images of the split entries (csrc/ln_mdta.cu,
+# csrc/ln_mdta_bwd.cu), and one a call of each forward half for the
+# weights' planes: stats (prep, u, the taps, the gram, the stats); apply
+# (LN, u and v recomputed, then A from the stats, outs, out, u_vf, the
+# taps, outf, y); stage 1 (the weights' planes, steps 1-16, each image's
+# dA); stage 2 (the softmax backward, dq and dk, the transposed taps, two
+# weight-gradient launches, dLN, the row sums)
+FWD_STATS_LAUNCHES = 5
+FWD_APPLY_LAUNCHES = 10
+BWD_STAGE1_LAUNCHES = 18
+BWD_STAGE2_LAUNCHES = 7
+
+
+def _weights32(scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof):
+    """The f32 weights in the C entries' order."""
+    return tuple(t.float().contiguous() for t in (
+        scale, bias, w_qkv, t_qkv, w_po, w_kv, t_kv, w_pof, temp))
+
+
+def _check_split(what, x, c, num_heads, *tensors):
+    _kernels.check_input(what, x, *tensors)
+    cph = _check_heads(c, num_heads)
+    if c > BWD_MAX_C:
+        raise ValueError(f"{what}: C={c} is wider than {BWD_MAX_C}")
+    return cph
+
+
+def ln_mdta_stats(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
+                  w_pof, num_heads: int, r0: int, r1: int,
+                  eps: float = 1e-5):
+    """Each image's stats (B, C cph + 2C) f32 over rows [r0, r1) of x: the
+    kernels of ``uir_ln_mdta_fwd_stats`` for a CUDA tensor (sliced as
+    ``fwd_plan`` says), ``ln_mdta_stats_plain`` for a CPU one."""
+    if x.device.type == "cpu":
+        return ln_mdta_stats_plain(x, scale, bias, w_qkv, t_qkv, num_heads,
+                                   r0, r1, eps)
+    b, c, h, w = x.shape
+    ws = (scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof)
+    cph = _check_split("ln_mdta_stats", x, c, num_heads, *ws)
+    lib = _kernels.library("ln_mdta")
+    plan = fwd_plan(b, h, w, c, x.element_size())
+    work = torch.empty(plan.workspace, device=x.device, dtype=torch.uint8)
+    stats = torch.empty(b, c * cph + 2 * c, device=x.device,
+                        dtype=torch.float32)
+    ops = (x, *_weights32(*ws), stats, work)
+    err = lib.uir_ln_mdta_fwd_stats(
+        *(t.data_ptr() for t in ops), b, c, h, w, cph,
+        int(x.dtype == torch.bfloat16), plan.imgs, plan.image_split_pixels,
+        r0, r1, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(lib, err, "ln_mdta_stats")
+    ln_mdta_stats.launches[(c, h, w)] += 1 + FWD_STATS_LAUNCHES * plan.slices
+    return stats
+
+
+def ln_mdta_apply(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
+                  w_pof, num_heads: int, stats, eps: float = 1e-5):
+    """y from x and the stats it is given: the kernels of
+    ``uir_ln_mdta_fwd_apply`` for a CUDA tensor, ``ln_mdta_apply_plain``
+    for a CPU one."""
+    ws = (scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof)
+    if x.device.type == "cpu":
+        return ln_mdta_apply_plain(x, stats, *ws, num_heads, eps)
+    b, c, h, w = x.shape
+    cph = _check_split("ln_mdta_apply", x, c, num_heads, *ws, stats)
+    if stats.shape != (b, c * cph + 2 * c) or stats.dtype != torch.float32:
+        raise ValueError(f"ln_mdta_apply: stats of shape {tuple(stats.shape)}"
+                         f" and {stats.dtype}; expected ({b}, "
+                         f"{c * cph + 2 * c}) float32")
+    lib = _kernels.library("ln_mdta")
+    plan = fwd_plan(b, h, w, c, x.element_size())
+    work = torch.empty(plan.workspace, device=x.device, dtype=torch.uint8)
+    y = torch.empty_like(x)
+    ops = (x, y, *_weights32(*ws), stats.contiguous(), work)
+    err = lib.uir_ln_mdta_fwd_apply(
+        *(t.data_ptr() for t in ops), b, c, h, w, cph,
+        int(x.dtype == torch.bfloat16), plan.imgs, plan.image_split_pixels,
+        float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(lib, err, "ln_mdta_apply")
+    ln_mdta_apply.launches[(c, h, w)] += 1 + FWD_APPLY_LAUNCHES * plan.slices
+    return y
+
+
+def bwd_rows_plan(b: int, h: int, w: int, c: int, itemsize: int,
+                  sms: int = 132, h_max: int | None = None) -> BwdPlan:
+    """The split backward's plan on a band of ``h`` rows: the slices of
+    ``bwd_plan`` at ``h_max`` rows (the tallest band with its halo of any
+    rank, so that every rank makes as many slices, and as many sums over
+    the ranks), their splits and workspace at ``h``."""
+    p = bwd_plan(b, max(h, h_max or h), w, c, itemsize, sms)
+    ks = bwd_split_pixels(p.imgs * h * w, c, sms)
+    ksa = bwd_image_split_pixels(h * w)
+    return BwdPlan(p.imgs, p.slices, ks, ksa,
+                   bwd_workspace_bytes(p.imgs, h, w, c, itemsize, ks, ksa),
+                   (BWD_STAGE1_LAUNCHES + BWD_STAGE2_LAUNCHES) * p.slices)
+
+
+def ln_mdta_bwd_stage1(x, dy, ws32, stats, work, plan, num_heads: int,
+                       eps: float = 1e-5):
+    """Stage 1 of the split backward on one slice of images (CUDA tensors;
+    ``ws32`` from ``_weights32``): each image's dA (B, C cph), the rank's
+    share.  ``work`` keeps what stage 2 reads."""
+    b, c, h, w = x.shape
+    cph = c // num_heads
+    lib = _kernels.library("ln_mdta_bwd")
+    da = torch.empty(b, c * cph, device=x.device, dtype=torch.float32)
+    ops = (x, dy, *ws32, stats, work, da)
+    err = lib.uir_ln_mdta_bwd_stage1(
+        *(t.data_ptr() for t in ops), b, c, h, w, cph,
+        int(x.dtype == torch.bfloat16), plan.imgs, plan.split_pixels,
+        plan.image_split_pixels, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(lib, err, "ln_mdta_bwd_stage1")
+    ln_mdta_bwd_stage1.launches[(c, h, w)] += BWD_STAGE1_LAUNCHES
+    return da
+
+
+def ln_mdta_bwd_stage2(x, dy, dx, ws32, stats, work, plan, grads, dtemp,
+                       da, da_own, num_heads: int, r0: int, r1: int,
+                       accumulate: bool, eps: float = 1e-5):
+    """Stage 2 on the slice stage 1 left in ``work``: dx into ``dx``, dtemp
+    (from ``da_own``) into ``dtemp``, the weight gradients into ``grads``
+    (added to them when ``accumulate``); dq and dk zero outside rows [r0,
+    r1)."""
+    b, c, h, w = x.shape
+    lib = _kernels.library("ln_mdta_bwd")
+    ops = (x, dy, dx, *ws32, stats, work, grads, dtemp, da, da_own)
+    err = lib.uir_ln_mdta_bwd_stage2(
+        *(t.data_ptr() for t in ops), b, c, h, w, c // num_heads,
+        int(x.dtype == torch.bfloat16), plan.imgs, plan.split_pixels,
+        plan.image_split_pixels, r0, r1, int(accumulate), float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _kernels.check(lib, err, "ln_mdta_bwd_stage2")
+    ln_mdta_bwd_stage2.launches[(c, h, w)] += BWD_STAGE2_LAUNCHES
+
+
+def ln_mdta_bwd_rows(x, dy, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv,
+                     t_kv, w_pof, num_heads: int, stats, r0: int, r1: int,
+                     cp=None, eps: float = 1e-5, h_max: int | None = None):
+    """The split backward on CUDA tensors: x the band with its halo rows,
+    dy zero on them, ``stats`` the sum over the ranks.  Slice by slice,
+    stage 1, the sum of its dA over the context group ``cp`` (none without
+    one), stage 2.  Returns ``ln_mdta_bwd``'s gradients: dx on the rows of
+    x, the weights' and dtemp this rank's shares."""
+    b, c, h, w = x.shape
+    ws = (scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof)
+    _check_split("ln_mdta_bwd_rows", x, c, num_heads, dy, *ws, stats)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError("ln_mdta_bwd_rows: dy must match x in shape and "
+                         "dtype")
+    from ..parallel.context import reduce_sum
+
+    f32 = dict(device=x.device, dtype=torch.float32)
+    plan = bwd_rows_plan(b, h, w, c, x.element_size(),
+                         _kernels.sm_count(x.device), h_max)
+    work = torch.empty(plan.workspace, device=x.device, dtype=torch.uint8)
+    grads = torch.empty(bwd_row_size(c), **f32)
+    dtemp = torch.empty(b, num_heads, **f32)
+    dx = torch.empty_like(x)
+    ws32, dy = _weights32(*ws), dy.contiguous()
+    stats = stats.contiguous()
+    for i in range(plan.slices):
+        sl = slice(i * plan.imgs, min(b, (i + 1) * plan.imgs))
+        da = ln_mdta_bwd_stage1(x[sl], dy[sl], ws32, stats[sl], work, plan,
+                                num_heads, eps)
+        ln_mdta_bwd_stage2(x[sl], dy[sl], dx[sl], ws32, stats[sl], work,
+                           plan, grads, dtemp[sl], reduce_sum(da, cp), da,
+                           num_heads, r0, r1, i > 0, eps)
+    return _unpack_grads(grads, dx, dtemp, c, num_heads)
+
+
+def _unpack_grads(grads, dx, dtemp, c, num_heads):
+    """The backward's gradient rows in ``ln_mdta_bwd_plain``'s order and
+    layouts, the dead ``kf`` half of w_kv and t_kv zeros."""
+    f32 = dict(device=grads.device, dtype=torch.float32)
+    sizes = (c * c, c * c, 9 * c, c * c, 3 * c * c, 27 * c, c, c)
+    g_pof, g_kvf, g_tvf, g_po, g_qkv, g_t3, dsc, dbi = grads.split(sizes)
+    zero = torch.zeros(c, c, **f32)
+    dw_kv = torch.cat([zero, g_kvf.view(c, c)], 1)
+    dt_kv = torch.cat([zero[:, :9], g_tvf.view(c, 9)]).t().reshape(3, 3,
+                                                                   2 * c)
+    return (dx, dsc, dbi, g_qkv.view(c, 3 * c),
+            g_t3.view(3 * c, 9).t().reshape(3, 3, 3 * c),
+            dtemp.reshape(-1, num_heads).sum(0).view(1, num_heads, 1, 1),
+            g_po.view(c, c), dw_kv, dt_kv, g_pof.view(c, c))
+
+
+class LnMdtaRowsFn(torch.autograd.Function):
+    """``LnMdtaFn``'s sibling on a band with its halo rows: the stats
+    kernels over rows [r0, r1), their sum over the context group, the
+    apply kernels; saves x, the weights and the summed stats.  The
+    backward is ``ln_mdta_bwd_rows``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
+                w_pof, num_heads, eps, r0, r1, cp, h_max):
+        from ..parallel.context import reduce_sum
+
+        ws = (scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof)
+        stats = reduce_sum(ln_mdta_stats(x, *ws, num_heads, r0, r1, eps), cp)
+        y = ln_mdta_apply(x, *ws, num_heads, stats, eps)
+        ctx.args = (num_heads, r0, r1, cp, eps, h_max)
+        ctx.save_for_backward(x, *ws, stats)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, *ws, stats = ctx.saved_tensors
+        num_heads, r0, r1, cp, eps, h_max = ctx.args
+        grads = ln_mdta_bwd_rows(x, dy, *ws, num_heads, stats, r0, r1, cp,
+                                 eps, h_max)
+        return (grads[0],) + tuple(g.to(t.dtype) for g, t in
+                                   zip(grads[1:], ws)) + (None,) * 6
+
+
+def ln_mdta_rows(x, scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv,
+                 w_pof, num_heads: int, eps: float = 1e-5, cp=None,
+                 use_kernels: bool = True):
+    """``ln_mdta`` (or, without ``use_kernels``, ``ln_mdta_plain``) of the
+    rank's band of a row-sharded NCHW map (``cp``, a
+    ``core.meshes.ContextParallel``; the whole map without it): the band
+    with MDTA_HALO rows of each neighbouring rank's (none past the map's
+    edge, where the kernels zero-pad as the whole map's call does); the
+    stats over the band's own rows, summed over the context group; the
+    apply half on the extended band; its result cropped to the band.  With
+    a gradient on CUDA tensors, ``LnMdtaRowsFn``; otherwise the halves'
+    wrappers (the kernels on the card, the plain halves on the CPU) or the
+    plain halves, with the differentiable sum between them.  The weight
+    gradients and dtemp are the band's shares (the train step sums them
+    over the ranks); the dx of the halo rows goes back to their owners
+    through the halo exchange's adjoint."""
+    ws = (scale, bias, w_qkv, t_qkv, temp, w_po, w_kv, t_kv, w_pof)
+    if cp is None or cp.size == 1:
+        fn = ln_mdta if use_kernels else ln_mdta_plain
+        return fn(x, *ws, num_heads, eps)
+    from ..parallel.context import all_reduce_sum, halo_rows
+
+    h = x.shape[2]
+    ext, r0 = halo_rows(x, MDTA_HALO, MDTA_HALO, cp, dim=2, zeros=False)
+    ext, r1 = ext.contiguous(), r0 + h
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (ext, *ws))
+    if use_kernels and ext.device.type == "cuda" and grad:
+        h_max = h + MDTA_HALO * min(2, cp.size - 1)
+        y = LnMdtaRowsFn.apply(ext, *ws, num_heads, eps, r0, r1, cp, h_max)
+    elif use_kernels:
+        stats = all_reduce_sum(
+            ln_mdta_stats(ext, *ws, num_heads, r0, r1, eps), cp)
+        y = ln_mdta_apply(ext, *ws, num_heads, stats, eps)
+    else:
+        stats = all_reduce_sum(ln_mdta_stats_plain(
+            ext, *ws[:4], num_heads, r0, r1, eps), cp)
+        y = ln_mdta_apply_plain(ext, stats, *ws, num_heads, eps)
+    return y[:, :, r0:r1].contiguous()
+
+
+ln_mdta_stats.launches = collections.Counter()
+ln_mdta_apply.launches = collections.Counter()
+ln_mdta_bwd_stage1.launches = collections.Counter()
+ln_mdta_bwd_stage2.launches = collections.Counter()

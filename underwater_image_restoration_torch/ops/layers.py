@@ -8,7 +8,7 @@ for f32 inputs; for bf16 inputs PyTorch's bf16 matmul accumulates in f32)
 and rounded to the compute dtype once, before the bias is added in that
 dtype.  Channel LayerNorm (``layer_norm_channels``) is over dim 1 of NCHW,
 token LayerNorm (``layer_norm_last``) over the last dim of (B, L, C); both
-keep their statistics and affine in f32.
+keep their statistics and affine in f32 (f64 for f64 inputs, ``wide``).
 """
 from __future__ import annotations
 
@@ -17,16 +17,22 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def wide(t):
+    """``t`` in the dtype the plain versions accumulate in: f32, or f64
+    for an f64 tensor (a check in f64 then runs in f64 throughout)."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
 def layer_norm_channels(x, scale, bias, eps: float = 1e-5):
     """LayerNorm over the channel dim of (B, C, H, W): statistics and affine
     in f32 (bf16 mean/var over C=16 would lose ~2 decimal digits), result in
     ``x.dtype``."""
-    xf = x.float()
+    xf = wide(x)
     mean = xf.mean(dim=1, keepdim=True)
     var = (xf - mean).square().mean(dim=1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps)
     cshape = (1, -1, 1, 1)
-    y = y * scale.float().view(cshape) + bias.float().view(cshape)
+    y = y * wide(scale).view(cshape) + wide(bias).view(cshape)
     return y.to(x.dtype)
 
 
@@ -100,6 +106,6 @@ def leaky_relu(x, negative_slope: float = 0.01):
 def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
     """F.normalize(x, dim=dim) written as ``x / sqrt(max(s, eps^2))`` so an
     exactly-zero row has a zero gradient; sums in f32, result in x.dtype."""
-    xf = x.float()
+    xf = wide(x)
     s = xf.square().sum(dim=dim, keepdim=True)
     return (xf / torch.sqrt(torch.clamp_min(s, eps * eps))).to(x.dtype)

@@ -21,6 +21,8 @@ the gradients a rank gets are the one device's for the rows it holds.
   its windows) and ``ulysses_window_attention`` (heads sharded by two
   all-to-alls): the window attention through ``ops.window_attention``, so
   the kernel runs on each rank's windows;
+- ``all_reduce_sum`` (``reduce_sum`` without autograd): a sum over the
+  group, the adjoint of itself (the LN+MDTA stats of the rank's band);
 - ``sharded_fft2`` / ``sharded_ifft2``: the 2-D FFT over (rows, columns)
   of a row-sharded array: FFT over the columns, all-to-all to shard the
   columns, FFT over the rows, all-to-all back;
@@ -32,7 +34,8 @@ the gradients a rank gets are the one device's for the rows it holds.
 With one rank in the group every primitive is its single-device op.
 ``sent_bytes`` counts the bytes this process sent to the other ranks of
 its group and ``collectives`` the collectives it made, by kind
-("exchange": the halo strips, "all_to_all": the transposes and gathers).
+("exchange": the halo strips, "all_to_all": the transposes and gathers,
+"all_reduce": the sums).
 """
 from __future__ import annotations
 
@@ -133,6 +136,43 @@ class _AllToAll(torch.autograd.Function):
 def all_to_all(t, cp):
     """Differentiable ``_all_to_all`` over dim 0 (its size the group's)."""
     return _AllToAll.apply(t, cp)
+
+
+def reduce_sum(t, cp):
+    """The sum of ``t`` over the context group (one ``all_reduce``), a new
+    tensor; ``t`` itself without a group.  Counted as a ring all-reduce
+    sends: 2 (n - 1) / n of the tensor a rank."""
+    if cp is None or cp.size == 1:
+        return t
+    out = t.contiguous().clone()
+    n = cp.size
+    sent_bytes["all_reduce"] += (2 * (n - 1) * out.numel()
+                                 * out.element_size() // n)
+    collectives["all_reduce"] += 1
+    _dist().all_reduce(out, group=cp.group)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """``reduce_sum``, its own adjoint: every rank's output is the sum, so
+    the cotangent of a rank's input is the sum of the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, t, cp):
+        ctx.cp = cp
+        return reduce_sum(t, cp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_sum(g, ctx.cp), None
+
+
+def all_reduce_sum(t, cp):
+    """Differentiable ``reduce_sum`` (the stats of LN+MDTA's attention,
+    summed over the ranks' bands)."""
+    if cp is None or cp.size == 1:
+        return t
+    return _AllReduce.apply(t, cp)
 
 
 # --------------------------------------------------------------------------

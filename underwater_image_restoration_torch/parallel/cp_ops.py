@@ -8,8 +8,10 @@ single-device op runs; with ``cp`` it is the rank's band of rows
 
 - ``roll2d``: the cyclic rolls of shifted windows, one halo strip;
 - ``window_attention``: the rank's windows and its rows of the shift mask;
-- ``fft2``/``ifft2``, ``fftn_real_spatial``/``ifftn_real_spatial``: the
-  distributed 2-D FFT of a row-sharded image; ``fftn_real_tokens``: the
+- ``fft2``/``ifft2``, ``fftn_real_spatial``/``ifftn_real_spatial`` (NHWC),
+  ``fft2_chw``/``ifft2_chw`` and ``spectral_tile_upsample`` (NCHW, the
+  SpectralTransformer's UpS): the distributed 2-D FFT of a row-sharded
+  image; ``fftn_real_tokens``: the
   New* encoders' FFT over the (L, C) token axes with L sharded, by the same
   transpose recipe;
 - ``conv2d``: a convolution of an NCHW band (the 3x3/pad 1 projections and
@@ -34,6 +36,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.spectral import fft2 as _fft2
+from ..ops.spectral import ifft2 as _ifft2
+from ..ops.spectral import safe_abs, zero_stuff2x
+from ..ops.spectral import spectral_tile_upsample as _tile_upsample
 from ..ops.window_attention import window_attention as _local_attention
 from .context import (
     cp_roll2d,
@@ -111,6 +117,34 @@ def ifft2(x, cp=None):
     if not _banded(cp):
         return torch.fft.ifftn(x.to(torch.complex64), dim=(1, 2))
     return sharded_ifft2(x, cp)
+
+
+def fft2_chw(x, cp=None):
+    """2-D FFT over the last two axes (H, W) of NCHW (``ops.fft2``); on a
+    band the distributed transpose decomposition (complex64; the group
+    divides W)."""
+    if not _banded(cp):
+        return _fft2(x)
+    b, c, h, w = x.shape
+    return sharded_fft2(x.reshape(b * c, h, w), cp).reshape(b, c, h, w)
+
+
+def ifft2_chw(x, cp=None):
+    if not _banded(cp):
+        return _ifft2(x)
+    b, c, h, w = x.shape
+    return sharded_ifft2(x.reshape(b * c, h, w), cp).reshape(b, c, h, w)
+
+
+def spectral_tile_upsample(mag, phase, cp=None):
+    """SpectralUpSample's core on NCHW (``ops.spectral_tile_upsample``):
+    polar recombine, the inverse FFT (distributed on a band), abs, then
+    the zero stuffing, which is the band's own (rows [r, r + h) of the map
+    go to rows [2r, 2r + 2h) of the 2x map)."""
+    if not _banded(cp):
+        return _tile_upsample(mag, phase)
+    comp = torch.complex(mag * torch.cos(phase), mag * torch.sin(phase))
+    return zero_stuff2x(safe_abs(ifft2_chw(comp, cp)))
 
 
 def fftn_real_spatial(x, cp=None):
@@ -204,6 +238,7 @@ def between(fn, x, cp, banded: bool, to_banded: bool, in_dim: int = 1,
 
 __all__ = ["band_shape", "between", "context_size", "conv", "conv2d",
            "cp_attention_viable", "cp_fft_viable", "cp_spatial_viable",
-           "fft2", "fftn_real_spatial", "fftn_real_tokens", "gather_rows",
-           "ifft2", "ifftn_real_spatial", "relayout", "roll2d",
-           "slice_rows", "window_attention"]
+           "fft2", "fft2_chw", "fftn_real_spatial", "fftn_real_tokens",
+           "gather_rows", "ifft2", "ifft2_chw", "ifftn_real_spatial",
+           "relayout", "roll2d", "slice_rows", "spectral_tile_upsample",
+           "window_attention"]

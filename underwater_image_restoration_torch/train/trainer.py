@@ -30,7 +30,7 @@ resumed run is bit-equal to a straight one.  A loss with components
 (``fflMix``) logs them beside the loss.
 
 Under data parallelism each rank steps and validates its data index's rows
-of every batch; under context parallelism (AST and the New* family) each
+of every batch; under context parallelism (every arch) each
 context rank of a data index takes the same rows and runs the model on its
 band of the images' rows, the output gathered whole for the loss and the
 metrics.  Rank 0 alone writes logs, metrics, probe images and checkpoints
