@@ -14,6 +14,7 @@ checks where the time and the launches went.
     python3 chip_smoke.py --phase eval    # phases 1, 10 and 11
     python3 chip_smoke.py --phase parallel    # phases 1 and 12
     python3 chip_smoke.py --phase context    # phases 1 (AST kernels) and 13
+    python3 chip_smoke.py --phase remat    # phases 1 and 14
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
@@ -191,7 +192,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    validation vs a one-process ``evaluate`` of its checkpoint; (e) the
    primitives (halo exchange, roll, the rank's window attention, Ulysses,
    the distributed FFT, a halo'd conv, LN+LeFF on a band) on CUDA tensors
-   vs the one-process ops.
+   vs the one-process ops;
+14. rematerialization (``remat_phase``; ``init_model(remat=True,
+   remat_policy=...)``, bf16, cuDNN's deterministic algorithms): (a) the
+   full-width SpectralTransformer at 1024x1024 (the reference's train
+   resolution), batch 2 and 8, remat off, full and dots, each run after the
+   peak a batch-1 step says it will reach (left out where that does not
+   fit): launches from zero as phase 5 counts them (no Spectral block
+   recomputes on the kernels; the three UpS do), no plain version, batch 2
+   gradients bit-equal to remat off, peak memory and images/s in turns;
+   (b) AST@256 and NewModel-Wavelet@256 at batch 16 with DropPath from a
+   seeded generator a mode: launches from zero as the planners say, each
+   checkpointed block's ln_leff and window_attn once more, no plain
+   version, gradients after two steps bit-equal to remat off and the
+   generators' states equal, peak memory lower under full, images/s in
+   turns; (c) the first train steps of NewBigModel-Wavelet@512 and
+   NewBigFRFNModel-Fourier@512 (batch 2), remat off and full: expected and
+   measured peaks, gradients finite and bit-equal, images/s; (d) one CLI
+   epoch of SpectralTransformer at 1024x1024, batch 2, ``--remat
+   --remat-policy dots`` logs the losses of the run without ``--remat``.
 The last line is the JSON device record; the line before it the kernels'.
 """
 import argparse
@@ -1435,11 +1454,12 @@ def new_model(name, use_dwt, dt, size, q_scale=NEW_Q_SCALE):
     return model
 
 
-def new_launches(model, batch, sms=None):
+def new_launches(model, batch, sms=None, remat=False):
     """What the planners say one forward (with ``sms``, one train step) of
     a New* model at ``batch`` in bf16 launches: ln_leff (and ln_leff_bwd)
     by (C, H, W), window_attn (and window_attn_bwd) by (B', heads, N, d,
-    masked), from the model's blocks."""
+    masked), from the model's blocks; with ``remat``, the forward of every
+    block but the bottleneck runs again in the backward."""
     import importlib
 
     from underwater_image_restoration_torch.models.new_model import (
@@ -1457,8 +1477,9 @@ def new_launches(model, batch, sms=None):
             continue
         lvl = 4 if name == "bottleneck" else int(name.split("_")[1])
         h, c = model.img_size >> lvl, m.norm2.weight.numel()
+        runs = 2 if remat and name != "bottleneck" else 1
         if m.token_mlp == "leff":
-            out["ln_leff"][(c, h, h)] += fused_leff.fwd_plan(
+            out["ln_leff"][(c, h, h)] += runs * fused_leff.fwd_plan(
                 batch, h, h, c, 4 * c, 2).launches
             if sms:
                 out["ln_leff_bwd"][(c, h, h)] += fused_leff.bwd_plan(
@@ -1467,7 +1488,7 @@ def new_launches(model, batch, sms=None):
             ws = m.mdassa.win_size
             key = (batch * (h // ws) ** 2, NEW_HEADS, ws * ws, c // NEW_HEADS,
                    False)
-            out["window_attn"][key] += 2
+            out["window_attn"][key] += 2 * runs
             if sms:
                 out["window_attn_bwd"][key] += 2 * wa.bwd_plan(
                     key[0], NEW_HEADS, ws * ws, sms, d=key[3],
@@ -4015,6 +4036,480 @@ def context_phase(card, batch, size, check_batch):
     return []
 
 
+# the rematerialization phase (14): remat off and the two policies
+REMAT_MODES = {"off": (False, None), "full": (True, "full"),
+               "dots": (True, "dots")}
+# SpectralTransformer at the reference's train resolution (the CLI's
+# default --image-size), at its train_batch_size and at 8
+REMAT_SIZE, REMAT_BATCHES = 1024, (2, 8)
+# the New* big models' cell: NewBig*@512 at batch 2
+REMAT_BIG_SIZE, REMAT_BIG_BATCH = 512, 2
+# timed steps a turn (in turns: off, full, dots, dots, full, off)
+REMAT_STEPS = 2
+# the share of the card's memory an expected peak may take before the run
+# is left out
+REMAT_FIT = 0.85
+# (d): the CLI's train and test pairs at 1024x1024
+REMAT_CLI_PAIRS = (8, 2)
+
+
+def ast_launches(model, batch, sms=None, remat=False):
+    """What the planners say one forward (with ``sms``, one train step) of
+    the AST at ``batch`` in bf16 launches: ln_leff (and ln_leff_bwd) by
+    (C, H, W), and the window attentions' calls as (all, masked), from the
+    model's blocks; with ``remat``, the forward of every block with
+    attention runs again in the backward (the encoders' LN+LeFF blocks are
+    not checkpointed on the kernels)."""
+    from underwater_image_restoration_torch.models.ast import BasicASTLayer
+    from underwater_image_restoration_torch.ops import fused_leff
+
+    s = model.img_size
+    out = {"ln_leff": collections.Counter(),
+           "ln_leff_bwd": collections.Counter()}
+    calls = [0, 0]
+    for name, layer in model.named_children():
+        if not isinstance(layer, BasicASTLayer):
+            continue
+        i = int(name[-1]) if name[-1].isdigit() else 0
+        side = (s >> i if name.startswith("encoder") else s >> 4
+                if name == "conv" else s >> (3 - i))
+        for blk in layer.blocks:
+            c = blk.norm2.weight.numel()
+            runs = 2 if remat and blk.att else 1
+            out["ln_leff"][(c, side, side)] += runs * fused_leff.fwd_plan(
+                batch, side, side, c, 4 * c, 2).launches
+            if sms:
+                out["ln_leff_bwd"][(c, side, side)] += fused_leff.bwd_plan(
+                    batch, side, side, c, 4 * c, 2, sms).launches
+            if blk.att:
+                calls[0] += runs
+                calls[1] += runs * (blk.shift_size > 0)
+    return ({k: dict(v) for k, v in out.items() if v}, tuple(calls))
+
+
+class _PlainCalls:
+    """Counts calls of the kernels' plain versions, forward and backward,
+    where the models and the wrappers look them up, while active."""
+
+    NAMES = (("ops.fused_leff", "ln_leff_plain"),
+             ("ops.fused_leff", "ln_leff_bwd_plain"),
+             ("ops.fused_mdta", "ln_mdta_plain"),
+             ("ops.fused_mdta", "ln_mdta_bwd_plain"),
+             ("ops.fused_gdfn", "ln_gdfn_plain"),
+             ("ops.fused_gdfn", "ln_gdfn_bwd_plain"),
+             ("ops.window_attention", "window_attention_plain"),
+             ("ops.window_attention", "window_attention_bwd"),
+             ("models.ast", "ln_leff_plain"),
+             ("models.new_model", "ln_leff_plain"),
+             ("models.blocks", "window_attention_plain"))
+
+    def __init__(self):
+        self.calls = collections.Counter()
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for mod_name, name in self.NAMES:
+            mod = importlib.import_module(
+                f"underwater_image_restoration_torch.{mod_name}")
+            if not hasattr(mod, name):
+                continue
+            fn = getattr(mod, name)
+
+            def counted(*a, _fn=fn, _key=f"{mod_name}.{name}", **k):
+                self.calls[_key] += 1
+                return _fn(*a, **k)
+
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def remat_phase(card, batch, size):
+    """14. per-block rematerialization (``init_model(remat=True,
+    remat_policy=...)``) on the card, bf16, L1withColor, Adam lr 3e-4, clip
+    1.0, cuDNN's deterministic algorithms: (a) the full-width
+    SpectralTransformer at 1024x1024, batch 2 and 8, remat off, full and
+    dots: the expected peak from a batch-1 step before each (a run it says
+    does not fit is left out and named), launches from zero (the forwards
+    as phase 5 counts them: no Spectral block recomputes on the kernels,
+    only the three UpS), no plain version, batch 2 gradients of full and
+    dots bit-equal to remat off, peak memory and images/s in turns; (b)
+    AST@256 and NewModel-Wavelet@256 at batch 16, DropPath at the models'
+    rates from one seeded generator a mode: launches from zero as the
+    planners say with each checkpointed block's ln_leff and window_attn
+    once more, no plain version, gradients after two steps bit-equal to
+    remat off and the generators' states equal, peak memory lower under
+    full, images/s in turns; (c) NewBigModel-Wavelet@512 and
+    NewBigFRFNModel-Fourier@512 at batch 2, remat off and full: expected
+    and measured peaks, gradients finite and bit-equal, images/s; (d) one
+    CLI epoch of SpectralTransformer at 1024x1024 with ``--remat
+    --remat-policy dots`` over synthetic pairs logs the losses of the same
+    run without ``--remat``.  Returns no kernel rows (every kernel's row
+    is its own phase's)."""
+    import torch
+
+    from underwater_image_restoration_torch.cli.main import main as cli
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.ops import (
+        _kernels,
+        ln_gdfn,
+        ln_leff,
+        ln_mdta,
+        window_attention,
+    )
+    from underwater_image_restoration_torch.ops.fused_gdfn import ln_gdfn_bwd
+    from underwater_image_restoration_torch.ops.fused_leff import ln_leff_bwd
+    from underwater_image_restoration_torch.ops.fused_mdta import ln_mdta_bwd
+    from underwater_image_restoration_torch.ops.window_attention import (
+        window_attn_bwd,
+    )
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    torch.backends.cudnn.deterministic = True
+    lossfn = LossFunction("L1withColor")
+    sms = _kernels.sm_count(torch.device("cuda"))
+    total = torch.cuda.mem_get_info()[1]
+    counters = {"ln_gdfn": ln_gdfn.launches, "ln_mdta": ln_mdta.launches,
+                "ln_gdfn_bwd": ln_gdfn_bwd.launches,
+                "ln_mdta_bwd": ln_mdta_bwd.launches,
+                "ln_leff": ln_leff.launches,
+                "ln_leff_bwd": ln_leff_bwd.launches,
+                "window_attn": window_attention.launches,
+                "window_attn_bwd": window_attn_bwd.launches}
+    gib = 2 ** 30
+
+    def counted_step(step, raw, ref):
+        """One step from zero counts: (its launches, its plain calls, its
+        output, its peak GiB)."""
+        for cnt in counters.values():
+            cnt.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _PlainCalls() as plain:
+            out = step(raw, ref)
+            torch.cuda.synchronize()
+        got = {k: dict(v) for k, v in counters.items() if v}
+        return got, dict(plain.calls), out, \
+            torch.cuda.max_memory_allocated() / gib
+
+    def batch1(step, raw1, ref1):
+        """(bytes held between steps: parameters, Adam state; the peak of
+        a measured batch-1 step), after a batch-1 warm-up step, which makes
+        the Adam state."""
+        step(raw1, ref1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(raw1, ref1)
+        torch.cuda.synchronize()
+        return base, torch.cuda.max_memory_allocated()
+
+    def expected(measured, batch):
+        """The peak (GiB) a step at ``batch`` is expected to reach: what
+        is held between steps plus ``batch`` times what the batch-1 step
+        adds to it."""
+        base, peak1 = measured
+        return (base + batch * (peak1 - base)) / gib
+
+    def turns(steps, raw, ref, modes):
+        """images/s of REMAT_STEPS steps a turn, modes in turns (each
+        mode's list of two), and each mode's peak GiB over its turns."""
+        rates = {m: [] for m in modes}
+        peak = {m: 0.0 for m in modes}
+        for m in list(modes) + list(reversed(modes)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            for _ in range(REMAT_STEPS):
+                steps[m](raw, ref)
+            torch.cuda.synchronize()
+            rates[m].append(REMAT_STEPS * len(raw) / (time.perf_counter()
+                                                      - t))
+            peak[m] = max(peak[m], torch.cuda.max_memory_allocated() / gib)
+        return rates, peak
+
+    def rate_line(rates, peak):
+        return ", ".join(
+            f"{m} {sum(r) / len(r):.2f} images/s {[round(v, 2) for v in r]} "
+            f"peak {peak[m]:.2f} GiB" for m, r in rates.items())
+
+    def grads(model):
+        return {n: p.grad.detach().clone() for n, p in
+                model.named_parameters() if p.grad is not None}
+
+    def compare(what, got, want):
+        """Remat's gradients against remat off: bit-equal, or (named)
+        within phase 5(c)'s bf16 limit."""
+        differ = [n for n in want if not torch.equal(got[n], want[n])]
+        if sorted(got) != sorted(want):
+            fail(f"{what}: gradients of other parameters")
+        if not differ:
+            return "bit-equal"
+        rel = grad_dist(got, want)[0]
+        print(f"{what}: {len(differ)} gradients not bit-equal (first "
+              f"{differ[:3]}), ||g - g_off||/||g_off|| {rel:.3e}",
+              flush=True)
+        if not rel <= TRAIN_GRAD_TOL["bfloat16"]:
+            fail(f"{what}: gradients beyond phase 5(c)'s bf16 limit")
+        return f"within {rel:.3e}"
+
+    def fits(what, expected):
+        ok = expected <= REMAT_FIT * total / gib
+        print(f"{what}: expected peak {expected:.2f} GiB of the card's "
+              f"{total / gib:.2f} GiB: "
+              f"{'runs' if ok else 'left out: it does not fit'}",
+              flush=True)
+        return ok
+
+    # ---- (a) SpectralTransformer@1024
+    blocks = {(c, h * REMAT_SIZE // size, w * REMAT_SIZE // size): n
+              for (c, h, w), n in BLOCKS.items()}
+    models = {m: init_model("SpectralTransformer", seed=0,
+                            compute_dtype=bf16, remat=r, remat_policy=p)
+              for m, (r, p) in REMAT_MODES.items()}
+    steps = {m: make_train_step(model, lossfn, get_optimizer(
+        "adam", model.parameters(), LR)) for m, model in models.items()}
+    raw1, ref1 = synthetic_pair_batch(1, REMAT_SIZE, seed=140)
+    est = {m: batch1(steps[m], raw1, ref1) for m in steps}
+    print(f"(a) SpectralTransformer {REMAT_SIZE}x{REMAT_SIZE} bf16: peak of "
+          "a batch-1 step " + ", ".join(f"{m} {v[1] / gib:.2f} GiB"
+                                        for m, v in est.items()), flush=True)
+    for sb in REMAT_BATCHES:
+        raw, ref = synthetic_pair_batch(sb, REMAT_SIZE, seed=141 + sb)
+        run = [m for m in REMAT_MODES if fits(
+            f"(a) batch {sb} remat {m}", expected(est[m], sb))]
+        want = spectral_launches(sb, train=True, blocks=blocks)
+        for m in run:
+            got, plain, out, peak = counted_step(steps[m], raw, ref)
+            loss = float(out["loss"])
+            print(f"(a) batch {sb} remat {m}: launches "
+                  f"{ {k: sum(v.values()) for k, v in got.items()} } (the "
+                  f"planners: { {k: sum(v.values()) for k, v in want.items()} }"
+                  f"), plain calls {sum(plain.values())}, loss {loss:.6f}, "
+                  f"peak {peak:.2f} GiB", flush=True)
+            if got != want:
+                fail(f"(a) remat {m} batch {sb}: launches {got}, the "
+                     f"planners say {want}")
+            if plain:
+                fail(f"(a) remat {m}: plain versions called: {plain}")
+            if not math.isfinite(loss):
+                fail(f"(a) remat {m}: non-finite loss")
+        if sb == REMAT_BATCHES[0]:
+            x = normalize_batch(torch, raw)
+            y = normalize_batch(torch, ref)
+            g = {m: grads_of(models[m], lossfn, x, y, True) for m in run}
+            for m in run[1:]:
+                print(f"(a) batch {sb} gradients remat {m} vs off: "
+                      f"{compare(f'(a) remat {m}', g[m], g['off'])}",
+                      flush=True)
+            del g, x, y
+        rates, peak = turns(steps, raw, ref, run)
+        print(f"(a) SpectralTransformer {REMAT_SIZE}x{REMAT_SIZE} bf16 "
+              f"batch {sb} train step: {rate_line(rates, peak)}; on "
+              f"{card}", flush=True)
+        del raw, ref
+    del models, steps
+    torch.cuda.empty_cache()
+    print(f"phase 14(a) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # ---- (b) AST@256 and NewModel-Wavelet@256, DropPath on
+    t_b = time.perf_counter()
+    raw, ref = synthetic_pair_batch(batch, size, seed=0)
+    for label, arch, kw in (("AST", "AST", {}),
+                            ("NewModel-Wavelet", "NewModel",
+                             {"use_dwt": "Wavelet"})):
+        models = {m: init_model(arch, seed=0, img_size=size,
+                                compute_dtype=bf16, remat=r,
+                                remat_policy=p, **kw)
+                  for m, (r, p) in REMAT_MODES.items()}
+        gens = {m: torch.Generator(device="cuda").manual_seed(0)
+                for m in models}
+        steps = {m: make_train_step(model, lossfn, get_optimizer(
+            "adam", model.parameters(), LR), generator=gens[m])
+            for m, model in models.items()}
+        g, states, losses = {}, {}, {}
+        for m, (remat, _) in REMAT_MODES.items():
+            got, plain, out, _ = counted_step(steps[m], raw, ref)
+            out2 = steps[m](raw, ref)
+            torch.cuda.synchronize()
+            losses[m] = (float(out["loss"]), float(out2["loss"]))
+            g[m], states[m] = grads(models[m]), gens[m].get_state()
+            if arch == "AST":
+                want, (calls, masked) = ast_launches(models[m], batch,
+                                                     sms, remat)
+                bwd_each = window_attn_bwd_launches(batch)
+                wa_fwd = got.get("window_attn", {})
+                have = (sum(wa_fwd.values()),
+                        sum(v for k, v in wa_fwd.items() if k[4]),
+                        sum(got.get("window_attn_bwd", {}).values()))
+                ok = (have == (calls, masked, 10 * bwd_each)
+                      and all(got.get(k) == v for k, v in want.items()))
+                desc = (f"window_attn {have[:2]} (all, masked; the planners:"
+                        f" {(calls, masked)}), window_attn_bwd {have[2]} "
+                        f"({10 * bwd_each})")
+            else:
+                want = new_launches(models[m], batch, sms, remat)
+                ok = {k: got.get(k) for k in want} == want
+                desc = ""
+            print(f"(b) {label} batch {batch} remat {m}: launches "
+                  f"{ {k: sum(v.values()) for k, v in got.items()} } "
+                  f"{desc}, plain calls {sum(plain.values())}, losses "
+                  f"{losses[m]}", flush=True)
+            if not ok:
+                fail(f"(b) {label} remat {m}: launches {got}, the planners "
+                     f"say {want}")
+            if plain:
+                fail(f"(b) {label} remat {m}: plain versions called: "
+                     f"{plain}")
+        for m in ("full", "dots"):
+            verdict = compare(f"(b) {label} remat {m}", g[m], g["off"])
+            same = torch.equal(states[m], states["off"])
+            print(f"(b) {label} remat {m} vs off after two steps: losses "
+                  f"{'equal' if losses[m] == losses['off'] else 'differ'}, "
+                  f"gradients {verdict}, generator state "
+                  f"{'equal' if same else 'differs'}", flush=True)
+            if not same:
+                fail(f"(b) {label} remat {m}: the DropPath generator ends "
+                     "elsewhere than remat off's")
+        del g
+        rates, peak = turns(steps, raw, ref, list(REMAT_MODES))
+        print(f"(b) {label} {size}x{size} bf16 batch {batch} train "
+              f"step: {rate_line(rates, peak)}; on {card}", flush=True)
+        if not peak["full"] < peak["off"]:
+            fail(f"(b) {label}: peak memory not lower under remat full")
+        del models, steps, gens
+        torch.cuda.empty_cache()
+    print(f"phase 14(b) took {time.perf_counter() - t_b:.1f} s", flush=True)
+
+    # ---- (c) NewBig*@512, batch 2: their first train steps on the card
+    t_c = time.perf_counter()
+    raw1, ref1 = synthetic_pair_batch(1, REMAT_BIG_SIZE, seed=150)
+    raw, ref = synthetic_pair_batch(REMAT_BIG_BATCH, REMAT_BIG_SIZE,
+                                    seed=151)
+    for label, arch, use_dwt in (("NewBigModel-Wavelet", "NewBigModel",
+                                  "Wavelet"),
+                                 ("NewBigFRFNModel-Fourier",
+                                  "NewBigFRFNModel", "Fourier")):
+        modes = ("off", "full")
+        models = {m: init_model(arch, seed=0, img_size=REMAT_BIG_SIZE,
+                                compute_dtype=bf16, use_dwt=use_dwt,
+                                remat=REMAT_MODES[m][0])
+                  for m in modes}
+        steps = {m: make_train_step(models[m], lossfn, get_optimizer(
+            "adam", models[m].parameters(), LR),
+            generator=torch.Generator(device="cuda").manual_seed(0))
+            for m in modes}
+        g, peaks = {}, {}
+        for m in modes:
+            want = expected(batch1(steps[m], raw1, ref1), REMAT_BIG_BATCH)
+            if not fits(f"(c) {label} batch {REMAT_BIG_BATCH} remat {m}",
+                        want):
+                fail(f"(c) {label} remat {m} is expected not to fit")
+            _, plain, out, peaks[m] = counted_step(steps[m], raw, ref)
+            g[m] = grads(models[m])
+            bad = [n for n, t in g[m].items()
+                   if not bool(torch.isfinite(t).all())]
+            print(f"(c) {label} {REMAT_BIG_SIZE}x{REMAT_BIG_SIZE} batch "
+                  f"{REMAT_BIG_BATCH} remat {m}: loss "
+                  f"{float(out['loss']):.6f}, expected peak {want:.2f} "
+                  f"GiB, measured {peaks[m]:.2f} GiB, plain calls "
+                  f"{sum(plain.values())}, non-finite gradients {len(bad)}",
+                  flush=True)
+            if bad or plain:
+                fail(f"(c) {label} remat {m}: non-finite gradients {bad[:3]}"
+                     f" or plain calls {plain}")
+        print(f"(c) {label} gradients remat full vs off: "
+              f"{compare(f'(c) {label}', g['full'], g['off'])}", flush=True)
+        del g
+        rates, peak = turns(steps, raw, ref, list(modes))
+        print(f"(c) {label} {REMAT_BIG_SIZE}x{REMAT_BIG_SIZE} bf16 batch "
+              f"{REMAT_BIG_BATCH} train step: {rate_line(rates, peak)}; on "
+              f"{card}", flush=True)
+        del models, steps
+        torch.cuda.empty_cache()
+    print(f"phase 14(c) took {time.perf_counter() - t_c:.1f} s", flush=True)
+
+    # ---- (d) one CLI epoch at the defaults, with --remat --remat-policy
+    # dots and without
+    t_d = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase14")
+    shutil.rmtree(root, ignore_errors=True)
+    n_train, n_test = REMAT_CLI_PAIRS
+    train = _write_pairs(os.path.join(root, "data", "train"), n_train,
+                         REMAT_SIZE, seed=160)
+    test = _write_pairs(os.path.join(root, "data", "test"), n_test,
+                        REMAT_SIZE, seed=161)
+    common = ["-a", "SpectralTransformer", "--image-size", str(REMAT_SIZE),
+              "--train-batch-size", str(REMAT_BATCHES[0]),
+              "--test-batch-size", "1", "--lossf", "L1withColor",
+              "--max-epoch", "1", "--use-wandb", "--watch-freq", "0",
+              "-j", "4", "--train-raw", train[0], "--train-ref", train[1],
+              "--test-raw", test[0], "--test-ref", test[1]]
+    logged = {}
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)  # the CLI's logs/ land here
+        for tag, extra in (("plain", []),
+                           ("remat", ["--remat", "--remat-policy", "dots"])):
+            t = time.perf_counter()
+            cli(common + extra + ["--checkpoint-dir",
+                                  os.path.join(root, tag)])
+            torch.cuda.synchronize()
+            run = os.path.join(root, tag, os.listdir(os.path.join(root,
+                                                                  tag))[0])
+            logged[tag] = [(k, r[k]) for r in _jsonl(run) for k in (
+                "train/loss", "test/loss", "test/PSNR", "test/SSIM")
+                if k in r]
+            print(f"(d) CLI -a SpectralTransformer --image-size "
+                  f"{REMAT_SIZE} --train-batch-size {REMAT_BATCHES[0]} "
+                  f"{' '.join(extra)}: {time.perf_counter() - t:.1f} s, "
+                  f"logged {logged[tag]}", flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    if not logged["plain"] or logged["remat"] != logged["plain"]:
+        fail("(d) the --remat --remat-policy dots run logs other losses "
+             "than the run without --remat")
+    print(f"phase 14(d) took {time.perf_counter() - t_d:.1f} s", flush=True)
+    torch.backends.cudnn.deterministic = False
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return []
+
+
+def normalize_batch(torch, u8):
+    """uint8 NHWC (numpy) -> normalized f32 NCHW on the card."""
+    from underwater_image_restoration_torch.train import normalize_u8
+
+    return normalize_u8(torch.as_tensor(u8).cuda()).permute(
+        0, 3, 1, 2).contiguous()
+
+
+def window_attn_bwd_launches(batch):
+    """Launches of one AST window attention backward at ``batch`` (the
+    kernel, reduce_rows, the dw step), as phase 7 counts them."""
+    import importlib
+
+    wa = importlib.import_module(
+        "underwater_image_restoration_torch.ops.window_attention")
+    return wa.bwd_plan(batch * 4, 16, 64, d=AST_HEAD_DIM,
+                       itemsize=2).launches
+
+
 def _free_port():
     """A free localhost port for the process group."""
     import socket
@@ -4028,7 +4523,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "ast", "ast-train", "new",
                                         "new-train", "run", "eval",
-                                        "parallel", "context"),
+                                        "parallel", "context", "remat"),
                     default="all",
                     help="'ast' ('ast-train'): the setup and the AST serving "
                          "(training) phase alone; 'new' ('new-train'): the "
@@ -4038,7 +4533,8 @@ def main(argv=None):
                          "protocol (phase 11); 'parallel': the setup and "
                          "phase 12 (data parallelism, FSDP, export, "
                          "Grad-CAM, SFCA); 'context': the setup and phase "
-                         "13 (context and tensor parallelism)")
+                         "13 (context and tensor parallelism); 'remat': the "
+                         "setup and phase 14 (rematerialization)")
     args = ap.parse_args(argv)
     import torch
 
@@ -4100,7 +4596,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     spectral = ["ln_gdfn", "ln_mdta", "ln_gdfn_bwd", "ln_mdta_bwd"]
     built = _kernels.build_all(
-        None if args.phase == "all" else spectral if args.phase == "run"
+        None if args.phase in ("all", "remat")
+        else spectral if args.phase == "run"
         else spectral + ["ln_leff", "window_attn"]
         if args.phase in ("eval", "parallel")
         else ["ln_leff", "ln_leff_bwd", "window_attn", "window_attn_bwd"]
@@ -4147,6 +4644,9 @@ def main(argv=None):
         return record(torch, kernels, t_start)
     if args.phase == "context":
         kernels = context_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
+        return record(torch, kernels, t_start)
+    if args.phase == "remat":
+        kernels = remat_phase(card, TRAIN_BATCH, SIZE)
         return record(torch, kernels, t_start)
 
     # ---- 2. kernels vs plain versions
@@ -4531,6 +5031,7 @@ def main(argv=None):
                           TRAIN_BATCH)
     kernels += parallel_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     kernels += context_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
+    kernels += remat_phase(card, TRAIN_BATCH, SIZE)
     return record(torch, kernels, t_start)
 
 

@@ -2,10 +2,11 @@
 ``core/config.py``) on the CPU:
 
 - its parser has the JAX parser's flags, option strings and defaults, but
-  for the three it leaves out (``--compile-cache``, ``--remat-policy``,
-  ``--steps-per-dispatch``: the TPU's alone);
-- the parallel flags and ``--remat`` take only one device's values, and the
-  others raise naming ROADMAP queue 1 item 8 or the train step's note;
+  for the two it leaves out (``--compile-cache``, ``--steps-per-dispatch``:
+  the TPU's alone);
+- the parallel flags take only one device's values outside ``torchrun``,
+  and the others raise naming ROADMAP queue 1 item 8; ``--remat`` with the
+  TPU's ``--remat-policy mxu`` raises;
 - ``--vgg-weights`` and ``--allow-placeholder-vgg`` reach the Config, and a
   perceptual loss without weights raises FileNotFoundError;
 - ``ModelTrainer.train`` runs with cuDNN's deterministic mode on and
@@ -50,7 +51,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-LEFT_OUT = {"compile_cache", "remat_policy", "steps_per_dispatch"}
+LEFT_OUT = {"compile_cache", "steps_per_dispatch"}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -77,7 +78,7 @@ def test_parser_matches_jax_but_the_tpu_flags():
     (["--mesh-context", "16", "--image-size", "16"], "too few rows a rank"),
     (["--shard-params", "data"], "queue 1, item 8"),
     (["--shard-params", "context"], "queue 1, item 8"),
-    (["--remat"], "remat")])
+    (["--remat", "--remat-policy", "mxu"], "remat")])
 def test_refused_values_raise(argv, match, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(ValueError, match=match):

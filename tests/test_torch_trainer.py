@@ -390,7 +390,7 @@ def test_checkpoint_manager_keeps_best_and_latest(tmp_path):
     ({"mesh_context": 2}, "queue 1, item 8"),
     ({"mesh_context": 2, "image_size": 36}, "multiple of 8"),
     ({"shard_params": "data"}, "queue 1, item 8"),
-    ({"remat": True}, "remat")])
+    ({"remat": True, "remat_policy": "mxu+ew"}, "remat")])
 def test_unsupported_settings_raise(kw, match):
     with pytest.raises(ValueError, match=match):
         trainer.ModelTrainer("a", "b", "c", "d").train(

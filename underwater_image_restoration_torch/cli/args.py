@@ -3,14 +3,16 @@ JAX package's ``cli/args.py`` ``argument_parser``: the same flag names,
 defaults and quirks (``--use-wandb`` is ``store_false``; the ReID leftovers
 are accepted and ignored).
 
-Left out: ``--compile-cache``, ``--remat-policy`` and
-``--steps-per-dispatch``, which served only the TPU (an XLA cache, remat
-policies, a dispatch workaround).  ``--mesh-data N``, ``--mesh-context
-M`` (every arch) and ``--shard-params data|context`` run
+Left out: ``--compile-cache`` and ``--steps-per-dispatch``, which served
+only the TPU (an XLA cache, a dispatch workaround).  ``--mesh-data N``,
+``--mesh-context M`` (every arch) and ``--shard-params data|context`` run
 under ``torchrun --nproc-per-node N*M`` (data, context and tensor
-parallelism, FSDP2; ``core/meshes.py``); ``--remat`` is accepted, and
-``core.config.validate`` refuses it.  ``--no-pallas`` runs the kernels'
-plain PyTorch versions; ``--use-cpu`` runs on the CPU (the plain versions).
+parallelism, FSDP2; ``core/meshes.py``).  ``--remat`` rematerializes the
+models' blocks under ``--remat-policy`` '' (or 'full') or 'dots'
+(``ops.layers.make_remat``); the parser keeps the JAX choices, and
+``core.config.validate`` refuses 'mxu' and 'mxu+ew', the TPU's alone.
+``--no-pallas`` runs the kernels' plain PyTorch versions; ``--use-cpu``
+runs on the CPU (the plain versions).
 """
 from __future__ import annotations
 
@@ -157,8 +159,17 @@ def argument_parser() -> argparse.ArgumentParser:
     parser.add_argument("--compute-dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32", "float16"])
     parser.add_argument("--remat", action="store_true",
-                        help="refused: the kernels' autograd Functions save "
-                             "only x, the weights and the stats")
+                        help="rematerialize each block's forward in the "
+                             "backward (torch.utils.checkpoint) to fit "
+                             "large resolutions")
+    parser.add_argument("--remat-policy", type=str, default="",
+                        choices=["", "full", "mxu", "mxu+ew", "dots"],
+                        help="activation-checkpoint policy with --remat: "
+                             "''/'full' recomputes whole blocks (the most "
+                             "memory saved); 'dots' keeps the weight "
+                             "products' outputs and recomputes the rest; "
+                             "'mxu' and 'mxu+ew' are the TPU's alone and "
+                             "refused")
     parser.add_argument("--no-pallas", action="store_true",
                         help="run the kernels' plain PyTorch versions "
                              "(use_kernels=False)")

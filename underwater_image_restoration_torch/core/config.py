@@ -2,15 +2,17 @@
 copy of the JAX package's ``core/config.py`` (``Config``,
 ``from_namespace``).
 
-Left out: the TPU-only fields (``compile_cache``, ``remat_policy``,
+Left out: the TPU-only fields (``compile_cache``,
 ``steps_per_dispatch``; ROADMAP.md ground rules), the unused
 ``param_dtype`` (parameters are f32) and ``jsonl_metrics`` (the JSONL sink
 is always on).  Added: ``use_kernels``, which the
 CLI's ``--no-pallas`` turns off to run the kernels' plain PyTorch versions.
-``mesh_data``, ``mesh_context`` (AST and the New* family) and
+``mesh_data``, ``mesh_context`` (every arch) and
 ``shard_params`` ('data' or 'context') run under ``torchrun``
-(``core/meshes.py``); ``remat`` is kept for the CLI's surface, and
-``validate`` refuses any value the port cannot honour.
+(``core/meshes.py``); ``remat`` and ``remat_policy`` ('' or 'full',
+'dots') rematerialize the models' blocks (``ops.layers.make_remat``), and
+``validate`` refuses any value the port cannot honour (the TPU policies
+'mxu' and 'mxu+ew' among them).
 """
 from __future__ import annotations
 
@@ -82,7 +84,9 @@ class Config:
     mesh_context: int = 1         # context-parallel ranks a data index
     shard_params: str = ""        # "" (replicated), "data" or "context" (FSDP2)
     compute_dtype: str = "bfloat16"   # the model's compute dtype; f32 params
-    remat: bool = False           # refused: see train/trainer.py
+    remat: bool = False           # per-block rematerialization
+    remat_policy: str = ""        # with remat: ""/"full" recompute all,
+    #                               "dots" keeps the weight products
     use_kernels: bool = True      # False: the kernels' plain versions (--no-pallas)
     checkpoint_dir: str = "checkpoints"
     profile_dir: str = ""         # when set, a torch.profiler trace lands here
@@ -134,14 +138,13 @@ def validate(cfg: Config) -> Config:
     parallelism of an image side the context size does not divide (or, for
     SpectralTransformer, not a multiple of 8 or of fewer rows a rank than
     its LN+MDTA halo), more ranks than the process group has (start the run
-    under ``torchrun``; ``core.meshes.validate_parallel``) or ``remat``."""
+    under ``torchrun``; ``core.meshes.validate_parallel``) or a remat
+    policy that ``ops.layers.make_remat`` refuses ('mxu', 'mxu+ew', an
+    unknown name)."""
+    from ..ops.layers import make_remat
     from .meshes import validate_parallel
 
     validate_parallel(cfg.mesh_data, cfg.mesh_context, cfg.shard_params,
                       cfg.arch, cfg.image_size)
-    if cfg.remat:
-        raise ValueError(
-            "remat: the port's train step has no remat option; its kernels' "
-            "autograd Functions already save only x, the weights and the "
-            "stats (train/trainer.py, 'Not here')")
+    make_remat(cfg.remat, cfg.remat_policy or None)
     return cfg

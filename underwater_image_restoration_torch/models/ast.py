@@ -21,6 +21,15 @@ the train step runs it) each block draws its two DropPath decisions, the
 attention branch's then the LeFF branch's (the JAX block's order), from the
 ``generator`` that ``forward`` threads through the layers; both routes
 (``use_kernels`` True or False) draw the same numbers.
+
+``remat`` (``ops.layers.make_remat``, policy None/"full" or "dots")
+checkpoints every block, as the JAX layer does, but where a block is
+LN+LeFF alone (an encoder level: no attention, the LeFF token MLP) on the
+LN+LeFF kernel: its autograd Function keeps x and the operands, so a
+checkpoint would only replay the kernel (the JAX layer's stage-hoisted
+path).  On the card the attention blocks then run ``window_attention`` and
+``ln_leff`` again in the backward; on the CPU every block recomputes.  The
+recompute draws the forward's DropPath decisions again.
 """
 from __future__ import annotations
 
@@ -43,9 +52,30 @@ from ..ops import (
     window_reverse,
 )
 from ..ops.fused_leff import ln_leff_rows
-from ..ops.layers import Conv2d, ConvTranspose2d, TokenLayerNorm
+from ..ops.layers import (
+    Conv2d,
+    ConvTranspose2d,
+    TokenLayerNorm,
+    make_remat,
+    no_remat,
+)
 from ..parallel import cp_ops
 from .blocks import WindowAttentionSparse, _image, _tokens, make_token_mlp
+
+
+def trunc_normal_(p, generator: torch.Generator, std: float = 0.02,
+                  bound: float = 2.0):
+    """Fill ``p`` with N(0, std) truncated to [-bound, bound] (timm's
+    ``trunc_normal_``), drawn from ``generator``: the entries drawn outside
+    are drawn again until none is."""
+    dev = generator.device
+    r = torch.randn(p.shape, generator=generator, device=dev) * std
+    out = r.abs() > bound
+    while bool(out.any()):
+        r[out] = torch.randn(int(out.sum()), generator=generator,
+                             device=dev) * std
+        out = r.abs() > bound
+    p.copy_(r)
 
 
 class ASTInputProj(nn.Module):
@@ -104,6 +134,9 @@ class ASTTransformerBlock(nn.Module):
     """(Shifted-)window attention when ``att``, then LayerNorm + token MLP,
     each a residual branch."""
 
+    # the model's remat transform (``AST(remat=True)``)
+    remat = staticmethod(no_remat)
+
     def __init__(self, dim: int, input_resolution: int, num_heads: int,
                  win_size: int = 8, shift_size: int = 0,
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
@@ -129,7 +162,14 @@ class ASTTransformerBlock(nn.Module):
         """``cp``: the tokens are the rank's band of the map's rows (a
         multiple of the window where the block attends): the rolls move a
         halo strip, the attention takes the band's windows and their rows
-        of the shift mask, LN+LeFF the band with a halo row each side."""
+        of the shift mask, LN+LeFF the band with a halo row each side.
+        Checkpointed under remat unless the block is LN+LeFF alone on its
+        kernel."""
+        rt = (no_remat if not self.att and self.token_mlp == "leff"
+              and use_kernels and x.is_cuda else self.remat)
+        return rt(self._forward)(x, use_kernels, generator, cp)
+
+    def _forward(self, x, use_kernels, generator, cp):
         b, l, c = x.shape
         h, w = cp_ops.band_shape(l, cp)
         ws, ss = self.win_size, self.shift_size
@@ -190,7 +230,7 @@ class AST(nn.Module):
                  drop_path_rate: float = 0.1, token_mlp: str = "leff",
                  shift_flag: bool = True,
                  compute_dtype: torch.dtype = torch.float32, device=None,
-                 cp=None):
+                 cp=None, remat: bool = False, remat_policy=None):
         super().__init__()
         e, s, d, nh = embed_dim, img_size, depths, num_heads
         # the rank's place on the context dimension: the forward takes and
@@ -226,6 +266,10 @@ class AST(nn.Module):
                 5 + i, e << (4 - i), s >> (3 - i),
                 dec_dpr[dstarts[i]:dstarts[i + 1]], True))
         self.output_proj = ASTOutputProj(2 * e, in_chans, device=device)
+        rt = make_remat(remat, remat_policy)
+        for m in self.modules():
+            if isinstance(m, ASTTransformerBlock):
+                m.remat = rt
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
@@ -234,14 +278,8 @@ class AST(nn.Module):
         weight's dim 1, as torch counts it for transposed convs too), then
         trunc_normal(0.02) on every Linear weight with a zero bias; the
         bias tables trunc_normal(0.02), ``w`` ones, LayerNorm ones/zeros.
-        The truncation at +-2 (100 std) is a clamp here: no draw reaches
-        it."""
+        The truncation is at +-2 (100 std): no draw reaches it."""
         dev = generator.device
-
-        def normal(p, std=0.02):
-            r = torch.randn(p.shape, generator=generator, device=dev)
-            p.copy_((r * std).clamp_(-2.0, 2.0))
-
         for m in self.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 bound = 1.0 / math.sqrt(m.weight[0].numel())
@@ -251,10 +289,10 @@ class AST(nn.Module):
                                        device=dev)
                         p.copy_((r * 2 - 1) * bound)
             elif isinstance(m, nn.Linear):
-                normal(m.weight)
+                trunc_normal_(m.weight, generator)
                 m.bias.zero_()
             elif isinstance(m, WindowAttentionSparse):
-                normal(m.relative_position_bias_table)
+                trunc_normal_(m.relative_position_bias_table, generator)
 
     def _level_banded(self, layer: BasicASTLayer, side: int) -> bool:
         """Whether a level of ``side`` rows runs on the ranks' bands: the

@@ -33,6 +33,11 @@ is at most the window takes one window of the whole map.  In training mode
 spatial branch's (the order of the JAX return ``shortcut + dp2(freq) +
 dp1(x)``), from the ``generator`` that ``forward`` threads through the
 blocks, on both routes alike.
+
+``remat`` (``ops.layers.make_remat``, policy None/"full" or "dots")
+checkpoints every encoder and decoder block, the bottleneck excepted, as the
+JAX model does: on the card their ``ln_leff`` and window attentions run
+again in the backward, with the forward's DropPath decisions.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ from ..ops import (
     tokens_to_image,
 )
 from ..ops.fused_leff import ln_leff_rows
-from ..ops.layers import Linear, TokenLayerNorm
+from ..ops.layers import Linear, TokenLayerNorm, make_remat, no_remat
 from ..ops.wavelets import dwt2d, idwt2d
 from ..parallel import cp_ops
 from .blocks import (
@@ -78,6 +83,9 @@ def _ln_mlp(norm, mlp, x, use_kernels, s=None, residual=True, cp=None):
 class EncoderBlock(nn.Module):
     """shortcut + DropPath(frequency branch) + DropPath(spatial branch)."""
 
+    # the model's remat transform (``NewFamily(remat=True)``)
+    remat = staticmethod(no_remat)
+
     def __init__(self, dim: int, token_mlp: str = "leff",
                  freq_mlp: str = "leff", drop_path: float = 0.0,
                  use_dwt: str = "Fourier", device=None):
@@ -98,6 +106,9 @@ class EncoderBlock(nn.Module):
         IDWT runs on the gathered half-size map (its backward, the
         reference's quirk, mixes rows across the map), and the Fourier
         mode's (L, C) FFT is distributed over the sharded L."""
+        return self.remat(self._forward)(x, use_kernels, generator, cp)
+
+    def _forward(self, x, use_kernels, generator, cp):
         b, l, c = x.shape
         h, w = cp_ops.band_shape(l, cp)
         if self.token_mlp == "leff":
@@ -127,6 +138,10 @@ class DecoderBlock(nn.Module):
     """Concat the skip, LayerNorm + MDASSA with its residual, LayerNorm +
     token MLP with its residual, Linear back to ``dim``."""
 
+    # the model's remat transform (``NewFamily(remat=True)``; never the
+    # bottleneck's)
+    remat = staticmethod(no_remat)
+
     def __init__(self, dim: int, input_resolution: int, num_heads: int = 4,
                  win_size: int = 8, token_mlp: str = "leff",
                  drop_path: float = 0.0, enc_out: bool = True,
@@ -146,6 +161,10 @@ class DecoderBlock(nn.Module):
                 generator=None, cp=None):
         """``cp``: the tokens are the rank's band of the map's rows (a
         multiple of the window)."""
+        return self.remat(self._forward)(x, enc_out, use_kernels, generator,
+                                         cp)
+
+    def _forward(self, x, enc_out, use_kernels, generator, cp):
         if enc_out is not None:
             x = torch.cat([x, enc_out], -1)
         x = self.mdassa(self.norm1(x), use_kernels, cp) + x
@@ -167,7 +186,7 @@ class NewFamily(nn.Module):
                  use_dwt: str = "Fourier", token_mlp: str = "leff",
                  blocks_per_level: int = 1,
                  compute_dtype: torch.dtype = torch.float32, device=None,
-                 cp=None):
+                 cp=None, remat: bool = False, remat_policy=None):
         super().__init__()
         e, s, tm = embed_dim, img_size, token_mlp
         self.img_size, self.compute_dtype = img_size, compute_dtype
@@ -197,6 +216,11 @@ class NewFamily(nn.Module):
                     dim, s >> lvl, token_mlp=tm, enc_out=not i,
                     use_dwt=use_dwt, device=device))
         self.output_proj = OutputProjection(e, dd_in, device=device)
+        rt = make_remat(remat, remat_policy)
+        for m in self.modules():
+            if isinstance(m, (EncoderBlock, DecoderBlock)) and \
+                    m is not self.bottleneck:
+                m.remat = rt
 
     def _names(self, kind, lvl):
         return [f"{kind}_{lvl}"] + [f"{kind}_{lvl}_{i}"

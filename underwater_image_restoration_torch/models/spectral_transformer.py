@@ -25,6 +25,15 @@ through the distributed FFT (``cp_ops.fft2_chw``,
 columns).  A level that cannot runs whole on every rank
 (``cp_ops.between``, ``cp_ops.relayout``).
 
+``remat`` (``ops.layers.make_remat``, policy None/"full" or "dots") mirrors
+the JAX model's placement: the three UpS modules are always checkpointed
+(their spectral path holds full-resolution complex intermediates), and a
+SpectralBlock wherever its halves do not run on the kernels (the CPU, or
+``use_kernels=False``).  On the card both halves always run the kernels,
+whose autograd Functions keep x, the weights and the stats alone, so a
+checkpoint there would only replay both kernel forwards (the JAX model's
+``_remat_fused_blocks`` at its default): only the UpS recompute.
+
 ``inv_mag``, ``AGSSF`` and ``SFCA`` (reference SpectralTransformer.py:9-74,
 the JAX package's ``:291-358``) are defined with the reference's parameter
 names and, as there, never called by the model.
@@ -52,7 +61,7 @@ from ..ops import (
 )
 from ..ops.fused_gdfn import ln_gdfn_rows
 from ..ops.fused_mdta import MDTA_HALO, ln_mdta_rows
-from ..ops.layers import Conv2d
+from ..ops.layers import Conv2d, make_remat, no_remat
 from ..parallel import cp_ops
 
 
@@ -182,6 +191,9 @@ class GDFN(nn.Module):
 class SpectralBlock(nn.Module):
     """LN + MDTA residual, then LN + GDFN residual."""
 
+    # the model's remat transform (``SpectralTransformer(remat=True)``)
+    remat = staticmethod(no_remat)
+
     def __init__(self, c: int, num_heads: int, expansion_factor: float,
                  device=None):
         super().__init__()
@@ -192,7 +204,12 @@ class SpectralBlock(nn.Module):
 
     def forward(self, x, use_kernels: bool = True, cp=None):
         """``cp``: x is the rank's band of the map's rows (at least
-        MDTA_HALO); without it the whole map."""
+        MDTA_HALO); without it the whole map.  Checkpointed under remat
+        unless both halves run on the kernels."""
+        rt = no_remat if use_kernels and x.is_cuda else self.remat
+        return rt(self._forward)(x, use_kernels, cp)
+
+    def _forward(self, x, use_kernels, cp):
         x = ln_mdta_rows(x, self.norm1.weight, self.norm1.bias,
                          *self.attn.operands(), self.attn.num_heads, cp=cp,
                          use_kernels=use_kernels)
@@ -262,7 +279,10 @@ class ShuffleUpSample(nn.Module):
 
 
 class UpS(nn.Module):
-    """concat(FFT-up, shuffle-up), then a 1x1 C -> C/2."""
+    """concat(FFT-up, shuffle-up), then a 1x1 C -> C/2; checkpointed under
+    remat."""
+
+    remat = staticmethod(no_remat)
 
     def __init__(self, c: int, device=None):
         super().__init__()
@@ -271,6 +291,9 @@ class UpS(nn.Module):
         self.reduce = _conv(c, c // 2, device=device)
 
     def forward(self, x, cp=None):
+        return self.remat(self._forward)(x, cp)
+
+    def _forward(self, x, cp):
         return self.reduce(torch.cat([self.Fups(x, cp), self.Sups(x, cp)],
                                      dim=1))
 
@@ -284,7 +307,7 @@ class SpectralTransformer(nn.Module):
                  channels: Sequence[int] = (16, 32, 64, 128),
                  num_refinement: int = 4, expansion_factor: float = 2.66,
                  compute_dtype: torch.dtype = torch.float32, device=None,
-                 cp=None):
+                 cp=None, remat: bool = False, remat_policy=None):
         super().__init__()
         nb, nh, ch, ef = num_blocks, num_heads, channels, expansion_factor
         self.compute_dtype = compute_dtype
@@ -314,6 +337,10 @@ class SpectralTransformer(nn.Module):
         self.refinement = stage(num_refinement, ch[1], nh[0])
         self.outputl = _conv(ch[1], 8, 3, device=device)
         self.output = _conv(8, 3, 3, device=device)
+        rt = make_remat(remat, remat_policy)
+        for m in self.modules():
+            if isinstance(m, (SpectralBlock, UpS)):
+                m.remat = rt
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):

@@ -14,11 +14,13 @@ from .fused_gdfn import ln_gdfn, ln_gdfn_plain
 from .fused_leff import ln_leff, ln_leff_plain
 from .fused_mdta import ln_mdta, ln_mdta_plain
 from .layers import (
+    REMAT_POLICIES,
     LayerNorm,
     gelu,
     l2_normalize,
     layer_norm_channels,
     leaky_relu,
+    make_remat,
 )
 from .resample import (
     image_to_tokens,
@@ -48,6 +50,7 @@ from .windows import (
 __all__ = [
     "DropPath",
     "LayerNorm",
+    "REMAT_POLICIES",
     "channel_attention_core",
     "dwt2d",
     "fft2",
@@ -65,6 +68,7 @@ __all__ = [
     "ln_leff_plain",
     "ln_mdta",
     "ln_mdta_plain",
+    "make_remat",
     "merge_heads",
     "pixel_shuffle",
     "pixel_unshuffle",

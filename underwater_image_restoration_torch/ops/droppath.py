@@ -20,6 +20,12 @@ data-parallel size.  Every rank's generator is seeded alike, so n data
 indices draw what one device draws at the global batch, and the context
 ranks of one data index (which hold bands of the same images) draw the
 same decisions.
+
+Under rematerialization (``ops.layers.make_remat``) a checkpointed call
+runs twice, its recompute in the backward; ``generators`` names the
+generators its arguments draw from, so that the recompute draws the
+forward's numbers again and leaves each generator where the forward left
+it (``torch.utils.checkpoint`` keeps only the default generators' state).
 """
 from __future__ import annotations
 
@@ -39,6 +45,13 @@ class RankDraws:
     generator: torch.Generator
     rank: int
     world: int
+
+
+def generators(values) -> list:
+    """The ``torch.Generator``s among ``values`` (a ``RankDraws``' own
+    generator for a ``RankDraws``), in order."""
+    return [v.generator if isinstance(v, RankDraws) else v for v in values
+            if isinstance(v, (torch.Generator, RankDraws))]
 
 
 class DropPath(nn.Module):

@@ -9,12 +9,18 @@ and rounded to the compute dtype once, before the bias is added in that
 dtype.  Channel LayerNorm (``layer_norm_channels``) is over dim 1 of NCHW,
 token LayerNorm (``layer_norm_last``) over the last dim of (B, L, C); both
 keep their statistics and affine in f32 (f64 for f64 inputs, ``wide``).
+
+``make_remat`` is the JAX module's per-block rematerialization: the models
+wrap their blocks with it, and the backward recomputes a checkpointed
+block's forward instead of keeping its activations.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .droppath import generators
 
 
 def wide(t):
@@ -109,3 +115,103 @@ def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
     xf = wide(x)
     s = xf.square().sum(dim=dim, keepdim=True)
     return (xf / torch.sqrt(torch.clamp_min(s, eps * eps))).to(x.dtype)
+
+
+# ---- rematerialization (the JAX module's REMAT_POLICIES and make_remat)
+
+def _dots_saved(ctx, op, *args, **kwargs):
+    """The "dots" policy (``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``): keep the outputs of the matrix
+    products without a batch dimension, the weight products (``Linear`` on
+    (B, L, C) tokens reaches ``aten.mm``; with a bias on a matrix,
+    ``aten.addmm``), and recompute everything else: the attention's
+    ``bmm``, the convolutions, the FFTs and the kernels' custom ops, as the
+    JAX policy recomputes a ``pallas_call``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_saved)
+
+
+# Named activation-checkpoint policies: None/"full" recomputes everything
+# inside the checkpoint (the most memory saved); "dots" keeps the weight
+# products' outputs and recomputes the rest (selective activation
+# checkpointing).  The JAX package's "mxu" and "mxu+ew" are not ported.
+REMAT_POLICIES = {None: None, "full": None, "dots": _dots_context}
+TPU_REMAT_POLICIES = ("mxu", "mxu+ew")
+
+
+def no_remat(fn):
+    """``make_remat(False)``'s transform: ``fn`` itself."""
+    return fn
+
+
+def checkpoint(fn, policy, *args, **kwargs):
+    """``fn(*args, **kwargs)`` rematerialized under ``policy`` (a key of
+    ``REMAT_POLICIES``): ``torch.utils.checkpoint`` (non-reentrant) keeps
+    the tensor arguments and what the policy saves, and the backward runs
+    ``fn`` again for the rest.  Where autograd records nothing (no grad
+    mode, ``torch.export``) it is ``fn`` alone.
+
+    The generators among the arguments (DropPath's ``torch.Generator`` or
+    ``RankDraws``) are set back to their state at the call for the
+    recompute, which so draws the forward's numbers, and then restored to
+    where the forward left them: each step advances them once."""
+    from torch.utils.checkpoint import checkpoint as torch_checkpoint
+    from torch.utils.checkpoint import noop_context_fn
+
+    if not torch.is_grad_enabled() or torch.compiler.is_exporting():
+        return fn(*args, **kwargs)
+    gens = generators((*args, *kwargs.values()))
+    entry = [g.get_state() for g in gens]
+    ran = []
+
+    def run(*a, **k):
+        if not ran:  # the forward
+            ran.append(True)
+            return fn(*a, **k)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, entry):
+            g.set_state(state)
+        try:
+            return fn(*a, **k)
+        finally:  # also where the recompute stops early
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    return torch_checkpoint(run, *args, use_reentrant=False,
+                            context_fn=REMAT_POLICIES[policy]
+                            or noop_context_fn, **kwargs)
+
+
+def make_remat(remat: bool, policy: str | None = None):
+    """The remat transform the models wrap their blocks with:
+    ``make_remat(False)`` is the identity (whatever the policy); otherwise
+    ``fn -> (lambda *args, **kwargs: checkpoint(fn, policy, *args,
+    **kwargs))`` with ``policy`` None, "full" or "dots" (see
+    ``REMAT_POLICIES``)."""
+    if not remat:
+        return no_remat
+    if policy in TPU_REMAT_POLICIES:
+        raise ValueError(
+            f"remat policy {policy!r} is not ported: the 'mxu' and 'mxu+ew' "
+            "policies are TPU-measured negatives (ROADMAP.md ground rules, "
+            "'Do not port what the TPU alone needed'); use 'full' or 'dots'")
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"Unknown remat policy {policy!r}; one of "
+                         f"{list(REMAT_POLICIES)}")
+
+    def transform(fn):
+        def rematerialized(*args, **kwargs):
+            return checkpoint(fn, policy, *args, **kwargs)
+
+        return rematerialized
+
+    return transform
