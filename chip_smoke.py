@@ -210,7 +210,23 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    NewBigFRFNModel-Fourier@512 (batch 2), remat off and full: expected and
    measured peaks, gradients finite and bit-equal, images/s; (d) one CLI
    epoch of SpectralTransformer at 1024x1024, batch 2, ``--remat
-   --remat-policy dots`` logs the losses of the run without ``--remat``.
+   --remat-policy dots`` logs the losses of the run without ``--remat``;
+15. the K-step dispatch (``graph_phase``; ``make_train_step(k_steps=4)``:
+   the first call's steps eager, then one CUDA graph of the step captured
+   and replayed; bf16, L1withColor, Adam 3e-4 built capturable, clip 1.0,
+   256x256, batch 16, cuDNN deterministic): (a) SpectralTransformer, (b)
+   AST with DropPath at its rates, (c) NewModel-Wavelet, (d) AST with
+   per-block remat (full): three calls of four steps against twelve eager
+   single steps from the same state, losses, grad norms, parameters (and
+   generator states; in (d) the gradients) bit-equal, the kernels'
+   tallies during the capture equal to one step's launches as the
+   planners say and still during the replays, no plain version, images/s,
+   host ms a step, peak memory and the capture's seconds of graph and
+   eager in turns; (e) the CLI (``-a SpectralTransformer --image-size 256
+   --train-batch-size 2 --max-epoch 2 --steps-per-dispatch 4`` over 10
+   synthetic pairs: a group and a remainder an epoch, the learning rate
+   falling after the first) logs losses within GRAPH_CLI_TOL of the run at
+   ``--steps-per-dispatch 1``, with one capture a learning rate.
 The last line is the JSON device record; the line before it the kernels'.
 """
 import argparse
@@ -4491,6 +4507,299 @@ def remat_phase(card, batch, size):
     return []
 
 
+# 15: steps a call; calls of the compared run (the first eager, then a
+# capture and replays); calls a timed turn
+GRAPH_K, GRAPH_CALLS, GRAPH_TURN_CALLS = 4, 3, 2
+# (e): train and test pairs, so that an epoch at batch 2 is one group of
+# four and a remainder of one
+GRAPH_CLI_PAIRS = (10, 2)
+# (e): the logged losses' relative distance from the --steps-per-dispatch 1
+# run: capturable Adam computes its bias correction on the card in f32
+# (the eager step's on the host), about 1e-7 of each update, which the
+# bf16 forward may round into a loss a few ulps (4e-3 of a loss in bf16's
+# 8 bits) away after some steps; a step at the wrong learning rate or a
+# missed one moves a loss much further
+GRAPH_CLI_TOL = 1e-3
+
+
+def graph_launches(arch, model, got, batch, sms, remat):
+    """(whether ``got``, the tallies of one train step by kernel, are the
+    launches the planners say for ``model``, their description)."""
+    if arch == "SpectralTransformer":
+        want = spectral_launches(batch, train=True)
+        return got == want, f"{ {k: sum(v.values()) for k, v in want.items()} }"
+    if arch == "AST":
+        want, (calls, masked) = ast_launches(model, batch, sms, remat)
+        wa_fwd = got.get("window_attn", {})
+        have = (sum(wa_fwd.values()), sum(v for k, v in wa_fwd.items()
+                                           if k[4]),
+                sum(got.get("window_attn_bwd", {}).values()))
+        bwd = 10 * window_attn_bwd_launches(batch)
+        ok = (have == (calls, masked, bwd)
+              and all(got.get(k) == v for k, v in want.items()))
+        return ok, (f"{ {k: sum(v.values()) for k, v in want.items()} }, "
+                    f"window_attn {(calls, masked)} (all, masked), "
+                    f"window_attn_bwd {bwd}")
+    want = new_launches(model, batch, sms, remat)
+    return ({k: got.get(k) for k in want} == want,
+            f"{ {k: sum(v.values()) for k, v in want.items()} }")
+
+
+def graph_phase(card, batch, size):
+    """15. the K-step dispatch (``make_train_step(k_steps=GRAPH_K)``) on
+    the card, bf16, L1withColor, Adam lr 3e-4 built capturable, clip 1.0,
+    cuDNN's deterministic algorithms, TF32 off: (a) SpectralTransformer,
+    (b) AST (DropPath at its rates from a seeded generator), (c)
+    NewModel-Wavelet, (d) AST with per-block remat (full), each at
+    ``size``, batch ``batch``: GRAPH_CALLS calls of GRAPH_K steps (the
+    first eager, the second capturing the graph) against as many eager
+    single steps from a copy of the same state: losses, grad norms and
+    parameters bit-equal, and the DropPath generator's state, and in (d)
+    the last step's gradients; the kernels' tallies in the capturing call
+    one step's launches as the planners say, none in the last call (the
+    replays run no Python), no plain version; then images/s, host ms a
+    step, peak memory (allocated and reserved; the graph's allocated peak
+    is its capture's) of eager and graph in turns, the host ms of one
+    replay issued on an idle card, and the capture's seconds; (e) the CLI at ``--steps-per-dispatch 4`` and 1, two epochs
+    over synthetic pairs: logged losses within GRAPH_CLI_TOL, the first
+    bit-equal, one capture a learning rate.  Returns no kernel rows."""
+    import numpy as np
+    import torch
+
+    from underwater_image_restoration_torch.cli.main import main as cli
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.ops import (
+        _kernels,
+        ln_gdfn,
+        ln_leff,
+        ln_mdta,
+        window_attention,
+    )
+    from underwater_image_restoration_torch.ops.fused_gdfn import ln_gdfn_bwd
+    from underwater_image_restoration_torch.ops.fused_leff import ln_leff_bwd
+    from underwater_image_restoration_torch.ops.fused_mdta import ln_mdta_bwd
+    from underwater_image_restoration_torch.ops.window_attention import (
+        window_attn_bwd,
+    )
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+        trainer,
+    )
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    torch.backends.cudnn.deterministic = True
+    lossfn = LossFunction("L1withColor")
+    sms = _kernels.sm_count(torch.device("cuda"))
+    counters = {"ln_gdfn": ln_gdfn.launches, "ln_mdta": ln_mdta.launches,
+                "ln_gdfn_bwd": ln_gdfn_bwd.launches,
+                "ln_mdta_bwd": ln_mdta_bwd.launches,
+                "ln_leff": ln_leff.launches,
+                "ln_leff_bwd": ln_leff_bwd.launches,
+                "window_attn": window_attention.launches,
+                "window_attn_bwd": window_attn_bwd.launches}
+    gib = 2 ** 30
+    pairs = [synthetic_pair_batch(batch, size, seed=170 + i)
+             for i in range(GRAPH_K)]
+    raws, refs = [r for r, _ in pairs], [f for _, f in pairs]
+    raw_k, ref_k = np.stack(raws), np.stack(refs)
+
+    def tallies():
+        return {k: dict(v) for k, v in counters.items() if v}
+
+    rows = (("a", "SpectralTransformer", "SpectralTransformer", {}),
+            ("b", "AST", "AST", {}),
+            ("c", "NewModel-Wavelet", "NewModel", {"use_dwt": "Wavelet"}),
+            ("d", "AST remat full", "AST", {"remat": True,
+                                            "remat_policy": "full"}))
+    for tag, label, arch, kw in rows:
+        t_row = time.perf_counter()
+        remat = bool(kw.get("remat"))
+        models = {"eager": init_model(arch, seed=0, img_size=size,
+                                      compute_dtype=bf16, **kw)}
+        models["graph"] = copy.deepcopy(models["eager"])
+        opts = {m: get_optimizer("adam", models[m].parameters(), LR,
+                                 capturable=True) for m in models}
+        gens = {m: torch.Generator(device="cuda").manual_seed(0)
+                for m in models}
+        steps = {"eager": make_train_step(models["eager"], lossfn,
+                                          opts["eager"],
+                                          generator=gens["eager"]),
+                 "graph": make_train_step(models["graph"], lossfn,
+                                          opts["graph"],
+                                          generator=gens["graph"],
+                                          k_steps=GRAPH_K)}
+        eager = [steps["eager"](raws[j % GRAPH_K], refs[j % GRAPH_K])
+                 for j in range(GRAPH_CALLS * GRAPH_K)]
+        eager = {k: torch.stack([m[k] for m in eager]) for k in eager[0]}
+        g_eager = {n: p.grad.clone() for n, p in
+                   models["eager"].named_parameters()}
+        torch.cuda.synchronize()
+        calls, moved = [], []
+        with _PlainCalls() as plain:
+            for i in range(GRAPH_CALLS):
+                for cnt in counters.values():
+                    cnt.clear()
+                if i == 1:
+                    torch.cuda.reset_peak_memory_stats()
+                calls.append(steps["graph"](raw_k, ref_k))
+                torch.cuda.synchronize()
+                moved.append(tallies())
+                if i == 1:
+                    capture_peak = torch.cuda.max_memory_allocated() / gib
+        graph = {k: torch.cat([c[k] for c in calls]) for k in calls[0]}
+        step_g = steps["graph"]
+        ok, want = graph_launches(arch, models["graph"], moved[1], batch,
+                                  sms, remat)
+        launches = {k: sum(v.values()) for k, v in moved[1].items()}
+        print(f"({tag}) {label} {size}x{size} bf16 batch {batch}, "
+              f"k_steps={GRAPH_K}: tallies in the capturing call {launches} "
+              f"(the planners' one step: {want}), in the replaying call "
+              f"{moved[2]}, plain calls {dict(plain.calls)}, captures "
+              f"{step_g.captures} in {step_g.capture_seconds[0]:.2f} s",
+              flush=True)
+        if not ok:
+            fail(f"({tag}) {label}: the capture's launches {moved[1]} are "
+                 "not one step's")
+        if moved[2] or plain.calls or step_g.captures != 1:
+            fail(f"({tag}) {label}: launches during the replays {moved[2]}, "
+                 f"plain calls {dict(plain.calls)} or captures "
+                 f"{step_g.captures}")
+        same = {k: torch.equal(eager[k], graph[k]) for k in eager}
+        differ = [n for n, p in models["eager"].named_parameters()
+                  if not torch.equal(p, dict(models["graph"]
+                                             .named_parameters())[n])]
+        gen_same = torch.equal(gens["eager"].get_state(),
+                               gens["graph"].get_state())
+        grads_differ = [n for n, p in models["graph"].named_parameters()
+                        if not torch.equal(p.grad, g_eager[n])]
+        print(f"({tag}) {label}: {GRAPH_CALLS * GRAPH_K} steps, graph vs "
+              f"eager: losses {eager['loss'].tolist()} "
+              f"{'bit-equal' if same['loss'] else 'DIFFER'}, grad norms "
+              f"{'bit-equal' if same['grad_norm'] else 'DIFFER'}, "
+              f"{len(differ)} of {len(g_eager)} parameters differ, "
+              f"last gradients differ in {len(grads_differ)}, generator "
+              f"state {'equal' if gen_same else 'DIFFERS'}", flush=True)
+        if not all(same.values()) or differ or not gen_same or \
+                not bool(torch.isfinite(graph["loss"]).all()):
+            fail(f"({tag}) {label}: the graph's steps are not the eager "
+                 f"steps: {same}, parameters {differ[:3]}, generator "
+                 f"{gen_same}")
+        if remat and grads_differ:
+            fail(f"({tag}) {label}: gradients differ: {grads_differ[:3]}")
+        del g_eager
+
+        rates = {m: [] for m in models}
+        host = {m: [] for m in models}
+        peak = {m: [0.0, 0.0] for m in models}
+        n_steps = GRAPH_TURN_CALLS * GRAPH_K
+        for m in ("eager", "graph", "graph", "eager"):
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            if m == "eager":
+                for j in range(n_steps):
+                    steps[m](raws[j % GRAPH_K], refs[j % GRAPH_K])
+            else:
+                for _ in range(GRAPH_TURN_CALLS):
+                    steps[m](raw_k, ref_k)
+            t_host = time.perf_counter() - t
+            torch.cuda.synchronize()
+            rates[m].append(n_steps * batch / (time.perf_counter() - t))
+            host[m].append(1e3 * t_host / n_steps)
+            peak[m] = [max(peak[m][0], torch.cuda.max_memory_allocated()
+                           / gib),
+                       max(peak[m][1], torch.cuda.max_memory_reserved()
+                           / gib)]
+        # one replay issued on an idle card: the host's own cost, without
+        # the wait for room in the card's queue that a run of replays meets
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step_g.graph.replay()
+        idle_ms = 1e3 * (time.perf_counter() - t)
+        torch.cuda.synchronize()
+        print(f"({tag}) {label} {size}x{size} bf16 batch {batch} train "
+              f"step, turns eager, graph, graph, eager: eager "
+              f"{sum(rates['eager']) / 2:.2f} images/s "
+              f"{[round(v, 2) for v in rates['eager']]}, host "
+              f"{[round(v, 3) for v in host['eager']]} ms a step, peak "
+              f"{peak['eager'][0]:.2f} GiB allocated, {peak['eager'][1]:.2f}"
+              f" reserved; graph {sum(rates['graph']) / 2:.2f} images/s "
+              f"{[round(v, 2) for v in rates['graph']]}, host "
+              f"{[round(v, 3) for v in host['graph']]} ms a step (one "
+              f"replay on an idle card {idle_ms:.3f} ms), peak "
+              f"{capture_peak:.2f} GiB allocated (capture), "
+              f"{peak['graph'][0]:.2f} (replays), {peak['graph'][1]:.2f} "
+              f"reserved; capture {step_g.capture_seconds[0]:.2f} s; "
+              f"row {time.perf_counter() - t_row:.1f} s; on {card}",
+              flush=True)
+        del models, opts, steps, step_g, calls, eager, graph
+        torch.cuda.empty_cache()
+
+    # ---- (e) the CLI, --steps-per-dispatch 4 and 1, two epochs
+    t_e = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "phase15")
+    shutil.rmtree(root, ignore_errors=True)
+    n_train, n_test = GRAPH_CLI_PAIRS
+    train = _write_pairs(os.path.join(root, "data", "train"), n_train, size,
+                         seed=180)
+    test = _write_pairs(os.path.join(root, "data", "test"), n_test, size,
+                        seed=181)
+    common = ["-a", "SpectralTransformer", "--image-size", str(size),
+              "--train-batch-size", "2", "--max-epoch", "2", "--use-wandb",
+              "--train-raw", train[0], "--train-ref", train[1],
+              "--test-raw", test[0], "--test-ref", test[1]]
+    logged, made = {}, []
+    real = trainer.make_train_step
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)  # the CLI's logs/ land here
+        trainer.make_train_step = lambda *a, **k: made.append(
+            real(*a, **k)) or made[-1]
+        for k in (4, 1):
+            t = time.perf_counter()
+            cli(common + ["--steps-per-dispatch", str(k),
+                          "--checkpoint-dir", os.path.join(root, str(k))])
+            torch.cuda.synchronize()
+            run = os.path.join(root, str(k), os.listdir(os.path.join(
+                root, str(k)))[0])
+            logged[k] = [(key, r[key]) for r in _jsonl(run)
+                         for key in ("train/loss", "test/loss") if key in r]
+            print(f"(e) CLI -a SpectralTransformer --image-size {size} "
+                  f"--train-batch-size 2 --max-epoch 2 --steps-per-dispatch "
+                  f"{k} over {n_train} pairs: {time.perf_counter() - t:.1f}"
+                  f" s, logged {logged[k]}", flush=True)
+    finally:
+        trainer.make_train_step = real
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    captures = made[0].captures
+    keys = [key for key, _ in logged[1]]
+    if [key for key, _ in logged[4]] != keys or not keys:
+        fail("(e) the two CLI runs logged other records")
+    drift = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(logged[4],
+                                                            logged[1]))
+    first = logged[4][0][1] == logged[1][0][1]
+    print(f"(e) --steps-per-dispatch 4 vs 1: {keys.count('train/loss')} "
+          f"train losses, max relative difference of the logged losses "
+          f"{drift:.3e} (tol {GRAPH_CLI_TOL:.0e}), the first "
+          f"{'bit-equal' if first else 'DIFFERS'}; {captures} captures "
+          f"(learning rates {LR}, {LR * 0.25}) in "
+          f"{sum(made[0].capture_seconds):.2f} s", flush=True)
+    if not drift <= GRAPH_CLI_TOL or not first or captures != 2:
+        fail("(e) the CLI's K-step run disagrees with its single steps or "
+             "did not capture once a learning rate")
+    print(f"phase 15(e) took {time.perf_counter() - t_e:.1f} s", flush=True)
+    torch.backends.cudnn.deterministic = False
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return []
+
+
 def normalize_batch(torch, u8):
     """uint8 NHWC (numpy) -> normalized f32 NCHW on the card."""
     from underwater_image_restoration_torch.train import normalize_u8
@@ -4523,7 +4832,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phase", choices=("all", "ast", "ast-train", "new",
                                         "new-train", "run", "eval",
-                                        "parallel", "context", "remat"),
+                                        "parallel", "context", "remat",
+                                        "graph"),
                     default="all",
                     help="'ast' ('ast-train'): the setup and the AST serving "
                          "(training) phase alone; 'new' ('new-train'): the "
@@ -4534,7 +4844,9 @@ def main(argv=None):
                          "phase 12 (data parallelism, FSDP, export, "
                          "Grad-CAM, SFCA); 'context': the setup and phase "
                          "13 (context and tensor parallelism); 'remat': the "
-                         "setup and phase 14 (rematerialization)")
+                         "setup and phase 14 (rematerialization); 'graph': "
+                         "the setup and phase 15 (the K-step dispatch as a "
+                         "CUDA graph)")
     args = ap.parse_args(argv)
     import torch
 
@@ -4596,7 +4908,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     spectral = ["ln_gdfn", "ln_mdta", "ln_gdfn_bwd", "ln_mdta_bwd"]
     built = _kernels.build_all(
-        None if args.phase in ("all", "remat")
+        None if args.phase in ("all", "remat", "graph")
         else spectral if args.phase == "run"
         else spectral + ["ln_leff", "window_attn"]
         if args.phase in ("eval", "parallel")
@@ -4647,6 +4959,9 @@ def main(argv=None):
         return record(torch, kernels, t_start)
     if args.phase == "remat":
         kernels = remat_phase(card, TRAIN_BATCH, SIZE)
+        return record(torch, kernels, t_start)
+    if args.phase == "graph":
+        kernels = graph_phase(card, TRAIN_BATCH, SIZE)
         return record(torch, kernels, t_start)
 
     # ---- 2. kernels vs plain versions
@@ -5032,6 +5347,7 @@ def main(argv=None):
     kernels += parallel_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     kernels += context_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     kernels += remat_phase(card, TRAIN_BATCH, SIZE)
+    kernels += graph_phase(card, TRAIN_BATCH, SIZE)
     return record(torch, kernels, t_start)
 
 

@@ -2,8 +2,8 @@
 ``core/config.py``) on the CPU:
 
 - its parser has the JAX parser's flags, option strings and defaults, but
-  for the two it leaves out (``--compile-cache``, ``--steps-per-dispatch``:
-  the TPU's alone);
+  for the one it leaves out (``--compile-cache``, XLA's compilation
+  cache);
 - the parallel flags take only one device's values outside ``torchrun``,
   and the others raise naming ROADMAP queue 1 item 8; ``--remat`` with the
   TPU's ``--remat-policy mxu`` raises;
@@ -51,7 +51,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-LEFT_OUT = {"compile_cache", "steps_per_dispatch"}
+LEFT_OUT = {"compile_cache"}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -40,7 +40,13 @@
 - the training run: two epochs of ``ModelTrainer.train`` through the
   kernels (a small SpectralTransformer, bf16, Adam, the watch on) equal
   one epoch and a resumed one bit for bit, with no cuDNN flag set by the
-  test (the trainer sets it);
+  test (the trainer sets it), also at ``steps_per_dispatch=2``;
+- the K-step dispatch (``make_train_step(k_steps=2)``): a CUDA graph of the
+  step replayed against eager steps for a small SpectralTransformer, a
+  small AST with DropPath and the same AST with per-block remat, bit for
+  bit (losses, grad norms, parameters, Adam's state, the generator), the
+  kernels' tallies moving by one step's launches in the capture and not
+  in the replays;
 - every loss name's value and gradient on the card vs the CPU, and
   ``evaluate_pairs`` through the kernels vs the plain versions on a
   NewModel-Wavelet at 256x256;
@@ -1002,6 +1008,20 @@ def test_trainer_resume_is_bit_exact_on_the_card(cuda, tmp_path, monkeypatch):
     bf16, Adam, watch every 2nd step) equal one epoch and a resumed one bit
     for bit: parameters, Adam's state, loader state; all four Spectral
     kernels launched.  The test sets no cuDNN flag: the trainer does."""
+    _trainer_resume_case(cuda, tmp_path, monkeypatch, steps_per_dispatch=1)
+
+
+@pytest.mark.cuda
+def test_trainer_resume_with_steps_per_dispatch_on_the_card(
+        cuda, tmp_path, monkeypatch):
+    """The same with ``steps_per_dispatch=2`` (3 batches an epoch: a group
+    and a remainder; capturable Adam): the straight run's second epoch
+    replays its CUDA graph, captured again for the epoch's learning rate,
+    while the resumed run's first call is eager, and both end bit-equal."""
+    _trainer_resume_case(cuda, tmp_path, monkeypatch, steps_per_dispatch=2)
+
+
+def _trainer_resume_case(cuda, tmp_path, monkeypatch, steps_per_dispatch):
     from PIL import Image
 
     from underwater_image_restoration_torch.core.config import Config
@@ -1025,7 +1045,8 @@ def test_trainer_resume_is_bit_exact_on_the_card(cuda, tmp_path, monkeypatch):
         num_blocks=(1, 1, 1, 1), num_refinement=1))
     cfg = Config(image_size=32, train_batch_size=2, test_batch_size=2,
                  use_wandb=False, workers=1, watch_freq=2,
-                 lossf="L1withColor", print_freq=100)
+                 lossf="L1withColor", print_freq=100,
+                 steps_per_dispatch=steps_per_dispatch)
     counters = (fused_mdta.ln_mdta, fused_mdta.ln_mdta_bwd,
                 fused_gdfn.ln_gdfn, fused_gdfn.ln_gdfn_bwd)
     for c in counters:
@@ -1253,3 +1274,92 @@ def test_model_takes_a_strided_input(cuda):
         got = model(nhwc.permute(0, 3, 1, 2))
         want = model(nhwc.permute(0, 3, 1, 2).contiguous())
     assert torch.equal(got, want)
+
+
+# the kernels' launch tallies of a train step
+_TALLIES = (fused_mdta.ln_mdta, fused_mdta.ln_mdta_bwd, fused_gdfn.ln_gdfn,
+            fused_gdfn.ln_gdfn_bwd, fused_leff.ln_leff, fused_leff.ln_leff_bwd,
+            window_attention, wa.window_attn_bwd)
+
+
+def _tallies():
+    return [dict(f.launches) for f in _TALLIES]
+
+
+def _moved(before, after):
+    return [{k: n - b.get(k, 0) for k, n in a.items() if n != b.get(k, 0)}
+            for b, a in zip(before, after)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["SpectralTransformer", "AST", "AST-remat"])
+def test_graph_replays_equal_eager_steps(cuda, arch, monkeypatch):
+    """Three calls of ``make_train_step(k_steps=2)`` (two eager steps, then
+    one CUDA graph of the step captured and replayed four times) against
+    six eager single steps from the same weights, capturable Adam and
+    DropPath seed (the AST at its rate 0.1; with per-block remat too), bf16
+    at 32x32: losses, grad norms, parameters, Adam's state and the
+    generator's state bit-equal; the kernels' tallies move during the
+    capture by one step's launches and not during the replays."""
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    if arch == "SpectralTransformer":
+        kw = dict(seed=2, channels=(16, 32, 64, 128),
+                  num_blocks=(1, 1, 1, 1), num_refinement=1)
+    else:
+        kw = dict(seed=3, img_size=32, embed_dim=8, win_size=4,
+                  remat=arch == "AST-remat")
+    batches = [synthetic_pair_batch(2, 32, seed=40 + i) for i in range(6)]
+
+    def run(k):
+        model = init_model(arch.split("-")[0], device=cuda,
+                           compute_dtype=torch.bfloat16, **kw)
+        opt = get_optimizer("adam", model.parameters(), 3e-4,
+                            capturable=True)
+        gen = torch.Generator(cuda).manual_seed(7)
+        step = make_train_step(model, LossFunction("L1withColor"), opt,
+                               generator=gen, k_steps=k)
+        ms, moved = [], []
+        for i in range(0, 6, k):
+            group = batches[i:i + k]
+            before = _tallies()
+            if k == 1:
+                ms.append(step(*group[0]))
+            else:
+                ms.append(step(np.stack([r for r, _ in group]),
+                               np.stack([f for _, f in group])))
+            torch.cuda.synchronize()
+            moved.append(_moved(before, _tallies()))
+        out = {key: torch.cat([m[key].reshape(-1) for m in ms])
+               for key in ms[0]}
+        return (out, {n: p.detach().clone()
+                      for n, p in model.named_parameters()},
+                opt.state_dict()["inner"]["state"], gen.get_state(), moved,
+                step)
+
+    eager = run(1)
+    graph = run(2)
+    for key in eager[0]:
+        assert graph[0][key].shape == (6,), key
+        assert torch.isfinite(eager[0][key]).all(), key
+        assert torch.equal(eager[0][key], graph[0][key]), key
+    for n in eager[1]:
+        assert torch.equal(eager[1][n], graph[1][n]), n
+    for i, st in eager[2].items():
+        for key, v in st.items():
+            assert torch.equal(v, graph[2][i][key]), (i, key)
+    assert torch.equal(eager[3], graph[3])
+    one_step = eager[4][0]
+    assert any(one_step)
+    # call 1 runs two eager steps, call 2 captures one and replays
+    assert graph[4][0] == [{k: 2 * n for k, n in t.items()}
+                           for t in one_step]
+    assert graph[4][1] == one_step
+    assert graph[4][2] == [{} for _ in one_step]
+    assert graph[5].captures == 1

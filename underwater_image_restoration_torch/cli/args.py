@@ -3,8 +3,10 @@ JAX package's ``cli/args.py`` ``argument_parser``: the same flag names,
 defaults and quirks (``--use-wandb`` is ``store_false``; the ReID leftovers
 are accepted and ignored).
 
-Left out: ``--compile-cache`` and ``--steps-per-dispatch``, which served
-only the TPU (an XLA cache, a dispatch workaround).  ``--mesh-data N``,
+Left out: ``--compile-cache``, XLA's compilation cache (the port compiles
+only its kernels, cached by a hash of their sources).
+``--steps-per-dispatch K`` runs K optimizer steps a call, on CUDA as
+replays of a CUDA graph of the step.  ``--mesh-data N``,
 ``--mesh-context M`` (every arch) and ``--shard-params data|context`` run
 under ``torchrun --nproc-per-node N*M`` (data, context and tensor
 parallelism, FSDP2; ``core/meshes.py``).  ``--remat`` rematerializes the
@@ -195,6 +197,15 @@ def argument_parser() -> argparse.ArgumentParser:
                              "(up to DropPath draws: microbatches draw "
                              "one after another) while only one "
                              "microbatch's activations are live")
+    parser.add_argument("--steps-per-dispatch", type=int, default=1,
+                        help="full optimizer steps a call of the train step: "
+                             "on CUDA the first call runs its steps eagerly, "
+                             "then one CUDA graph of the whole step "
+                             "(forward, loss, backward, clip, update) is "
+                             "captured and replayed K times a call, with no "
+                             "Python between the replays; the same training "
+                             "as K single steps (Adam/AdamW built "
+                             "capturable); one rank only")
     parser.add_argument("--watch-freq", type=int, default=100,
                         help="parameter/gradient histogram logging cadence "
                              "in steps (reference wandb.watch log_freq=100, "

@@ -10,7 +10,8 @@ branch (load weights, restore every image of ``--image-in`` into
 (main.py:52-53,67-68,73-75) are flags, defaulting to its literals.  The run
 needs a CUDA GPU unless ``--use-cpu`` asks for the CPU (it raises
 ``CudaUnavailableError`` otherwise); ``--no-pallas`` runs the kernels'
-plain PyTorch versions.
+plain PyTorch versions; ``--steps-per-dispatch K`` trains K steps a call
+of the train step, on CUDA as replays of one CUDA graph of the step.
 
 Data parallelism and FSDP2 run one process a rank under ``torchrun``:
 

@@ -2,17 +2,20 @@
 copy of the JAX package's ``core/config.py`` (``Config``,
 ``from_namespace``).
 
-Left out: the TPU-only fields (``compile_cache``,
-``steps_per_dispatch``; ROADMAP.md ground rules), the unused
+Left out: the TPU-only ``compile_cache`` (XLA's compilation cache; the port
+compiles only its kernels, cached under ``build/kernels/``), the unused
 ``param_dtype`` (parameters are f32) and ``jsonl_metrics`` (the JSONL sink
 is always on).  Added: ``use_kernels``, which the
 CLI's ``--no-pallas`` turns off to run the kernels' plain PyTorch versions.
 ``mesh_data``, ``mesh_context`` (every arch) and
 ``shard_params`` ('data' or 'context') run under ``torchrun``
 (``core/meshes.py``); ``remat`` and ``remat_policy`` ('' or 'full',
-'dots') rematerialize the models' blocks (``ops.layers.make_remat``), and
-``validate`` refuses any value the port cannot honour (the TPU policies
-'mxu' and 'mxu+ew' among them).
+'dots') rematerialize the models' blocks (``ops.layers.make_remat``);
+``steps_per_dispatch`` runs K optimizer steps a call of the train step, on
+CUDA as replays of a CUDA graph of the step (``train.make_train_step``'s
+``k_steps``), and ``validate`` refuses any value the port cannot honour
+(the TPU policies 'mxu' and 'mxu+ew' among them, and K > 1 with more than
+one rank).
 """
 from __future__ import annotations
 
@@ -102,6 +105,9 @@ class Config:
     allow_placeholder_vgg: bool = False  # opt into the random VGG trunk
     grad_accum: int = 1           # microbatches per optimizer step, with
     #                               per-loss-family scaling (make_train_step)
+    steps_per_dispatch: int = 1   # full optimizer steps a call of the step:
+    #                               on CUDA one CUDA graph of the step,
+    #                               replayed K times (make_train_step k_steps)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -133,18 +139,39 @@ def compute_dtype_of(cfg: Config):
             "float16": torch.float16}[cfg.compute_dtype]
 
 
+def _refuse_parallel_dispatch(cfg: Config):
+    raise ValueError(
+        f"steps_per_dispatch={cfg.steps_per_dispatch} with mesh_data="
+        f"{cfg.mesh_data}, mesh_context={cfg.mesh_context}, shard_params="
+        f"{cfg.shard_params!r}: the K-step dispatch replays a CUDA graph of "
+        "the step, and a collective over gloo cannot be captured (nccl with "
+        "a card a rank is untried); train with more than one rank at "
+        "--steps-per-dispatch 1 (ROADMAP.md queue 2 C)")
+
+
 def validate(cfg: Config) -> Config:
     """Raise ValueError for a setting the port does not run: context
     parallelism of an image side the context size does not divide (or, for
     SpectralTransformer, not a multiple of 8 or of fewer rows a rank than
     its LN+MDTA halo), more ranks than the process group has (start the run
-    under ``torchrun``; ``core.meshes.validate_parallel``) or a remat
+    under ``torchrun``; ``core.meshes.validate_parallel``), a remat
     policy that ``ops.layers.make_remat`` refuses ('mxu', 'mxu+ew', an
-    unknown name)."""
+    unknown name), ``steps_per_dispatch`` below 1, or above 1 with more
+    than one rank or sharded parameters."""
     from ..ops.layers import make_remat
-    from .meshes import validate_parallel
+    from .meshes import parallel_sizes, validate_parallel
 
+    if cfg.steps_per_dispatch < 1:
+        raise ValueError(f"steps_per_dispatch={cfg.steps_per_dispatch}: 1 "
+                         "or more optimizer steps a dispatch")
+    multi = cfg.steps_per_dispatch > 1
+    if multi and (cfg.mesh_data > 1 or cfg.mesh_context > 1
+                       or cfg.shard_params):
+        _refuse_parallel_dispatch(cfg)
     validate_parallel(cfg.mesh_data, cfg.mesh_context, cfg.shard_params,
                       cfg.arch, cfg.image_size)
+    if multi and parallel_sizes(cfg.mesh_data, cfg.mesh_context) != (
+            1, 1):
+        _refuse_parallel_dispatch(cfg)
     make_remat(cfg.remat, cfg.remat_policy or None)
     return cfg

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.layers import constant
+
 
 def _gaussian_kernel(size: int, sigma: float) -> np.ndarray:
     coords = np.arange(size, dtype=np.float32) - size // 2
@@ -26,7 +28,7 @@ def _gaussian_kernel(size: int, sigma: float) -> np.ndarray:
 def _filter_separable(x, win1d):
     """Depthwise separable gaussian filter, VALID padding, NCHW."""
     c, k = x.shape[1], len(win1d)
-    w = torch.as_tensor(win1d, device=x.device)
+    w = constant(tuple(win1d.tolist()), x.device)
     x = F.conv2d(x, w.view(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
     return F.conv2d(x, w.view(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
 
@@ -71,8 +73,8 @@ def ms_ssim(x, y, data_range: float = 1.0, win_size: int = 11,
     """Multi-scale SSIM of NCHW images, size-averaged scalar.  The smallest
     scale must still fit the window: min(H, W) > (win_size - 1) * 2^4
     (pytorch_msssim's guard; below it the last level underflows to NaN)."""
-    w = torch.tensor(weights if weights is not None else _MS_WEIGHTS,
-                     dtype=torch.float32, device=x.device)
+    w = constant(tuple(weights if weights is not None else _MS_WEIGHTS),
+                 x.device)
     min_side = min(x.shape[-2], x.shape[-1])
     need = (win_size - 1) * 2 ** (len(w) - 1)
     if min_side <= need:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.layers import constant
 from ..tools.convert_vgg16 import convert_state_dict
 
 # (name, out_channels, in_channels); "M" = 2x2 max pool.  torchvision's
@@ -152,8 +153,8 @@ def vgg_perceptual_loss(pred, target, weights_path: str = "",
     """Sum over the four VGG16 taps of the mean L1 distance (reference
     losses.py:232-248, feature_layers [0, 1, 2, 3], no style terms)."""
     layers = _trunk(weights_path, pred.device)
-    mean = torch.tensor(_IMAGENET_MEAN, device=pred.device).view(1, 3, 1, 1)
-    std = torch.tensor(_IMAGENET_STD, device=pred.device).view(1, 3, 1, 1)
+    mean = constant(_IMAGENET_MEAN, pred.device).view(1, 3, 1, 1)
+    std = constant(_IMAGENET_STD, pred.device).view(1, 3, 1, 1)
     p = (pred.float() - mean) / std
     t = (target.float() - mean) / std
     if resize:

@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..ops.layers import constant
+
 # BT.601 luma weights over the RGB channel dim
 Y_COEFFS = (0.299, 0.587, 0.114)
 
@@ -32,7 +34,7 @@ def color_loss(pred, target):
 
 
 def _luma(x):
-    w = torch.tensor(Y_COEFFS, device=x.device, dtype=torch.float32)
+    w = constant(Y_COEFFS, x.device)
     return (x.float() * w.view(1, 3, 1, 1)).sum(dim=1)
 
 
@@ -54,7 +56,7 @@ def _laplacian_filter(x):
     """Depthwise 3x3 Laplacian, VALID padding (a ``conv2d`` with
     ``groups=C``), in f32."""
     c = x.shape[1]
-    k = torch.tensor(_LAPLACIAN, device=x.device, dtype=torch.float32)
+    k = constant(_LAPLACIAN, x.device)
     return F.conv2d(x.float(), k.expand(c, 1, 3, 3), groups=c)
 
 

@@ -22,10 +22,11 @@ ranks of one data index (which hold bands of the same images) draw the
 same decisions.
 
 Under rematerialization (``ops.layers.make_remat``) a checkpointed call
-runs twice, its recompute in the backward; ``generators`` names the
-generators its arguments draw from, so that the recompute draws the
-forward's numbers again and leaves each generator where the forward left
-it (``torch.utils.checkpoint`` keeps only the default generators' state).
+runs twice, its recompute in the backward; the checkpoint hands it a
+``Replay`` of each generator, which records the scales the forward draws
+and plays them back to the recompute.  The recompute so uses the forward's
+numbers and draws nothing: each generator advances once a step, and no
+generator state is read or set, which a CUDA graph's capture forbids.
 """
 from __future__ import annotations
 
@@ -47,11 +48,32 @@ class RankDraws:
     world: int
 
 
-def generators(values) -> list:
-    """The ``torch.Generator``s among ``values`` (a ``RankDraws``' own
-    generator for a ``RankDraws``), in order."""
-    return [v.generator if isinstance(v, RankDraws) else v for v in values
-            if isinstance(v, (torch.Generator, RankDraws))]
+class Replay:
+    """The draws of one checkpointed call from ``generator`` (a
+    ``torch.Generator``, a ``RankDraws`` or an enclosing call's
+    ``Replay``): the forward's DropPath scales are drawn and recorded in
+    order; after ``rewind`` the recompute gets the same tensors back in the
+    same order."""
+
+    def __init__(self, generator):
+        self.generator = generator
+        self.draws = []
+        self.next = None  # the index of the next draw played back
+
+    def rewind(self):
+        self.next = 0
+
+    def scale(self, draw):
+        """``draw(generator)``, recorded; in a recompute the recorded
+        scale."""
+        if self.next is None:
+            self.draws.append(draw(self.generator))
+            return self.draws[-1]
+        self.next += 1
+        return self.draws[self.next - 1]
+
+
+DRAWS = (torch.Generator, RankDraws, Replay)
 
 
 class DropPath(nn.Module):
@@ -62,12 +84,12 @@ class DropPath(nn.Module):
         self.rate = float(rate)
 
     def sample_scale(self, batch: int,
-                     generator: torch.Generator | RankDraws | None):
+                     generator: torch.Generator | RankDraws | Replay | None):
         """The per-sample scale a fused kernel applies to its branch (the
         ``s`` of ``ops.ln_leff``): (batch,) f32 of 0 or 1/keep on the
         generator's device, or None where the module is the identity.  A
         ``RankDraws`` gives the data index's rows of the global batch's
-        draw."""
+        draw, a ``Replay`` the draw it records or plays back."""
         if not self.training or self.rate == 0.0:
             return None
         if generator is None:
@@ -76,6 +98,8 @@ class DropPath(nn.Module):
                 f"{self.rate} draws from an explicit torch.Generator: pass "
                 "generator= (make_train_step(..., generator=...)), or call "
                 "eval() for inference")
+        if isinstance(generator, Replay):
+            return generator.scale(lambda g: self.sample_scale(batch, g))
         keep = 1.0 - self.rate
         rank, world = 0, 1
         if isinstance(generator, RankDraws):
@@ -87,7 +111,7 @@ class DropPath(nn.Module):
         return (u < keep).float() / keep
 
     def forward(self, x,
-                generator: torch.Generator | RankDraws | None = None):
+                generator: torch.Generator | RankDraws | Replay | None = None):
         """``x / keep`` (in x's dtype) where a sample is kept, 0 where it is
         dropped; the identity at inference."""
         s = self.sample_scale(x.shape[0], generator)

@@ -20,7 +20,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .droppath import generators
+from .droppath import DRAWS, Replay
+
+
+_CONSTANTS: dict = {}
+
+
+def constant(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
+    """``torch.tensor(values, device=device, dtype=dtype)``, made once a
+    (values, device, dtype) and shared, so read-only.  A step captured in a
+    CUDA graph cannot copy from the host: its constants are made by the
+    eager step before the capture.  One made while a tracer runs
+    (``torch.export``'s fake tensors) is not kept."""
+    key = (values, str(torch.device(device)), dtype)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.tensor(values, device=device, dtype=dtype)
+        if type(t) is torch.Tensor:
+            _CONSTANTS[key] = t
+    return t
 
 
 def wide(t):
@@ -160,33 +178,39 @@ def checkpoint(fn, policy, *args, **kwargs):
     ``fn`` again for the rest.  Where autograd records nothing (no grad
     mode, ``torch.export``) it is ``fn`` alone.
 
-    The generators among the arguments (DropPath's ``torch.Generator`` or
-    ``RankDraws``) are set back to their state at the call for the
-    recompute, which so draws the forward's numbers, and then restored to
-    where the forward left them: each step advances them once."""
+    The DropPath draws among the arguments (a ``torch.Generator``, a
+    ``RankDraws`` or an enclosing checkpoint's ``Replay``) reach ``fn`` as
+    ``droppath.Replay``s: the forward's scales are recorded and the
+    recompute gets them back, so it differentiates the forward that ran,
+    and each step advances a generator once.  No generator state is read
+    or set (a CUDA graph's capture forbids it), and
+    ``torch.utils.checkpoint`` stashes no default generator's state
+    (``preserve_rng_state=False``: the port draws only from explicit
+    generators, and the CUDA default generator's ``get_state`` raises under
+    capture)."""
     from torch.utils.checkpoint import checkpoint as torch_checkpoint
     from torch.utils.checkpoint import noop_context_fn
 
     if not torch.is_grad_enabled() or torch.compiler.is_exporting():
         return fn(*args, **kwargs)
-    gens = generators((*args, *kwargs.values()))
-    entry = [g.get_state() for g in gens]
+
+    def taped(v):
+        return Replay(v) if isinstance(v, DRAWS) else v
+
+    args = tuple(taped(a) for a in args)
+    kwargs = {k: taped(v) for k, v in kwargs.items()}
+    tapes = [v for v in (*args, *kwargs.values()) if isinstance(v, Replay)]
     ran = []
 
     def run(*a, **k):
-        if not ran:  # the forward
-            ran.append(True)
-            return fn(*a, **k)
-        now = [g.get_state() for g in gens]
-        for g, state in zip(gens, entry):
-            g.set_state(state)
-        try:
-            return fn(*a, **k)
-        finally:  # also where the recompute stops early
-            for g, state in zip(gens, now):
-                g.set_state(state)
+        if ran:  # the recompute
+            for t in tapes:
+                t.rewind()
+        ran.append(True)
+        return fn(*a, **k)
 
     return torch_checkpoint(run, *args, use_reentrant=False,
+                            preserve_rng_state=False,
                             context_fn=REMAT_POLICIES[policy]
                             or noop_context_fn, **kwargs)
 

@@ -26,6 +26,8 @@ import math
 
 import torch
 
+from .layers import constant
+
 _S = 1.0 / math.sqrt(2.0)
 # the reference reverses pywt's decomposition filters and keeps the
 # reconstruction ones: dec_lo = rec_lo = (s, s), dec_hi = rec_hi = (s, -s)
@@ -36,8 +38,8 @@ _HI = (_S, -_S)
 def _filters(device):
     """(4, 2, 2) f32 filters, bands [ll, lh, hl, hh], w[i, j] = row[j] col[i]
     (the same for decomposition and reconstruction)."""
-    lo = torch.tensor(_LO, device=device)
-    hi = torch.tensor(_HI, device=device)
+    lo = constant(_LO, device)
+    hi = constant(_HI, device)
 
     def outer(row, col):
         return col[:, None] * row[None, :]

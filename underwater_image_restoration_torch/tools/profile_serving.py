@@ -77,10 +77,12 @@ def card() -> str:
         check=True, timeout=60).stdout.strip()
 
 
-def profile(fn, iters: int, what: str, ranges=None) -> int:
+def profile(fn, iters: int, what: str, ranges=None, steps: int = 1) -> int:
     """Trace ``iters`` calls of ``fn`` (warmed up by the caller) and print
-    wall time a call, device busy and idle shares, device time by group and
-    the top kernels.  ``ranges`` maps the name of a
+    wall time a call, the host's time a call to issue them (before the
+    closing synchronise), device busy and idle shares, device time by group
+    and the top kernels; with ``steps`` (the train steps one call runs) the
+    times are a step's.  ``ranges`` maps the name of a
     ``torch.profiler.record_function`` range to the groups whose kernels
     run only inside it: the range's device time is the kernels the profiler
     ties to it (those of torch operators) plus those groups (the port's
@@ -89,12 +91,15 @@ def profile(fn, iters: int, what: str, ranges=None) -> int:
     ranges = ranges or {}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    per = iters * steps  # the times are over the calls' steps
+    unit = "a step" if steps > 1 else "a call"
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / per
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        wall_ms = (time.perf_counter() - t0) * 1e3 / per
     by_group: dict[str, float] = {}
     in_range = dict.fromkeys(ranges, 0.0)
     kernels = []
@@ -105,8 +110,11 @@ def profile(fn, iters: int, what: str, ranges=None) -> int:
             if ev.device_type == torch.autograd.DeviceType.CPU:
                 in_range[ev.key] += ev.device_time_total
             continue
-        # device-side events only: an aten op's row repeats its kernels' time
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # device-side events only: an aten op's row repeats its kernels'
+        # time, and a range's device-side annotation (Optimizer.step's)
+        # spans them
+        if ev.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(ev, "is_user_annotation", False):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -118,24 +126,25 @@ def profile(fn, iters: int, what: str, ranges=None) -> int:
         by_group[g] = by_group.get(g, 0.0) + dev_us
     for name, groups in ranges.items():
         in_range[name] += sum(by_group.get(g, 0.0) for g in groups)
-    total_ms = sum(by_group.values()) / 1e3 / iters
-    print(f"{what}: wall {wall_ms:.3f} ms a call under the profiler, device "
-          f"busy {total_ms:.3f} ms ({100 * total_ms / wall_ms:.1f}%), idle "
+    total_ms = sum(by_group.values()) / 1e3 / per
+    print(f"{what}: wall {wall_ms:.3f} ms {unit} under the profiler (the "
+          f"host's issue {host_ms:.3f} ms), device busy {total_ms:.3f} ms "
+          f"({100 * total_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - total_ms / wall_ms):.1f}%")
     if not kernels:
         print("the profiler saw no device time")
         return 1
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        ms = us / 1e3 / iters
-        print(f"  {g}: {ms:.3f} ms a call ({100 * ms / total_ms:.1f}% of "
+        ms = us / 1e3 / per
+        print(f"  {g}: {ms:.3f} ms {unit} ({100 * ms / total_ms:.1f}% of "
               "device time)")
     for name, us in in_range.items():
-        ms = us / 1e3 / iters
-        print(f"  of which inside '{name}': {ms:.3f} ms a call "
+        ms = us / 1e3 / per
+        print(f"  of which inside '{name}': {ms:.3f} ms {unit} "
               f"({100 * ms / total_ms:.1f}% of device time)")
-    print("top kernels (device ms a call, launches a call):")
+    print(f"top kernels (device ms {unit}, launches {unit}):")
     for us, name, count in sorted(kernels, reverse=True)[:15]:
-        print(f"  {us / 1e3 / iters:8.3f}  {count // iters:4d}  "
+        print(f"  {us / 1e3 / per:8.3f}  {count // per:4d}  "
               f"{name[:100]}")
     return 0
 

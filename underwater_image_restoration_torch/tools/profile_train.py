@@ -15,16 +15,22 @@ prints the device time inside the window attentions' backwards (a
 groups their kernels fall in; with ``--plain-attn-bwd`` that backward
 recomputes through the plain version (autograd over (B', heads, N, N) f32
 tensors) instead of ``csrc/window_attn_bwd.cu``, so the two shares can be
-read side by side.  Needs a CUDA GPU:
+read side by side.  With ``--steps-per-dispatch K`` (K > 1) Adam is built
+capturable and the same model is traced twice, eager single steps, then
+calls of the K-step dispatch (``make_train_step(k_steps=K)``: replays of
+one CUDA graph of the step), 2K steps each, every time given a step, the
+host's time to issue a step among them.  Needs a CUDA GPU:
 
     python -m underwater_image_restoration_torch.tools.profile_train \
         [--arch AST|NewModel [--use-dwt Wavelet|Fourier] [--plain-attn-bwd]]
+        [--steps-per-dispatch K]
 """
 from __future__ import annotations
 
 import argparse
 import importlib
 
+import numpy as np
 import torch
 
 from ..data import synthetic_pair_batch
@@ -71,6 +77,9 @@ def main(argv=None):
     p.add_argument("--plain-attn-bwd", action="store_true",
                    help="AST, NewModel: the window attentions' backward "
                         "through the plain recompute instead of its kernel")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="K > 1: trace eager steps, then the K-step dispatch "
+                        "(a CUDA graph of the step replayed K times a call)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA GPU")
@@ -82,23 +91,35 @@ def main(argv=None):
         # reduce_rows (the step's only plain reduce_rows_kernel)
         ranges = {ATTN_BWD_RANGE: ("window_attn_bwd kernel and dw step",
                                    "backward row sums")}
+    k = args.steps_per_dispatch
     model = init_model(args.arch, seed=0, compute_dtype=torch.bfloat16,
                        img_size=SIZE, use_dwt=args.use_dwt)
-    opt = get_optimizer("adam", model.parameters(), LR)
-    step = make_train_step(
-        model, LossFunction("L1withColor"), opt,
-        generator=torch.Generator(device="cuda").manual_seed(0))
+    opt = get_optimizer("adam", model.parameters(), LR, capturable=k > 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lossfn = LossFunction("L1withColor")
+    step = make_train_step(model, lossfn, opt, generator=gen)
     raw, ref = synthetic_pair_batch(BATCH, SIZE, seed=0)
+    what = (f"{args.arch}"
+            f"{'-' + args.use_dwt if args.arch == 'NewModel' else ''} "
+            f"train step, batch {BATCH} at {SIZE}x{SIZE} bf16"
+            + (", window attention backward through the plain recompute"
+               if args.plain_attn_bwd else ""))
     for _ in range(2):
         step(raw, ref)
     torch.cuda.synchronize()
-    return profile(lambda: step(raw, ref), STEPS,
-                   f"{args.arch}"
-                   f"{'-' + args.use_dwt if args.arch == 'NewModel' else ''} "
-                   f"train step, batch {BATCH} at {SIZE}x{SIZE} "
-                   "bf16" + (", window attention backward through the plain "
-                             "recompute" if args.plain_attn_bwd else ""),
-                   ranges)
+    if k == 1:
+        return profile(lambda: step(raw, ref), STEPS, what, ranges)
+    steps = make_train_step(model, lossfn, opt, generator=gen, k_steps=k)
+    raw_k, ref_k = np.stack([raw] * k), np.stack([ref] * k)
+    for _ in range(2):  # eager, then the capture and its replays
+        steps(raw_k, ref_k)
+    torch.cuda.synchronize()
+    print(f"the K-step dispatch: {steps.captures} capture in "
+          f"{steps.capture_seconds[0]:.2f} s")
+    rc = profile(lambda: step(raw, ref), 2 * k, what + ", eager", ranges)
+    return rc or profile(lambda: steps(raw_k, ref_k), 2,
+                         what + f", {k} steps a call (CUDA graph)", ranges,
+                         steps=k)
 
 
 if __name__ == "__main__":

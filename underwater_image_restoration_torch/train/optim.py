@@ -17,6 +17,15 @@ adamw, sgd or rmsprop, as the optax chain does:
 
 The learning rate lives in ``param_groups`` and is set per epoch by
 ``set_learning_rate`` (the injected hyperparameter of the JAX package).
+
+``capturable=True`` builds Adam and AdamW with torch's ``capturable``
+flag, their step counts on the device, so that a CUDA graph of the train
+step replays the update (``make_train_step(k_steps=K)``; the bias
+correction is computed on the device, so its rounding differs from the
+host's).  Every optimizer reads its learning rate and other
+hyperparameters as Python floats, baked into a graph when it is captured:
+``hyperparameters`` is what a captured graph depends on, and the train
+step captures again when it changes.
 """
 from __future__ import annotations
 
@@ -149,8 +158,31 @@ class ClippedOptimizer:
         return {"inner": self.inner.state_dict(), "clip_norm": self.clip_norm}
 
     def load_state_dict(self, state: dict):
-        self.inner.load_state_dict(state["inner"])
+        """Load a ``state_dict``; the groups keep this optimizer's
+        ``capturable`` flag (a checkpoint of a capturable Adam resumes in
+        one that is not, and the other way round), with Adam's step counts
+        where the flag wants them."""
+        inner = state["inner"]
+        flags = [g.get("capturable") for g in self.inner.param_groups]
+        inner = {**inner, "param_groups": [
+            {**g, "capturable": f} if f is not None else g
+            for g, f in zip(inner["param_groups"], flags)]}
+        self.inner.load_state_dict(inner)
         self.clip_norm = state["clip_norm"]
+        for group, flag in zip(self.inner.param_groups, flags):
+            if flag is False:  # torch's non-capturable Adam counts on the host
+                for p in group["params"]:
+                    st = self.inner.state.get(p, {})
+                    if torch.is_tensor(st.get("step")):
+                        st["step"] = st["step"].cpu()
+
+    def hyperparameters(self) -> tuple:
+        """Every group's settings but its parameters (learning rate, betas,
+        decay, ...): the Python numbers a CUDA graph of the update bakes
+        in."""
+        return tuple(tuple(sorted((k, v) for k, v in g.items()
+                                  if k != "params"))
+                     for g in self.param_groups)
 
 
 def get_optimizer(optim: str, params, learning_rate: float, *,
@@ -158,19 +190,23 @@ def get_optimizer(optim: str, params, learning_rate: float, *,
                   sgd_dampening: float = 0.0, sgd_nesterov: bool = False,
                   rmsprop_alpha: float = 0.99,
                   adam_beta1: float = 0.9, adam_beta2: float = 0.999,
-                  clip_norm: float = GRAD_CLIP_NORM) -> ClippedOptimizer:
+                  clip_norm: float = GRAD_CLIP_NORM,
+                  capturable: bool = False) -> ClippedOptimizer:
     """Gradient clip + optimizer over ``params``, with the JAX package's
     arguments and defaults.  ``sgd_dampening`` is accepted and ignored, as
-    there (optax's sgd has no dampening)."""
+    there (optax's sgd has no dampening).  ``capturable``: Adam and AdamW
+    keep their step counts on the device, for a CUDA graph of the step
+    (sgd and rmsprop need nothing)."""
     del sgd_dampening
     params = list(params)
     betas = (adam_beta1, adam_beta2)
     if optim == "adam":
         inner = torch.optim.Adam(params, lr=learning_rate, betas=betas,
-                                 eps=1e-8)
+                                 eps=1e-8, capturable=capturable)
     elif optim == "adamw":
         inner = torch.optim.AdamW(params, lr=learning_rate, betas=betas,
-                                  eps=1e-8, weight_decay=weight_decay)
+                                  eps=1e-8, weight_decay=weight_decay,
+                                  capturable=capturable)
     elif optim == "sgd":
         inner = torch.optim.SGD(params, lr=learning_rate,
                                 momentum=momentum or 0.0,
