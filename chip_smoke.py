@@ -15,6 +15,8 @@ checks where the time and the launches went.
     python3 chip_smoke.py --phase parallel    # phases 1 and 12
     python3 chip_smoke.py --phase context    # phases 1 (AST kernels) and 13
     python3 chip_smoke.py --phase remat    # phases 1 and 14
+    python3 chip_smoke.py --phase graph    # phases 1 and 15
+    python3 chip_smoke.py --phase graph-parallel    # phases 1 and 16
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 1. setup: card name and power limit, kernel build time, the count of
@@ -167,10 +169,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    step's, in turns; (b) FSDP2 over the same ranks: its gradients vs the
    data-parallel step's, its checkpoint (single-device format) loaded
    strict on one device giving the sharded model's forward; (c)
-   ``torch.export`` of SpectralTransformer@256 and AST@256 (bf16, symbolic
-   batch): custom-op nodes as the planners' kernel calls (24 + 24; 18 +
-   10), the program vs the eager forward at batch 8 and 3 within 1e-6 with
-   the eager launches, reloaded in a fresh process that launches the
+   ``torch.export`` of SpectralTransformer@256, AST@256 and
+   NewModel-Wavelet@256 (bf16, symbolic batch): custom-op nodes as the
+   planners' kernel calls (24 + 24; 18 + 10; 9 + 10), the program vs the
+   eager forward at batch 8 and 3 within 1e-6 with the eager launches,
+   reloaded in a fresh process that launches the
    kernels, its images/s beside eager ``batched_apply``'s in turns there;
    (d) Grad-CAM through the kernels and SFCA on the card vs the CPU, f32;
 13. context and tensor parallelism (``context_phase``; two processes
@@ -226,7 +229,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    --train-batch-size 2 --max-epoch 2 --steps-per-dispatch 4`` over 10
    synthetic pairs: a group and a remainder an epoch, the learning rate
    falling after the first) logs losses within GRAPH_CLI_TOL of the run at
-   ``--steps-per-dispatch 1``, with one capture a learning rate.
+   ``--steps-per-dispatch 1``, with one capture a learning rate;
+16. the K-step dispatch over two data ranks (``graph_parallel_phase``; two
+   processes sharing the card over gloo, ``make_train_step(parallel=dp,
+   k_steps=4)``: the first call eager, then the step captured as CUDA
+   graphs cut at its collectives, which run eagerly between the replays;
+   bf16, Adam 3e-4 capturable, 256x256, global batch 16): (a)
+   SpectralTransformer, L1withColor, (b) AST with DropPath, (c)
+   SpectralTransformer with an Adaptive loss (a cut inside the loss):
+   three calls against twelve eager two-rank steps from the same state,
+   losses, grad norms, parameters and generator bit-equal on each rank and
+   equal across the ranks, the capturing call's tallies one step's at
+   batch 8, none in the replays, the collectives' tape the same on both
+   ranks and one graph more than its collectives; (d) FSDP2 and two
+   context ranks at K = 4 against K = 1 (the ``stepwise`` route); (e)
+   images/s, host ms a step and peak memory of the cut graphs, the eager
+   two-rank steps and one rank's graph at the global batch, in turns; (f)
+   the CLI under ``torchrun --nproc-per-node 2 ... --mesh-data 2`` at
+   ``--steps-per-dispatch 4`` and 1: logged losses within GRAPH_CLI_TOL,
+   route ``segments``, one capture a learning rate.
 The last line is the JSON device record; the line before it the kernels'.
 """
 import argparse
@@ -2774,7 +2795,12 @@ SERVE_BATCHES = 40
 EXPORT_TOL = 1e-6
 EXPORT_BATCHES = (8, 3)
 EXPORT_NODES = {"SpectralTransformer": {"ln_mdta": 24, "ln_gdfn": 24},
-                "AST": {"ln_leff": 18, "window_attn": 10}}
+                "AST": {"ln_leff": 18, "window_attn": 10},
+                "NewModel-Wavelet": {"ln_leff": 9, "window_attn": 10}}
+# the exported models: (arch, init_model's keyword arguments)
+EXPORT_MODELS = {"SpectralTransformer": ("SpectralTransformer", {}),
+                 "AST": ("AST", {}),
+                 "NewModel-Wavelet": ("NewModel", {"use_dwt": "Wavelet"})}
 # Grad-CAM through the kernels vs the CPU's plain versions, f32: the map is
 # min-max normalized, its error the gradient's relative error times the
 # channels' spread
@@ -2960,6 +2986,7 @@ counters = {"ln_mdta": ln_mdta.launches, "ln_gdfn": ln_gdfn.launches,
             "ln_leff": ln_leff.launches,
             "window_attn": window_attention.launches}
 size, n = int(sys.argv[3]), int(sys.argv[4])
+models = json.loads(sys.argv[5])
 
 
 def rate(fn, arg, b):
@@ -2972,7 +2999,7 @@ def rate(fn, arg, b):
 
 
 out = {}
-for arch in ("SpectralTransformer", "AST"):
+for arch, (name, kw) in models.items():
     fn = load_exported(f"{sys.argv[2]}/{arch}.pt2")
     x, want = torch.load(f"{sys.argv[2]}/{arch}.io.pt")
     x = x.cuda()
@@ -2987,8 +3014,9 @@ for arch in ("SpectralTransformer", "AST"):
     # images/s of the program and of the eager batched_apply (the same
     # seeded model, uint8 in), in turns in this one process
     b = x.shape[0]
-    apply_b, _ = batched_apply(init_model(arch, seed=0, img_size=size,
-                                          compute_dtype=torch.bfloat16), b)
+    apply_b, _ = batched_apply(init_model(name, seed=0, img_size=size,
+                                          compute_dtype=torch.bfloat16,
+                                          **kw), b)
     u8 = synthetic_pair_batch(b, size, seed=1)[0]
     apply_b(u8)
     turns = {"program": [], "eager": []}
@@ -3012,7 +3040,8 @@ def parallel_phase(card, batch, size, check_batch):
     two ranks): its gradients vs the data-parallel ones, and its
     checkpoint (``full_state``) loaded into a model on one device, whose
     forward equals the sharded model's; (c) ``torch.export`` of
-    SpectralTransformer@256 and AST@256 (bf16, symbolic batch): custom-op
+    SpectralTransformer@256, AST@256 and NewModel-Wavelet@256 (bf16,
+    symbolic batch): custom-op
     nodes as the planners' kernel calls, the program vs the eager forward
     at batch 8 and 3 within EXPORT_TOL with the eager launches, reloaded in
     a fresh process that launches the kernels, its images/s beside eager
@@ -3139,9 +3168,9 @@ def parallel_phase(card, batch, size, check_batch):
         return {k: sum(v.values()) for k, v in counters.items()}
 
     eager_launches = {}
-    for arch in EXPORT_NODES:
-        model = init_model(arch, seed=0, compute_dtype=torch.bfloat16,
-                           img_size=size)
+    for arch, (name, kw) in EXPORT_MODELS.items():
+        model = init_model(name, seed=0, compute_dtype=torch.bfloat16,
+                           img_size=size, **kw)
         t = time.perf_counter()
         program = em.export_module(model, size)
         t_export = time.perf_counter() - t
@@ -3185,7 +3214,7 @@ def parallel_phase(card, batch, size, check_batch):
     fresh = subprocess.run(
         [sys.executable, "-c", _RELOAD,
          os.path.dirname(os.path.abspath(__file__)), out_dir, str(size),
-         str(SERVE_BATCHES)],
+         str(SERVE_BATCHES), json.dumps(EXPORT_MODELS)],
         capture_output=True, text=True, timeout=600)
     if fresh.returncode != 0:
         fail(f"12(c) the fresh process failed:\n{fresh.stderr[-3000:]}")
@@ -4545,6 +4574,91 @@ def graph_launches(arch, model, got, batch, sms, remat):
             f"{ {k: sum(v.values()) for k, v in want.items()} }")
 
 
+def _kernel_counters():
+    """The launch tallies of the eight kernels by name."""
+    from underwater_image_restoration_torch.ops import (
+        ln_gdfn,
+        ln_leff,
+        ln_mdta,
+        window_attention,
+    )
+    from underwater_image_restoration_torch.ops.fused_gdfn import ln_gdfn_bwd
+    from underwater_image_restoration_torch.ops.fused_leff import ln_leff_bwd
+    from underwater_image_restoration_torch.ops.fused_mdta import ln_mdta_bwd
+    from underwater_image_restoration_torch.ops.window_attention import (
+        window_attn_bwd,
+    )
+
+    return {"ln_gdfn": ln_gdfn.launches, "ln_mdta": ln_mdta.launches,
+            "ln_gdfn_bwd": ln_gdfn_bwd.launches,
+            "ln_mdta_bwd": ln_mdta_bwd.launches,
+            "ln_leff": ln_leff.launches, "ln_leff_bwd": ln_leff_bwd.launches,
+            "window_attn": window_attention.launches,
+            "window_attn_bwd": window_attn_bwd.launches}
+
+
+def _graph_vs_eager(torch, arch, kw, lossfn, size, raws, refs, counters,
+                    parallel=None):
+    """GRAPH_CALLS calls of ``make_train_step(k_steps=GRAPH_K)`` against as
+    many eager single steps from a copy of one state: ``arch`` at ``size``
+    (``init_model`` keyword arguments ``kw``), bf16, Adam lr LR built
+    capturable, DropPath from a generator seeded 0, over ``parallel``'s
+    ranks (None: one), on the batches ``raws``/``refs`` in turn.  Returns
+    the models, generators and steps by name (``eager``, ``graph``), the
+    runs' stacked metrics, the kernels' tallies in each graph call, the
+    plain calls, the capturing call's allocated peak (GiB) and the
+    comparisons: metrics bit-equal by name, the parameters and the last
+    gradients that differ, the generators' states equal."""
+    import numpy as np
+
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+    )
+
+    dev = "cuda" if parallel is None else parallel.device
+    models = {"eager": init_model(arch, seed=0, img_size=size,
+                                  compute_dtype=torch.bfloat16, **kw)}
+    models["graph"] = copy.deepcopy(models["eager"])
+    gens = {m: torch.Generator(device=dev).manual_seed(0) for m in models}
+    steps = {m: make_train_step(
+        models[m], lossfn, get_optimizer("adam", models[m].parameters(), LR,
+                                         capturable=True),
+        generator=gens[m], parallel=parallel,
+        k_steps=GRAPH_K if m == "graph" else 1) for m in models}
+    eager = [steps["eager"](raws[j % GRAPH_K], refs[j % GRAPH_K])
+             for j in range(GRAPH_CALLS * GRAPH_K)]
+    eager = {k: torch.stack([m[k] for m in eager]) for k in eager[0]}
+    raw_k, ref_k = np.stack(raws), np.stack(refs)
+    torch.cuda.synchronize()
+    calls, moved = [], []
+    with _PlainCalls() as plain:
+        for i in range(GRAPH_CALLS):
+            for cnt in counters.values():
+                cnt.clear()
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            calls.append(steps["graph"](raw_k, ref_k))
+            torch.cuda.synchronize()
+            moved.append({k: dict(v) for k, v in counters.items() if v})
+            if i == 1:
+                capture_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    graph = {k: torch.cat([c[k] for c in calls]) for k in calls[0]}
+    named = dict(models["graph"].named_parameters())
+    return {
+        "models": models, "gens": gens, "steps": steps, "eager": eager,
+        "graph": graph, "moved": moved, "plain": dict(plain.calls),
+        "capture_peak": capture_peak,
+        "same": {k: torch.equal(eager[k], graph[k]) for k in eager},
+        "differ": [n for n, p in models["eager"].named_parameters()
+                   if not torch.equal(p, named[n])],
+        "grads_differ": [n for n, p in models["eager"].named_parameters()
+                         if not torch.equal(p.grad, named[n].grad)],
+        "gen_same": torch.equal(gens["eager"].get_state(),
+                                gens["graph"].get_state())}
+
+
 def graph_phase(card, batch, size):
     """15. the K-step dispatch (``make_train_step(k_steps=GRAPH_K)``) on
     the card, bf16, L1withColor, Adam lr 3e-4 built capturable, clip 1.0,
@@ -4569,46 +4683,19 @@ def graph_phase(card, batch, size):
     from underwater_image_restoration_torch.cli.main import main as cli
     from underwater_image_restoration_torch.data import synthetic_pair_batch
     from underwater_image_restoration_torch.losses import LossFunction
-    from underwater_image_restoration_torch.models import init_model
-    from underwater_image_restoration_torch.ops import (
-        _kernels,
-        ln_gdfn,
-        ln_leff,
-        ln_mdta,
-        window_attention,
-    )
-    from underwater_image_restoration_torch.ops.fused_gdfn import ln_gdfn_bwd
-    from underwater_image_restoration_torch.ops.fused_leff import ln_leff_bwd
-    from underwater_image_restoration_torch.ops.fused_mdta import ln_mdta_bwd
-    from underwater_image_restoration_torch.ops.window_attention import (
-        window_attn_bwd,
-    )
-    from underwater_image_restoration_torch.train import (
-        get_optimizer,
-        make_train_step,
-        trainer,
-    )
+    from underwater_image_restoration_torch.ops import _kernels
+    from underwater_image_restoration_torch.train import trainer
 
     t_phase = time.perf_counter()
-    bf16 = torch.bfloat16
     torch.backends.cudnn.deterministic = True
     lossfn = LossFunction("L1withColor")
     sms = _kernels.sm_count(torch.device("cuda"))
-    counters = {"ln_gdfn": ln_gdfn.launches, "ln_mdta": ln_mdta.launches,
-                "ln_gdfn_bwd": ln_gdfn_bwd.launches,
-                "ln_mdta_bwd": ln_mdta_bwd.launches,
-                "ln_leff": ln_leff.launches,
-                "ln_leff_bwd": ln_leff_bwd.launches,
-                "window_attn": window_attention.launches,
-                "window_attn_bwd": window_attn_bwd.launches}
+    counters = _kernel_counters()
     gib = 2 ** 30
     pairs = [synthetic_pair_batch(batch, size, seed=170 + i)
              for i in range(GRAPH_K)]
     raws, refs = [r for r, _ in pairs], [f for _, f in pairs]
     raw_k, ref_k = np.stack(raws), np.stack(refs)
-
-    def tallies():
-        return {k: dict(v) for k, v in counters.items() if v}
 
     rows = (("a", "SpectralTransformer", "SpectralTransformer", {}),
             ("b", "AST", "AST", {}),
@@ -4618,39 +4705,10 @@ def graph_phase(card, batch, size):
     for tag, label, arch, kw in rows:
         t_row = time.perf_counter()
         remat = bool(kw.get("remat"))
-        models = {"eager": init_model(arch, seed=0, img_size=size,
-                                      compute_dtype=bf16, **kw)}
-        models["graph"] = copy.deepcopy(models["eager"])
-        opts = {m: get_optimizer("adam", models[m].parameters(), LR,
-                                 capturable=True) for m in models}
-        gens = {m: torch.Generator(device="cuda").manual_seed(0)
-                for m in models}
-        steps = {"eager": make_train_step(models["eager"], lossfn,
-                                          opts["eager"],
-                                          generator=gens["eager"]),
-                 "graph": make_train_step(models["graph"], lossfn,
-                                          opts["graph"],
-                                          generator=gens["graph"],
-                                          k_steps=GRAPH_K)}
-        eager = [steps["eager"](raws[j % GRAPH_K], refs[j % GRAPH_K])
-                 for j in range(GRAPH_CALLS * GRAPH_K)]
-        eager = {k: torch.stack([m[k] for m in eager]) for k in eager[0]}
-        g_eager = {n: p.grad.clone() for n, p in
-                   models["eager"].named_parameters()}
-        torch.cuda.synchronize()
-        calls, moved = [], []
-        with _PlainCalls() as plain:
-            for i in range(GRAPH_CALLS):
-                for cnt in counters.values():
-                    cnt.clear()
-                if i == 1:
-                    torch.cuda.reset_peak_memory_stats()
-                calls.append(steps["graph"](raw_k, ref_k))
-                torch.cuda.synchronize()
-                moved.append(tallies())
-                if i == 1:
-                    capture_peak = torch.cuda.max_memory_allocated() / gib
-        graph = {k: torch.cat([c[k] for c in calls]) for k in calls[0]}
+        r = _graph_vs_eager(torch, arch, kw, lossfn, size, raws, refs,
+                            counters)
+        models, steps, moved = r["models"], r["steps"], r["moved"]
+        eager, graph, same = r["eager"], r["graph"], r["same"]
         step_g = steps["graph"]
         ok, want = graph_launches(arch, models["graph"], moved[1], batch,
                                   sms, remat)
@@ -4658,39 +4716,33 @@ def graph_phase(card, batch, size):
         print(f"({tag}) {label} {size}x{size} bf16 batch {batch}, "
               f"k_steps={GRAPH_K}: tallies in the capturing call {launches} "
               f"(the planners' one step: {want}), in the replaying call "
-              f"{moved[2]}, plain calls {dict(plain.calls)}, captures "
+              f"{moved[2]}, plain calls {r['plain']}, captures "
               f"{step_g.captures} in {step_g.capture_seconds[0]:.2f} s",
               flush=True)
         if not ok:
             fail(f"({tag}) {label}: the capture's launches {moved[1]} are "
                  "not one step's")
-        if moved[2] or plain.calls or step_g.captures != 1:
+        if moved[2] or r["plain"] or step_g.captures != 1:
             fail(f"({tag}) {label}: launches during the replays {moved[2]}, "
-                 f"plain calls {dict(plain.calls)} or captures "
+                 f"plain calls {r['plain']} or captures "
                  f"{step_g.captures}")
-        same = {k: torch.equal(eager[k], graph[k]) for k in eager}
-        differ = [n for n, p in models["eager"].named_parameters()
-                  if not torch.equal(p, dict(models["graph"]
-                                             .named_parameters())[n])]
-        gen_same = torch.equal(gens["eager"].get_state(),
-                               gens["graph"].get_state())
-        grads_differ = [n for n, p in models["graph"].named_parameters()
-                        if not torch.equal(p.grad, g_eager[n])]
         print(f"({tag}) {label}: {GRAPH_CALLS * GRAPH_K} steps, graph vs "
               f"eager: losses {eager['loss'].tolist()} "
               f"{'bit-equal' if same['loss'] else 'DIFFER'}, grad norms "
               f"{'bit-equal' if same['grad_norm'] else 'DIFFER'}, "
-              f"{len(differ)} of {len(g_eager)} parameters differ, "
-              f"last gradients differ in {len(grads_differ)}, generator "
-              f"state {'equal' if gen_same else 'DIFFERS'}", flush=True)
-        if not all(same.values()) or differ or not gen_same or \
+              f"{len(r['differ'])} of {len(list(models['eager'].parameters()))}"
+              f" parameters differ, last gradients differ in "
+              f"{len(r['grads_differ'])}, generator state "
+              f"{'equal' if r['gen_same'] else 'DIFFERS'}", flush=True)
+        if not all(same.values()) or r["differ"] or not r["gen_same"] or \
                 not bool(torch.isfinite(graph["loss"]).all()):
             fail(f"({tag}) {label}: the graph's steps are not the eager "
-                 f"steps: {same}, parameters {differ[:3]}, generator "
-                 f"{gen_same}")
-        if remat and grads_differ:
-            fail(f"({tag}) {label}: gradients differ: {grads_differ[:3]}")
-        del g_eager
+                 f"steps: {same}, parameters {r['differ'][:3]}, generator "
+                 f"{r['gen_same']}")
+        if remat and r["grads_differ"]:
+            fail(f"({tag}) {label}: gradients differ: "
+                 f"{r['grads_differ'][:3]}")
+        capture_peak = r["capture_peak"]
 
         rates = {m: [] for m in models}
         host = {m: [] for m in models}
@@ -4737,7 +4789,7 @@ def graph_phase(card, batch, size):
               f"reserved; capture {step_g.capture_seconds[0]:.2f} s; "
               f"row {time.perf_counter() - t_row:.1f} s; on {card}",
               flush=True)
-        del models, opts, steps, step_g, calls, eager, graph
+        del r, models, steps, step_g, eager, graph
         torch.cuda.empty_cache()
 
     # ---- (e) the CLI, --steps-per-dispatch 4 and 1, two epochs
@@ -4800,6 +4852,412 @@ def graph_phase(card, batch, size):
     return []
 
 
+# 16: the K-step dispatch over two data ranks sharing the card (gloo)
+GP_WORLD = 2
+# (a)-(c): the rows, each GRAPH_CALLS calls of GRAPH_K steps against as many
+# eager two-rank single steps
+GP_ROWS = (("a", "SpectralTransformer", "SpectralTransformer", {},
+            "L1withColor"),
+           ("b", "AST", "AST", {}, "L1withColor"),
+           ("c", "SpectralTransformer Adaptive", "SpectralTransformer", {},
+            "AdaptiveLuminanceCharbonnier"))
+# (f): train and test pairs of the two-rank CLI runs, so that an epoch at
+# global batch 4 is one group of four and a remainder of one
+GP_CLI_PAIRS = (20, 2)
+
+
+def _digest(tensors):
+    """SHA-256 of the tensors' bytes in order: equal on two ranks only where
+    every tensor is bit-equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _gp_turns(torch, dp, steps, raws, refs, raw_k, ref_k, batch, one):
+    """16(e) on one rank: images/s (of the global batch), host ms a step and
+    peak memory of the two ranks' eager steps and cut graphs, and of one
+    rank's graph at the global batch (``one``: rank 0's step and its group,
+    while rank 1 waits), in turns."""
+    gib = 2 ** 30
+    n = GRAPH_TURN_CALLS * GRAPH_K
+    out = []
+    for kind in ("eager", "graph", "one", "one", "graph", "eager"):
+        dp.barrier()
+        if kind != "one" or dp.is_main:
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            if kind == "eager":
+                for j in range(n):
+                    steps["eager"](raws[j % GRAPH_K], refs[j % GRAPH_K])
+            else:
+                st, rk, fk = ((steps["graph"], raw_k, ref_k)
+                              if kind == "graph" else one)
+                for _ in range(GRAPH_TURN_CALLS):
+                    st(rk, fk)
+            t_host = time.perf_counter() - t
+            torch.cuda.synchronize()
+            out.append((kind, n * batch / (time.perf_counter() - t),
+                        1e3 * t_host / n,
+                        torch.cuda.max_memory_allocated() / gib,
+                        torch.cuda.max_memory_reserved() / gib))
+        dp.barrier()
+    return out
+
+
+def _graph_parallel_rank(rank, port, out_dir, batch, size):
+    """A rank of phase 16: (a)-(c) the cut graphs against eager steps,
+    (d) FSDP2 and two context ranks at K = GRAPH_K against K = 1, (e) the
+    turns; results in ``out_dir/rank<r>.pt``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(GP_WORLD),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import numpy as np
+    import torch
+
+    from underwater_image_restoration_torch.core import meshes
+    from underwater_image_restoration_torch.data import synthetic_pair_batch
+    from underwater_image_restoration_torch.losses import LossFunction
+    from underwater_image_restoration_torch.models import init_model
+    from underwater_image_restoration_torch.ops import _kernels
+    from underwater_image_restoration_torch.train import (
+        get_optimizer,
+        make_train_step,
+    )
+
+    def stage(msg):
+        print(f"16 rank {rank}: {msg}\n", end="", flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // GP_WORLD))
+    dp = meshes.init_data_parallel(
+        GP_WORLD, rank,
+        backend=meshes.default_backend(torch.device("cuda"), GP_WORLD))
+    dev = dp.device
+    bf16 = torch.bfloat16
+    sms = _kernels.sm_count(dev)
+    counters = _kernel_counters()
+    pairs = [synthetic_pair_batch(batch, size, seed=190 + i)
+             for i in range(GRAPH_K)]
+    rows = dp.rows(batch)
+    raws, refs = [r[rows] for r, _ in pairs], [f[rows] for _, f in pairs]
+    raw_k, ref_k = np.stack(raws), np.stack(refs)
+    res = {"device": str(dp.device), "backend": dp.backend, "rows": {}}
+    stage(f"joined the group on {dev} over {dp.backend}")
+
+    for tag, label, arch, kw, loss in GP_ROWS:
+        t_row = time.perf_counter()
+        lossfn = LossFunction(loss)
+        r = _graph_vs_eager(torch, arch, kw, lossfn, size, raws, refs,
+                            counters, parallel=dp)
+        models, steps, moved = r["models"], r["steps"], r["moved"]
+        sg = steps["graph"]
+        ok, want = graph_launches(arch, models["graph"], moved[1],
+                                  batch // GP_WORLD, sms, False)
+        params = list(models["graph"].parameters())
+        res["rows"][tag] = {
+            "label": label, "route": sg.route, "tallies": moved[1],
+            "replays": moved[2], "want": want, "ok": ok,
+            "plain": r["plain"], "captures": sg.captures,
+            "capture_s": sg.capture_seconds[0], "segments": sg.segments,
+            "capture_peak": r["capture_peak"], "tape": sg.tape,
+            "numel": sum(p.numel() for p in params),
+            "same": r["same"], "differ": r["differ"],
+            "gen_same": r["gen_same"],
+            "losses": r["graph"]["loss"].tolist(),
+            "digest": _digest(params + [r["gens"]["graph"].get_state()]),
+            "seconds": time.perf_counter() - t_row}
+        stage(f"({tag}) {label} done")
+        if tag == "a":  # (e): the turns, rank 0 alone at the global batch
+            one = None
+            if dp.is_main:
+                m1 = copy.deepcopy(models["graph"])
+                st1 = make_train_step(
+                    m1, lossfn, get_optimizer("adam", m1.parameters(), LR,
+                                              capturable=True),
+                    generator=torch.Generator(device=dev).manual_seed(0),
+                    k_steps=GRAPH_K)
+                full_k = (np.stack([x for x, _ in pairs]),
+                          np.stack([y for _, y in pairs]))
+                st1(*full_k)  # eager, then the capture
+                st1(*full_k)
+                one = (st1, *full_k)
+            res["turns"] = _gp_turns(torch, dp, steps, raws, refs, raw_k,
+                                     ref_k, batch, one)
+            del one
+            stage("(e) turns done")
+        del r, models, steps, sg, params
+        torch.cuda.empty_cache()
+
+    # (d) FSDP2 (SpectralTransformer) and two context ranks (AST) at K =
+    # GRAPH_K against K = 1: the stepwise route
+    lossfn = LossFunction("L1withColor")
+
+    def k_against_one(make_model, parallel, raw_list, ref_list):
+        runs = {}
+        for k in (1, GRAPH_K):
+            model = make_model()
+            gen = torch.Generator(device=dev).manual_seed(0)
+            st = make_train_step(model, lossfn, get_optimizer(
+                "adam", model.parameters(), LR), generator=gen,
+                parallel=parallel, k_steps=k)
+            ms = ([st(raw_list[j], ref_list[j]) for j in range(GRAPH_K)]
+                  if k == 1 else [st(np.stack(raw_list),
+                                     np.stack(ref_list))])
+            runs[k] = (torch.cat([torch.atleast_1d(m["loss"]) for m in ms]),
+                       [getattr(p, "to_local", p.detach)().clone()
+                        for p in model.parameters()], gen.get_state(),
+                       getattr(st, "route", None))
+        (l1, p1, g1, _), (lk, pk, gk, how) = runs[1], runs[GRAPH_K]
+        torch.cuda.empty_cache()
+        return {"route": how, "losses": l1.tolist(),
+                "same": torch.equal(l1, lk),
+                "params_same": all(map(torch.equal, p1, pk)),
+                "gen_same": torch.equal(g1, gk)}
+
+    res["fsdp"] = k_against_one(
+        lambda: meshes.shard_model(init_model(
+            "SpectralTransformer", seed=0, img_size=size,
+            compute_dtype=bf16), dp), dp, raws, refs)
+    stage("(d) FSDP2 done")
+    dpc = meshes.init_data_parallel(GP_WORLD, rank, mesh_context=GP_WORLD)
+    res["context"] = k_against_one(
+        lambda: init_model("AST", seed=0, img_size=size, compute_dtype=bf16,
+                           cp=dpc.cp), dpc,
+        [r for r, _ in pairs], [f for _, f in pairs])
+    stage("(d) context ranks done")
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    meshes.close_data_parallel(dp)
+
+
+def _gp_cli(root, size):
+    """16(f): the CLI under ``torchrun --nproc-per-node 2 ... --mesh-data
+    2`` at ``--steps-per-dispatch`` GRAPH_K and 1, two epochs each (the
+    learning rate falling after the first), both at once: (the K = 1 run's
+    logged losses, the K run's, the K run's closing line)."""
+    data = os.path.join(root, "data")
+    n_train, n_test = GP_CLI_PAIRS
+    dirs = {}
+    for split, n, seed in (("train", n_train, 200), ("test", n_test, 201)):
+        dirs[split] = _write_pairs(os.path.join(data, split), n, size, seed)
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    runs = {}
+    t = time.perf_counter()
+    for k in (GRAPH_K, 1):
+        ckpt = os.path.join(root, f"checkpoints-{k}")
+        argv = ["-m", "torch.distributed.run", "--nproc-per-node",
+                str(GP_WORLD), "--master-port", str(_free_port()),
+                "-m", "underwater_image_restoration_torch.cli", "-a",
+                "SpectralTransformer", "--mesh-data", str(GP_WORLD),
+                "--image-size", str(size), "--train-batch-size", "4",
+                "--test-batch-size", "2", "--max-epoch", "2",
+                "--use-wandb", "--steps-per-dispatch", str(k),
+                "--train-raw", dirs["train"][0], "--train-ref",
+                dirs["train"][1], "--test-raw", dirs["test"][0],
+                "--test-ref", dirs["test"][1], "--checkpoint-dir", ckpt]
+        cwd = os.path.join(root, f"cli-{k}")
+        os.makedirs(cwd)
+        log = open(os.path.join(cwd, "out.log"), "w")
+        runs[k] = (subprocess.Popen(
+            [sys.executable] + argv, cwd=cwd, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log, ckpt)
+    logged, closing = {}, ""
+    for k, (proc, log, ckpt) in runs.items():
+        try:
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "killed at 600 s"
+        log.close()
+        with open(log.name) as f:
+            out = f.read()
+        if rc != 0:
+            fail(f"16(f) the CLI at --steps-per-dispatch {k} under torchrun "
+                 f"failed ({rc}):\n{out[-3000:]}")
+        if k == GRAPH_K:
+            head = f"steps_per_dispatch {GRAPH_K}: "
+            closing = [ln[ln.index(head):] for ln in out.splitlines()
+                       if head in ln]
+        run_dir = os.path.join(ckpt, os.listdir(ckpt)[0])
+        logged[k] = [(key, r[key]) for r in _jsonl(run_dir)
+                     for key in ("train/loss", "test/loss") if key in r]
+        print(f"16(f) torchrun --nproc-per-node {GP_WORLD} cli -a "
+              f"SpectralTransformer --mesh-data {GP_WORLD} --image-size "
+              f"{size} --train-batch-size 4 --max-epoch 2 "
+              f"--steps-per-dispatch {k} over {n_train} pairs: done "
+              f"{time.perf_counter() - t:.1f} s after the runs' start, "
+              f"logged {logged[k]}", flush=True)
+    return logged[1], logged[GRAPH_K], closing
+
+
+def graph_parallel_phase(card, batch, size):
+    """16. the K-step dispatch over two data ranks (two processes sharing
+    the card over gloo; ``make_train_step(parallel=dp, k_steps=GRAPH_K)``:
+    the first call's steps eager, then the step captured as CUDA graphs
+    cut at its collectives, which run eagerly between the replays), bf16,
+    Adam lr 3e-4 built capturable, clip 1.0, ``size``, global batch
+    ``batch``, cuDNN deterministic: (a) SpectralTransformer, L1withColor;
+    (b) AST with DropPath at its rates; (c) SpectralTransformer with
+    AdaptiveLuminanceCharbonnier (a cut inside the loss): GRAPH_CALLS calls
+    against as many eager two-rank single steps from a copy of the same
+    state, on each rank losses, grad norms, parameters and the generator's
+    state bit-equal, and equal across the ranks; the capturing call's
+    tallies one step's at the rank's batch as the planners say, none in the
+    last call, no plain version; the collectives' tape the same on both
+    ranks and ``segments`` one more than its length; (d) FSDP2 (Spectral)
+    and two context ranks (AST) at K = GRAPH_K against K = 1: the
+    ``stepwise`` route, losses and parameters bit-equal; (e) images/s of
+    the global batch, host ms a step and peak memory a rank of the two
+    ranks' eager steps and cut graphs, and of one rank's graph at the
+    global batch, in turns, and the capture's seconds; (f) the CLI under
+    ``torchrun`` at ``--steps-per-dispatch`` GRAPH_K and 1: logged losses
+    within GRAPH_CLI_TOL, the first bit-equal, route ``segments`` and one
+    capture a learning rate.  Returns no kernel rows."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="phase16-", dir=build)
+    os.environ["PYTHONFAULTHANDLER"] = "1"
+    t = time.perf_counter()
+    mp.spawn(_graph_parallel_rank,
+             args=(_free_port(), out_dir, batch, size), nprocs=GP_WORLD)
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(GP_WORLD)]
+    print(f"16 ranks: {GP_WORLD} processes on "
+          f"{[r['device'] for r in ranks]} over {ranks[0]['backend']} "
+          f"({time.perf_counter() - t:.1f} s with their start)", flush=True)
+    for tag, label, _, _, loss in GP_ROWS:
+        rows = [r["rows"][tag] for r in ranks]
+        kinds = ["mean"] * loss.startswith("Adaptive") + ["all_reduce_",
+                                                          "sum"]
+        for r, row in enumerate(rows):
+            launches = {k: sum(v.values()) for k, v in row["tallies"].items()}
+            print(f"16({tag}) {label} {size}x{size} bf16 global batch "
+                  f"{batch}, rank {r}, k_steps={GRAPH_K}, route "
+                  f"{row['route']}: tallies in the capturing call "
+                  f"{launches} (the planners' one step at batch "
+                  f"{batch // GP_WORLD}: {row['want']}), in the replaying "
+                  f"call {row['replays']}, plain calls {row['plain']}; "
+                  f"{row['captures']} capture in {row['capture_s']:.2f} s, "
+                  f"{row['segments']} graphs a step around the collectives "
+                  f"{row['tape']}", flush=True)
+            print(f"16({tag}) rank {r}: {GRAPH_CALLS * GRAPH_K} steps, cut "
+                  f"graphs vs eager two-rank steps: losses {row['losses']} "
+                  f"{'bit-equal' if row['same']['loss'] else 'DIFFER'}, "
+                  f"grad norms "
+                  f"{'bit-equal' if row['same']['grad_norm'] else 'DIFFER'}"
+                  f", {len(row['differ'])} parameters differ, generator "
+                  f"{'equal' if row['gen_same'] else 'DIFFERS'}; row "
+                  f"{row['seconds']:.1f} s", flush=True)
+            if not row["ok"] or row["replays"] or row["plain"] or \
+                    row["captures"] != 1:
+                fail(f"16({tag}) rank {r}: the capture's launches, the "
+                     "replays' launches, a plain call or the captures")
+            if row["route"] != "segments" or \
+                    row["segments"] != len(row["tape"]) + 1 or \
+                    [k for k, _, _ in row["tape"]] != kinds or \
+                    row["tape"][-2][2] != row["numel"]:
+                fail(f"16({tag}) rank {r}: route {row['route']}, "
+                     f"{row['segments']} segments for the tape "
+                     f"{row['tape']}")
+            if not all(row["same"].values()) or row["differ"] or \
+                    not row["gen_same"]:
+                fail(f"16({tag}) rank {r}: the cut graphs' steps are not "
+                     f"the eager steps: {row['same']}, parameters "
+                     f"{row['differ'][:3]}, generator {row['gen_same']}")
+        same = (rows[0]["tape"] == rows[1]["tape"]
+                and rows[0]["losses"] == rows[1]["losses"]
+                and rows[0]["digest"] == rows[1]["digest"])
+        print(f"16({tag}) across the ranks: tapes, losses, parameters and "
+              f"generator {'equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            fail(f"16({tag}) the two ranks disagree")
+    for name, what in (("fsdp", "FSDP2 SpectralTransformer"),
+                       ("context", "two context ranks AST")):
+        for r, res in enumerate(ranks):
+            d = res[name]
+            ok = (d["route"] == "stepwise" and d["same"]
+                  and d["params_same"] and d["gen_same"])
+            print(f"16(d) {what} {size}x{size} bf16 batch {batch}, rank "
+                  f"{r}: k_steps={GRAPH_K} route {d['route']}, losses "
+                  f"{d['losses']} {'bit-equal' if d['same'] else 'DIFFER'} "
+                  f"to K = 1, parameters "
+                  f"{'bit-equal' if d['params_same'] else 'DIFFER'}, "
+                  f"generator {'equal' if d['gen_same'] else 'DIFFERS'}",
+                  flush=True)
+            if not ok:
+                fail(f"16(d) {what} at k_steps={GRAPH_K} is not K = 1")
+    by = collections.defaultdict(list)
+    for r, res in enumerate(ranks):
+        for kind, rate, host, alloc, reserved in res["turns"]:
+            by[kind].append((r, rate, host, alloc, reserved))
+    summary = {}
+    for kind in ("eager", "graph", "one"):
+        rates = [v[1] for v in by[kind] if v[0] == 0]
+        summary[kind] = sum(rates) / len(rates)
+        print(f"16(e) {kind}: {summary[kind]:.2f} images/s "
+              f"{[round(v, 2) for v in rates]}, host "
+              f"{[(v[0], round(v[2], 3)) for v in by[kind]]} ms a step "
+              f"(rank, ms), peak "
+              f"{[(v[0], round(v[3], 2), round(v[4], 2)) for v in by[kind]]}"
+              f" GiB (rank, allocated, reserved)", flush=True)
+    print(f"16(e) SpectralTransformer {size}x{size} bf16 global batch "
+          f"{batch}, turns eager, graph, one, one, graph, eager: two ranks' "
+          f"cut graphs {summary['graph']:.2f} images/s, their eager steps "
+          f"{summary['eager']:.2f} (graph/eager "
+          f"{summary['graph'] / summary['eager']:.3f}), one rank's graph "
+          f"{summary['one']:.2f} (two ranks' graphs/one "
+          f"{summary['graph'] / summary['one']:.3f}); the capturing call's "
+          f"allocated peak a rank "
+          f"{[round(r['rows']['a']['capture_peak'], 2) for r in ranks]} "
+          f"GiB (the replays allocate nothing); capture "
+          f"{ranks[0]['rows']['a']['capture_s']:.2f} s; over "
+          f"{ranks[0]['backend']} on {card}", flush=True)
+    shutil.rmtree(out_dir)
+
+    # ---- (f) the CLI under torchrun, --steps-per-dispatch GRAPH_K and 1
+    t_f = time.perf_counter()
+    root = os.path.join(build, "phase16")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        single, multi, closing = _gp_cli(root, size)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    keys = [key for key, _ in single]
+    if [key for key, _ in multi] != keys or not keys:
+        fail("16(f) the two CLI runs logged other records")
+    drift = max(abs(a - b) / abs(b) for (_, a), (_, b) in zip(multi, single))
+    first = multi[0][1] == single[0][1]
+    print(f"16(f) --steps-per-dispatch {GRAPH_K} vs 1 over {GP_WORLD} "
+          f"ranks: {keys.count('train/loss')} train losses, max relative "
+          f"difference of the logged losses {drift:.3e} (tol "
+          f"{GRAPH_CLI_TOL:.0e}), the first "
+          f"{'bit-equal' if first else 'DIFFERS'}; rank 0's closing line "
+          f"{closing}; {time.perf_counter() - t_f:.1f} s", flush=True)
+    if not drift <= GRAPH_CLI_TOL or not first or len(closing) != 1 or \
+            "route segments" not in closing[0] or \
+            not closing[0].startswith(f"steps_per_dispatch {GRAPH_K}: 2 "):
+        fail("16(f) the two-rank CLI's K-step run disagrees with its single "
+             "steps, or did not capture once a learning rate on the "
+             "segments route")
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return []
+
+
 def normalize_batch(torch, u8):
     """uint8 NHWC (numpy) -> normalized f32 NCHW on the card."""
     from underwater_image_restoration_torch.train import normalize_u8
@@ -4833,7 +5291,7 @@ def main(argv=None):
     ap.add_argument("--phase", choices=("all", "ast", "ast-train", "new",
                                         "new-train", "run", "eval",
                                         "parallel", "context", "remat",
-                                        "graph"),
+                                        "graph", "graph-parallel"),
                     default="all",
                     help="'ast' ('ast-train'): the setup and the AST serving "
                          "(training) phase alone; 'new' ('new-train'): the "
@@ -4846,7 +5304,9 @@ def main(argv=None):
                          "13 (context and tensor parallelism); 'remat': the "
                          "setup and phase 14 (rematerialization); 'graph': "
                          "the setup and phase 15 (the K-step dispatch as a "
-                         "CUDA graph)")
+                         "CUDA graph); 'graph-parallel': the setup and "
+                         "phase 16 (the K-step dispatch over two data "
+                         "ranks)")
     args = ap.parse_args(argv)
     import torch
 
@@ -4908,7 +5368,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     spectral = ["ln_gdfn", "ln_mdta", "ln_gdfn_bwd", "ln_mdta_bwd"]
     built = _kernels.build_all(
-        None if args.phase in ("all", "remat", "graph")
+        None if args.phase in ("all", "remat", "graph", "graph-parallel")
         else spectral if args.phase == "run"
         else spectral + ["ln_leff", "window_attn"]
         if args.phase in ("eval", "parallel")
@@ -4962,6 +5422,9 @@ def main(argv=None):
         return record(torch, kernels, t_start)
     if args.phase == "graph":
         kernels = graph_phase(card, TRAIN_BATCH, SIZE)
+        return record(torch, kernels, t_start)
+    if args.phase == "graph-parallel":
+        kernels = graph_parallel_phase(card, TRAIN_BATCH, SIZE)
         return record(torch, kernels, t_start)
 
     # ---- 2. kernels vs plain versions
@@ -5348,6 +5811,7 @@ def main(argv=None):
     kernels += context_phase(card, TRAIN_BATCH, SIZE, CHECK_BATCH)
     kernels += remat_phase(card, TRAIN_BATCH, SIZE)
     kernels += graph_phase(card, TRAIN_BATCH, SIZE)
+    kernels += graph_parallel_phase(card, TRAIN_BATCH, SIZE)
     return record(torch, kernels, t_start)
 
 

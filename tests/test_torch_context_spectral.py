@@ -19,7 +19,10 @@ halo.
   relative, every parameter within 1e-6 of max|ref|; so does the step at
   24x24 (MIXED), where the first three levels run on bands (12, 6 and 3
   rows) and the deepest (3 rows) runs whole on each rank, gathered before
-  its DownSample and sliced after its UpS;
+  its DownSample and sliced after its UpS; the step at ``k_steps=2`` (one
+  call of the two steps; one after another, as on the card, where context
+  ranks take the ``stepwise`` route) equals the two single steps bit for
+  bit;
 - (c) the gathered context-parallel forward equals the JAX package's
   SpectralTransformer over ``make_mesh(data=4, context=2)`` (the JAX
   variables from the port's state_dict by the JAX package's converter,
@@ -148,17 +151,23 @@ def _batches(size):
             for s in range(STEPS)]
 
 
-def run_steps(dp=None, size=SIZE):
+def run_steps(dp=None, size=SIZE, k_steps=1):
     """STEPS SGD steps on the global batches of ``size`` images (the rank's
-    band under ``dp``): ([(loss, grad_norm)], the parameters, the last
-    step's gradients)."""
+    band under ``dp``), single steps or one call of ``k_steps`` = STEPS:
+    ([(loss, grad_norm)], the parameters, the last step's gradients)."""
     model = init_model("SpectralTransformer", device="cpu", seed=3,
                        cp=None if dp is None else dp.cp, **SMALL)
     opt = get_optimizer("sgd", model.parameters(), 1e-2, momentum=0.9)
     step = make_train_step(model, LossFunction("L1withColor"), opt,
-                           parallel=dp)
-    metrics = [tuple(float(v) for v in step(raw, ref).values())
-               for raw, ref in _batches(size)]
+                           parallel=dp, k_steps=k_steps)
+    batches = _batches(size)
+    if k_steps == 1:
+        metrics = [tuple(float(v) for v in step(raw, ref).values())
+                   for raw, ref in batches]
+    else:
+        out = step(np.stack([r for r, _ in batches]),
+                   np.stack([f for _, f in batches]))
+        metrics = list(zip(*(v.tolist() for v in out.values())))
     return metrics, {n: p.detach().clone()
                      for n, p in model.state_dict().items()}, {
         n: p.grad.clone() for n, p in model.named_parameters()}
@@ -187,7 +196,8 @@ def _worker(rank, port, out_dir, data):
     dp = meshes.init_data_parallel(backend="gloo", device="cpu",
                                    mesh_context=WORLD)
     res = {"ops": _band_ops(dp.cp), "step": run_steps(dp),
-           "step_mixed": run_steps(dp, MIXED)}
+           "step_mixed": run_steps(dp, MIXED),
+           "step_k": run_steps(dp, k_steps=STEPS)}
     model = init_model("SpectralTransformer", device="cpu", seed=3,
                        cp=dp.cp, **SMALL)
     res["levels_mixed"] = model.levels_banded(MIXED, MIXED)
@@ -294,6 +304,19 @@ def test_context_step_equals_one_process(runs):
     ranks, ref, _ = runs
     for r in ranks:
         _check_step(r["step"], ref["step"], "SpectralTransformer context step")
+
+
+def test_context_k_steps_equal_single_steps(runs):
+    """Two context ranks' ``k_steps=2`` call equals their two single steps
+    bit for bit: metrics, parameters and the last gradients."""
+    ranks = runs[0]
+    for r in ranks:
+        (km, kp, kg), (sm, sp, sg) = r["step_k"], r["step"]
+        assert km == sm and len(km) == STEPS
+        for n in sp:
+            assert torch.equal(kp[n], sp[n]), n
+        for n in sg:
+            assert torch.equal(kg[n], sg[n]), n
 
 
 def test_mixed_layout_step_equals_one_process(runs):

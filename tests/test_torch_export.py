@@ -2,14 +2,25 @@
 CPU, mirroring the JAX package's ``tests/test_export.py:13,42,72``:
 
 - a symbolic-batch program of the small SpectralTransformer (the JAX
-  test's config) and of a small AST equals the eager model (the same
-  NHWC wrapper) within 1e-6 at batch 1 and 3, its graph holds one custom-op
-  node a fused call (8 ``ln_mdta`` and 8 ``ln_gdfn``; 18 ``ln_leff`` and
-  10 ``window_attn``), and a program saved and loaded gives the same bits;
+  test's config) and of a small AST equals the eager model (the same NHWC
+  wrapper) within 1e-6 at batch 1 and 3, and so does a batch-2 program of
+  the small NewModel-Wavelet and NewBigFRFNModel-Fourier (32x32, embed 8)
+  at batch 2; its graph holds one custom-op node a fused call (8
+  ``ln_mdta`` and 8 ``ln_gdfn``; 18 ``ln_leff`` and 10 ``window_attn``;
+  9 and 10; 18 ``window_attn``, NewBigFRFNModel's token MLPs being
+  FRFNs), and a program saved and loaded gives the same bits (the
+  symbolic-batch export and the loading of a New* program take 6.5 s and
+  7-14 s more a model on one core; ``chip_smoke.py`` 12(c) exports
+  NewModel-Wavelet@256 with a symbolic batch, runs it at batch 8 and 3 and
+  reloads it in a fresh process);
 - the program matches the JAX package's StableHLO export of the same
-  forward (``jax.export`` with a symbolic batch, loaded by its
-  ``load_exported``) on the same parameters within 1e-4 x max(1, max|ref|),
-  in f32;
+  forward (``jax.export`` with a symbolic batch, for the New* models at
+  batch 2, loaded by its ``load_exported``) on the same parameters within
+  1e-4 x max(1, max|ref|), in f32, for SpectralTransformer and the two
+  New* models (their JAX
+  variables from the port's ``state_dict`` by the JAX package's
+  ``convert_state_dict``; XLA's backend optimizations off, which would
+  double the compile);
 - the CLI exports a checkpoint directory of the port's trainer (``--weights
   <dir> --use-cpu``), and the loaded program equals the model;
 - ``export_model`` (the default-config model) gives a program whose output
@@ -24,11 +35,13 @@ import numpy as np
 import pytest
 import torch
 
+from underwater_image_restoration_tpu import models as jax_models
 from underwater_image_restoration_tpu.models.spectral_transformer import (
     SpectralTransformer as JaxSpectralTransformer,
 )
 from underwater_image_restoration_tpu.tools.convert_checkpoint import (
     convert_spectral_transformer,
+    convert_state_dict,
     unflatten,
 )
 from underwater_image_restoration_tpu.tools.export_model import (
@@ -44,7 +57,16 @@ SPECTRAL = dict(num_blocks=(1, 1, 1, 1), channels=(4, 8, 16, 32),
 MODELS = {"SpectralTransformer": (SPECTRAL, 16,
                                   {"ln_mdta": 8, "ln_gdfn": 8}),
           "AST": (dict(img_size=32, embed_dim=8), 32,
-                  {"ln_leff": 18, "window_attn": 10})}
+                  {"ln_leff": 18, "window_attn": 10}),
+          "NewModel-Wavelet": (dict(img_size=32, embed_dim=8,
+                                    use_dwt="Wavelet"), 32,
+                               {"ln_leff": 9, "window_attn": 10}),
+          "NewBigFRFNModel-Fourier": (dict(img_size=32, embed_dim=8,
+                                           use_dwt="Fourier"), 32,
+                                      {"window_attn": 18})}
+NEW_FAMILY = ("NewModel-Wavelet", "NewBigFRFNModel-Fourier")
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -64,11 +86,15 @@ def _images(batch, size, seed):
 def exported(tmp_path_factory):
     out = {}
     for arch, (kw, size, _) in MODELS.items():
-        model = init_model(arch, device="cpu", seed=2, **kw)
-        program = em.export_module(model, size)
-        path = str(tmp_path_factory.mktemp("export") / f"{arch}.pt2")
-        torch.export.save(program, path)
-        out[arch] = model, program, em.load_exported(path)
+        model = init_model(arch.split("-")[0], device="cpu", seed=2, **kw)
+        program = em.export_module(model, size,
+                                   2 if arch in NEW_FAMILY else None)
+        loaded = None
+        if arch not in NEW_FAMILY:
+            path = str(tmp_path_factory.mktemp("export") / f"{arch}.pt2")
+            torch.export.save(program, path)
+            loaded = em.load_exported(path)
+        out[arch] = model, program, loaded
     return out
 
 
@@ -78,7 +104,7 @@ def test_program_equals_eager_and_round_trips(exported, arch):
     _, size, nodes = MODELS[arch]
     assert dict(em.custom_op_counts(program)) == nodes
     eager = em.ServingForward(model)
-    for batch in (1, 3):
+    for batch in (2,) if arch in NEW_FAMILY else (1, 3):
         x = _images(batch, size, batch)
         with torch.no_grad():
             want = eager(x)
@@ -86,7 +112,8 @@ def test_program_equals_eager_and_round_trips(exported, arch):
         assert got.shape == (batch, size, size, 3)
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                    atol=1e-6)
-        assert torch.equal(loaded(x), got)
+        if arch not in NEW_FAMILY:
+            assert torch.equal(loaded(x), got)
 
 
 def test_program_matches_jax_export(exported):
@@ -104,9 +131,36 @@ def test_program_matches_jax_export(exported):
     (b,) = jax_export.symbolic_shape("b")
     blob = jax_export.export(jax.jit(forward), platforms=["cpu"])(
         jax.ShapeDtypeStruct((b, 16, 16, 3), jnp.float32)).serialize()
-    fn = jax_load_exported(blob)
     x = _images(3, 16, 7)
-    want = np.asarray(fn(jnp.asarray(x.numpy())))
+    xj = jnp.asarray(x.numpy())
+    want = np.asarray(jax.jit(jax_load_exported(blob)).lower(xj).compile(
+        compiler_options=FAST_COMPILE)(xj))
+    np.testing.assert_allclose(
+        program.module()(x).numpy(), want, rtol=0,
+        atol=1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("key", NEW_FAMILY)
+def test_new_family_program_matches_jax_export(exported, key):
+    from jax import export as jax_export
+
+    model, program, _ = exported[key]
+    kw, size, _ = MODELS[key]
+    name = key.split("-")[0]
+    jm = getattr(jax_models, name)(**kw)
+    variables = jax.tree.map(jnp.asarray, convert_state_dict(
+        name, {k: v.numpy() for k, v in model.state_dict().items()}))
+
+    def forward(x):
+        return jm.apply(variables, x, deterministic=True).astype(jnp.float32)
+
+    blob = jax_export.export(jax.jit(forward), platforms=["cpu"])(
+        jax.ShapeDtypeStruct((2, size, size, 3), jnp.float32)).serialize()
+    x = _images(2, size, 8)
+    xj = jnp.asarray(x.numpy())
+    want = np.asarray(jax.jit(jax_load_exported(blob)).lower(xj).compile(
+        compiler_options=FAST_COMPILE)(xj))
+    assert np.abs(want - x.numpy()).max() > 1e-3  # the network's branch
     np.testing.assert_allclose(
         program.module()(x).numpy(), want, rtol=0,
         atol=1e-4 * max(1.0, float(np.abs(want).max())))

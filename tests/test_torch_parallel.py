@@ -31,6 +31,23 @@ single-process references run here meanwhile):
   one-process ``ModelTrainer`` on the same data within 1e-6 relative, and
   the logged loss is the one-device validation of the checkpoint within
   1e-6;
+- the K-step dispatch over the two ranks (``make_train_step(k_steps=2)``,
+  on the CPU its steps one after another): one call of two steps equals
+  the two single steps above bit for bit (losses, grad norms, every
+  parameter, the DropPath generator's state) for ``L1withColor``, the
+  Adaptive loss and the AST with DropPath, and with ``grad_accum=2``;
+  FSDP2 at K = 2 equals FSDP2 at K = 1; the collectives a step issues
+  (``DataParallel.record_collectives``) are the same on both ranks: the
+  gradients' flat ``all_reduce_`` of every parameter's elements and the
+  loss's ``sum``, after the Adaptive loss's ``mean`` of its two detached
+  terms (the tape the card's graphs are cut at);
+- ``ModelTrainer`` over the two ranks at ``steps_per_dispatch=2`` against
+  1 (replicated parameters, 3 batches an epoch: a group of two and a
+  remainder): the logged losses and the final parameters equal, and the
+  K = 1 run's first epoch resumed at K = 2 gives the K = 2 run's second
+  (the counterpart of the JAX ``tests/test_train.py``'s
+  ``test_trainer_steps_per_dispatch_equals_single``, run there under
+  ``mesh_data=2``);
 - ``validate`` refuses ``--mesh-context 2`` for SpectralTransformer citing
   its ROADMAP item and an image side the context size does not divide, and
   ``--mesh-data 2``, ``--mesh-context 2`` or ``--shard-params`` without a
@@ -38,6 +55,7 @@ single-process references run here meanwhile):
 
 The spawned ranks import this module, which imports no JAX.
 """
+import contextlib
 import json
 import os
 import pathlib
@@ -47,6 +65,7 @@ import socket
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 from PIL import Image
 
@@ -59,6 +78,7 @@ from underwater_image_restoration_torch.data import (
 from underwater_image_restoration_torch.losses import LossFunction
 from underwater_image_restoration_torch.models import init_model
 from underwater_image_restoration_torch.ops import fused_gdfn, fused_mdta
+from underwater_image_restoration_torch.tools.convert import params_from_jax
 from underwater_image_restoration_torch.train import (
     get_optimizer,
     make_train_step,
@@ -90,25 +110,40 @@ def _batches(size):
             for s in range(STEPS)]
 
 
-def run_steps(case, dp=None, shard=False):
+def run_steps(case, dp=None, shard=False, k_steps=1, grad_accum=1):
     """STEPS SGD steps of ``case`` on the global batches (the rank's rows
-    under ``dp``): ([(loss, grad_norm)], the full parameters)."""
+    under ``dp``), single steps or calls of ``k_steps``: ([(loss,
+    grad_norm)], the full parameters, the DropPath generator's state and
+    the collectives the steps issued)."""
     arch, kw, loss, size = CASES[case]
     model = init_model(arch, device="cpu", seed=3, **kw)
     if shard:
         meshes.shard_model(model, dp)
     opt = get_optimizer("sgd", model.parameters(), 1e-2, momentum=0.9)
-    step = make_train_step(model, LossFunction(loss), opt,
-                           generator=torch.Generator().manual_seed(7),
-                           parallel=dp)
-    rows = slice(None) if dp is None else dp.rows(BATCH)
-    metrics = [tuple(float(v) for v in step(raw[rows], ref[rows]).values())
-               for raw, ref in _batches(size)]
+    gen = torch.Generator().manual_seed(7)
+    step = make_train_step(model, LossFunction(loss), opt, generator=gen,
+                           parallel=dp, grad_accum=grad_accum,
+                           k_steps=k_steps)
+    rows = slice(None) if dp is None else dp.rows(BATCH, grad_accum)
+    batches = [(raw[rows], ref[rows]) for raw, ref in _batches(size)]
+    record = (contextlib.nullcontext([]) if dp is None
+              else dp.record_collectives())
+    with record as tape:
+        if k_steps == 1:
+            metrics = [tuple(float(v) for v in step(*b).values())
+                       for b in batches]
+        else:
+            metrics = []
+            for i in range(0, STEPS, k_steps):
+                group = batches[i:i + k_steps]
+                out = step(np.stack([r for r, _ in group]),
+                           np.stack([f for _, f in group]))
+                metrics += zip(*(v.tolist() for v in out.values()))
     if shard:
         params = meshes.full_state(model, opt)[0]
     else:
         params = {n: p.detach().clone() for n, p in model.state_dict().items()}
-    return metrics, params
+    return metrics, params, {"generator": gen.get_state(), "tape": tape}
 
 
 def _small_init_model(arch, **kw):
@@ -122,6 +157,15 @@ def _train(data, ckpt, on_epoch_end=None, **kw):
     return kw.get("resume") or os.path.join(ckpt, os.listdir(ckpt)[0])
 
 
+# the K-step cases: (the CASES entry, FSDP2, grad_accum)
+K_CASES = {**{case: (case, False, 1) for case in CASES},
+           "accum": ("l1withcolor", False, 2),
+           "fsdp": ("l1withcolor", True, 1)}
+# the trainer's K-step runs: 6 train pairs at batch 2 (3 batches an epoch)
+# over replicated parameters
+K_TRAIN = dict(train_batch_size=2, shard_params="", max_epoch=2)
+
+
 def _worker(rank, port, out, data):
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(WORLD),
@@ -129,6 +173,14 @@ def _worker(rank, port, out, data):
                       MASTER_PORT=str(port))
     dp = meshes.init_data_parallel(backend="gloo", device="cpu")
     res = {case: run_steps(case, dp) for case in CASES}
+    res["accum"] = run_steps("l1withcolor", dp, grad_accum=2)
+    # the K-step dispatch: one call of STEPS steps
+    for name, (case, shard, accum) in K_CASES.items():
+        res["k", name] = run_steps(case, dp, shard=shard, k_steps=STEPS,
+                                   grad_accum=accum)
+    res["tapes"] = [None] * WORLD
+    dist.all_gather_object(res["tapes"], {
+        name: res["k", name][2]["tape"] for name in K_CASES})
     # FSDP, recording the types the blocks' fused ops are given
     seen = set()
 
@@ -160,8 +212,48 @@ def _worker(rank, port, out, data):
     dp.barrier()
     res["resumed"] = _train(data, str(resumed), max_epoch=2,
                             resume=str(next(resumed.iterdir())))
+    # the trainer at steps_per_dispatch 2 and 1; the K = 1 run's first
+    # epoch resumed at K = 2
+    k_root = root / "k"
+
+    def keep_k1_first_epoch(epoch, model, loss):
+        if epoch == 0 and dp.is_main:
+            run = next((k_root / "1").iterdir())
+            shutil.copytree(run, k_root / "resumed" / run.name)
+
+    for k in (1, 2):
+        res["trainer_k", k] = _train(
+            data, str(k_root / str(k)), steps_per_dispatch=k,
+            on_epoch_end=keep_k1_first_epoch if k == 1 else None, **K_TRAIN)
+    dp.barrier()
+    res["trainer_k", "resumed"] = _train(
+        data, str(k_root / "resumed"), steps_per_dispatch=2,
+        resume=str(next((k_root / "resumed").iterdir())), **K_TRAIN)
     if dp.is_main:
         torch.save(res, out)
+    meshes.close_data_parallel(dp)
+
+
+def k_steps_rank(rank, port, out_dir, flat, cfg, raw_k, ref_k):
+    """A rank of a two-rank ``make_train_step(k_steps=K)`` call
+    (``tests/test_torch_steps_per_dispatch.py``): the SpectralTransformer of
+    ``cfg`` with the JAX-layout parameters ``flat``, ``L1withColor``, SGD
+    at 1e-2, on the rank's rows of the K stacked global batches; its (K,)
+    metrics and final parameters in ``out_dir/rank<r>.pt``."""
+    torch.set_num_threads(1)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(WORLD),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    dp = meshes.init_data_parallel(backend="gloo", device="cpu")
+    model = init_model("SpectralTransformer", device="cpu", seed=0, **cfg)
+    model.load_state_dict(params_from_jax(flat), strict=True)
+    steps = make_train_step(model, LossFunction("L1withColor"),
+                            get_optimizer("sgd", model.parameters(), 1e-2),
+                            parallel=dp, k_steps=len(raw_k))
+    rows = dp.rows(raw_k.shape[1])
+    got = steps(raw_k[:, rows], ref_k[:, rows])
+    torch.save((got, {n: p.detach() for n, p in model.named_parameters()}),
+               os.path.join(out_dir, f"rank{rank}.pt"))
     meshes.close_data_parallel(dp)
 
 
@@ -230,7 +322,7 @@ def _close_params(got, want, tol, what):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_data_parallel_step_equals_one_process(runs, case):
     got, ref, _ = runs
-    (gm, gp), (wm, wp) = got[case], ref[case]
+    (gm, gp, _), (wm, wp, _) = got[case], ref[case]
     assert len(gm) == len(wm) == STEPS
     for (gl, gn), (wl, wn) in zip(gm, wm):
         np.testing.assert_allclose([gl, gn], [wl, wn], rtol=TOL, atol=0,
@@ -240,11 +332,62 @@ def test_data_parallel_step_equals_one_process(runs, case):
 
 def test_fsdp_step_equals_data_parallel(runs):
     got = runs[0]
-    (fm, fp), (dm, dp) = got["fsdp"], got["l1withcolor"]
+    (fm, fp, _), (dm, dp, _) = got["fsdp"], got["l1withcolor"]
     np.testing.assert_allclose(np.array(fm), np.array(dm), rtol=TOL, atol=0)
     _close_params(fp, dp, TOL, "fsdp")
     # the blocks' fused ops saw plain tensors and parameters
     assert got["fsdp_inputs"] and "DTensor" not in got["fsdp_inputs"]
+
+
+@pytest.mark.parametrize("name", sorted(K_CASES))
+def test_k_steps_equal_single_steps(runs, name):
+    """One call of two steps over the two ranks equals two single steps bit
+    for bit, and the steps issued the same collectives on both ranks: the
+    tape the card's graphs are cut at."""
+    got = runs[0]
+    (km, kp, kx) = got["k", name]
+    (sm, sp, sx) = got[name]
+    assert len(km) == len(sm) == STEPS and np.isfinite(km).all()
+    assert km == sm, name
+    assert sorted(kp) == sorted(sp)
+    for n in sp:
+        assert torch.equal(kp[n], sp[n]), (name, n)
+    assert torch.equal(kx["generator"], sx["generator"])
+    if name == "ast_droppath":  # DropPath drew: the generator moved
+        assert not torch.equal(kx["generator"],
+                               torch.Generator().manual_seed(7).get_state())
+    tapes = [t[name] for t in got["tapes"]]
+    assert tapes[0] == tapes[1] == kx["tape"]
+    if name == "fsdp":  # FSDP2's collectives are its own, not DataParallel's
+        assert kx["tape"] == [("sum", "float32", 1)] * STEPS
+        return
+    case = K_CASES[name][0]
+    arch, kw, loss, _ = CASES[case]
+    numel = sum(p.numel() for p in init_model(arch, device="cpu", **kw)
+                .parameters() if p.requires_grad)
+    one = [("all_reduce_", "float32", numel), ("sum", "float32", 1)]
+    if loss.startswith("Adaptive"):
+        one = [("mean", "float32", 2)] + one
+    assert kx["tape"] == one * STEPS
+
+
+def test_two_rank_trainer_steps_per_dispatch_equals_single(runs):
+    """``ModelTrainer`` over two ranks at ``steps_per_dispatch=2`` logs the
+    losses of the run at 1 and ends at its parameters; the K = 1 run's first
+    epoch resumed at K = 2 ends at them too."""
+    got = runs[0]
+    runs_k = {k: got["trainer_k", k] for k in (1, 2, "resumed")}
+    losses = {k: [r["train/loss"] for r in _records(run)
+                  if "train/loss" in r] for k, run in runs_k.items()}
+    assert len(losses[1]) == 6 and np.isfinite(losses[1]).all()
+    assert losses[2] == losses[1] == losses["resumed"]
+    states = {k: trainer.CheckpointManager(
+        os.path.join(run, "latest")).restore() for k, run in runs_k.items()}
+    assert states[1]["epoch"] == states[2]["epoch"] == 1
+    assert states["resumed"]["epoch"] == 1
+    for n, v in states[1]["params"].items():
+        assert torch.equal(states[2]["params"][n], v), n
+        assert torch.equal(states["resumed"]["params"][n], v), n
 
 
 def _records(run_dir):

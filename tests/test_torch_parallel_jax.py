@@ -80,7 +80,7 @@ def _one_torch_thread():
 
 
 def check_against_jax(case):
-    (gm, gp), (wm, wp) = run_steps(case), _jax_steps(case)
+    (gm, gp, _), (wm, wp) = run_steps(case), _jax_steps(case)
     np.testing.assert_allclose(np.array(gm), np.array(wm), rtol=TOL,
                                atol=0)
     assert sorted(gp) == sorted(wp)

@@ -12,7 +12,10 @@ graph itself is held against eager steps on the card, in
   the JAX tree by the JAX package's converter): the four stacked losses
   and grad norms, and every parameter after them, to the tolerances of
   ``test_torch_train.py``'s trajectory test (1e-4 relative for the
-  metrics, 1e-4 x max(1, max|ref|) for the parameters);
+  metrics, 1e-4 x max(1, max|ref|) for the parameters); and so does the
+  port's ``k_steps=4`` over two gloo ranks at the same global batch, each
+  rank its row of every batch (two processes spawned while the JAX steps
+  compile; they import no JAX);
 - ``k_steps=2`` against four single steps, bit-equal (the same ops in the
   same order), also with ``grad_accum=2``, and the AST at 32x32 with its
   DropPath at rate 0.1: two dispatches of two steps against four single
@@ -24,9 +27,10 @@ graph itself is held against eager steps on the card, in
   ``tests/test_train.py::test_trainer_steps_per_dispatch_equals_single``),
   and two epochs at ``steps_per_dispatch=2`` equal one and a resumed one
   bit for bit;
-- ``validate`` refuses ``steps_per_dispatch`` 0 and K > 1 with two data
-  ranks, context ranks or sharded parameters, and ``make_train_step``
-  ``k_steps`` 0;
+- ``validate`` refuses ``steps_per_dispatch`` 0, and ``make_train_step``
+  ``k_steps`` 0; K > 1 with two data ranks, context ranks or sharded
+  parameters passes under a world of two and outside ``torchrun`` meets
+  the parallel settings' own refusal, which names ``torchrun``;
 - an optimizer's state loads into one built with the other
   ``capturable`` flag, which each keeps, and a learning rate change
   changes ``hyperparameters()`` (what a captured graph bakes in).
@@ -44,7 +48,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.multiprocessing as mp
 from PIL import Image
+
+from test_torch_parallel import WORLD, _free_port, k_steps_rank
 
 from underwater_image_restoration_tpu.losses import (
     LossFunction as JaxLossFunction,
@@ -118,14 +125,17 @@ def _params(model):
     return {n: p.detach().clone() for n, p in model.named_parameters()}
 
 
-def test_k_steps_match_jax_k_steps(weights, batches):
+@pytest.fixture(scope="module")
+def jax_k_steps(weights, batches, tmp_path_factory):
+    """The JAX ``make_train_step(k_steps=K)`` result (its metrics and final
+    parameters in the port's layout), computed while two gloo ranks run the
+    port's ``k_steps=K`` on their rows of the same batches (their metrics
+    and final parameters)."""
     raw_k, ref_k = _stack(batches)
-    model = _spectral(weights)
-    steps = make_train_step(model, LossFunction("L1withColor"),
-                            get_optimizer("sgd", model.parameters(), 1e-2),
-                            k_steps=K)
-    got = steps(raw_k, ref_k)
-
+    out = tmp_path_factory.mktemp("k_steps_ranks")
+    ctx = mp.spawn(k_steps_rank, args=(_free_port(), str(out), weights, CFG,
+                                       raw_k, ref_k),
+                   nprocs=WORLD, join=False)
     tx = jax_optim.get_optimizer("sgd", 1e-2)
     params = {"params": jax.tree.map(jnp.asarray, unflatten(weights))}
     state = jax_trainer.TrainState(params=params, opt_state=tx.init(params),
@@ -135,17 +145,44 @@ def test_k_steps_match_jax_k_steps(weights, batches):
                                         k_steps=K)
     args = (state, raw_k, ref_k, jax.random.PRNGKey(0))
     state, want = jax.device_get(jstep(*args))
+    while not ctx.join():
+        pass
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(WORLD)]
+    return want, params_from_jax(flatten(state.params["params"])), ranks
+
+
+def _check_against_jax(got, params, jax_k_steps, what):
+    want, ref, _ = jax_k_steps
     for key in ("loss", "grad_norm"):
         assert got[key].shape == (K,), key
         assert np.isfinite(got[key].numpy()).all(), key
         np.testing.assert_allclose(got[key].numpy(), want[key], rtol=TOL,
-                                   err_msg=key)
-    ref = params_from_jax(flatten(state.params["params"]))
-    for name, p in model.named_parameters():
+                                   err_msg=f"{what} {key}")
+    assert sorted(params) == sorted(ref)
+    for name, p in params.items():
         np.testing.assert_allclose(
-            p.detach().numpy(), ref[name].numpy(),
+            p.numpy(), ref[name].numpy(),
             atol=TOL * max(1.0, float(ref[name].abs().max())),
-            err_msg=name)
+            err_msg=f"{what} {name}")
+
+
+def test_k_steps_match_jax_k_steps(weights, batches, jax_k_steps):
+    raw_k, ref_k = _stack(batches)
+    model = _spectral(weights)
+    steps = make_train_step(model, LossFunction("L1withColor"),
+                            get_optimizer("sgd", model.parameters(), 1e-2),
+                            k_steps=K)
+    got = steps(raw_k, ref_k)
+    _check_against_jax(got, _params(model), jax_k_steps, "one rank")
+
+
+def test_two_rank_k_steps_match_jax_k_steps(jax_k_steps):
+    """The JAX package's own test_train_step_sharded_matches_single holds
+    its one-device step equal to its two-device one; here the port's two
+    ranks at the global batch meet the JAX K-step result."""
+    for r, (got, params) in enumerate(jax_k_steps[2]):
+        _check_against_jax(got, params, jax_k_steps, f"rank {r}")
 
 
 @pytest.mark.parametrize("grad_accum", [1, 2])
@@ -254,16 +291,30 @@ def test_trainer_steps_per_dispatch_equals_single(weights, tmp_path,
 
 @pytest.mark.parametrize("kw,match", [
     ({"steps_per_dispatch": 0}, "1 or more"),
-    ({"steps_per_dispatch": 2, "mesh_data": 2}, "queue 2 C"),
-    ({"steps_per_dispatch": 2, "mesh_context": 2}, "queue 2 C"),
-    ({"steps_per_dispatch": 4, "shard_params": "data"}, "queue 2 C")])
-def test_validate_refuses(kw, match):
+    ({"steps_per_dispatch": 2, "mesh_data": 2}, "torchrun"),
+    ({"steps_per_dispatch": 2, "mesh_context": 2}, "torchrun"),
+    ({"steps_per_dispatch": 4, "shard_params": "data"}, "torchrun")])
+def test_validate_refuses(kw, match, monkeypatch):
+    """K = 0 is refused; K > 1 with ranks outside ``torchrun`` meets the
+    parallel settings' own refusal, as K = 1 does."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(ValueError, match=match):
         validate(Config(**kw))
 
 
 def test_validate_takes_k_steps_on_one_rank():
     assert validate(Config(steps_per_dispatch=4)).steps_per_dispatch == 4
+
+
+@pytest.mark.parametrize("kw", [
+    {"mesh_data": 2}, {"mesh_context": 2}, {"shard_params": "data"},
+    {"mesh_context": 2, "shard_params": "context"}])
+def test_validate_takes_k_steps_with_ranks(kw, monkeypatch):
+    """Under a world of two (as ``torchrun`` sets it) K > 1 runs with data
+    ranks, context ranks and sharded parameters."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    cfg = validate(Config(steps_per_dispatch=4, image_size=256, **kw))
+    assert cfg.steps_per_dispatch == 4
 
 
 def test_make_train_step_refuses_zero_steps(weights):

@@ -203,9 +203,13 @@ def argument_parser() -> argparse.ArgumentParser:
                              "then one CUDA graph of the whole step "
                              "(forward, loss, backward, clip, update) is "
                              "captured and replayed K times a call, with no "
-                             "Python between the replays; the same training "
-                             "as K single steps (Adam/AdamW built "
-                             "capturable); one rank only")
+                             "Python between the replays; over data ranks "
+                             "(--mesh-data) the graphs are cut at the step's "
+                             "collectives, which run between the replays; "
+                             "with --shard-params or --mesh-context > 1 the "
+                             "K steps run one after another; the same "
+                             "training as K single steps (Adam/AdamW built "
+                             "capturable where graphs run)")
     parser.add_argument("--watch-freq", type=int, default=100,
                         help="parameter/gradient histogram logging cadence "
                              "in steps (reference wandb.watch log_freq=100, "

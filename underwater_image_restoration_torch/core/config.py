@@ -11,11 +11,12 @@ CLI's ``--no-pallas`` turns off to run the kernels' plain PyTorch versions.
 ``shard_params`` ('data' or 'context') run under ``torchrun``
 (``core/meshes.py``); ``remat`` and ``remat_policy`` ('' or 'full',
 'dots') rematerialize the models' blocks (``ops.layers.make_remat``);
-``steps_per_dispatch`` runs K optimizer steps a call of the train step, on
-CUDA as replays of a CUDA graph of the step (``train.make_train_step``'s
-``k_steps``), and ``validate`` refuses any value the port cannot honour
-(the TPU policies 'mxu' and 'mxu+ew' among them, and K > 1 with more than
-one rank).
+``steps_per_dispatch`` runs K optimizer steps a call of the train step
+(``train.make_train_step``'s ``k_steps``), on CUDA as replays of a CUDA
+graph of the step, over data ranks of graphs cut at its collectives, with
+sharded parameters or context ranks one step after another
+(``train/dispatch.py route``), and ``validate`` refuses any value the port
+cannot honour (the TPU policies 'mxu' and 'mxu+ew' among them).
 """
 from __future__ import annotations
 
@@ -106,8 +107,9 @@ class Config:
     grad_accum: int = 1           # microbatches per optimizer step, with
     #                               per-loss-family scaling (make_train_step)
     steps_per_dispatch: int = 1   # full optimizer steps a call of the step:
-    #                               on CUDA one CUDA graph of the step,
-    #                               replayed K times (make_train_step k_steps)
+    #                               on CUDA a CUDA graph of the step (cut at
+    #                               the data ranks' collectives), replayed K
+    #                               times (make_train_step k_steps)
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -139,16 +141,6 @@ def compute_dtype_of(cfg: Config):
             "float16": torch.float16}[cfg.compute_dtype]
 
 
-def _refuse_parallel_dispatch(cfg: Config):
-    raise ValueError(
-        f"steps_per_dispatch={cfg.steps_per_dispatch} with mesh_data="
-        f"{cfg.mesh_data}, mesh_context={cfg.mesh_context}, shard_params="
-        f"{cfg.shard_params!r}: the K-step dispatch replays a CUDA graph of "
-        "the step, and a collective over gloo cannot be captured (nccl with "
-        "a card a rank is untried); train with more than one rank at "
-        "--steps-per-dispatch 1 (ROADMAP.md queue 2 C)")
-
-
 def validate(cfg: Config) -> Config:
     """Raise ValueError for a setting the port does not run: context
     parallelism of an image side the context size does not divide (or, for
@@ -156,22 +148,15 @@ def validate(cfg: Config) -> Config:
     its LN+MDTA halo), more ranks than the process group has (start the run
     under ``torchrun``; ``core.meshes.validate_parallel``), a remat
     policy that ``ops.layers.make_remat`` refuses ('mxu', 'mxu+ew', an
-    unknown name), ``steps_per_dispatch`` below 1, or above 1 with more
-    than one rank or sharded parameters."""
+    unknown name) or ``steps_per_dispatch`` below 1.  Any
+    ``steps_per_dispatch`` of 1 or more runs with any parallel setting."""
     from ..ops.layers import make_remat
-    from .meshes import parallel_sizes, validate_parallel
+    from .meshes import validate_parallel
 
     if cfg.steps_per_dispatch < 1:
         raise ValueError(f"steps_per_dispatch={cfg.steps_per_dispatch}: 1 "
                          "or more optimizer steps a dispatch")
-    multi = cfg.steps_per_dispatch > 1
-    if multi and (cfg.mesh_data > 1 or cfg.mesh_context > 1
-                       or cfg.shard_params):
-        _refuse_parallel_dispatch(cfg)
     validate_parallel(cfg.mesh_data, cfg.mesh_context, cfg.shard_params,
                       cfg.arch, cfg.image_size)
-    if multi and parallel_sizes(cfg.mesh_data, cfg.mesh_context) != (
-            1, 1):
-        _refuse_parallel_dispatch(cfg)
     make_remat(cfg.remat, cfg.remat_policy or None)
     return cfg

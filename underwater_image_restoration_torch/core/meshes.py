@@ -33,6 +33,15 @@ with explicit collectives:
   optimizer state in the single-device checkpoint format, and back
   (gathered and scattered by c10d collectives, which gloo carries on CUDA
   tensors too).
+- The collectives of ``DataParallel`` (``all_reduce_``, ``sum``, ``mean``:
+  every collective of a data-parallel step with replicated parameters)
+  go through one place that two hooks of the rank's ``DataParallel``
+  consult: ``record_collectives()`` records each one's kind, dtype and
+  size in order (the step's "tape"), and inside ``cut_collectives(cut)``
+  each one calls ``cut(kind, tensor, group)`` instead of running, so that
+  a CUDA graph capture can end before it and run it eagerly between two
+  replays (``train/dispatch.py SegmentedSteps``, which runs it with
+  ``all_reduce``).
 
 ``validate_parallel`` refuses what the port does not run: an image side
 that ``mesh_context`` does not divide, a SpectralTransformer side that is
@@ -43,6 +52,7 @@ family.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Optional
@@ -148,6 +158,18 @@ def default_backend(device: torch.device, world_size: int) -> str:
     return "nccl" if torch.cuda.device_count() >= world_size else "gloo"
 
 
+def all_reduce(tensor: torch.Tensor, group=None) -> None:
+    """Sum ``tensor`` over the ranks of ``group`` (None: every rank), in
+    place: the collective a cut stands for."""
+    _dist().all_reduce(tensor, group=group)
+
+
+def all_reduce_max(tensor: torch.Tensor) -> None:
+    """The element-wise maximum of ``tensor`` over every rank, in place."""
+    dist = _dist()
+    dist.all_reduce(tensor, op=dist.ReduceOp.MAX)
+
+
 @dataclasses.dataclass
 class ContextParallel:
     """A rank's place on the ``context`` dimension: ``index`` of the
@@ -181,6 +203,12 @@ class DataParallel:
     backend: str = ""
     mesh: object = None
     cp: ContextParallel = dataclasses.field(default_factory=ContextParallel)
+    # the hooks of the collectives: the tape being recorded (a list) and the
+    # cut of a capture in progress (a callable), or None
+    _tape: Optional[list] = dataclasses.field(default=None, init=False,
+                                              repr=False, compare=False)
+    _cut: object = dataclasses.field(default=None, init=False, repr=False,
+                                     compare=False)
 
     @property
     def ranks(self) -> int:
@@ -227,20 +255,58 @@ class DataParallel:
         if self.ranks == 1 or not tensors:
             return
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        _dist().all_reduce(flat)
+        self._all_reduce("all_reduce_", flat, None)
         for t, f in zip(tensors, flat.split([t.numel() for t in tensors])):
             t.copy_(f.view_as(t))
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the data indices (a copy)."""
-        t = t.clone()
-        if self.world > 1:
-            _dist().all_reduce(t, group=self.group)
-        return t
+        return self._summed("sum", t)
 
     def mean(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` averaged over the data indices (a copy)."""
-        return self.sum(t) / self.world if self.world > 1 else t
+        return self._summed("mean", t) / self.world if self.world > 1 else t
+
+    def _summed(self, kind: str, t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        if self.world > 1:
+            self._all_reduce(kind, t, self.group)
+        return t
+
+    def _all_reduce(self, kind: str, t: torch.Tensor, group) -> None:
+        """The one place the collectives pass: recorded on a tape, cut
+        from a capture, else run."""
+        if self._tape is not None:
+            self._tape.append((kind, str(t.dtype).removeprefix("torch."),
+                               t.numel()))
+        if self._cut is not None:
+            self._cut(kind, t, group)
+        else:
+            all_reduce(t, group)
+
+    @contextlib.contextmanager
+    def record_collectives(self):
+        """Inside, each collective of this rank's steps appends (kind,
+        dtype, numel) to the list this yields, in the order they are
+        issued: kind ``all_reduce_`` (the gradients' flat sum), ``sum``
+        (the metrics) or ``mean`` (the Adaptive losses' batch means)."""
+        prev, self._tape = self._tape, []
+        try:
+            yield self._tape
+        finally:
+            self._tape = prev
+
+    @contextlib.contextmanager
+    def cut_collectives(self, cut):
+        """Inside, each collective of this rank's steps calls ``cut(kind,
+        tensor, group)`` in place of the all-reduce of ``tensor`` (in
+        place, over ``group``), which the caller runs later
+        (``all_reduce``)."""
+        prev, self._cut = self._cut, cut
+        try:
+            yield
+        finally:
+            self._cut = prev
 
     def barrier(self) -> None:
         if self.ranks > 1:

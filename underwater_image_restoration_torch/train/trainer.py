@@ -41,9 +41,10 @@ Rematerialization: ``ModelTrainer`` builds the model with ``cfg.remat``
 and ``cfg.remat_policy`` (per-block, ``ops.layers.make_remat``);
 ``make_train_step(remat=True)`` checkpoints the whole forward, for a model
 without its own.  ``make_train_step(k_steps=K)`` (``cfg.steps_per_dispatch``)
-runs K steps a call, on CUDA as replays of one CUDA graph of the step
-(``train/dispatch.py``); the trainer groups its batches by K as the JAX
-trainer does.  Not here: the staged first-step compile fallback (a
+runs K steps a call, on CUDA as replays of one CUDA graph of the step,
+or over data ranks of graphs cut at its collectives (``train/dispatch.py``);
+the trainer groups its batches by K as the JAX trainer does, on every
+rank.  Not here: the staged first-step compile fallback (a
 workaround for the TPU's compiler): a kernel that fails fails the run.
 """
 from __future__ import annotations
@@ -78,7 +79,16 @@ from ..ops.droppath import RankDraws
 from ..ops.layers import make_remat
 from ..parallel import gather_replicated
 from .checkpoint import CheckpointManager, best_or_latest_params
-from .dispatch import GraphedSteps, nchw, normalize_u8, on_device, stepwise
+from .dispatch import (
+    GraphedSteps,
+    SegmentedSteps,
+    describe,
+    nchw,
+    normalize_u8,
+    on_device,
+    route,
+    stepwise,
+)
 from .metrics import per_sample_psnr, per_sample_ssim
 from .optim import get_optimizer, multistep_lr, set_learning_rate
 
@@ -114,9 +124,13 @@ def make_train_step(model, lossfn, optimizer, grad_accum: int = 1,
     many steps), each metric stacked (K,) on the device, the training of K
     calls of the single step.  On CUDA the first call's steps run eagerly
     and the later ones replay one CUDA graph of the step
-    (``dispatch.GraphedSteps``; Adam and AdamW built with
-    ``capturable=True``, one rank only); on the CPU they run one after
-    another (``dispatch.stepwise``).
+    (``dispatch.GraphedSteps``), or over data ranks with replicated
+    parameters the graphs of the step cut at its collectives, which run
+    eagerly between them (``dispatch.SegmentedSteps``); Adam and AdamW are
+    built with ``capturable=True``.  On the CPU, and on CUDA with sharded
+    parameters or context ranks (whose collectives run inside the
+    backward), they run one after another (``dispatch.stepwise``;
+    ``dispatch.route`` says which).
 
     grad_accum > 1 splits the batch into that many microbatches and averages
     their gradients before the one update, with an extra 1/grad_accum for
@@ -163,11 +177,6 @@ def make_train_step(model, lossfn, optimizer, grad_accum: int = 1,
     dp = parallel or DataParallel()
     if k_steps < 1:
         raise ValueError(f"k_steps={k_steps}: 1 or more steps a call")
-    if k_steps > 1 and dp.ranks > 1:
-        raise ValueError(
-            f"k_steps={k_steps} with {dp.ranks} ranks: the K-step dispatch "
-            "replays a CUDA graph of the step, which cannot capture a "
-            "collective over gloo (ROADMAP.md queue 2 C)")
     cp = dp.cp if dp.cp.size > 1 else None
     if dp.world > 1 and not (lossfn.batch_linear or lossfn.bc_divided):
         lossfn = lossfn.with_batch_mean(dp.mean)
@@ -232,13 +241,17 @@ def make_train_step(model, lossfn, optimizer, grad_accum: int = 1,
 
     if k_steps == 1:
         return step
-    if device.type != "cuda":
+    how = route(device, dp, is_sharded(params))
+    if how == "stepwise":
         return stepwise(step)
     if any(g.get("capturable") is False for g in optimizer.param_groups):
         raise ValueError(
             f"k_steps={k_steps} on CUDA replays the optimizer's update in a "
             "CUDA graph: build Adam/AdamW with get_optimizer(..., "
             "capturable=True), whose step count lives on the device")
+    if how == "segments":
+        return SegmentedSteps(run, optimizer, params, generator, device,
+                              dp)
     return GraphedSteps(run, optimizer, params, generator, device)
 
 
@@ -499,7 +512,8 @@ class ModelTrainer:
             weight_decay=cfg.weight_decay, momentum=cfg.momentum,
             sgd_nesterov=cfg.sgd_nesterov, rmsprop_alpha=cfg.rmsprop_alpha,
             adam_beta1=cfg.adam_beta1, adam_beta2=cfg.adam_beta2,
-            capturable=k_disp > 1 and device.type == "cuda",
+            capturable=k_disp > 1 and route(device, dp,
+                                            sharded) != "stepwise",
         )
         if not cfg.use_kernels:
             say("use_kernels=False: the kernels' plain PyTorch versions run")
@@ -687,10 +701,8 @@ class ModelTrainer:
                 if on_epoch_end is not None:
                     on_epoch_end(epoch, model, avg_val_loss)
 
-        if k_disp > 1 and device.type == "cuda":
-            say(f"steps_per_dispatch {k_disp}: {train_step.captures} CUDA "
-                "graph captures of the train step (one a learning rate), "
-                f"{sum(train_step.capture_seconds):.2f} s")
+        if k_disp > 1:
+            say(f"steps_per_dispatch {k_disp}: {describe(train_step)}")
         say("Training completed!")
         explog.finish()
         return model, optimizer
